@@ -1,0 +1,231 @@
+"""Inference-only scoring service on one CUDA device.
+
+Counterpart of clsr_tpu/serving.py (the reference has no serving path;
+it dumps predictions from the training session,
+sequential_base_model.py:326-347):
+
+  * `ScoringService` — build the model once (random weights from the
+    seed, a saved state_dict, or flax trees through weights.from_flax),
+    then `score(requests)` batches of (user, history, C candidates)
+    through the eval step.  One encoder pass per user scores all its
+    candidates (the [B, G] Batch layout).
+  * Shape buckets — requests are padded to (batch, candidates) buckets
+    and padding scores are dropped, as on the TPU; it keeps the kernels'
+    launch shapes to a handful.
+  * `AsyncScoringService` — a thread-safe micro-batching frontend:
+    callers submit() single requests and get futures; one dispatcher
+    thread coalesces what has queued into shared dispatches.
+
+int8 tables and a device mesh wait for ROADMAP queue 1 (int8 and mesh
+serving) and raise here.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from clsr_tpu_torch import weights
+from clsr_tpu_torch.config import Config
+from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.data.parser import (compute_time_features,
+                                        time_range_for_unit)
+from clsr_tpu_torch.data.vocab import Vocab
+from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.training.steps import make_eval_step_fn
+from clsr_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class ScoreRequest:
+    """One user's scoring request (raw string tokens, like the TSV)."""
+
+    user: str
+    hist_items: Sequence[str]
+    hist_cates: Sequence[str]
+    hist_times: Sequence[float]
+    current_time: float
+    cand_items: Sequence[str]
+    cand_cates: Sequence[str]
+
+
+class ScoringService:
+    """Candidate scorer with shape-bucketed batching."""
+
+    def __init__(self, cfg: Config, n_users: int, n_items: int,
+                 n_cates: int, user_vocab: Vocab, item_vocab: Vocab,
+                 cate_vocab: Vocab,
+                 checkpoint: Optional[str] = None,
+                 batch_buckets: Sequence[int] = (8, 64),
+                 cand_buckets: Sequence[int] = (16, 128, 512),
+                 int8_tables: bool = False,
+                 device=None):
+        if int8_tables:
+            raise NotImplementedError(
+                "int8 tables wait for ROADMAP queue 1, int8 and mesh "
+                "serving")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.vocabs = (user_vocab, item_vocab, cate_vocab)
+        self.model = get_model_class(cfg.model_type)(
+            cfg, n_users, n_items, n_cates, device=self.device)
+        self.model.eval()
+        self.batch_buckets = sorted(batch_buckets)
+        self.cand_buckets = sorted(cand_buckets)
+        self._time_range = time_range_for_unit(cfg.time_unit)
+        self._eval_step = make_eval_step_fn(cfg)
+        if checkpoint is not None:
+            self.load(checkpoint)
+
+    # ------------------------------------------------------------- ckpt
+    def load(self, path: str) -> None:
+        """Restore a state_dict written by `save` (weights.save)."""
+        weights.load(self.model, path)
+
+    def save(self, path: str) -> None:
+        weights.save(self.model, path)
+
+    # ------------------------------------------------------------ batch
+    def _bucket(self, buckets: Sequence[int], n: int) -> int:
+        i = bisect.bisect_left(buckets, n)
+        return buckets[min(i, len(buckets) - 1)]
+
+    def _empty_batch(self, B: int, G: int) -> Batch:
+        return Batch.zeros(B, G, self.cfg.max_seq_length)
+
+    def _fill_row(self, batch: Batch, row: int, req: ScoreRequest,
+                  G: int) -> None:
+        uv, iv, cv = self.vocabs
+        L = self.cfg.max_seq_length
+        n = min(len(req.hist_items), L)
+        hitems = iv.lookup_many(req.hist_items)
+        hcates = cv.lookup_many(req.hist_cates)
+        td, tff, ttn = compute_time_features(
+            np.asarray(req.hist_times, np.float64), req.current_time,
+            self._time_range)
+        batch.users[row] = uv.lookup(req.user)
+        if n:
+            batch.item_hist[row, :n] = torch.tensor(hitems[-n:])
+            batch.cate_hist[row, :n] = torch.tensor(hcates[-n:])
+        batch.mask[row, :n] = 1.0
+        batch.time_diff[row, :n] = torch.from_numpy(td[-n:])
+        batch.time_from_first[row, :n] = torch.from_numpy(tff[-n:])
+        batch.time_to_now[row, :n] = torch.from_numpy(ttn[-n:])
+        C = len(req.cand_items)
+        batch.items[row, :C] = torch.tensor(iv.lookup_many(req.cand_items))
+        batch.cates[row, :C] = torch.tensor(cv.lookup_many(req.cand_cates))
+        batch.valid[row] = 1.0
+
+    # ------------------------------------------------------------ score
+    def score(self, requests: List[ScoreRequest]) -> List[np.ndarray]:
+        """Sigmoid scores per request, one array of len(cand_items) each.
+
+        Requests are grouped by candidate-count bucket; each group pads
+        to (batch bucket, cand bucket) and runs as one dispatch.
+        """
+        order: Dict[int, List[int]] = {}
+        for i, req in enumerate(requests):
+            if len(req.cand_items) > self.cand_buckets[-1]:
+                raise ValueError(
+                    f"request {i}: {len(req.cand_items)} candidates exceeds "
+                    f"the largest bucket {self.cand_buckets[-1]}; raise "
+                    f"cand_buckets or split the request")
+            g = self._bucket(self.cand_buckets, len(req.cand_items))
+            order.setdefault(g, []).append(i)
+
+        out: List[Optional[np.ndarray]] = [None] * len(requests)
+        for G, idxs in order.items():
+            for lo in range(0, len(idxs), self.batch_buckets[-1]):
+                chunk = idxs[lo:lo + self.batch_buckets[-1]]
+                B = self._bucket(self.batch_buckets, len(chunk))
+                batch = self._empty_batch(B, G)
+                for row, i in enumerate(chunk):
+                    self._fill_row(batch, row, requests[i], G)
+                preds, _ = self._eval_step(self.model,
+                                           batch.to(self.device))
+                preds = preds.cpu().numpy()
+                for row, i in enumerate(chunk):
+                    out[i] = preds[row, :len(requests[i].cand_items)].copy()
+        return out   # type: ignore[return-value]
+
+
+class AsyncScoringService:
+    """Thread-safe micro-batching frontend over a ScoringService.
+
+    Callers `submit()` single requests from any thread and receive
+    futures; one dispatcher thread drains whatever has accumulated —
+    bounded by `max_batch` rows and a `max_wait_ms` coalescing window —
+    and runs it through `ScoringService.score`.
+    """
+
+    def __init__(self, service: ScoringService, max_wait_ms: float = 2.0,
+                 max_batch: Optional[int] = None):
+        self._svc = service
+        self._max_wait = max_wait_ms / 1e3
+        self._max_batch = max_batch or service.batch_buckets[-1]
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self.dispatches = 0          # score() calls made by the dispatcher
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # ----------------------------------------------------------- client
+    def submit(self, req: ScoreRequest) -> "Future[np.ndarray]":
+        if self._closed:
+            raise RuntimeError("service is closed")
+        fut: "Future[np.ndarray]" = Future()
+        self._q.put((req, fut))
+        return fut
+
+    def score(self, requests: List[ScoreRequest]) -> List[np.ndarray]:
+        """Blocking convenience wrapper over submit()."""
+        futs = [self.submit(r) for r in requests]
+        return [f.result() for f in futs]
+
+    def close(self) -> None:
+        self._closed = True
+        self._q.put(None)
+        self._thread.join()
+
+    # ------------------------------------------------------- dispatcher
+    def _drain(self, first) -> List[Tuple[ScoreRequest, Future]]:
+        items = [first]
+        deadline = time.monotonic() + self._max_wait
+        while len(items) < self._max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._q.put(None)    # keep the shutdown signal
+                break
+            items.append(nxt)
+        return items
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            items = self._drain(item)
+            reqs = [r for r, _ in items]
+            try:
+                scores = self._svc.score(reqs)
+            except Exception as e:        # noqa: BLE001 — fail the batch
+                for _, fut in items:
+                    fut.set_exception(e)
+                continue
+            self.dispatches += 1
+            for (_, fut), s in zip(items, scores):
+                fut.set_result(s)
