@@ -1,8 +1,9 @@
-"""Typed configuration for the PyTorch port's CLSR eval forward and serving.
+"""Typed configuration for the PyTorch port's CLSR model, serving and
+train step.
 
-Counterpart of clsr_tpu/config.py, cut to the fields the CLSR eval
-forward and `ScoringService` read.  Semantics kept from there (and so
-from the reference's deeprec_utils.py:25-534):
+Counterpart of clsr_tpu/config.py, cut to the fields the CLSR forward,
+`ScoringService` and the train step read.  Semantics kept from there
+(and so from the reference's deeprec_utils.py:25-534):
 
   * YAML files are sectioned (data/model/train/info) and flattened,
     section names dropped, last key wins (`flat_config`).
@@ -37,14 +38,22 @@ def _flatten_yaml(loaded: Dict[str, Any]) -> Dict[str, Any]:
 _INT_FIELDS = frozenset({
     "max_seq_length", "hidden_size", "item_embedding_dim",
     "cate_embedding_dim", "user_embedding_dim",
-    "contrastive_length_threshold", "contrastive_recent_k",
+    "contrastive_length_threshold", "contrastive_recent_k", "batch_size",
+    "train_num_ngs",
 })
-_FLOAT_FIELDS = frozenset({"init_value", "manual_alpha_value"})
+_FLOAT_FIELDS = frozenset({
+    "init_value", "manual_alpha_value", "learning_rate", "embed_l2",
+    "embed_l1", "layer_l2", "layer_l1", "attn_loss_weight",
+    "triplet_margin", "discrepancy_loss_weight", "contrastive_loss_weight",
+    "embedding_dropout", "max_grad_norm",
+})
 _STR_FIELDS = frozenset({
-    "method", "loss", "init_method", "model_type", "sequential_model",
-    "time_unit", "user_vocab", "item_vocab", "cate_vocab",
+    "method", "loss", "optimizer", "init_method", "model_type",
+    "sequential_model", "contrastive_loss", "time_unit", "user_vocab",
+    "item_vocab", "cate_vocab",
 })
-_LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation"})
+_LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation",
+                          "dropout"})
 
 # Required keys per model family (clsr_tpu/config.py:68-117).  Only CLSR
 # is ported; the registry refuses the other names.
@@ -60,7 +69,7 @@ _REQUIRED_BY_MODEL: Dict[str, Tuple[str, ...]] = {
 
 @dataclass(frozen=True)
 class Config:
-    """The hyperparameters the CLSR eval forward and serving read.
+    """The hyperparameters the CLSR model, serving and the train step read.
 
     Defaults are those of clsr_tpu/config.py:Config for the same fields.
     """
@@ -78,6 +87,9 @@ class Config:
     layer_sizes: Tuple[int, ...] = (100, 64)
     att_fcn_layer_sizes: Tuple[int, ...] = (80, 40)
     activation: Tuple[str, ...] = ("relu", "relu")
+    user_dropout: bool = False
+    dropout: Tuple[float, ...] = (0.0, 0.0)
+    embedding_dropout: float = 0.0
     item_embedding_dim: int = 32
     cate_embedding_dim: int = 8
     user_embedding_dim: int = 40
@@ -85,19 +97,36 @@ class Config:
     max_seq_length: int = 50
     enable_bn: bool = True
 
-    # CLSR (the contrastive_* keys are required, clsr.py reads them in
-    # training only)
+    # CLSR (the contrastive_* keys are required; the losses read them)
     sequential_model: str = "time4lstm"
     interest_evolve: bool = True
     predict_long_short: bool = True
     manual_alpha: bool = False
     manual_alpha_value: float = 0.5
+    contrastive_loss: str = "triplet"     # 'bpr' | 'triplet'
+    triplet_margin: float = 1.0
+    contrastive_loss_weight: float = 0.1
+    discrepancy_loss_weight: float = 0.01
     contrastive_length_threshold: int = 5
     contrastive_recent_k: int = 3
+    attn_loss_weight: float = 0.001
+    use_attn_loss: bool = False   # opt-in supervised fusion loss
+                                  # mse(alpha, attn_labels)
 
-    # --- init -------------------------------------------------------------
+    # --- train ------------------------------------------------------------
     init_method: str = "tnormal"
     init_value: float = 0.01
+    embed_l2: float = 1e-6
+    embed_l1: float = 0.0
+    layer_l2: float = 1e-6
+    layer_l1: float = 0.0
+    learning_rate: float = 0.001
+    optimizer: str = "adam"
+    batch_size: int = 500
+    is_clip_norm: bool = True
+    max_grad_norm: float = 2.0
+    need_sample: bool = True
+    train_num_ngs: int = 4
     seed: Optional[int] = None
 
     # --- execution --------------------------------------------------------
@@ -107,6 +136,9 @@ class Config:
     attention_block_size: int = 0
     use_pallas_scan: bool = False            # K2, the recurrence kernel
     use_pallas_eval_attention: str = "auto"  # K1: 'auto' = on for CUDA
+                                             # tensors, 'on', 'off'
+    use_pallas_train_attention: str = "off"  # K3a + K3b + K1 in train
+                                             # mode: 'auto' = on for CUDA
                                              # tensors, 'on', 'off'
     data_parallel: int = 1
     model_parallel: int = 1
@@ -150,6 +182,10 @@ class Config:
         if self.loss not in ("softmax", "cross_entropy_loss", "square_loss",
                              "log_loss"):
             raise ValueError(f"loss not defined: {self.loss}")
+        if self.contrastive_loss not in ("bpr", "triplet"):
+            raise ValueError(
+                f"contrastive_loss must be bpr or triplet, got "
+                f"{self.contrastive_loss}")
         if self.sequential_model not in ("gru", "lstm", "time4lstm"):
             raise ValueError(
                 f"sequential_model not defined: {self.sequential_model}")
@@ -161,10 +197,10 @@ class Config:
             raise ValueError(
                 f"embedding_dtype must be float32 or bfloat16, got "
                 f"{self.embedding_dtype}")
-        if self.use_pallas_eval_attention not in ("auto", "on", "off"):
-            raise ValueError(
-                f"use_pallas_eval_attention must be auto/on/off, got "
-                f"{self.use_pallas_eval_attention}")
+        for key in ("use_pallas_eval_attention", "use_pallas_train_attention"):
+            if getattr(self, key) not in ("auto", "on", "off"):
+                raise ValueError(
+                    f"{key} must be auto/on/off, got {getattr(self, key)}")
         if model == "clsr" and self.hidden_size != self.target_dim:
             # the alpha fusion adds att_fea_long (item+cate wide) to
             # att_fea_short (hidden wide), clsr.py:265
@@ -182,6 +218,8 @@ _KEY_ALIASES = {"enable_BN": "enable_bn"}
 def _coerce(key: str, value: Any) -> Any:
     if key in _LIST_FIELDS and isinstance(value, list):
         return tuple(value)
+    if key == "is_clip_norm":
+        return bool(value)
     return value
 
 

@@ -238,7 +238,9 @@ int launch(const float* keys, const float* kp, const float* q,
 }  // namespace
 
 // Widths compiled in: (D, DK, H0, H1) = (80, 40, 80, 40), the clsr.yaml
-// short-term scorer.  Any other returns cudaErrorInvalidValue.
+// short-term scorer, and (40, 40, 80, 40), its long-term scorer (which
+// takes this kernel in train mode, at G = 1).  Any other returns
+// cudaErrorInvalidValue.
 extern "C" int clsr_eval_scorer(const float* keys, const float* kp,
                                 const float* q, const float* mask,
                                 const float* wk, const float* wq,
@@ -250,6 +252,10 @@ extern "C" int clsr_eval_scorer(const float* keys, const float* kp,
                                 void* stream) {
   if (D == 80 && DK == 40 && H0 == 80 && H1 == 40)
     return launch<80, 80, 40, 40>(keys, kp, q, mask, wk, wq, wm, a0, c0, w1,
+                                  a1, c1, w2, out, B, L, G,
+                                  static_cast<cudaStream_t>(stream));
+  if (D == 40 && DK == 40 && H0 == 80 && H1 == 40)
+    return launch<40, 80, 40, 40>(keys, kp, q, mask, wk, wq, wm, a0, c0, w1,
                                   a1, c1, w2, out, B, L, G,
                                   static_cast<cudaStream_t>(stream));
   return (int)cudaErrorInvalidValue;

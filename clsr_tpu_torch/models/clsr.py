@@ -1,7 +1,7 @@
-"""CLSR: disentangled long/short-term interest model, eval forward.
+"""CLSR: disentangled long/short-term interest model.
 
 Counterpart of clsr_tpu/models/clsr.py:53-221 (the reference CLSRModel,
-clsr.py:20-455), eval mode:
+clsr.py:20-455):
 
   * per-user LONG and SHORT interest tables besides item/cate
     (clsr.py:84-101);
@@ -17,7 +17,12 @@ clsr.py:20-455), eval mode:
     max_seq_length; clsr.py:239-248, kept verbatim) -> fcn_alpha ->
     sigmoid alpha, user_embed = alpha*long + (1-alpha)*short, or the
     fixed manual_alpha_value (clsr.py:261-274);
-  * output concat(user_embed, target) -> logit head (clsr.py:275).
+  * output concat(user_embed, target) -> logit head (clsr.py:275);
+  * in train mode, dropout on the user rows and the aux the losses read
+    (clsr.py:22-82): both interests, the masked history mean, the mean
+    of the last contrastive_recent_k valid positions (reverse cumsum,
+    clsr.py:173-177), seq_len, and the involved users' L2 and
+    discrepancy sums over unique rows.
 
 Only the fused time4lstm encoder is ported; the unfused GRU/LSTM
 encoders (ops/rnn.py) wait for the model zoo slice.
@@ -25,13 +30,14 @@ encoders (ops/rnn.py) wait for the model zoo slice.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from clsr_tpu_torch.data.batch import Batch
-from clsr_tpu_torch.models.base import EmbedContext, SequentialModelBase
+from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
+                                        unique_rows_stats)
 from clsr_tpu_torch.ops.attention import TargetAttention
 from clsr_tpu_torch.ops.fused_clsr import FusedCLSREncoder
 from clsr_tpu_torch.ops.mlp import FcnNet
@@ -55,7 +61,8 @@ class CLSRModel(SequentialModelBase):
                 query_dim, key_dim, cfg.att_fcn_layer_sizes, cfg.activation,
                 self.init, self.generator, self.device,
                 enable_bn=cfg.enable_bn,
-                use_kernel=cfg.use_pallas_eval_attention)
+                use_kernel=cfg.use_pallas_eval_attention,
+                use_train_kernel=cfg.use_pallas_train_attention)
 
         # creation order follows the flax tree (long, encoder, short, ...)
         self.long_term_att = attention(U, T)
@@ -77,17 +84,22 @@ class CLSRModel(SequentialModelBase):
     def head_in_dim(self) -> int:
         return self.cfg.hidden_size + self.cfg.target_dim
 
-    def seq_graph(self, ctx: EmbedContext, batch: Batch
+    def seq_graph(self, ctx: EmbedContext, batch: Batch,
+                  generator: Optional[torch.Generator] = None,
+                  train_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         cfg = self.cfg
         B, G = batch.items.shape
-        user_long = F.embedding(batch.users, self.user_long_embedding)
-        user_short = F.embedding(batch.users, self.user_short_embedding)
+        user_long = self.dropout(
+            F.embedding(batch.users, self.user_long_embedding), generator)
+        user_short = self.dropout(
+            F.embedding(batch.users, self.user_short_embedding), generator)
         hist = ctx.hist_input                                   # [B, L, T]
         mask = batch.mask
 
         # ---- long term (clsr.py:152-157) --------------------------------
-        att_fea_long = self.long_term_att(user_long, hist, mask)  # [B, T]
+        att_fea_long = self.long_term_att(
+            user_long, hist, mask, train_kernel=train_kernel)   # [B, T]
 
         # ---- short term (clsr.py:159-222) -------------------------------
         h1, rnn_outputs, causal2_state = self.fused_encoders(
@@ -98,7 +110,8 @@ class CLSRModel(SequentialModelBase):
             [short_term_intention[:, None, :].expand(B, G, -1),
              ctx.target_emb], dim=-1)                           # [B, G, U+T]
         att_fea_short = self.short_term_att(
-            short_query, rnn_outputs, mask)                     # [B, G, H]
+            short_query, rnn_outputs, mask,
+            train_kernel=train_kernel)                          # [B, G, H]
 
         # ---- fusion (clsr.py:225-274) -----------------------------------
         long_g = att_fea_long[:, None, :].expand(B, G, -1)
@@ -119,4 +132,38 @@ class CLSRModel(SequentialModelBase):
                                    device=hist.device)
 
         model_output = torch.cat([user_embed, ctx.target_emb], dim=-1)
-        return model_output, {"alpha": alpha_out}
+        aux: Dict[str, Any] = {"alpha": alpha_out}
+        if self.training:
+            aux.update(self.train_aux(batch, hist, att_fea_long,
+                                      att_fea_short))
+        return model_output, aux
+
+    def train_aux(self, batch: Batch, hist: torch.Tensor,
+                  att_fea_long: torch.Tensor, att_fea_short: torch.Tensor
+                  ) -> Dict[str, Any]:
+        """What the contrastive, discrepancy and L2 losses read
+        (clsr_tpu/models/clsr.py:91-123, 210-220)."""
+        mask = batch.mask
+        hist_mean = ((hist * mask[..., None]).sum(1)
+                     / mask.sum(1, keepdim=True).clamp_min(1.0))
+        # recent-k proxy via reverse cumsum (clsr.py:173-177)
+        position = torch.flip(torch.cumsum(torch.flip(mask, [1]), 1), [1])
+        recent = ((position >= 1)
+                  & (position <= self.cfg.contrastive_recent_k)).to(
+                      hist.dtype)
+        hist_recent = ((hist * recent[..., None]).sum(1)
+                       / recent.sum(1, keepdim=True).clamp_min(1.0))
+        # involved-user L2 + discrepancy (clsr.py:73-82, 118-127)
+        sumsq_l, sumsq_s, sumsq_diff, n_elems = unique_rows_stats(
+            self.user_long_embedding, self.user_short_embedding,
+            batch.users)
+        return {
+            "att_fea_long": att_fea_long,           # [B, T]
+            "att_fea_short": att_fea_short,         # [B, G, H]
+            "hist_mean": hist_mean,                 # [B, T]
+            "hist_recent": hist_recent,             # [B, T]
+            "seq_len": mask.sum(-1),                # [B]
+            "embed_sumsq": sumsq_l + sumsq_s,
+            "discrepancy_sumsq": sumsq_diff,
+            "discrepancy_count": n_elems,
+        }

@@ -25,6 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# shared memory a block may use on an H100 (bytes)
+MAX_SMEM = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +40,12 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
     "clsr_scan": {
         "clsr_scan_forward": ((_P,) * 18 + (_I,) * 4 + (_P,), _I),
         "clsr_scan_smem_bytes": ((_I, _I), ctypes.c_longlong),
+    },
+    "train_stats": {
+        "clsr_train_stats0": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
+        "clsr_train_stats1": ((_P,) * 10 + (_I,) * 6 + (_P,), _I),
+        "clsr_train_stats_smem_bytes": ((_I, _I, _I), ctypes.c_longlong),
+        "clsr_train_stats_chunk_l": ((), _I),
     },
 }
 KERNELS = tuple(_SIGNATURES)

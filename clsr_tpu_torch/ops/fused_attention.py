@@ -18,7 +18,9 @@ hidden activations never reach device memory.
 `eval_scorer_reference`, the plain PyTorch version; on CUDA tensors it
 launches the kernel or raises.  `fused_eval_attention.launches` counts
 kernel launches.  The kernel is compiled for the clsr.yaml scorer widths
-only (`KERNEL_WIDTHS`); other widths raise on CUDA.
+only (`KERNEL_WIDTHS`); other widths raise on CUDA.  The train-mode
+scorer (ops/fused_train_attention.py) runs it too, with the batch-BN
+folds.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from clsr_tpu_torch.ops import _build
 
 MASK_PADDING_VALUE = -(2.0 ** 32) + 1  # clsr.py:375
 
-# (D, Dk, H0, H1) the kernel is compiled for (csrc/eval_scorer.cu)
-KERNEL_WIDTHS = ((80, 40, 80, 40),)
+# (D, Dk, H0, H1) the kernel is compiled for (csrc/eval_scorer.cu): the
+# clsr.yaml short-term scorer and, in train mode, its long-term scorer
+KERNEL_WIDTHS = ((80, 40, 80, 40), (40, 40, 80, 40))
 
 
 def fold_scorer_params(fcn, D: int, enable_bn: bool):
@@ -96,7 +99,8 @@ def fused_eval_attention(keys, keys_proj, query, mask, wk_eff, wq_eff, wm,
         raise ValueError(
             f"the eval scorer kernel is compiled for (D, Dk, H0, H1) in "
             f"{KERNEL_WIDTHS}, got {(D, Dk, H0, H1)}; set "
-            f"use_pallas_eval_attention='off' for other widths")
+            f"use_pallas_eval_attention (or, in training, "
+            f"use_pallas_train_attention) to 'off' for other widths")
     out = torch.empty(B, G, Dk, device=keys.device, dtype=torch.float32)
     if B == 0 or G == 0:
         return out

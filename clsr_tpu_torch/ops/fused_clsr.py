@@ -1,4 +1,4 @@
-"""Fused CLSR recurrent encoder, forward.
+"""Fused CLSR recurrent encoder.
 
 Counterpart of clsr_tpu/ops/fused_clsr.py:165-310 (`FusedCLSREncoder`):
 the CLSR forward runs three recurrences over the same history
@@ -11,10 +11,11 @@ products.
 Parameters keep the flax names, shapes ([in, out]) and inits.  With
 `use_pallas` (cfg.use_pallas_scan) and both optional cells on, the loop
 is kernel K2 (ops/fused_scan.py), with the candidate biases folded into
-xc1/xc2 as in :291-298.  Otherwise it is the plain recurrence of the
-same module: JAX's block-diagonal scan differs from it only by exact
-+0.0 terms.  A cell switched off keeps its initial carry, as the JAX
-per-cell step does.
+xc1/xc2 as in :291-298; in training its backward recomputes through the
+plain recurrence.  Otherwise it is the plain recurrence of the same
+module under autograd: JAX's block-diagonal scan differs from it only
+by exact +0.0 terms.  A cell switched off keeps its initial carry, as
+the JAX per-cell step does.
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ JAX, so two ways in:
     `batch_stats`, and an `nn.Linear`'s `weight` is the transpose of
     the flax Dense `kernel` ([in, out]).  Any name left over or missing
     raises.
+  * `to_flax(module)` is the inverse: (params, batch_stats) as nested
+    dicts of numpy arrays under the flax names, so a test can compare
+    the port's state with the JAX package's by flax path.
   * `save` / `load` of the port's own `state_dict`.
 """
 
@@ -77,6 +80,21 @@ def from_flax(module: nn.Module, params: Mapping,
                              f"{tuple(value.shape)}, {name} needs "
                              f"{tuple(state[name].shape)}")
         state[name].copy_(value)
+
+
+def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) of `module` as nested flax-named dicts of
+    numpy arrays (Dense kernels back in the [in, out] layout)."""
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    state = module.state_dict()
+    for name, (collection, flax, transpose) in flax_names(module).items():
+        value = state[name].detach().cpu()
+        node = trees[collection]
+        *parents, leaf = flax.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = (value.t() if transpose else value).numpy().copy()
+    return trees["params"], trees["batch_stats"]
 
 
 def save(module: nn.Module, path: str) -> None:

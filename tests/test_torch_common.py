@@ -129,6 +129,7 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_no_jax_in_a_fresh_process():
     code = ("import sys\n"
             "import clsr_tpu_torch.serving, clsr_tpu_torch.weights\n"
+            "import clsr_tpu_torch.training.steps\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))\n")

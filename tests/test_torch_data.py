@@ -42,6 +42,9 @@ def test_clsr_yaml_loads_like_jax():
     (dict(hidden_size="40"), TypeError),
     (dict(loss="hinge"), ValueError),
     (dict(use_pallas_eval_attention="maybe"), ValueError),
+    (dict(use_pallas_train_attention="maybe"), ValueError),
+    (dict(contrastive_loss="hinge"), ValueError),
+    (dict(learning_rate="fast"), TypeError),
     (dict(attention_block_size=64), ValueError),
 ])
 def test_config_validation_raises(bad, err):

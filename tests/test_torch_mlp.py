@@ -76,9 +76,15 @@ def test_batch_norm_fold_and_train_mode():
     a, c = bn.fold(bias)
     torch.testing.assert_close(a * x + c, bn(x + bias), rtol=1e-5,
                                atol=1e-5)
-    bn.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bn(x)
+    bn.train()             # batch statistics, then the running update
+    mean, var = bn.mean.clone(), bn.var.clone()
+    y = bn(x)
+    bm, bv = x.mean(0), x.var(0, unbiased=False)
+    torch.testing.assert_close(
+        y, (x - bm) * torch.rsqrt(bv + 1e-4) * bn.scale + bn.bias,
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(bn.mean, 0.95 * mean + 0.05 * bm)
+    torch.testing.assert_close(bn.var, 0.95 * var + 0.05 * bv)
 
 
 def test_initializers_draw_jax_distributions():

@@ -16,7 +16,8 @@ import torch
 from clsr_tpu.training.steps import make_eval_step_fn as jax_eval_step_fn
 from clsr_tpu_torch import weights
 from clsr_tpu_torch.models.registry import get_model_class
-from clsr_tpu_torch.training.steps import make_eval_step_fn
+from clsr_tpu_torch.training.state import create_train_state
+from clsr_tpu_torch.training.steps import make_eval_step_fn, make_train_step_fn
 
 from test_torch_common import (N_CATES, N_ITEMS, N_USERS, TOL, jax_batch,
                                jax_clsr, jax_state, numpy_batch, port_batch,
@@ -79,10 +80,13 @@ def test_train_mode_and_unported_settings_raise():
     cfg = port_cfg(small_jax_cfg())
     model = get_model_class("clsr")(cfg, N_USERS, N_ITEMS, N_CATES,
                                     device="cpu")
-    b = port_batch(numpy_batch(np.random.RandomState(0), 2, 3, 7))
-    model.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(b)
+    for name in ("lazyadam", "adagrad", "rmsprop"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            create_train_state(model, cfg.replace(optimizer=name))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step_fn(model, cfg.replace(optimizer="lazyadam"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step_fn(model, cfg.replace(data_parallel=2))
     for bad in (dict(data_parallel=2), dict(use_fused_encoders=False),
                 dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
