@@ -53,11 +53,41 @@ Phases, each fatal on failure:
      over three steps of each path: host ms and device span per
      `train_step.<phase>` range, the device's busy share of the window,
      kernel launches per step and the kernels with the most device time.
+  9. K5 (row scatter) and K4 (row sweep) against their plain version at
+     the bench shape (N=500,000, W=40, 58,000 unique sorted ids with the
+     bench's skew, slabs of 2,048 rows) and at the compact update's
+     item-pmn shape (N=4,162,026, W=96, Mc=22,000 ending in dropped ids
+     >= N): bit-identical (the kernels only copy), and index_copy_ on the
+     valid ids too; kernel, plain, index_copy_ and bound times, each
+     timed call on fresh ids and rows (the bound is the function's bytes
+     for both kernels; K4's table traffic is printed beside it).  K5
+     also at the other widths of the lazy paths' launches (cate and user
+     pmn, the legacy split layout with duplicate ids), bit-identical.
+     Then the bench entry point `clsr_tpu_torch.bench_row_update` (K4's
+     path) at 10 applications x 3 calls, the counts set to 0 before it;
+ 10. lazyadam training at the clsr.yaml widths with the Taobao-sized
+     tables and every kernel gate of phase 8: the first batch with the
+     compact row engine (compact_rows auto, pmn layout) and with the
+     legacy lazy path (off), from the same weights and generator seed:
+     loss parts within 1e-4 relative, updated tables and moments within
+     1e-5 abs (index_add_ and the dense embedding backward sum in
+     run-dependent orders on the card), rows no batch id touches
+     bit-identical to before, the table Parameters equal to pmn[:, :D]
+     after the sync.  Then 10 compact steps in turns with 10 legacy
+     steps and 10 dense-Adam steps from the same weights, the counts
+     read around each: K5 4 per compact step, 8 per legacy step and none
+     per dense step, K3a 2, K3b 2, K1 2, K2 1; finite losses; per path
+     the median step ms, examples/s, device memory kept between steps
+     and its peak, and torch.profiler over three steps (host ms of
+     `train_step.row_update`).  In phase 9, K4/K5 and index_copy_ are
+     also timed on the device alone (one call per fresh set captured in
+     a CUDA graph and replayed), beside their per-call time.
 Then one JSON line of the kernels, the card's name and power limit, and
 the final status line.  A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -72,6 +102,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores (data sheet)
 H100_HBM_BYTES = 3.35e12       # HBM3 bytes/s (data sheet)
 K1_TOL, K2_TOL, SERVE_TOL = 1e-4, 1e-5, 1e-4
+# Taobao UserBehavior's users, items and categories, plus the OOV row
+USERS, ITEMS, CATES = 987_995 + 1, 4_162_025 + 1, 9_440 + 1
 
 
 def log(*a):
@@ -90,6 +122,45 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def self_device_us(e):
+    """A profiler event's own device time in us (name by torch version)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_events(prof):
+    """The device kernels of a profile, annotations left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("train_step.")]
+
+
+def graph_ms(fn, calls, reps=5):
+    """Device ms per call of fn: `calls` calls captured in one CUDA graph
+    and replayed `reps` times between CUDA events, so the host's launch
+    cost is left out (the device's gap between graph nodes stays in)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def bound(n_bytes, n_flops):
@@ -663,7 +734,7 @@ def train(smi):
     from clsr_tpu_torch.training.state import create_train_state
     from clsr_tpu_torch.training.steps import make_train_step
 
-    sizes = (987_995 + 1, 4_162_025 + 1, 9_440 + 1)
+    sizes = (USERS, ITEMS, CATES)
     base = load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
                        user_vocab="u", item_vocab="i", cate_vocab="c", seed=0)
     cfgs = {"kernel": base.replace(use_pallas_train_attention="on",
@@ -809,8 +880,7 @@ def profile_steps(step, state, batch_list, run, smi):
     launches per step, and the kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    dev_self = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
+    dev_self = self_device_us
     step(state, batch_list[0], torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -822,10 +892,7 @@ def profile_steps(step, state, batch_list, run, smi):
         wall_ms = (time.perf_counter() - t0) * 1e3
     n = len(batch_list)
     events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in on_device
-               if not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("train_step.")]
+    kernels = kernel_events(prof)
     busy_ms = sum(dev_self(e) for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
     phases = {}
@@ -854,6 +921,366 @@ def profile_steps(step, state, batch_list, run, smi):
                 launches_per_step=launches, phases=phases, top_kernels=top)
 
 
+# kind "bench": M unique sorted ids with the bench's skew; "compact": the
+# unique ids of M draws, then dropped ids >= N up to Mc = min(M, N), as the
+# compact update hands K5 its targets; "legacy": M sorted draws with their
+# duplicates, each duplicate carrying one row, as the legacy path's ids
+BENCH_SHAPE = dict(name="bench", kind="bench", N=500_000, W=40, M=58_000)
+ITEM_PMN_SHAPE = dict(name="item_pmn", kind="compact", N=ITEMS, W=3 * 32,
+                      M=22_000)
+# the other widths of the lazy paths' K5 launches at B = 400, held to the
+# plain version only (each W gives its own threads-per-row split)
+K5_PATH_SHAPES = (
+    dict(name="cate_pmn", kind="compact", N=CATES, W=3 * 8, M=22_000),
+    dict(name="user_pmn", kind="compact", N=USERS, W=3 * 40, M=400),
+    dict(name="item_legacy_param", kind="legacy", N=ITEMS, W=32, M=22_000),
+    dict(name="item_legacy_mn", kind="legacy", N=ITEMS, W=64, M=22_000),
+    dict(name="user_legacy_param", kind="legacy", N=USERS, W=40, M=400),
+    dict(name="user_legacy_mn", kind="legacy", N=USERS, W=80, M=400),
+    dict(name="cate_legacy_param", kind="legacy", N=CATES, W=8, M=22_000),
+    dict(name="cate_legacy_mn", kind="legacy", N=CATES, W=16, M=22_000))
+SWEEP_BLOCK = 2048
+TIMED_SETS = 24     # fresh (ids, rows) per timed call: no reuse out of L2
+
+
+def row_update_ids(shape, g):
+    """(ids int32, rows, n_valid) at a row-update shape (see
+    BENCH_SHAPE): ids sorted, the n_valid ids < N first."""
+    from clsr_tpu_torch.bench_row_update import fresh_ids
+    dev = torch.device("cuda")
+    N, W, M = shape["N"], shape["W"], shape["M"]
+    if shape["kind"] == "bench":
+        ids = fresh_ids(g, N, M)
+        rows = torch.randn(M, W, generator=g, device=dev)
+    elif shape["kind"] == "compact":
+        Mc = min(M, N)
+        valid = torch.unique(torch.randint(1, N, (M,), generator=g,
+                                           device=dev))
+        ids = torch.cat([valid, N + torch.arange(Mc - valid.numel(),
+                                                 device=dev)])
+        rows = torch.randn(Mc, W, generator=g, device=dev)
+    else:
+        ids = torch.sort(torch.randint(0, N, (M,), generator=g,
+                                       device=dev)).values
+        uniq, inv = torch.unique(ids, return_inverse=True)
+        rows = torch.randn(uniq.numel(), W, generator=g, device=dev)[inv]
+    return ids.to(torch.int32), rows, int((ids < N).sum().item())
+
+
+def cycling(sets, fn):
+    """A call that applies fn to the next of `sets` in turn, so a timing
+    loop writes fresh rows to fresh places, as a train step does."""
+    turn = itertools.cycle(sets)
+    return lambda: fn(*next(turn))
+
+
+def check_row_update(smi):
+    """Phase 9: K5 and K4 bit-identical to their plain version (and to
+    index_copy_) at the bench and item-pmn shapes, with kernel, plain,
+    library and bound times over fresh id sets; K5 at the other widths of
+    the lazy paths; then the bench entry point, K4's path."""
+    from clsr_tpu_torch import bench_row_update
+    from clsr_tpu_torch.ops import row_update as ru
+    out = {}
+    for shape in (BENCH_SHAPE, ITEM_PMN_SHAPE) + K5_PATH_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(40)
+        N, W = shape["N"], shape["W"]
+        table = torch.randn(N, W, generator=g, device="cuda")
+        ids, rows, n_valid = row_update_ids(shape, g)
+        M = ids.numel()
+        valid_ids = ids[:n_valid].long()
+        want = ru.scatter_rows_reference(table.clone(), ids, rows)
+        got = {"row_scatter": ru.scatter_rows(table.clone(), ids, rows)}
+        if shape in (BENCH_SHAPE, ITEM_PMN_SHAPE):
+            got.update({
+                "row_sweep": ru.sweep_rows(table.clone(), ids, rows,
+                                           SWEEP_BLOCK),
+                "index_copy_": table.clone().index_copy_(0, valid_ids,
+                                                         rows[:n_valid]),
+                "sweep plain": ru.sweep_rows_reference(
+                    table.clone(), ids, rows, SWEEP_BLOCK)})
+        torch.cuda.synchronize()
+        errs = {k: (v - want).abs().max().item() for k, v in got.items()}
+        same = {k: torch.equal(v, want) for k, v in got.items()}
+        del got, want
+        if shape in K5_PATH_SHAPES:
+            out[f"row_scatter/{shape['name']}"] = dict(
+                max_abs_err=errs["row_scatter"],
+                bit_identical=same["row_scatter"], N=N, W=W, M=M,
+                n_valid=n_valid)
+            log(f"K5 row_scatter [{shape['name']}: N={N} W={W} M={M}, "
+                f"{n_valid} valid]: bit-identical to the plain version "
+                f"{same['row_scatter']} (max_abs_err "
+                f"{errs['row_scatter']:.3e})")
+        else:
+            out.update(time_row_update(shape, table, errs, same, smi))
+        if not all(same.values()):
+            raise AssertionError(f"row update [{shape['name']}] differs from "
+                                 f"its plain version: {errs}")
+        del table, rows
+        torch.cuda.empty_cache()
+    # K4's path (and K5's second): the bench entry point
+    ru.scatter_rows.launches = ru.sweep_rows.launches = 0
+    bench = bench_row_update.main(["--reps", "10", "--calls", "3"])
+    torch.cuda.synchronize()
+    out["bench"] = dict(results=bench, launches={
+        "row_scatter": ru.scatter_rows.launches,
+        "row_sweep": ru.sweep_rows.launches})
+    log(f"bench_row_update path: launches {out['bench']['launches']}")
+    if min(out["bench"]["launches"].values()) <= 0:
+        raise AssertionError("a row-update kernel never launched on the "
+                             "bench path")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_row_update(shape, table, errs, same, smi):
+    """K5, K4, their plain versions and index_copy_ per call (CUDA events)
+    and on the device (a CUDA graph of one call per set), each call on
+    the next of TIMED_SETS fresh (ids, rows) drawn before the timing.  The bound of
+    both kernels is the function's bytes: the ids, the rows read, the
+    valid rows written.  K4's own traffic, the whole table read and
+    written, is reported beside it as its design figure."""
+    from clsr_tpu_torch.ops import row_update as ru
+    g = torch.Generator(device="cuda").manual_seed(41)
+    sets = [row_update_ids(shape, g) for _ in range(TIMED_SETS)]
+    N, W = shape["N"], shape["W"]
+    M = sets[0][0].numel()
+    n_valid = statistics.mean(n for _, _, n in sets)
+    lib_sets = [(ids[:n].long(), rows[:n]) for ids, rows, n in sets]
+    work = table.clone()
+    library = cycling(lib_sets, lambda i, r: work.index_copy_(0, i, r))
+    lib_ms, lib_dev_ms = cuda_ms(library), graph_ms(library, TIMED_SETS)
+    row_bytes = 4 * (M + M * W + n_valid * W)   # ids, rows in, rows out
+    sweep_bytes = 4 * (2 * N * W + M + M * W + -(-N // SWEEP_BLOCK) + 1)
+    sweep_ms, _ = bound(sweep_bytes, 0)
+    timed = {
+        "row_scatter": (lambda i, r, n: ru.scatter_rows(work, i, r),
+                        lambda i, r, n: ru.scatter_rows_reference(work, i,
+                                                                  r)),
+        "row_sweep": (lambda i, r, n: ru.sweep_rows(work, i, r,
+                                                    SWEEP_BLOCK),
+                      lambda i, r, n: ru.sweep_rows_reference(
+                          work, i, r, SWEEP_BLOCK))}
+    out = {}
+    for name, (call, plain) in timed.items():
+        call, plain = cycling(sets, call), cycling(sets, plain)
+        ms, plain_ms = cuda_ms(call), cuda_ms(plain)
+        dev_ms = graph_ms(call, TIMED_SETS)
+        bound_ms, bound_by = bound(row_bytes, 0)
+        out[f"{name}/{shape['name']}"] = dict(
+            max_abs_err=errs[name], bit_identical=same[name], ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=row_bytes, N=N, W=W, M=M,
+            n_valid=n_valid, timed_sets=TIMED_SETS,
+            **({"sweep_bytes": sweep_bytes, "sweep_bytes_ms": sweep_ms}
+               if name == "row_sweep" else {}))
+        sweep = (f"; its own traffic, the table, {sweep_bytes / 1e6:.2f} MB "
+                 f"= {sweep_ms:.4f} ms" if name == "row_sweep" else "")
+        log(f"{'K5' if name == 'row_scatter' else 'K4'} {name} "
+            f"[{shape['name']}: N={N} W={W} M={M}, {n_valid:.1f} valid, "
+            f"{TIMED_SETS} fresh sets]: bit-identical to the plain version "
+            f"{same[name]} (max_abs_err {errs[name]:.3e}) | per call (CUDA "
+            f"events, launch included): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} ms | on the "
+            f"device (CUDA graph): kernel {dev_ms:.4f} ms, index_copy_ "
+            f"{lib_dev_ms:.4f} ms | the function's {row_bytes / 1e6:.2f} "
+            f"MB, bound {bound_ms:.4f} ms ({bound_by}){sweep} | {smi}")
+    log(f"row update [{shape['name']}]: index_copy_ on the valid prefix "
+        f"bit-identical {same['index_copy_']}, plain sweep "
+        f"{same['sweep plain']}")
+    del work
+    return out
+
+
+def path_resident_mb(model, opt):
+    """MB of device tensors a train path keeps between steps: parameters,
+    buffers, the gradients left in place, and the optimizer state."""
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    tensors = (list(model.parameters()) + list(model.buffers())
+               + [p.grad for p in model.parameters() if p.grad is not None])
+    adam = opt
+    if isinstance(opt, LazyAdamState):
+        tensors += list(opt.moments.values())
+        adam = opt.dense_opt
+    tensors += [t for st in adam.state.values() for t in st.values()
+                if torch.is_tensor(t) and t.is_cuda]
+    return sum(t.numel() * t.element_size() for t in tensors) / 1e6
+
+
+def train_lazy(smi):
+    """Phase 10: lazyadam at clsr.yaml widths with Taobao-sized tables,
+    compact rows against the legacy path, every kernel gate on; dense
+    Adam from the same weights timed in the same turns."""
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.ops import fused_attention as fa
+    from clsr_tpu_torch.ops import fused_scan as fs
+    from clsr_tpu_torch.ops import fused_train_attention as fta
+    from clsr_tpu_torch.ops import row_update as ru
+    from clsr_tpu_torch.training.lazy_adam import batch_table_ids
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_train_step
+
+    sizes = (USERS, ITEMS, CATES)
+    base = load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
+                       user_vocab="u", item_vocab="i", cate_vocab="c", seed=0,
+                       optimizer="lazyadam", use_pallas_train_attention="on",
+                       use_pallas_scan=True)
+    cfgs = {"compact": base.replace(compact_rows="auto"),
+            "legacy": base.replace(compact_rows="off"),
+            "dense": base.replace(optimizer="adam")}
+    counters = (fta.train_stats0, fta.train_stats1, fa.fused_eval_attention,
+                fs.fused_scan, ru.scatter_rows)
+    names = ("train_stats0", "train_stats1", "eval_scorer", "clsr_scan",
+             "row_scatter")
+    per_step = {"compact": (2, 2, 2, 1, 4), "legacy": (2, 2, 2, 1, 8),
+                "dense": (2, 2, 2, 1, 0)}
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    t0 = time.perf_counter()
+    models, states, steps = {}, {}, {}
+    for run, cfg in cfgs.items():
+        models[run] = get_model_class("clsr")(cfg, *sizes)
+        if run == "compact":
+            g = torch.Generator(device="cuda").manual_seed(6)
+            with torch.no_grad():      # weights and BN away from init
+                for p in models[run].parameters():
+                    p.add_(torch.randn(p.shape, generator=g,
+                                       device="cuda") * 0.1)
+        else:
+            models[run].load_state_dict(models["compact"].state_dict())
+        states[run] = create_train_state(models[run], cfg)
+        steps[run] = make_train_step(models[run], cfg)
+    batches = train_batches(11, 8, *sizes)
+    torch.cuda.synchronize()
+    log(f"train lazy: three models at clsr.yaml widths (lazyadam compact, "
+        f"lazyadam legacy, dense adam), built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- first batch: compact against legacy -----------------------------
+    table_names = ("item_embedding", "cate_embedding", "user_long_embedding",
+                   "user_short_embedding")
+    ids = batch_table_ids(batches[0])      # negatives come from positives
+    first = {}
+    for run in ("compact", "legacy"):
+        params = dict(models[run].named_parameters())
+        before = {n: (params[n].detach().clone(),
+                      states[run].optimizer.moments[n].clone())
+                  for n in table_names}
+        c0 = counts()
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        _, parts = steps[run](states[run], batches[0], gen)
+        torch.cuda.synchronize()
+        step_counts = tuple(a - b for a, b in zip(counts(), c0))
+        untouched_ok = True
+        for n in table_names:
+            touched = torch.zeros(params[n].shape[0], dtype=torch.bool,
+                                  device="cuda")
+            touched[ids[n].long()] = True
+            for now, was in ((params[n], before[n][0]),
+                             (states[run].optimizer.moments[n],
+                              before[n][1])):
+                changed = (now != was).any(dim=1)
+                untouched_ok &= not bool((changed & ~touched).any())
+        del before
+        first[run] = (parts, step_counts, untouched_ok)
+    (pc, cc, uc), (pl, cl, ul) = first["compact"], first["legacy"]
+    loss_err = max(abs(getattr(pc, f).item() - getattr(pl, f).item())
+                   / max(abs(getattr(pl, f).item()), 1e-30)
+                   for f in ("loss", "data_loss", "regular_loss",
+                             "contrastive_loss", "discrepancy_loss"))
+    pcm, plm = (dict(models[r].named_parameters())
+                for r in ("compact", "legacy"))
+    table_err = max((pcm[n] - plm[n]).abs().max().item() for n in table_names)
+    moment_err, synced = 0.0, True
+    for n in table_names:
+        D = pcm[n].shape[1]
+        mc = states["compact"].optimizer.moments[n]
+        moment_err = max(moment_err, (mc[:, D:] - states["legacy"].optimizer
+                                      .moments[n]).abs().max().item())
+        synced &= torch.equal(pcm[n], mc[:, :D])
+    del pcm, plm
+    log(f"train lazy first batch, compact vs legacy: loss parts max rel err "
+        f"{loss_err:.3e} (tol 1e-4), tables max abs err {table_err:.3e}, "
+        f"moments {moment_err:.3e} (tol 1e-5 abs: index_add_ and the dense "
+        f"embedding backward sum in run-dependent orders on the card) | "
+        f"untouched rows bit-identical: compact {uc}, legacy {ul} | tables "
+        f"== pmn[:, :D] after the sync {synced} | launches compact "
+        f"{dict(zip(names, cc))}, legacy {dict(zip(names, cl))} | loss "
+        f"{pc.loss.item():.6f} | {smi}")
+    if not (loss_err <= 1e-4 and table_err <= 1e-5 and moment_err <= 1e-5
+            and uc and ul and synced and cc == per_step["compact"]
+            and cl == per_step["legacy"]):
+        raise AssertionError("lazyadam: the compact path disagrees with the "
+                             "legacy path")
+
+    # ---- the main path: 10 compact steps in turns with 10 legacy ones ----
+    # (and 10 dense-Adam steps, after its own first step on batch 0)
+    steps["dense"](states["dense"], batches[0],
+                   torch.Generator(device="cuda").manual_seed(11))
+    torch.cuda.synchronize()
+    total_mb = torch.cuda.memory_allocated() / 1e6
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    timing = {run: dict(ms=[], losses=[], extra_mb=0.0) for run in cfgs}
+    for c in counters:
+        c.launches = 0
+    order = ("legacy", "compact", "dense")
+    for i, b in enumerate(batches[1:]):
+        for run in order[i % 3:] + order[:i % 3]:
+            before = counts()
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            torch.cuda.reset_peak_memory_stats()
+            base_mb = torch.cuda.memory_allocated() / 1e6
+            start.record()
+            _, parts = steps[run](states[run], b, gen)
+            end.record()
+            torch.cuda.synchronize()
+            t = timing[run]
+            t["ms"].append(start.elapsed_time(end))
+            t["losses"].append(parts.loss.item())
+            t["extra_mb"] = max(t["extra_mb"],
+                                torch.cuda.max_memory_allocated() / 1e6
+                                - base_mb)
+            step_counts = tuple(a - c for a, c in zip(counts(), before))
+            if step_counts != per_step[run]:
+                raise AssertionError(
+                    f"lazy {run} step {i}: launches "
+                    f"{dict(zip(names, step_counts))}, want "
+                    f"{dict(zip(names, per_step[run]))}")
+    main_counts = dict(zip(names, counts()))
+    for run, t in timing.items():
+        if not np.isfinite(t["losses"]).all():
+            raise AssertionError(f"lazy {run}: non-finite losses "
+                                 f"{t['losses']}")
+        t["median_ms"] = statistics.median(t["ms"])
+        t["examples_per_s"] = TRAIN_B / t["median_ms"] * 1e3
+        t["resident_mb"] = path_resident_mb(models[run],
+                                            states[run].optimizer)
+        t["peak_mb"] = t["resident_mb"] + t["extra_mb"]
+        log(f"train lazy[{run}]: {len(t['ms'])} steps | median step "
+            f"{t['median_ms']:.3f} ms (min {min(t['ms']):.3f}, max "
+            f"{max(t['ms']):.3f}), {t['examples_per_s']:,.0f} examples/s | "
+            f"resident {t['resident_mb']:.1f} MB between steps, peak "
+            f"{t['peak_mb']:.1f} MB for this path alone "
+            f"(+{t['extra_mb']:.1f} MB during a step; {total_mb:.1f} MB of "
+            f"the three paths allocated) | "
+            f"losses {t['losses'][0]:.5f} .. {t['losses'][-1]:.5f} | {smi}")
+    log(f"train lazy path: launches {main_counts}")
+    if min(main_counts.values()) <= 0:
+        raise AssertionError("a kernel never launched on the lazy train path")
+    out = dict(launches=main_counts, total_resident_mb=total_mb,
+               timing=timing, loss_rel_err=loss_err, table_err=table_err,
+               moment_err=moment_err, untouched_bit_identical=uc and ul)
+    out["profile"] = {run: profile_steps(steps[run], states[run],
+                                         batches[1:4], f"lazy {run}", smi)
+                      for run in cfgs}
+    return out
+
+
 def main():
     smi = card_check()
     sys.path.insert(0, ROOT)
@@ -864,10 +1291,16 @@ def main():
     k3 = check_k3(smi)
     scorer = check_train_scorer(smi)
     trained = train(smi)
-    serve_counts = {"eval_scorer": served["runs"]["k1"]["launches"]
-                    ["eval_scorer"],
-                    "clsr_scan": served["runs"]["k1k2"]["launches"]
-                    ["clsr_scan"]}
+    rows = check_row_update(smi)
+    lazy = train_lazy(smi)
+    launches = {
+        "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
+                  ["eval_scorer"],
+                  "clsr_scan": served["runs"]["k1k2"]["launches"]
+                  ["clsr_scan"]},
+        "train": trained["launches"],
+        "lazy_train": lazy["launches"],
+        "bench_row_update": rows["bench"]["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -877,32 +1310,41 @@ def main():
                          "clsr_tpu/ops/pallas_attention.py:429"),
         "train_stats1": ("clsr_tpu_torch/csrc/train_stats.cu",
                          "clsr_tpu/ops/pallas_attention.py:459"),
+        "row_scatter": ("clsr_tpu_torch/csrc/row_update.cu",
+                        "scripts/bench_pallas_update.py:239"),
+        "row_sweep": ("clsr_tpu_torch/csrc/row_update.cu",
+                      "scripts/bench_pallas_update.py:143"),
     }
     # K1 and K2 at the serving shapes of phases 3-4, K3a/K3b at the
-    # short-term train shape; the other shapes are in chip_smoke.json
+    # short-term train shape, K5 at the item-pmn shape of the compact
+    # update, K4 at the bench shape; the other shapes are in
+    # chip_smoke.json
     timed = {"eval_scorer": k1, "clsr_scan": k2,
              "train_stats0": k3["train_stats0/short"],
-             "train_stats1": k3["train_stats1/short"]}
+             "train_stats1": k3["train_stats1/short"],
+             "row_scatter": rows["row_scatter/item_pmn"],
+             "row_sweep": rows["row_sweep/bench"]}
     no_library = "no single PyTorch call computes this function"
     kernels = []
     for name, k in timed.items():
         source, replaces = meta[name]
-        by_path = {"train": trained["launches"][name]}
-        if name in serve_counts:
-            by_path["serve"] = serve_counts[name]
+        by_path = {path: counts[name] for path, counts in launches.items()
+                   if name in counts}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-            "library_note": no_library})
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+            "library_note": ("index_copy_ on the valid ids"
+                             if "library_ms" in k else no_library)})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build_s": build_s, "k1": k1, "k2": k2,
                    "serve": served, "k3": k3, "train_scorer": scorer,
-                   "train": trained}, f, indent=1)
+                   "train": trained, "row_update": rows,
+                   "train_lazy": lazy}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

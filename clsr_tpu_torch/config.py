@@ -50,7 +50,7 @@ _FLOAT_FIELDS = frozenset({
 _STR_FIELDS = frozenset({
     "method", "loss", "optimizer", "init_method", "model_type",
     "sequential_model", "contrastive_loss", "time_unit", "user_vocab",
-    "item_vocab", "cate_vocab",
+    "item_vocab", "cate_vocab", "compact_rows",
 })
 _LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation",
                           "dropout"})
@@ -140,6 +140,10 @@ class Config:
     use_pallas_train_attention: str = "off"  # K3a + K3b + K1 in train
                                              # mode: 'auto' = on for CUDA
                                              # tensors, 'on', 'off'
+    compact_rows: str = "auto"      # 'auto' | 'off': the compact row
+                                    # engine of lazyadam (one sorted
+                                    # gather and one row write per table
+                                    # per step, training/compact_rows.py)
     data_parallel: int = 1
     model_parallel: int = 1
 
@@ -201,6 +205,9 @@ class Config:
             if getattr(self, key) not in ("auto", "on", "off"):
                 raise ValueError(
                     f"{key} must be auto/on/off, got {getattr(self, key)}")
+        if self.compact_rows not in ("auto", "off"):
+            raise ValueError(
+                f"compact_rows must be auto/off, got {self.compact_rows}")
         if model == "clsr" and self.hidden_size != self.target_dim:
             # the alpha fusion adds att_fea_long (item+cate wide) to
             # att_fea_short (hidden wide), clsr.py:265

@@ -15,11 +15,14 @@ SequentialBaseModel, sequential_base_model.py:18-461):
     rows before dropout, and the supervised-attention label
     `attn_labels` (sequential_iterator.py:619,682).
 
-Subclasses implement `seq_graph(ctx, batch, train_kernel)` ->
-(model_output [B, G, D], aux).  Lookups are dense (`F.embedding`), so a
-table's gradient is dense, as `jax.grad` over the full table is.  Compact
-rows, int8 tables and a device mesh raise or wait for their ROADMAP
-items.
+Subclasses implement `seq_graph(ctx, batch, generator, train_kernel,
+compact)` -> (model_output [B, G, D], aux).  Lookups are dense
+(`F.embedding`), so a table's gradient is dense, as `jax.grad` over the
+full table is.  Under the compact row engine (training/compact_rows.py,
+`compact` = {table name: CompactRows}, JAX models/base.py:177-190) the
+lookups are the gathered rows' sites and the lazy L2 comes from them: no
+table `Parameter` is read.  int8 tables and a device mesh raise or wait
+for their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -144,25 +147,38 @@ class SequentialModelBase(nn.Module):
 
     def forward(self, batch: Batch,
                 generator: Optional[torch.Generator] = None,
-                train_kernel: Optional[bool] = None
+                train_kernel: Optional[bool] = None,
+                compact: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Logits [B, G] and the aux dict the losses read.  In train mode
         `generator` draws the dropout masks, and `train_kernel`, when
-        given, overrides cfg.use_pallas_train_attention."""
-        item_hist_emb = F.embedding(batch.item_hist, self.item_embedding)
-        cate_hist_emb = F.embedding(batch.cate_hist, self.cate_embedding)
-        target_emb = torch.cat(
-            [F.embedding(batch.items, self.item_embedding),
-             F.embedding(batch.cates, self.cate_embedding)], dim=-1)
+        given, overrides cfg.use_pallas_train_attention.  `compact` holds
+        the compact row engine's gathered rows by table name."""
+        if compact is not None:
+            # lookups and the lazy L2 from the gathered rows
+            cr_item = compact["item_embedding"]
+            cr_cate = compact["cate_embedding"]
+            item_hist_emb = cr_item.site("hist")
+            cate_hist_emb = cr_cate.site("hist")
+            target_emb = torch.cat([cr_item.site("targets"),
+                                    cr_cate.site("targets")], dim=-1)
+            embed_sumsq = cr_item.sumsq_unique() + cr_cate.sumsq_unique()
+        else:
+            item_hist_emb = F.embedding(batch.item_hist, self.item_embedding)
+            cate_hist_emb = F.embedding(batch.cate_hist, self.cate_embedding)
+            target_emb = torch.cat(
+                [F.embedding(batch.items, self.item_embedding),
+                 F.embedding(batch.cates, self.cate_embedding)], dim=-1)
         if self.training:
-            # lazy L2 bookkeeping BEFORE dropout, on raw table rows
-            involved_items = torch.cat([batch.item_hist.reshape(-1),
-                                        batch.items.reshape(-1)])
-            involved_cates = torch.cat([batch.cate_hist.reshape(-1),
-                                        batch.cates.reshape(-1)])
-            embed_sumsq = (
-                unique_rows_sumsq(self.item_embedding, involved_items)
-                + unique_rows_sumsq(self.cate_embedding, involved_cates))
+            if compact is None:
+                # lazy L2 bookkeeping BEFORE dropout, on raw table rows
+                involved_items = torch.cat([batch.item_hist.reshape(-1),
+                                            batch.items.reshape(-1)])
+                involved_cates = torch.cat([batch.cate_hist.reshape(-1),
+                                            batch.cates.reshape(-1)])
+                embed_sumsq = (
+                    unique_rows_sumsq(self.item_embedding, involved_items)
+                    + unique_rows_sumsq(self.cate_embedding, involved_cates))
             # fraction of the history sharing the target's category
             denom = batch.mask.sum(-1).clamp_min(1.0)
             same_cate = batch.cate_hist[:, None, :] == batch.cates[:, :, None]
@@ -174,7 +190,7 @@ class SequentialModelBase(nn.Module):
             target_emb=self.dropout(target_emb, generator),
         )
         model_output, aux = self.seq_graph(ctx, batch, generator,
-                                           train_kernel)
+                                           train_kernel, compact)
         logits = self.logit_fcn(model_output,
                                 generator=generator)[..., 0]    # [B, G]
         if self.training:
@@ -184,5 +200,6 @@ class SequentialModelBase(nn.Module):
 
     def seq_graph(self, ctx: EmbedContext, batch: Batch,
                   generator: Optional[torch.Generator],
-                  train_kernel: Optional[bool]):
+                  train_kernel: Optional[bool],
+                  compact: Optional[Dict[str, Any]] = None):
         raise NotImplementedError

@@ -22,7 +22,9 @@ clsr.py:20-455):
     (clsr.py:22-82): both interests, the masked history mean, the mean
     of the last contrastive_recent_k valid positions (reverse cumsum,
     clsr.py:173-177), seq_len, and the involved users' L2 and
-    discrepancy sums over unique rows.
+    discrepancy sums over unique rows;
+  * under the compact row engine, the user rows and those sums from the
+    gathered rows (`site("rows")`, `pair_stats`), no table read.
 
 Only the fused time4lstm encoder is ported; the unfused GRU/LSTM
 encoders (ops/rnn.py) wait for the model zoo slice.
@@ -86,14 +88,27 @@ class CLSRModel(SequentialModelBase):
 
     def seq_graph(self, ctx: EmbedContext, batch: Batch,
                   generator: Optional[torch.Generator] = None,
-                  train_kernel: Optional[bool] = None
+                  train_kernel: Optional[bool] = None,
+                  compact: Optional[Dict[str, Any]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         cfg = self.cfg
         B, G = batch.items.shape
-        user_long = self.dropout(
-            F.embedding(batch.users, self.user_long_embedding), generator)
-        user_short = self.dropout(
-            F.embedding(batch.users, self.user_short_embedding), generator)
+        if compact is not None:
+            # compact row engine: both user tables share one plan (the
+            # same ids), so the L2 and discrepancy statistics come from
+            # the gathered rows (clsr_tpu/models/clsr.py:69-82)
+            cr_l = compact["user_long_embedding"]
+            cr_s = compact["user_short_embedding"]
+            user_long, user_short = cr_l.site("rows"), cr_s.site("rows")
+            user_stats = cr_l.pair_stats(cr_s) if self.training else None
+        else:
+            user_long = F.embedding(batch.users, self.user_long_embedding)
+            user_short = F.embedding(batch.users, self.user_short_embedding)
+            user_stats = (unique_rows_stats(
+                self.user_long_embedding, self.user_short_embedding,
+                batch.users) if self.training else None)
+        user_long = self.dropout(user_long, generator)
+        user_short = self.dropout(user_short, generator)
         hist = ctx.hist_input                                   # [B, L, T]
         mask = batch.mask
 
@@ -135,14 +150,15 @@ class CLSRModel(SequentialModelBase):
         aux: Dict[str, Any] = {"alpha": alpha_out}
         if self.training:
             aux.update(self.train_aux(batch, hist, att_fea_long,
-                                      att_fea_short))
+                                      att_fea_short, user_stats))
         return model_output, aux
 
     def train_aux(self, batch: Batch, hist: torch.Tensor,
-                  att_fea_long: torch.Tensor, att_fea_short: torch.Tensor
-                  ) -> Dict[str, Any]:
+                  att_fea_long: torch.Tensor, att_fea_short: torch.Tensor,
+                  user_stats) -> Dict[str, Any]:
         """What the contrastive, discrepancy and L2 losses read
-        (clsr_tpu/models/clsr.py:91-123, 210-220)."""
+        (clsr_tpu/models/clsr.py:91-123, 210-220); `user_stats` are the
+        involved users' (sumsq long, sumsq short, sumsq diff, count)."""
         mask = batch.mask
         hist_mean = ((hist * mask[..., None]).sum(1)
                      / mask.sum(1, keepdim=True).clamp_min(1.0))
@@ -154,9 +170,7 @@ class CLSRModel(SequentialModelBase):
         hist_recent = ((hist * recent[..., None]).sum(1)
                        / recent.sum(1, keepdim=True).clamp_min(1.0))
         # involved-user L2 + discrepancy (clsr.py:73-82, 118-127)
-        sumsq_l, sumsq_s, sumsq_diff, n_elems = unique_rows_stats(
-            self.user_long_embedding, self.user_short_embedding,
-            batch.users)
+        sumsq_l, sumsq_s, sumsq_diff, n_elems = user_stats
         return {
             "att_fea_long": att_fea_long,           # [B, T]
             "att_fea_short": att_fea_short,         # [B, G, H]

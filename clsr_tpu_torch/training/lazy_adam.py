@@ -1,0 +1,253 @@
+"""Lazy (sparse) Adam for embedding tables, single device.
+
+Counterpart of clsr_tpu/training/lazy_adam.py (the reference's
+`optimizer: lazyadam`, base_model.py:275-276, tf.contrib.opt's
+LazyAdamOptimizer): the Adam moments of a table are updated only on the
+rows the batch touched, with the bias correction of the global step count
+(t = count + 1).  The non-table parameters take per-tensor clip and dense
+Adam (`torch.optim.Adam`, the JAX package's `dense_tx`, :129-132).
+
+Two layouts of a table's optimizer rows, told apart by width:
+
+  * split [N, 2D] = mu | nu, the legacy path (`compact_rows: off`):
+    `table_update` gathers the dense table gradient at the batch's sorted
+    ids (duplicates included; they compute identical rows), clips it by
+    the norm over the UNIQUE rows, and writes the param rows and the
+    moment rows: two scatter-sets per table;
+  * pmn [N, 3D] = param | mu | nu, the compact row engine
+    (training/compact_rows.py): the forward's one sorted gather brings
+    the moments along, `compact_table_update` sums the w-space gradient
+    over the sorted runs (`index_add_` into [Mc, D], Mc = min(M, N)),
+    clips it by its norm, and writes ONE scatter-set per table.  The
+    table `Parameter`s are then a copy of pmn[:, :D] that
+    steps.sync_params_from_opt refreshes after each step.
+
+Every scatter-set is `row_update.scatter_rows` (K5), in place.  The
+mesh-sharded updates of the JAX package (:194-259, :324-666) wait for
+ROADMAP queue 1, parallel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from clsr_tpu_torch.config import Config
+from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.ops.row_update import scatter_rows
+from clsr_tpu_torch.training.compact_rows import Plan, supported_tables
+from clsr_tpu_torch.training.optimizer import (build_optimizer,
+                                               clip_by_norm_each)
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def is_table(name: str) -> bool:
+    return name.rpartition(".")[2].endswith("_embedding")
+
+
+def batch_table_ids(batch: Batch) -> Dict[str, torch.Tensor]:
+    """Row ids each known embedding table can be touched by (the JAX
+    package's NCF gmf/mlp tables wait for the model zoo)."""
+    items = torch.cat([batch.item_hist.reshape(-1), batch.items.reshape(-1)])
+    cates = torch.cat([batch.cate_hist.reshape(-1), batch.cates.reshape(-1)])
+    return {
+        "item_embedding": items,
+        "cate_embedding": cates,
+        "user_embedding": batch.users,
+        "user_long_embedding": batch.users,
+        "user_short_embedding": batch.users,
+    }
+
+
+@dataclasses.dataclass
+class LazyAdamState:
+    """Per-table optimizer rows {table parameter name: [N, 2D] or [N, 3D]
+    f32}, the step count, and the dense Adam over the other parameters.
+    `route_overflow` is the JAX state's counter of the mesh owner-routed
+    merge; it stays 0 on a single device and is kept so that state
+    carries over."""
+
+    moments: Dict[str, torch.Tensor]
+    count: int
+    dense_opt: torch.optim.Optimizer
+    route_overflow: int = 0
+
+
+def is_pmn(param: torch.Tensor, mn: torch.Tensor) -> bool:
+    """True if `mn` uses the fused param|mu|nu layout for `param`."""
+    return mn.shape[1] == 3 * param.shape[1]
+
+
+def fused_tables_enabled(cfg: Config, model: nn.Module) -> bool:
+    """The pmn layout applies exactly when the compact row engine runs:
+    lazyadam, compact_rows != off, every table site-mapped."""
+    return (cfg.optimizer == "lazyadam" and cfg.compact_rows != "off"
+            and supported_tables(model) is not None)
+
+
+def _split(model: nn.Module):
+    tables, dense = {}, {}
+    for name, p in model.named_parameters():
+        (tables if is_table(name) else dense)[name] = p
+    return tables, dense
+
+
+def _bias_corrections(t: int) -> Tuple[float, float]:
+    """(1 - b1^t, 1 - b2^t) rounded as f32 arithmetic rounds them."""
+    f = np.float32
+    return (float(f(1.0) - f(B1) ** f(t)), float(f(1.0) - f(B2) ** f(t)))
+
+
+def _adam_rows(p_old, mv, g, t, lr):
+    """New param rows and moments from old rows, [mu | nu] and gradients."""
+    D = p_old.shape[1]
+    bc1, bc2 = _bias_corrections(t)
+    m_new = B1 * mv[:, :D] + (1.0 - B1) * g
+    v_new = B2 * mv[:, D:] + (1.0 - B2) * g * g
+    step = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS)
+    return p_old - step, m_new, v_new
+
+
+class LazyAdam:
+    """init / update of the lazy optimizer for one config (the JAX
+    package's `make_lazy_optimizer`)."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.lr = cfg.learning_rate
+        self.max_norm = cfg.max_grad_norm if cfg.is_clip_norm else 0.0
+
+    def init(self, model: nn.Module) -> LazyAdamState:
+        """Moments of zeros (with the table in front under pmn); moments
+        are f32 whatever the table's type."""
+        tables, dense = _split(model)
+        fused = fused_tables_enabled(self.cfg, model)
+
+        def init_rows(v):
+            zeros = torch.zeros(v.shape[0], 2 * v.shape[1],
+                                dtype=torch.float32, device=v.device)
+            if fused:
+                return torch.cat([v.detach().float(), zeros], dim=-1)
+            return zeros
+
+        return LazyAdamState(
+            moments={n: init_rows(v) for n, v in tables.items()}, count=0,
+            dense_opt=build_optimizer(self.cfg, list(dense.values())))
+
+    def _clip_scale(self, sumsq):
+        if self.max_norm <= 0.0:
+            return 1.0
+        norm = torch.sqrt(sumsq)
+        return torch.where(norm > self.max_norm, self.max_norm / norm,
+                           torch.ones_like(norm))
+
+    @torch.no_grad()
+    def table_update(self, param: torch.Tensor, grad_dense: torch.Tensor,
+                     mn: torch.Tensor, ids: torch.Tensor, t: int) -> None:
+        """Legacy path (JAX :167-192): param and mn rows at the sorted ids,
+        in place, two K5 scatter-sets."""
+        D = param.shape[1]
+        off = D if is_pmn(param, mn) else 0
+        ids = torch.sort(ids.reshape(-1).to(torch.int32)).values
+        first = torch.ones_like(ids, dtype=torch.bool)
+        first[1:] = ids[1:] != ids[:-1]
+        g = grad_dense.index_select(0, ids).float()
+        g = g * self._clip_scale(((g * g).sum(-1) * first).sum())
+        mv = mn.index_select(0, ids)
+        p_old = mv[:, :D] if off else param.index_select(0, ids).float()
+        new_rows, m_new, v_new = _adam_rows(p_old, mv[:, off:], g, t,
+                                            self.lr)
+        parts = ([new_rows] if off else []) + [m_new, v_new]
+        scatter_rows(param.data, ids, new_rows.to(param.dtype))
+        scatter_rows(mn, ids, torch.cat(parts, dim=-1))
+
+    @torch.no_grad()
+    def compact_table_update(self, param: torch.Tensor, w: torch.Tensor,
+                             gw: torch.Tensor, mn: torch.Tensor, plan: Plan,
+                             t: int) -> None:
+        """Row update from the compact w-space gradient (JAX :261-322), in
+        place.  `w` is [M, 3D] param|mu|nu under pmn (the moments ride the
+        forward gather; one K5 scatter-set into mn, `param` untouched
+        until the sync) or the [M, D] forward gather under the split
+        layout (one moment gather; K5 into param and into mn).  The runs
+        are capped at Mc = min(M, N): a table has at most N distinct rows.
+        Targets past the nseg valid runs are N + i, which K5 drops."""
+        N, D = param.shape
+        fused = w.shape[1] == 3 * D
+        M = plan.sorted_ids.shape[0]
+        Mc = min(M, N)
+        g = torch.zeros(Mc, D, dtype=torch.float32, device=gw.device)
+        g.index_add_(0, plan.seg, gw.float())
+        nseg = plan.seg[-1] + 1
+        ar = torch.arange(Mc, dtype=torch.int32, device=gw.device)
+        valid = ar < nseg
+        g = g * self._clip_scale((g * g).sum())     # rows >= nseg are zero
+        sel = torch.clamp(plan.idx_first[:Mc], max=M - 1)
+        uid = plan.sorted_ids.index_select(0, sel)
+        vf = valid[:, None].float()
+        if fused:
+            rows_first = w.index_select(0, sel)
+            p_old = rows_first[:, :D]
+            mv = rows_first[:, D:] * vf
+        else:
+            safe = torch.where(valid, uid, torch.zeros_like(uid))
+            mv = mn.index_select(0, safe) * vf
+            p_old = w.index_select(0, sel).float()
+        new_rows, m_new, v_new = _adam_rows(p_old, mv, g, t, self.lr)
+        tgt = torch.where(valid, uid, N + ar)
+        if fused:
+            scatter_rows(mn, tgt, torch.cat([new_rows, m_new, v_new], -1))
+            return
+        scatter_rows(param.data, tgt, new_rows.to(param.dtype))
+        scatter_rows(mn, tgt, torch.cat([m_new, v_new], -1))
+
+    def _finish(self, model: nn.Module, state: LazyAdamState,
+                per_table: Callable[[str, torch.Tensor, torch.Tensor, int],
+                                    None]) -> None:
+        """The shared tail (JAX :608-631): every table's row update, then
+        per-tensor clip and dense Adam over the other parameters, each
+        under its `train_step.<phase>` profiler range."""
+        tables, dense = _split(model)
+        state.count += 1
+        with record_function("train_step.row_update"):
+            for name, param in tables.items():
+                per_table(name, param, state.moments[name], state.count)
+        if self.cfg.is_clip_norm:
+            with record_function("train_step.clip"):
+                clip_by_norm_each([p.grad for p in dense.values()
+                                   if p.grad is not None],
+                                  self.cfg.max_grad_norm)
+        with record_function("train_step.adam"):
+            state.dense_opt.step()
+
+    def compact_update(self, model: nn.Module, state: LazyAdamState,
+                       gws: Dict[str, torch.Tensor],
+                       plans: Dict[str, Plan], ws: Dict[str, torch.Tensor],
+                       table_names: Dict[str, str]) -> None:
+        """Compact table updates and dense Adam (JAX :668-680): `gws` and
+        `ws` by table name (dL/dw [M, D] and the gathered rows)."""
+        def per_table(path, param, mn, t):
+            name = table_names[path]
+            self.compact_table_update(param, ws[name], gws[name], mn,
+                                      plans[name], t)
+        self._finish(model, state, per_table)
+
+    def update(self, model: nn.Module, state: LazyAdamState,
+               table_ids: Dict[str, torch.Tensor]) -> None:
+        """Legacy lazy update from the tables' dense gradients (JAX
+        :682-702, single device); the tables' .grad is released after."""
+        def per_table(path, param, mn, t):
+            name = path.rpartition(".")[2]
+            ids = table_ids.get(name)
+            if ids is None:
+                raise ValueError(
+                    f"lazyadam: no touched-row mapping for table {name}")
+            self.table_update(param, param.grad, mn, ids, t)
+            param.grad = None
+        self._finish(model, state, per_table)

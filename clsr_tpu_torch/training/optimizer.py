@@ -7,8 +7,10 @@ not `clip_grad_norm_`) before the optimizer applies it.  Adam follows
 optax's math (b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
 correction), which `torch.optim.Adam` computes too; its foreach path
 updates every tensor in a few launches.  Adam is no Pallas kernel in the
-JAX package, so the port keeps PyTorch's.  The other optimizers of the
-JAX package wait for their ROADMAP item and raise.
+JAX package, so the port keeps PyTorch's.  Under lazyadam the same Adam
+takes the non-table parameters (training/lazy_adam.py updates the
+tables).  The other optimizers of the JAX package wait for their
+ROADMAP item and raise.
 """
 
 from __future__ import annotations
@@ -33,15 +35,12 @@ def clip_by_norm_each(grads: Iterable[torch.Tensor],
 
 def build_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
                     ) -> torch.optim.Optimizer:
-    """Adam with optax's defaults; every other name raises."""
+    """Adam with optax's defaults (for lazyadam, the dense part over the
+    parameters given); every other name raises."""
     name = cfg.optimizer
-    if name == "adam":
+    if name in ("adam", "lazyadam"):
         return torch.optim.Adam(params, lr=cfg.learning_rate,
                                 betas=(0.9, 0.999), eps=1e-8, foreach=True)
-    if name == "lazyadam":
-        raise NotImplementedError(
-            "optimizer lazyadam waits for ROADMAP queue 1, LazyAdam and the "
-            "compact row engine")
     raise NotImplementedError(
         f"optimizer {name} waits for ROADMAP queue 1, the other optimizers "
-        f"(adam is ported)")
+        f"(adam and lazyadam are ported)")

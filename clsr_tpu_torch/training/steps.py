@@ -1,17 +1,33 @@
 """The train and eval steps.
 
 Counterpart of clsr_tpu/training/steps.py.  The train step
-(`make_train_step_fn`, :24-226, its dense single-device branch
-:167-219) is: on-device in-batch negatives, the train-mode forward
-(dropout, batch-statistics BN and its running-average update), the
-four-part loss, backward, the per-tensor clip, Adam.  The port runs it
-eagerly on the model's device and updates the state in place.  With
-use_pallas_train_attention on, both target-attention layers run K3a,
-K3b and K1; with use_pallas_scan, the recurrence runs K2 forward and
-recomputes through the plain recurrence in the backward.  Each phase
-runs under a `torch.profiler.record_function` range named
-`train_step.<phase>` (negatives, forward, backward, clip, adam), which
-costs nothing measurable unless a profiler is recording.
+(`make_train_step_fn`, :24-226; the single-device branches) is: on-device
+in-batch negatives, the train-mode forward (dropout, batch-statistics BN
+and its running-average update), the four-part loss, backward, then the
+optimizer:
+
+  * `adam` (:210-219): per-tensor clip and dense Adam over every
+    parameter;
+  * `lazyadam` with `compact_rows: auto`, the compact row engine
+    (`compact_step`, :58-129): one sorted gather per table (of the pmn
+    param|mu|nu rows, so the moments ride along), the model's lookups
+    from those rows, the backward in w space, and training/lazy_adam.py's
+    row update, one K5 scatter-set per table; the table `Parameter`s get
+    no gradient;
+  * `lazyadam` with `compact_rows: off`, the legacy lazy path (:210-215):
+    dense table gradients, then the lazy update at the batch's ids, two
+    K5 scatter-sets per table.
+
+The port runs the step eagerly on the model's device and updates the
+state in place.  With use_pallas_train_attention on, both target-attention
+layers run K3a, K3b and K1; with use_pallas_scan, the recurrence runs K2
+forward and recomputes through the plain recurrence in the backward.
+Each phase runs under a `torch.profiler.record_function` range named
+`train_step.<phase>` (negatives, forward, backward, row_update, clip,
+adam), which costs nothing measurable unless a profiler is recording.
+`make_train_step` adds `sync_params_from_opt` after each step
+(:229-264): under pmn the tables are refreshed from pmn[:, :D], so eval,
+serving and `weights.to_flax` read the updated rows.
 
 The eval step (:331-364): BN running statistics, no dropout
 (base_model.py:366-392); preds = sigmoid(logit) for classification
@@ -28,6 +44,11 @@ from torch.profiler import record_function
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
+                                                  make_context,
+                                                  supported_tables)
+from clsr_tpu_torch.training.lazy_adam import (LazyAdam, LazyAdamState,
+                                               batch_table_ids, is_pmn)
 from clsr_tpu_torch.training.losses import LossParts, total_loss
 from clsr_tpu_torch.training.negative_sampling import expand_with_negatives
 from clsr_tpu_torch.training.optimizer import clip_by_norm_each
@@ -45,34 +66,67 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
     False the batch's own candidates are used.  `allow_pallas` gates the
     fused train scorer; None defers to cfg.use_pallas_train_attention
     ('auto' = on for CUDA tensors).  After the step each parameter's
-    `.grad` holds its clipped gradient."""
-    if cfg.optimizer == "lazyadam":
-        raise NotImplementedError(
-            "optimizer lazyadam (and its compact row engine) waits for "
-            "ROADMAP queue 1, LazyAdam and the compact row engine")
+    `.grad` holds its clipped gradient, except the tables under
+    lazyadam, which hold none."""
     if cfg.data_parallel * cfg.model_parallel > 1:
         raise NotImplementedError(
             "a device mesh waits for ROADMAP queue 1, parallel")
     num_ngs = cfg.train_num_ngs
+    lazy = LazyAdam(cfg) if cfg.optimizer == "lazyadam" else None
+    table_names = (supported_tables(model)
+                   if lazy is not None and cfg.compact_rows != "off"
+                   else None)
+
+    def forward_backward(batch, generator, compact=None):
+        with record_function("train_step.forward"):
+            logits, aux = model(batch, generator=generator,
+                                train_kernel=allow_pallas, compact=compact)
+            parts = total_loss(cfg, logits, aux, batch, model)
+        model.zero_grad(set_to_none=True)
+        with record_function("train_step.backward"):
+            parts.loss.backward()
+        return parts
+
+    def compact_step(state: TrainState, batch: Batch,
+                     generator: torch.Generator) -> LossParts:
+        """The compact row engine: the gathered rows w are leaves of the
+        graph, their .grad is dL/dw, and no table Parameter is read."""
+        opt = state.optimizer
+        tables = {n: p for n, p in model.named_parameters()
+                  if n in table_names}
+        plans = build_plans(table_names, batch)
+        fused = all(is_pmn(p, opt.moments[n]) for n, p in tables.items())
+        ws_full = gather_ws({n: opt.moments[n] for n in tables} if fused
+                            else tables, table_names, plans)
+        ws = {table_names[n]: (ws_full[table_names[n]][:, :p.shape[1]]
+                               .contiguous() if fused
+                               else ws_full[table_names[n]]
+                               ).requires_grad_()
+              for n, p in tables.items()}
+        parts = forward_backward(batch, generator, make_context(plans, ws))
+        lazy.compact_update(model, opt, {k: w.grad for k, w in ws.items()},
+                            plans, ws_full if fused else ws, table_names)
+        return parts
 
     def step(state: TrainState, batch: Batch, generator: torch.Generator):
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
                 batch = expand_with_negatives(generator, batch, num_ngs)
         model.train()
-        with record_function("train_step.forward"):
-            logits, aux = model(batch, generator=generator,
-                                train_kernel=allow_pallas)
-            parts = total_loss(cfg, logits, aux, batch, model)
-        state.optimizer.zero_grad(set_to_none=True)
-        with record_function("train_step.backward"):
-            parts.loss.backward()
-        if cfg.is_clip_norm:
-            with record_function("train_step.clip"):
-                clip_by_norm_each([p.grad for p in model.parameters()
-                                   if p.grad is not None], cfg.max_grad_norm)
-        with record_function("train_step.adam"):
-            state.optimizer.step()
+        if table_names is not None:
+            parts = compact_step(state, batch, generator)
+        else:
+            parts = forward_backward(batch, generator)
+            if lazy is not None:
+                lazy.update(model, state.optimizer, batch_table_ids(batch))
+            else:
+                if cfg.is_clip_norm:
+                    with record_function("train_step.clip"):
+                        clip_by_norm_each([p.grad for p in model.parameters()
+                                           if p.grad is not None],
+                                          cfg.max_grad_norm)
+                with record_function("train_step.adam"):
+                    state.optimizer.step()
         state.step += 1
         return state, LossParts(**{f.name: getattr(parts, f.name).detach()
                                    for f in dataclasses.fields(parts)})
@@ -80,10 +134,32 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
     return step
 
 
+@torch.no_grad()
+def sync_params_from_opt(state: TrainState) -> TrainState:
+    """Refresh the table Parameters from pmn rows (param = pmn[:, :D]);
+    a no-op for every other optimizer or layout."""
+    opt = state.optimizer
+    if not isinstance(opt, LazyAdamState):
+        return state
+    params = dict(state.model.named_parameters())
+    for name, mn in opt.moments.items():
+        p = params[name]
+        if is_pmn(p, mn):
+            p.copy_(mn[:, :p.shape[1]])
+    return state
+
+
 def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable[
         [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
-    """The train step with the config's kernel gates."""
-    return make_train_step_fn(model, cfg)
+    """The train step with the config's kernel gates, the table
+    Parameters synced from the optimizer rows after each step."""
+    raw = make_train_step_fn(model, cfg)
+
+    def step(state, batch, generator):
+        state, parts = raw(state, batch, generator)
+        return sync_params_from_opt(state), parts
+
+    return step
 
 
 def make_eval_step_fn(cfg: Config) -> Callable[

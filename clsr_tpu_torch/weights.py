@@ -14,6 +14,11 @@ JAX, so two ways in:
   * `to_flax(module)` is the inverse: (params, batch_stats) as nested
     dicts of numpy arrays under the flax names, so a test can compare
     the port's state with the JAX package's by flax path.
+  * `opt_from_flax(state, moments, count, dense_mu, dense_nu)` and
+    `opt_to_flax(state)` carry a JAX `LazyAdamState` across: the table
+    moment rows (pmn [N, 3D] or split [N, 2D], keyed by flax table path),
+    the step count and, going in, the dense Adam moments by flax name,
+    so that the port can continue from JAX's state after step k.
   * `save` / `load` of the port's own `state_dict`.
 """
 
@@ -95,6 +100,64 @@ def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
             node = node.setdefault(key, {})
         node[leaf] = (value.t() if transpose else value).numpy().copy()
     return trees["params"], trees["batch_stats"]
+
+
+@torch.no_grad()
+def opt_from_flax(state, moments: Mapping, count: int,
+                  dense_mu: Optional[Mapping] = None,
+                  dense_nu: Optional[Mapping] = None) -> None:
+    """Load a JAX LazyAdamState into the port's lazyadam `state` (a
+    training.state.TrainState): the moment arrays replace the port's
+    (their layout with them), `count` sets the step count, and the dense
+    Adam moments, when given, become torch.optim.Adam's state at step
+    `count` (optax's flattened Adam keeps one count for all)."""
+    opt = state.optimizer
+    params = dict(state.model.named_parameters())
+    given = flatten_tree(moments)
+    if set(given) != set(opt.moments):
+        raise ValueError(f"moment tables {sorted(given)} do not match the "
+                         f"port's {sorted(opt.moments)}")
+    for name, value in given.items():
+        p = params[name]
+        if value.shape[0] != p.shape[0] or value.shape[1] not in (
+                2 * p.shape[1], 3 * p.shape[1]):
+            raise ValueError(f"moments of {name} have shape {value.shape}, "
+                             f"table {tuple(p.shape)}")
+        opt.moments[name] = torch.from_numpy(
+            np.array(value, dtype=np.float32)).to(p.device)
+    opt.count = int(count)
+    state.step = int(count)
+    if dense_mu is None:
+        return
+    mus, nus = flatten_tree(dense_mu), flatten_tree(dense_nu)
+    mapping = flax_names(state.model)
+    names = {id(p): n for n, p in params.items()}
+    adam = opt.dense_opt
+    for group in adam.param_groups:
+        for p in group["params"]:
+            _, flax, transpose = mapping[names[id(p)]]
+            mu, nu = (torch.from_numpy(np.array(t[flax], dtype=np.float32))
+                      for t in (mus, nus))
+            if transpose:
+                mu, nu = mu.t(), nu.t()
+            adam.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu.to(p.device).contiguous(),
+                "exp_avg_sq": nu.to(p.device).contiguous()}
+
+
+def opt_to_flax(state) -> Tuple[Dict, int]:
+    """(moments, count) of the port's lazyadam `state`: the moment rows as
+    nested flax-named dicts of numpy arrays, in the port's layout."""
+    opt = state.optimizer
+    trees: Dict = {}
+    for name, mn in opt.moments.items():
+        node = trees
+        *parents, leaf = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = mn.detach().cpu().numpy().copy()
+    return trees, opt.count
 
 
 def save(module: nn.Module, path: str) -> None:

@@ -130,6 +130,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
     code = ("import sys\n"
             "import clsr_tpu_torch.serving, clsr_tpu_torch.weights\n"
             "import clsr_tpu_torch.training.steps\n"
+            "import clsr_tpu_torch.training.lazy_adam\n"
+            "import clsr_tpu_torch.training.compact_rows\n"
+            "import clsr_tpu_torch.bench_row_update\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))\n")

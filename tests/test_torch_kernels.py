@@ -15,7 +15,11 @@ one train step at clsr.yaml widths on small tables, kernel path against
 plain path: loss parts to 1e-4 relative, gradients to 1e-4 of each
 gradient's max abs (1e-6 abs more for the biases whose gradient is zero
 up to rounding), BN running statistics to 1e-5, and the launch counts
-K3a 2, K3b 2, K1 2, K2 1.  TF32 is off on both sides.
+K3a 2, K3b 2, K1 2, K2 1; K5 (row scatter) and K4 (row sweep) bit-equal
+to their plain version (they only copy) at a small shape, at a ragged
+one (W not a multiple of 4, a partial last slab) and with the legacy
+path's duplicate ids, each with a dropped tail of ids >= N.  TF32 is off
+on both sides.
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from clsr_tpu_torch.data.vocab import Vocab
 from clsr_tpu_torch.ops import fused_attention as fa
 from clsr_tpu_torch.ops import fused_scan as fs
 from clsr_tpu_torch.ops import fused_train_attention as fta
+from clsr_tpu_torch.ops import row_update as ru
 from clsr_tpu_torch.ops.initializers import get_initializer
 from clsr_tpu_torch.ops.mlp import FcnNet
 from clsr_tpu_torch.data.batch import Batch
@@ -226,3 +231,72 @@ def test_train_step_kernel_path_matches_plain(cuda):
         assert (gk[n] - g).abs().max().item() <= tol, n
     for n, b in bp.items():
         torch.testing.assert_close(bk[n], b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("N, W, M, block, dup", [
+    (1000, 40, 300, 128, False),      # 16-byte copies, 8 slabs
+    (1003, 7, 250, 100, False),       # scalar copies, last slab of 3 rows
+    (1000, 96, 400, 256, True),       # duplicate ids with equal rows
+])
+def test_row_update_kernels_match_plain(cuda, N, W, M, block, dup):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    table = torch.randn(N, W, generator=g, device=cuda)
+    n_tail = 5
+    if dup:
+        valid = torch.randint(0, N, (M - n_tail,), generator=g, device=cuda)
+    else:
+        valid = torch.randperm(N, generator=g, device=cuda)[:M - n_tail]
+    ids = torch.cat([torch.sort(valid).values,
+                     N + torch.arange(n_tail, device=cuda)]).to(torch.int32)
+    rows = torch.randn(M, W, generator=g, device=cuda)
+    if dup:
+        rows[:M - n_tail] = table[ids[:M - n_tail].long()] * 0.5 + 1.0
+    want = ru.scatter_rows_reference(table.clone(), ids, rows)
+    assert torch.equal(ru.sweep_rows_reference(table.clone(), ids, rows,
+                                               block), want)
+    for fn in (ru.scatter_rows,
+               lambda t, i, r: ru.sweep_rows(t, i, r, block)):
+        counter = ru.scatter_rows if fn is ru.scatter_rows else ru.sweep_rows
+        before = counter.launches
+        got = fn(table.clone(), ids, rows)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert torch.equal(got, want)
+
+
+def test_lazy_train_step_compact_matches_legacy(cuda):
+    """One lazyadam step at clsr.yaml widths on small tables with every
+    kernel on: compact rows against the legacy path, K5 launched 4 and 8
+    times, updated tables and moments within 1e-5 (index_add_ and the
+    dense embedding backward sum in other orders on the card)."""
+    n_users, n_items, n_cates = 1000, 5000, 50
+    base = load_config(f"{CONFIG_DIR}/clsr.yaml", user_vocab="u",
+                       item_vocab="i", cate_vocab="c", seed=0,
+                       optimizer="lazyadam", use_pallas_train_attention="on",
+                       use_pallas_scan=True)
+    runs = {}
+    for mode in ("auto", "off"):
+        cfg = base.replace(compact_rows=mode)
+        model = get_model_class("clsr")(cfg, n_users, n_items, n_cates)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, cfg)
+        batch = _train_batch(cuda, np.random.RandomState(0), 64, 50,
+                             n_users, n_items, n_cates)
+        ru.scatter_rows.launches = 0
+        _, parts = step(state, batch, torch.Generator(cuda).manual_seed(3))
+        torch.cuda.synchronize()
+        assert ru.scatter_rows.launches == (4 if mode == "auto" else 8)
+        runs[mode] = (parts, {n: p.detach() for n, p in
+                              model.named_parameters()},
+                      state.optimizer.moments)
+    (pa, ta, ma), (pb, tb, mb) = runs["auto"], runs["off"]
+    for f in ("loss", "data_loss", "regular_loss", "contrastive_loss",
+              "discrepancy_loss"):
+        a, b = getattr(pa, f).item(), getattr(pb, f).item()
+        assert abs(a - b) <= 1e-4 * abs(b) + 1e-7, (f, a, b)
+    for name in mb:
+        D = tb[name].shape[1]
+        torch.testing.assert_close(ta[name], tb[name], rtol=0, atol=1e-5)
+        torch.testing.assert_close(ma[name][:, D:], mb[name], rtol=0,
+                                   atol=1e-5)
+        assert torch.equal(ma[name][:, :D], ta[name])

@@ -80,13 +80,18 @@ def test_train_mode_and_unported_settings_raise():
     cfg = port_cfg(small_jax_cfg())
     model = get_model_class("clsr")(cfg, N_USERS, N_ITEMS, N_CATES,
                                     device="cpu")
-    for name in ("lazyadam", "adagrad", "rmsprop"):
+    for name in ("ftrl", "adagrad", "rmsprop"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_train_state(model, cfg.replace(optimizer=name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step_fn(model, cfg.replace(optimizer="lazyadam"))
+    # lazyadam is ported: its state holds the tables' moment rows
+    lazy = create_train_state(model, cfg.replace(optimizer="lazyadam"))
+    assert sorted(lazy.optimizer.moments) == sorted(
+        n for n, _ in model.named_parameters() if n.endswith("_embedding"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step_fn(model, cfg.replace(data_parallel=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step_fn(model, cfg.replace(optimizer="lazyadam",
+                                              data_parallel=2))
     for bad in (dict(data_parallel=2), dict(use_fused_encoders=False),
                 dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,0 +1,93 @@
+"""The row-update wrappers (K5 `scatter_rows`, K4 `sweep_rows`) against JAX.
+
+On CPU tensors each wrapper computes its plain version; both must equal
+the JAX scatter-set of the LazyAdam update,
+`jnp.asarray(table).at[ids].set(rows, mode="drop",
+indices_are_sorted=True, unique_indices=True)`, exactly (they only copy):
+unique ids, an out-of-range tail (the compact update's dropped targets
+N + i), duplicate ids with equal rows (the legacy path; JAX is then told
+only that the ids are sorted), an empty id vector, and ids in the last,
+partial slab of the sweep.  No launch is counted on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clsr_tpu_torch.ops import row_update as ru
+
+N, W = 37, 6
+
+
+def _case(name, rng):
+    table = rng.randn(N, W).astype(np.float32)
+    if name == "unique":
+        ids = np.sort(rng.choice(N, 12, replace=False))
+    elif name == "dropped_tail":
+        valid = np.sort(rng.choice(N, 9, replace=False))
+        ids = np.concatenate([valid, N + np.arange(4)])
+    elif name == "duplicates":
+        ids = np.sort(rng.randint(0, N, 15))
+    elif name == "empty":
+        ids = np.zeros(0, np.int64)
+    elif name == "last_slab":
+        ids = np.array([0, 5, N - 3, N - 1, N, N + 2])
+    else:
+        raise ValueError(name)
+    ids = ids.astype(np.int32)
+    rows = rng.randn(len(ids), W).astype(np.float32)
+    if name == "duplicates":
+        rows = table[ids] * 0.5 + 1.0      # equal rows for equal ids
+    return table, ids, rows
+
+
+CASES = ("unique", "dropped_tail", "duplicates", "empty", "last_slab")
+
+
+def _jax_set(table, ids, rows, unique):
+    out = jnp.asarray(table).at[jnp.asarray(ids)].set(
+        jnp.asarray(rows), mode="drop", indices_are_sorted=True,
+        unique_indices=unique)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("kernel", ["scatter", "sweep"])
+def test_row_update_matches_jax_scatter_set(case, kernel):
+    table, ids, rows = _case(case, np.random.RandomState(CASES.index(case)))
+    want = _jax_set(table, ids, rows, unique=case != "duplicates")
+    got = torch.from_numpy(table.copy())
+    counter = ru.scatter_rows if kernel == "scatter" else ru.sweep_rows
+    before = counter.launches
+    if kernel == "scatter":
+        out = ru.scatter_rows(got, torch.from_numpy(ids),
+                              torch.from_numpy(rows))
+    else:      # 8-row slabs: the last one (rows 32..36) is partial
+        out = ru.sweep_rows(got, torch.from_numpy(ids),
+                            torch.from_numpy(rows), block=8)
+    assert out is got                        # in place
+    assert counter.launches == before        # the plain version, no kernel
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_slab_starts_segments_the_sorted_ids():
+    ids = torch.tensor([-1, 0, 3, 8, 8, 15, 16, 40, 41], dtype=torch.int32)
+    starts = ru.slab_starts(ids, 41, 8)     # 6 slabs, the last of one row
+    assert starts.dtype == torch.int32
+    # slab b holds ids[starts[b]:starts[b + 1]]; -1 precedes slab 0 and
+    # 41 (>= N) falls in slab 5's segment, where the id check drops it
+    assert starts.tolist() == [1, 3, 6, 7, 7, 7, 9]
+
+
+def test_row_update_checks_its_arguments():
+    table = torch.zeros(5, 4)
+    rows = torch.ones(2, 4)
+    with pytest.raises(TypeError):
+        ru.scatter_rows(table, torch.tensor([0, 1]), rows)      # int64 ids
+    with pytest.raises(ValueError):
+        ru.scatter_rows(table, torch.tensor([0, 1], dtype=torch.int32),
+                        torch.ones(2, 3))
+    with pytest.raises(ValueError):
+        ru.sweep_rows(table, torch.tensor([0, 1], dtype=torch.int32), rows,
+                      block=0)
