@@ -59,12 +59,17 @@ Phases, each fatal on failure:
      item-pmn shape (N=4,162,026, W=96, Mc=22,000 ending in dropped ids
      >= N): bit-identical (the kernels only copy), and index_copy_ on the
      valid ids too; kernel, plain, index_copy_ and bound times, each
-     timed call on fresh ids and rows (the bound is the function's bytes
-     for both kernels; K4's table traffic is printed beside it).  K5
-     also at the other widths of the lazy paths' launches (cate and user
+     timed call on fresh ids and rows (the bound is the function's
+     bytes), and the host us per call of the K5/K4 wrappers and of
+     index_copy_ (per call and host: medians of 5 rounds in turns).  K5
+     also at the other widths of the lazy paths' entries (cate and user
      pmn, the legacy split layout with duplicate ids), bit-identical.
-     Then the bench entry point `clsr_tpu_torch.bench_row_update` (K4's
-     path) at 10 applications x 3 calls, the counts set to 0 before it;
+     Then the compact step's K5 group at Taobao sizes (item, cate and two
+     user pmn entries, and with the four param entries beside them) in
+     one launch against the same entries by index_copy_: bit-identical,
+     per call, on the device and on the host.  Then the bench entry point
+     `clsr_tpu_torch.bench_row_update` (K4's path) at 10 applications x
+     3 calls, the counts set to 0 before it;
  10. lazyadam training at the clsr.yaml widths with the Taobao-sized
      tables and every kernel gate of phase 8: the first batch with the
      compact row engine (compact_rows auto, pmn layout) and with the
@@ -73,10 +78,11 @@ Phases, each fatal on failure:
      1e-5 abs (index_add_ and the dense embedding backward sum in
      run-dependent orders on the card), rows no batch id touches
      bit-identical to before, the table Parameters equal to pmn[:, :D]
-     after the sync.  Then 10 compact steps in turns with 10 legacy
-     steps and 10 dense-Adam steps from the same weights, the counts
-     read around each: K5 4 per compact step, 8 per legacy step and none
-     per dense step, K3a 2, K3b 2, K1 2, K2 1; finite losses; per path
+     after the step (the update writes them; no sync).  Then 10 compact
+     steps in turns with 10 legacy steps and 10 dense-Adam steps from
+     the same weights, the counts read around each: K5 1 per lazy step,
+     compact and legacy, and none per dense step, K3a 2, K3b 2, K1 2,
+     K2 1; finite losses; per path
      the median step ms, examples/s, device memory kept between steps
      and its peak, and torch.profiler over three steps (host ms of
      `train_step.row_update`).  In phase 9, K4/K5 and index_copy_ are
@@ -974,6 +980,132 @@ def cycling(sets, fn):
     return lambda: fn(*next(turn))
 
 
+def host_us(fn, calls=200):
+    """Host us per call of fn: the time to issue `calls` calls back to
+    back (the device runs them behind), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+TURNS = 5     # rounds of the per-call and host timings, taken in turns
+
+
+def in_turns(calls):
+    """Per call ms (CUDA events, launch included) and host us per call of
+    each of `calls`, medians of TURNS rounds in turns, the order rotating
+    each round: the host's speed drifts within a run."""
+    names = list(calls)
+    ms, us = ({k: [] for k in names} for _ in range(2))
+    for r in range(TURNS):
+        for k in names[r % len(names):] + names[:r % len(names)]:
+            ms[k].append(cuda_ms(calls[k]))
+            us[k].append(host_us(calls[k]))
+    return ({k: statistics.median(v) for k, v in ms.items()},
+            {k: statistics.median(v) for k, v in us.items()})
+
+
+# the compact step's K5 group at B = 400 with Taobao-sized tables: the pmn
+# rows of the item, cate and two user tables; the step launches them with
+# each table's param rows (same ids, the first D columns) beside them
+STEP_TABLES = (ITEM_PMN_SHAPE, K5_PATH_SHAPES[0], K5_PATH_SHAPES[1],
+               dict(K5_PATH_SHAPES[1], name="user_short_pmn"))
+
+
+def check_step_group(smi):
+    """The compact step's group, the four pmn entries alone ("pmn") and
+    with the four param entries ("pmn+params", what the step launches):
+    K5 in one launch bit-identical to its plain version and to the same
+    entries by index_copy_, then per call, on the device (CUDA graph)
+    and on the host, each call on the next of TIMED_SETS fresh id and
+    row sets."""
+    from clsr_tpu_torch.ops import row_update as ru
+    g = torch.Generator(device="cuda").manual_seed(42)
+    tables = [(torch.randn(s["N"], s["W"], generator=g, device="cuda"),
+               torch.randn(s["N"], s["W"] // 3, generator=g, device="cuda"))
+              for s in STEP_TABLES]
+
+    def draw(with_params):
+        """[(table, ids, rows, n_valid)] of one step's group."""
+        entries = []
+        for (pmn, param), shape in zip(tables, STEP_TABLES):
+            ids, rows, n = row_update_ids(shape, g)
+            entries.append((pmn, ids, rows, n))
+            if with_params:
+                entries.append((param, ids,
+                                rows[:, :param.shape[1]].contiguous(), n))
+        return entries
+
+    out = {}
+    for name, with_params in (("pmn", False), ("pmn+params", True)):
+        group = draw(with_params)
+        work = {id(t): t.clone() for t, _, _, _ in group}
+
+        def run(fn, entries):
+            """Clones of the group's tables after fn on them."""
+            copies = {id(t): t.clone() for t, _, _, _ in entries}
+            fn([(copies[id(t)], i, r, n) for t, i, r, n in entries])
+            return copies
+
+        lib = lambda es: [t.index_copy_(0, i[:n].long(), r[:n])
+                          for t, i, r, n in es]
+        want = run(lambda es: ru.scatter_rows_group_reference(
+            [(t, i, r) for t, i, r, _ in es]), group)
+        got = {"K5": run(lambda es: ru.scatter_rows_group(
+                   [(t, i, r) for t, i, r, _ in es]), group),
+               "index_copy_": run(lib, group)}
+        torch.cuda.synchronize()
+        same = {k: all(torch.equal(v[key], want[key]) for key in want)
+                for k, v in got.items()}
+        del got, want
+        sets = [[(work[id(t)], i, r, n) for t, i, r, n in
+                 (group if k == 0 else draw(with_params))]
+                for k in range(TIMED_SETS)]
+        lib_sets = [[(t, i[:n].long(), r[:n]) for t, i, r, n in es]
+                    for es in sets]
+        calls = {
+            "K5": cycling([(es,) for es in sets], lambda es:
+                          ru.scatter_rows_group(
+                              [(t, i, r) for t, i, r, _ in es])),
+            "index_copy_": cycling([(es,) for es in lib_sets], lambda es: [
+                t.index_copy_(0, i, r) for t, i, r in es])}
+        n_bytes = sum(4 * (i.numel() + r.numel() + n * r.shape[1])
+                      for _, i, r, n in group)
+        bound_ms, bound_by = bound(n_bytes, 0)
+        per_call, host = in_turns(calls)
+        res = {k: dict(ms=per_call[k], device_ms=graph_ms(c, TIMED_SETS),
+                       host_us=host[k]) for k, c in calls.items()}
+        out[f"step_group/{name}"] = dict(
+            entries=len(group), bit_identical=same, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=n_bytes, timed_sets=TIMED_SETS, **res)
+        log(f"K5 step group [{name}: {len(group)} entries, "
+            f"{', '.join(s['name'] for s in STEP_TABLES)}; {TIMED_SETS} "
+            f"fresh sets]: bit-identical to the plain version: K5 "
+            f"{same['K5']}, index_copy_ {same['index_copy_']} | per call "
+            f"(CUDA events, median of {TURNS} in turns): "
+            + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in res.items())
+            + " | on the device (CUDA graph): "
+            + ", ".join(f"{k} {v['device_ms']:.4f} ms" for k, v in
+                        res.items())
+            + " | host per call (medians): "
+            + ", ".join(f"{k} {v['host_us']:.2f} us" for k, v in res.items())
+            + f" | the function's {n_bytes / 1e6:.2f} MB, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) | {smi}")
+        if not all(same.values()):
+            raise AssertionError(f"step group [{name}] differs from its "
+                                 f"plain version: {same}")
+        del sets, lib_sets, work
+        torch.cuda.empty_cache()
+    del tables
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_row_update(smi):
     """Phase 9: K5 and K4 bit-identical to their plain version (and to
     index_copy_) at the bench and item-pmn shapes, with kernel, plain,
@@ -1019,6 +1151,7 @@ def check_row_update(smi):
                                  f"its plain version: {errs}")
         del table, rows
         torch.cuda.empty_cache()
+    out.update(check_step_group(smi))
     # K4's path (and K5's second): the bench entry point
     ru.scatter_rows.launches = ru.sweep_rows.launches = 0
     bench = bench_row_update.main(["--reps", "10", "--calls", "3"])
@@ -1035,12 +1168,12 @@ def check_row_update(smi):
 
 
 def time_row_update(shape, table, errs, same, smi):
-    """K5, K4, their plain versions and index_copy_ per call (CUDA events)
-    and on the device (a CUDA graph of one call per set), each call on
-    the next of TIMED_SETS fresh (ids, rows) drawn before the timing.  The bound of
-    both kernels is the function's bytes: the ids, the rows read, the
-    valid rows written.  K4's own traffic, the whole table read and
-    written, is reported beside it as its design figure."""
+    """K5, K4, their plain versions and index_copy_ per call
+    (CUDA events) and on the host (medians of TURNS rounds in turns), and
+    on the device (a CUDA graph of one call per set), each call on the
+    next of TIMED_SETS fresh (ids, rows) drawn before the timing.  The
+    bound of both kernels is the function's bytes: the ids, the rows
+    read, the valid rows written."""
     from clsr_tpu_torch.ops import row_update as ru
     g = torch.Generator(device="cuda").manual_seed(41)
     sets = [row_update_ids(shape, g) for _ in range(TIMED_SETS)]
@@ -1049,44 +1182,49 @@ def time_row_update(shape, table, errs, same, smi):
     n_valid = statistics.mean(n for _, _, n in sets)
     lib_sets = [(ids[:n].long(), rows[:n]) for ids, rows, n in sets]
     work = table.clone()
-    library = cycling(lib_sets, lambda i, r: work.index_copy_(0, i, r))
-    lib_ms, lib_dev_ms = cuda_ms(library), graph_ms(library, TIMED_SETS)
     row_bytes = 4 * (M + M * W + n_valid * W)   # ids, rows in, rows out
-    sweep_bytes = 4 * (2 * N * W + M + M * W + -(-N // SWEEP_BLOCK) + 1)
-    sweep_ms, _ = bound(sweep_bytes, 0)
-    timed = {
-        "row_scatter": (lambda i, r, n: ru.scatter_rows(work, i, r),
-                        lambda i, r, n: ru.scatter_rows_reference(work, i,
-                                                                  r)),
-        "row_sweep": (lambda i, r, n: ru.sweep_rows(work, i, r,
-                                                    SWEEP_BLOCK),
-                      lambda i, r, n: ru.sweep_rows_reference(
-                          work, i, r, SWEEP_BLOCK))}
+    plain_ms = cuda_ms(cycling(sets, lambda i, r, n:
+                               ru.scatter_rows_reference(work, i, r)))
+    sweep_plain_ms = cuda_ms(cycling(sets, lambda i, r, n:
+                                     ru.sweep_rows_reference(work, i, r,
+                                                             SWEEP_BLOCK)))
+    calls = {
+        "index_copy_": cycling(lib_sets, lambda i, r:
+                               work.index_copy_(0, i, r)),
+        "row_scatter": cycling(sets, lambda i, r, n:
+                               ru.scatter_rows(work, i, r)),
+        "row_sweep": cycling(sets, lambda i, r, n:
+                             ru.sweep_rows(work, i, r, SWEEP_BLOCK))}
+    per_call, host = in_turns(calls)
+    device = {k: graph_ms(c, TIMED_SETS) for k, c in calls.items()}
+    lib_ms, lib_dev_ms, lib_host = (per_call["index_copy_"],
+                                    device["index_copy_"],
+                                    host["index_copy_"])
+    bound_ms, bound_by = bound(row_bytes, 0)
     out = {}
-    for name, (call, plain) in timed.items():
-        call, plain = cycling(sets, call), cycling(sets, plain)
-        ms, plain_ms = cuda_ms(call), cuda_ms(plain)
-        dev_ms = graph_ms(call, TIMED_SETS)
-        bound_ms, bound_by = bound(row_bytes, 0)
+    for name in ("row_scatter", "row_sweep"):
+        ms, dev_ms, call_us = per_call[name], device[name], host[name]
+        plain = sweep_plain_ms if name == "row_sweep" else plain_ms
         out[f"{name}/{shape['name']}"] = dict(
             max_abs_err=errs[name], bit_identical=same[name], ms=ms,
-            device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-            bound_by=bound_by, bytes=row_bytes, N=N, W=W, M=M,
-            n_valid=n_valid, timed_sets=TIMED_SETS,
-            **({"sweep_bytes": sweep_bytes, "sweep_bytes_ms": sweep_ms}
-               if name == "row_sweep" else {}))
-        sweep = (f"; its own traffic, the table, {sweep_bytes / 1e6:.2f} MB "
-                 f"= {sweep_ms:.4f} ms" if name == "row_sweep" else "")
-        log(f"{'K5' if name == 'row_scatter' else 'K4'} {name} "
+            device_ms=dev_ms, host_us=call_us, plain_ms=plain,
+            library_ms=lib_ms, library_device_ms=lib_dev_ms,
+            library_host_us=lib_host, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=row_bytes, N=N, W=W, M=M, n_valid=n_valid,
+            timed_sets=TIMED_SETS, turns=TURNS)
+        log(f"{'K4' if name == 'row_sweep' else 'K5'} {name} "
             f"[{shape['name']}: N={N} W={W} M={M}, {n_valid:.1f} valid, "
             f"{TIMED_SETS} fresh sets]: bit-identical to the plain version "
             f"{same[name]} (max_abs_err {errs[name]:.3e}) | per call (CUDA "
-            f"events, launch included): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, index_copy_ {lib_ms:.4f} ms | on the "
-            f"device (CUDA graph): kernel {dev_ms:.4f} ms, index_copy_ "
-            f"{lib_dev_ms:.4f} ms | the function's {row_bytes / 1e6:.2f} "
-            f"MB, bound {bound_ms:.4f} ms ({bound_by}){sweep} | {smi}")
+            f"events, launch included, median of {TURNS} in turns): "
+            f"kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, index_copy_ {lib_ms:.4f} ms | on the "
+            f"device (CUDA graph): kernel {dev_ms:.4f} ms "
+            f"({100 * bound_ms / dev_ms:.1f}% of bound), index_copy_ "
+            f"{lib_dev_ms:.4f} ms | host per call: wrapper {call_us:.2f} "
+            f"us, index_copy_ {lib_host:.2f} us (medians) | the function's "
+            f"{row_bytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms "
+            f"({bound_by}) | {smi}")
     log(f"row update [{shape['name']}]: index_copy_ on the valid prefix "
         f"bit-identical {same['index_copy_']}, plain sweep "
         f"{same['sweep plain']}")
@@ -1135,7 +1273,7 @@ def train_lazy(smi):
                 fs.fused_scan, ru.scatter_rows)
     names = ("train_stats0", "train_stats1", "eval_scorer", "clsr_scan",
              "row_scatter")
-    per_step = {"compact": (2, 2, 2, 1, 4), "legacy": (2, 2, 2, 1, 8),
+    per_step = {"compact": (2, 2, 2, 1, 1), "legacy": (2, 2, 2, 1, 1),
                 "dense": (2, 2, 2, 1, 0)}
 
     def counts():
@@ -1209,7 +1347,7 @@ def train_lazy(smi):
         f"moments {moment_err:.3e} (tol 1e-5 abs: index_add_ and the dense "
         f"embedding backward sum in run-dependent orders on the card) | "
         f"untouched rows bit-identical: compact {uc}, legacy {ul} | tables "
-        f"== pmn[:, :D] after the sync {synced} | launches compact "
+        f"== pmn[:, :D] after the step {synced} | launches compact "
         f"{dict(zip(names, cc))}, legacy {dict(zip(names, cl))} | loss "
         f"{pc.loss.item():.6f} | {smi}")
     if not (loss_err <= 1e-4 and table_err <= 1e-5 and moment_err <= 1e-5

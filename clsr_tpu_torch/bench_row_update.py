@@ -11,9 +11,10 @@ kernel beats the framework's row ops at the compact engine's shapes
   torch-set     table.index_copy_(0, ids, rows): one PyTorch call that
                 computes the same function (the script's xla-set)
   torch-gather  table.index_select(0, ids) (the script's xla-gather)
-  sweep         K4, row_update.sweep_rows: every slab of the table
-                streamed through, the slab's updated rows written
-  rowdma        K5, row_update.scatter_rows: one row copy per id
+  sweep         K4, row_update.sweep_rows: one block per slab of the
+                table finds the slab's ids and writes their rows
+  rowdma        K5, row_update.scatter_rows: the rows' 16-byte units
+                spread over threads
 
 Each call applies R fresh id sets in a row (CUDA events around the call;
 the ids are drawn before the timing), and a variant prints the median

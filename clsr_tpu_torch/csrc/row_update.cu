@@ -1,5 +1,5 @@
-// K5 (row scatter) and K4 (row sweep): set sorted rows of an [N, W] f32
-// table, CUDA C++ for sm_90a.
+// K5 (row scatter, grouped) and K4 (row sweep): set sorted rows of [N, W]
+// f32 tables, CUDA C++ for sm_90a.
 //
 // Both compute one function, the last write of the LazyAdam row update
 // (clsr_tpu/training/lazy_adam.py:191-192, 315-322):
@@ -9,143 +9,315 @@
 // and drop every other id (the `mode="drop"` of the JAX scatter-set).  The
 // ids are sorted; on the compact path they are unique, and on the legacy
 // path duplicates carry identical rows, so whichever write lands is right.
+// Both are bound by the function's bytes: the ids, the rows read, the
+// valid rows written (18.8 MB, 5.6 us at 3.35 TB/s, for 58,000 rows of
+// 40; at a train step's row counts a launch and one DRAM round trip).
 //
-// K5, clsr_row_scatter, replaces scripts/bench_pallas_update.py:
-// rowdma_kernel (one DMA per updated row, straight to HBM).  It does O(M)
-// work: a group of `tpr` threads (a warp, or a fraction of one for narrow
-// rows) copies one row, 16 bytes a thread when W % 4 == 0.  It is bound by
-// bytes: M row reads plus M row writes (5.6 us for 58,000 rows of 40 at
-// 3.35 TB/s); at the train step's row counts it is latency-bound, a few
-// microseconds of launch and one DRAM round trip.  No host sync: the ids
-// past the valid prefix (>= N) are dropped here, so the caller never needs
-// the number of valid rows on the host.
+// K5, clsr_row_scatter_group, replaces scripts/bench_pallas_update.py:
+// rowdma_kernel (one DMA per updated row, straight to HBM).  One launch
+// serves up to kMaxEntries (table, ids, rows) entries, passed by value as
+// a __grid_constant__ kernel parameter: no host-to-device copy, no sync.
+// The host gives each entry its first block from the entries' shapes; a
+// block finds its entry by scanning those offsets.  Inside an entry the
+// flattened (row, 16-byte unit) space maps onto threads, so no lane idles
+// whatever W is, and each thread issues the loads of kUnitsVec units (ids
+// and rows) before its first store.  Entries whose W % 4 != 0 or whose
+// bases are not 16-byte aligned take 4-byte units in the same kernel.  (A
+// Hopper bulk-copy design, one cp.async.bulk of a block's rows into shared
+// memory, then one bulk store per row, was measured beside it and was no
+// faster on the card: PERF.md.)  Ids past the valid prefix (>= N) are
+// dropped here, so the caller never needs the valid count on the host.
 //
 // K4, clsr_row_sweep, replaces scripts/bench_pallas_update.py:kernel (the
-// streaming sweep: each grid step copies a [BLOCK, D] table slab through
-// VMEM and overwrites the rows whose ids fall in it).  One block owns a
-// slab of `block` table rows: it copies the whole slab from tin to tout,
-// then (after __syncthreads, so the copy lands first) writes the rows whose
-// ids fall in the slab.  The slab's segment of ids, starts[b] ..
-// starts[b+1], comes from a searchsorted in the wrapper, as the TPU script
-// computes its segment starts outside the kernel.  No two blocks touch one
-// row.  Its bound is K5's, the function's own bytes, but it moves the whole
-// table (O(N): 160 MB at 500,000 x 40, ~51 us at the H100's HBM rate, nine
-// times those bytes), so the update path uses K5.  tin may equal tout (in
-// place).
+// streaming sweep: each grid step moves a [BLOCK, D] table slab through
+// VMEM and overwrites the rows whose ids fall in it).  On Hopper the table
+// stays in HBM: one block owns a slab of `block` table rows, finds its
+// segment [lower_bound(b * block), lower_bound((b + 1) * block)) of the
+// sorted ids itself by a 256-ary search (two rounds of parallel loads for
+// up to 65,536 ids), exits at once if the segment is empty, and moves the
+// segment's rows with K5's flattened copy.  No two blocks touch one row,
+// and only the rows move, in place.  The search's rounds are dependent
+// loads, so each block first asks L2 for its share of the ids' and rows'
+// lines: the rounds and the copy then read L2.  Dense slabs (the bench:
+// 245 slabs for 58,000 rows) take blocks of 1,024 threads, two an SM, so
+// all are in flight and each copies its rows in about one pass; sparse
+// slabs (the item table: 2,033 slabs for 22,000 rows) take blocks of 128,
+// sixteen an SM, so all 2,033 are resident at once.
 
+#include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // K5
+constexpr int kSparseThreads = 128;  // K4 on sparse slabs: 16 blocks an SM
+constexpr int kWideThreads = 1024;   // K4 on dense slabs: 2 blocks an SM
+constexpr int kSamples = 256;        // K4's search samples per round
+constexpr int kMaxEntries = 16;      // entries of one grouped launch
+constexpr int kUnitsVec = 4;         // 16-byte units in flight a thread
+constexpr int kUnitsScalar = 8;      // 4-byte units in flight a thread
 
-// Copy rows[j] to table[ids[j]] for j in [j0, j1), group by group: `group`
-// is this thread's group index, `groups` the number of groups, `lane` its
-// place in the group of `tpr` threads.
-template <bool kVec>
-__device__ __forceinline__ void copy_rows(float* table, int N, int W,
-                                          const int* __restrict__ ids,
-                                          const float* __restrict__ rows,
-                                          long long j0, long long j1,
-                                          int group, int groups, int lane,
-                                          int tpr) {
-  for (long long j = j0 + group; j < j1; j += groups) {
-    const int id = ids[j];
-    if (id < 0 || id >= N) continue;
-    if (kVec) {
-      const int n4 = W / 4;
-      const float4* src = reinterpret_cast<const float4*>(rows + j * W);
-      float4* dst = reinterpret_cast<float4*>(table + (size_t)id * W);
-      for (int k = lane; k < n4; k += tpr) dst[k] = src[k];
-    } else {
-      const float* src = rows + j * W;
-      float* dst = table + (size_t)id * W;
-      for (int k = lane; k < W; k += tpr) dst[k] = src[k];
+template <bool kVec> struct Unit {
+  using T = float;
+  static constexpr int kPerThread = kUnitsScalar;
+};
+template <> struct Unit<true> {
+  using T = float4;
+  static constexpr int kPerThread = kUnitsVec;
+};
+
+// Copy units [u0, u1) of the flattened (row j, unit c) space of `rows`
+// ([M, n] units) to unit c of table row ids[j], dropping ids outside
+// [0, N).  Thread t of kT takes u0 + t, u0 + t + kT, ...: it loads its
+// kPerThread ids and row units, then stores them.
+template <bool kVec, int kT>
+__device__ __forceinline__ void copy_units(float* __restrict__ table, int N,
+                                           unsigned n,
+                                           const int* __restrict__ ids,
+                                           const float* __restrict__ rows,
+                                           unsigned u0, unsigned u1) {
+  using T = typename Unit<kVec>::T;
+  constexpr int U = Unit<kVec>::kPerThread;
+  const T* src = reinterpret_cast<const T*>(rows);
+  T* dst = reinterpret_cast<T*>(table);
+  for (unsigned base = u0 + threadIdx.x; base < u1; base += U * kT) {
+    T v[U];
+    long long to[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const unsigned u = base + k * kT;
+      to[k] = -1;
+      if (u < u1) {
+        const unsigned j = u / n;
+        const int id = __ldg(ids + j);
+        v[k] = __ldcs(src + u);
+        if (id >= 0 && id < N) to[k] = (long long)id * n + (u - j * n);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      if (to[k] >= 0) dst[to[k]] = v[k];
+  }
+}
+
+struct Entry {
+  float* table;
+  const int* ids;
+  const float* rows;
+  int N, W, M;
+  int vec;  // 16-byte units: W % 4 == 0 and aligned bases
+};
+
+struct Group {
+  Entry e[kMaxEntries];
+  int first[kMaxEntries + 1];  // first block of each entry, then the grid
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    row_scatter_group_kernel(const __grid_constant__ Group g) {
+  int e = 0;
+  for (int k = 1; k < g.count; ++k)
+    if ((int)blockIdx.x >= g.first[k]) e = k;
+  const Entry& t = g.e[e];
+  const unsigned lb = blockIdx.x - g.first[e];
+  const unsigned n = t.vec ? t.W / 4 : t.W;
+  const unsigned span = kThreads * (t.vec ? kUnitsVec : kUnitsScalar);
+  const unsigned total = (unsigned)t.M * n;
+  const unsigned u0 = lb * span;
+  const unsigned u1 = total - u0 < span ? total : u0 + span;
+  if (t.vec)
+    copy_units<true, kThreads>(t.table, t.N, n, t.ids, t.rows, u0, u1);
+  else
+    copy_units<false, kThreads>(t.table, t.N, n, t.ids, t.rows, u0, u1);
+}
+
+// s0 = the first j with ids[j] >= x0, s1 = the first with ids[j] >= x1:
+// two lower bounds found together.  Each round the block loads kSamples
+// evenly spaced samples of each open interval (kSamples / kT a thread, all
+// in flight at once), __syncthreads_count counts the samples below the
+// bound (a prefix: the ids are sorted), and the interval shrinks to under
+// 1/kSamples of itself: two rounds for up to 65,536 ids.  Every thread
+// ends with the same s0, s1.
+template <int kT>
+__device__ __forceinline__ void segment(const int* __restrict__ ids, int M,
+                                        long long x0, long long x1,
+                                        int& s0, int& s1) {
+  constexpr int kS = kSamples > kT ? kSamples / kT : 1;
+  constexpr int kN = kT * kS;
+  int lo[2] = {0, 0}, hi[2] = {M, M};
+  const long long x[2] = {x0, x1};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    int step[2], c[2] = {0, 0};
+    bool below[2][kS];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      step[i] = (hi[i] - lo[i] + kN - 1) / kN;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        const long long p =
+            lo[i] + (long long)(threadIdx.x + k * kT) * step[i];
+        below[i][k] = p < hi[i] && __ldg(ids + p) < x[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < kS; ++k) c[i] += __syncthreads_count(below[i][k]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (lo[i] >= hi[i]) continue;
+      const long long cap = lo[i] + (long long)c[i] * step[i];
+      const int next_lo = c[i] ? lo[i] + (c[i] - 1) * step[i] + 1 : lo[i];
+      hi[i] = cap < hi[i] ? (int)cap : hi[i];
+      lo[i] = next_lo;
     }
   }
+  s0 = lo[0];
+  s1 = lo[1];
 }
 
-template <bool kVec>
-__global__ void row_scatter_kernel(float* table, int N, int W,
-                                   const int* __restrict__ ids, int M,
-                                   const float* __restrict__ rows, int tpr) {
-  const int groups = kThreads / tpr;
-  const int group = threadIdx.x / tpr;
-  const int lane = threadIdx.x % tpr;
-  const long long j0 = (long long)blockIdx.x * groups;
-  const long long j1 = j0 + groups < M ? j0 + groups : M;
-  copy_rows<kVec>(table, N, W, ids, rows, j0, j1, group, groups, lane, tpr);
-}
-
-template <bool kVec>
-__global__ void row_sweep_kernel(const float* tin, float* tout, int N, int W,
-                                 const int* __restrict__ ids,
-                                 const int* __restrict__ starts,
-                                 const float* __restrict__ rows, int block,
-                                 int tpr) {
-  const int b = blockIdx.x;
-  const long long lo = (long long)b * block;
-  const long long hi = lo + block < N ? lo + block : N;
-  // 1. stream the slab through: every row of it read and written
-  if (kVec) {
-    const float4* src = reinterpret_cast<const float4*>(tin + lo * W);
-    float4* dst = reinterpret_cast<float4*>(tout + lo * W);
-    const long long n4 = (hi - lo) * W / 4;
-    for (long long k = threadIdx.x; k < n4; k += kThreads) dst[k] = src[k];
-  } else {
-    const long long n = (hi - lo) * W;
-    for (long long k = threadIdx.x; k < n; k += kThreads)
-      tout[lo * W + k] = tin[lo * W + k];
+// Ask L2 for this block's share of the 128-byte lines of ids and rows
+// (`row_floats` floats), so that the searches and the copy find them
+// there: the rows are read once either way, now while the block searches.
+template <int kT>
+__device__ __forceinline__ void prefetch_share(const int* ids, int M,
+                                               const float* rows,
+                                               long long row_floats) {
+  const long long id_lines = ((long long)M + 31) / 32;
+  const long long lines = id_lines + (row_floats + 31) / 32;
+  const long long end = lines * (blockIdx.x + 1) / gridDim.x;
+  for (long long l = lines * blockIdx.x / gridDim.x + threadIdx.x; l < end;
+       l += kT) {
+    const void* p = l < id_lines ? (const void*)(ids + 32 * l)
+                                 : (const void*)(rows + 32 * (l - id_lines));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
   }
-  __syncthreads();
-  // 2. the updated rows whose ids fall in this slab
-  copy_rows<kVec>(tout, N, W, ids, rows, starts[b], starts[b + 1],
-                  threadIdx.x / tpr, kThreads / tpr, threadIdx.x % tpr, tpr);
 }
 
-// Threads per row: enough for one row's 16-byte (or 4-byte) units, a power
-// of two up to a warp.
-int threads_per_row(int W, int vec) {
-  const int units = vec ? W / 4 : W;
-  int tpr = 1;
-  while (tpr < units && tpr < 32) tpr *= 2;
-  return tpr;
+template <bool kVec, int kT>
+__global__ void __launch_bounds__(kT, kT == kWideThreads ? 2 : 16)
+    row_sweep_kernel(float* table, int N, unsigned n,
+                     const int* __restrict__ ids, int M,
+                     const float* __restrict__ rows, int block) {
+  prefetch_share<kT>(ids, M, rows, (long long)M * n * (kVec ? 4 : 1));
+  const long long lo = (long long)blockIdx.x * block;
+  int s0, s1;
+  segment<kT>(ids, M, lo, lo + block, s0, s1);
+  if (s0 < s1)
+    copy_units<kVec, kT>(table, N, n, ids, rows, (unsigned)s0 * n,
+                         (unsigned)s1 * n);
+}
+
+template <bool kVec>
+void launch_sweep(bool wide, unsigned grid, cudaStream_t s, float* table,
+                  int N, unsigned n, const int* ids, int M, const float* rows,
+                  int block) {
+  if (wide)
+    row_sweep_kernel<kVec, kWideThreads><<<grid, kWideThreads, 0, s>>>(
+        table, N, n, ids, M, rows, block);
+  else
+    row_sweep_kernel<kVec, kSparseThreads><<<grid, kSparseThreads, 0, s>>>(
+        table, N, n, ids, M, rows, block);
+}
+
+// Runs on device `device`, switched to and back only when it is not the
+// current one; returns the launch's cudaError_t.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  launch();
+  const int rc = (int)cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return rc;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+T* as_ptr(long long v) {
+  return reinterpret_cast<T*>(static_cast<intptr_t>(v));
 }
 
 }  // namespace
 
-extern "C" int clsr_row_scatter(float* table, int N, int W, const int* ids,
-                                int M, const float* rows, int vec,
-                                void* stream) {
-  if (M <= 0) return 0;
-  const int tpr = threads_per_row(W, vec);
-  const int groups = kThreads / tpr;
-  const unsigned grid = (unsigned)((M + groups - 1) / groups);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    row_scatter_kernel<true><<<grid, kThreads, 0, s>>>(table, N, W, ids, M,
-                                                       rows, tpr);
-  else
-    row_scatter_kernel<false><<<grid, kThreads, 0, s>>>(table, N, W, ids, M,
-                                                        rows, tpr);
-  return (int)cudaGetLastError();
+// The C entries take one array of int64s, which ctypes passes as one
+// pointer: the cheapest call from Python.
+
+// args: count (<= kMaxEntries), device, stream, then `count` entries of
+// six: table, N, W, ids (int32), M, rows.  Entries with no work are
+// skipped.
+extern "C" int clsr_row_scatter_group(const long long* args) {
+  const long long count = args[0];
+  const int device = (int)args[1];
+  cudaStream_t s = as_ptr<CUstream_st>(args[2]);
+  const long long* desc = args + 3;
+  if (count < 0 || count > kMaxEntries) return (int)cudaErrorInvalidValue;
+  Group g = {};
+  long long blocks = 0;
+  int k = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long* d = desc + 6 * i;
+    const long long N = d[1], W = d[2], M = d[4];
+    if (N < 0 || W < 0 || M < 0 || N > INT_MAX || W > INT_MAX ||
+        M > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    if (N == 0 || W == 0 || M == 0) continue;
+    Entry& t = g.e[k];
+    t.table = as_ptr<float>(d[0]);
+    t.ids = as_ptr<const int>(d[3]);
+    t.rows = as_ptr<const float>(d[5]);
+    t.N = (int)N;
+    t.W = (int)W;
+    t.M = (int)M;
+    t.vec = W % 4 == 0 && aligned16(t.table) && aligned16(t.rows);
+    const long long n = t.vec ? W / 4 : W;
+    if (M * n > INT_MAX) return (int)cudaErrorInvalidValue;
+    const long long span = kThreads * (t.vec ? kUnitsVec : kUnitsScalar);
+    g.first[k++] = (int)blocks;
+    blocks += (M * n + span - 1) / span;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  }
+  g.count = k;
+  g.first[k] = (int)blocks;
+  if (k == 0) return 0;
+  return on_device(device, [&] {
+    row_scatter_group_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(g);
+  });
 }
 
-extern "C" int clsr_row_sweep(const float* tin, float* tout, int N, int W,
-                              const int* ids, const int* starts,
-                              const float* rows, int block, int vec,
-                              void* stream) {
-  if (N <= 0) return 0;
-  if (block <= 0 || (vec && W % 4 != 0)) return (int)cudaErrorInvalidValue;
-  const int tpr = threads_per_row(W, vec);
-  const unsigned grid = (unsigned)((N + block - 1) / block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    row_sweep_kernel<true><<<grid, kThreads, 0, s>>>(tin, tout, N, W, ids,
-                                                     starts, rows, block, tpr);
-  else
-    row_sweep_kernel<false><<<grid, kThreads, 0, s>>>(tin, tout, N, W, ids,
-                                                      starts, rows, block,
-                                                      tpr);
-  return (int)cudaGetLastError();
+// Blocks of kWideThreads when the average slab holds more units than a
+// quarter of their pass, else of kSparseThreads (the slabs are then
+// sparse or empty, and small blocks, all resident at once, search them).
+// args: table, N, W, ids (int32), M, rows, block, device, stream.
+extern "C" int clsr_row_sweep(const long long* args) {
+  if (args[1] > INT_MAX || args[2] > INT_MAX || args[4] > INT_MAX ||
+      args[6] > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  float* table = as_ptr<float>(args[0]);
+  const int N = (int)args[1], W = (int)args[2], M = (int)args[4];
+  const int* ids = as_ptr<const int>(args[3]);
+  const float* rows = as_ptr<const float>(args[5]);
+  const int block = (int)args[6], device = (int)args[7];
+  cudaStream_t s = as_ptr<CUstream_st>(args[8]);
+  if (N <= 0 || W <= 0 || M <= 0) return 0;
+  if (block <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec = W % 4 == 0 && aligned16(table) && aligned16(rows);
+  const unsigned n = vec ? W / 4 : W;
+  if ((long long)M * n > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long slabs = (N + (long long)block - 1) / block;
+  const bool wide = (long long)M * n > slabs * kWideThreads;
+  return on_device(device, [&] {
+    if (vec)
+      launch_sweep<true>(wide, (unsigned)slabs, s, table, N, n, ids, M, rows,
+                         block);
+    else
+      launch_sweep<false>(wide, (unsigned)slabs, s, table, N, n, ids, M,
+                          rows, block);
+  });
 }

@@ -48,11 +48,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "clsr_train_stats_chunk_l": ((), _I),
     },
     "row_update": {
-        # table, N, W, ids (int32), M, rows, vec, stream
-        "clsr_row_scatter": ((_P, _I, _I, _P, _I, _P, _I, _P), _I),
-        # tin, tout, N, W, ids (int32), starts (int32), rows, block, vec,
-        # stream
-        "clsr_row_sweep": ((_P, _P, _I, _I, _P, _P, _P, _I, _I, _P), _I),
+        # one packed int64 array each (the layouts are in the source)
+        "clsr_row_scatter_group": ((_P,), _I),
+        "clsr_row_sweep": ((_P,), _I),
     },
 }
 KERNELS = tuple(_SIGNATURES)

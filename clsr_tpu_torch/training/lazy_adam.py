@@ -18,19 +18,21 @@ Two layouts of a table's optimizer rows, told apart by width:
     (training/compact_rows.py): the forward's one sorted gather brings
     the moments along, `compact_table_update` sums the w-space gradient
     over the sorted runs (`index_add_` into [Mc, D], Mc = min(M, N)),
-    clips it by its norm, and writes ONE scatter-set per table.  The
-    table `Parameter`s are then a copy of pmn[:, :D] that
-    steps.sync_params_from_opt refreshes after each step.
+    clips it by its norm, and writes the pmn rows, and the same new
+    param rows into the table `Parameter`, which so stays equal to
+    pmn[:, :D] bit for bit without an O(N) copy.
 
-Every scatter-set is `row_update.scatter_rows` (K5), in place.  The
-mesh-sharded updates of the JAX package (:194-259, :324-666) wait for
-ROADMAP queue 1, parallel.
+Each table's update returns its scatter-sets as (table, ids, rows)
+entries, and `_finish` writes every entry of the step with one
+`row_update.scatter_rows_group` call: one K5 launch per step, in place.
+The mesh-sharded updates of the JAX package (:194-259, :324-666) wait
+for ROADMAP queue 1, parallel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +41,7 @@ from torch.profiler import record_function
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
-from clsr_tpu_torch.ops.row_update import scatter_rows
+from clsr_tpu_torch.ops.row_update import Entry, scatter_rows_group
 from clsr_tpu_torch.training.compact_rows import Plan, supported_tables
 from clsr_tpu_torch.training.optimizer import (build_optimizer,
                                                clip_by_norm_each)
@@ -149,9 +151,10 @@ class LazyAdam:
 
     @torch.no_grad()
     def table_update(self, param: torch.Tensor, grad_dense: torch.Tensor,
-                     mn: torch.Tensor, ids: torch.Tensor, t: int) -> None:
-        """Legacy path (JAX :167-192): param and mn rows at the sorted ids,
-        in place, two K5 scatter-sets."""
+                     mn: torch.Tensor, ids: torch.Tensor, t: int
+                     ) -> List[Entry]:
+        """Legacy path (JAX :167-192): the param and mn rows at the sorted
+        ids, as two scatter-set entries for K5."""
         D = param.shape[1]
         off = D if is_pmn(param, mn) else 0
         ids = torch.sort(ids.reshape(-1).to(torch.int32)).values
@@ -164,20 +167,21 @@ class LazyAdam:
         new_rows, m_new, v_new = _adam_rows(p_old, mv[:, off:], g, t,
                                             self.lr)
         parts = ([new_rows] if off else []) + [m_new, v_new]
-        scatter_rows(param.data, ids, new_rows.to(param.dtype))
-        scatter_rows(mn, ids, torch.cat(parts, dim=-1))
+        return [(param.data, ids, new_rows.to(param.dtype)),
+                (mn, ids, torch.cat(parts, dim=-1))]
 
     @torch.no_grad()
     def compact_table_update(self, param: torch.Tensor, w: torch.Tensor,
                              gw: torch.Tensor, mn: torch.Tensor, plan: Plan,
-                             t: int) -> None:
-        """Row update from the compact w-space gradient (JAX :261-322), in
-        place.  `w` is [M, 3D] param|mu|nu under pmn (the moments ride the
-        forward gather; one K5 scatter-set into mn, `param` untouched
-        until the sync) or the [M, D] forward gather under the split
-        layout (one moment gather; K5 into param and into mn).  The runs
-        are capped at Mc = min(M, N): a table has at most N distinct rows.
-        Targets past the nseg valid runs are N + i, which K5 drops."""
+                             t: int) -> List[Entry]:
+        """Row update from the compact w-space gradient (JAX :261-322), as
+        two scatter-set entries for K5: the new param rows into `param`,
+        and into mn either the whole pmn rows (`w` is [M, 3D]
+        param|mu|nu, the moments ride the forward gather) or the moments
+        (split layout: `w` is the [M, D] forward gather, one moment
+        gather here).  The runs are capped at Mc = min(M, N): a table has
+        at most N distinct rows.  Targets past the nseg valid runs are
+        N + i, which K5 drops."""
         N, D = param.shape
         fused = w.shape[1] == 3 * D
         M = plan.sorted_ids.shape[0]
@@ -201,23 +205,25 @@ class LazyAdam:
             p_old = w.index_select(0, sel).float()
         new_rows, m_new, v_new = _adam_rows(p_old, mv, g, t, self.lr)
         tgt = torch.where(valid, uid, N + ar)
-        if fused:
-            scatter_rows(mn, tgt, torch.cat([new_rows, m_new, v_new], -1))
-            return
-        scatter_rows(param.data, tgt, new_rows.to(param.dtype))
-        scatter_rows(mn, tgt, torch.cat([m_new, v_new], -1))
+        mn_rows = [new_rows, m_new, v_new] if fused else [m_new, v_new]
+        return [(param.data, tgt, new_rows.to(param.dtype)),
+                (mn, tgt, torch.cat(mn_rows, -1))]
 
     def _finish(self, model: nn.Module, state: LazyAdamState,
                 per_table: Callable[[str, torch.Tensor, torch.Tensor, int],
-                                    None]) -> None:
-        """The shared tail (JAX :608-631): every table's row update, then
-        per-tensor clip and dense Adam over the other parameters, each
-        under its `train_step.<phase>` profiler range."""
+                                    List[Entry]]) -> None:
+        """The shared tail (JAX :608-631): every table's row update, its
+        entries written by one K5 launch, then per-tensor clip and dense
+        Adam over the other parameters, each under its
+        `train_step.<phase>` profiler range."""
         tables, dense = _split(model)
         state.count += 1
         with record_function("train_step.row_update"):
+            entries = []
             for name, param in tables.items():
-                per_table(name, param, state.moments[name], state.count)
+                entries += per_table(name, param, state.moments[name],
+                                     state.count)
+            scatter_rows_group(entries)
         if self.cfg.is_clip_norm:
             with record_function("train_step.clip"):
                 clip_by_norm_each([p.grad for p in dense.values()
@@ -234,8 +240,8 @@ class LazyAdam:
         `ws` by table name (dL/dw [M, D] and the gathered rows)."""
         def per_table(path, param, mn, t):
             name = table_names[path]
-            self.compact_table_update(param, ws[name], gws[name], mn,
-                                      plans[name], t)
+            return self.compact_table_update(param, ws[name], gws[name], mn,
+                                             plans[name], t)
         self._finish(model, state, per_table)
 
     def update(self, model: nn.Module, state: LazyAdamState,
@@ -248,6 +254,7 @@ class LazyAdam:
             if ids is None:
                 raise ValueError(
                     f"lazyadam: no touched-row mapping for table {name}")
-            self.table_update(param, param.grad, mn, ids, t)
+            entries = self.table_update(param, param.grad, mn, ids, t)
             param.grad = None
+            return entries
         self._finish(model, state, per_table)

@@ -12,11 +12,13 @@ optimizer:
     (`compact_step`, :58-129): one sorted gather per table (of the pmn
     param|mu|nu rows, so the moments ride along), the model's lookups
     from those rows, the backward in w space, and training/lazy_adam.py's
-    row update, one K5 scatter-set per table; the table `Parameter`s get
-    no gradient;
+    row update, two scatter-sets per table (the pmn rows and the table
+    `Parameter`'s rows); the table `Parameter`s get no gradient;
   * `lazyadam` with `compact_rows: off`, the legacy lazy path (:210-215):
     dense table gradients, then the lazy update at the batch's ids, two
-    K5 scatter-sets per table.
+    scatter-sets per table.
+
+All scatter-sets of a lazy step go out in one K5 launch.
 
 The port runs the step eagerly on the model's device and updates the
 state in place.  With use_pallas_train_attention on, both target-attention
@@ -25,9 +27,13 @@ forward and recomputes through the plain recurrence in the backward.
 Each phase runs under a `torch.profiler.record_function` range named
 `train_step.<phase>` (negatives, forward, backward, row_update, clip,
 adam), which costs nothing measurable unless a profiler is recording.
-`make_train_step` adds `sync_params_from_opt` after each step
-(:229-264): under pmn the tables are refreshed from pmn[:, :D], so eval,
-serving and `weights.to_flax` read the updated rows.
+The JAX package's `make_train_step` refreshes the tables from pmn[:, :D]
+after each step (`sync_params_from_opt`, :229-264); here the lazy update
+writes the touched table rows in the same launch as the pmn rows, so the
+tables equal pmn[:, :D] after every step without that O(N) copy, and
+eval, serving and `weights.to_flax` read the updated rows.
+`sync_params_from_opt` stays for callers that load optimizer rows whose
+param column the tables do not hold yet.
 
 The eval step (:331-364): BN running statistics, no dropout
 (base_model.py:366-392); preds = sigmoid(logit) for classification
@@ -136,8 +142,9 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
 
 @torch.no_grad()
 def sync_params_from_opt(state: TrainState) -> TrainState:
-    """Refresh the table Parameters from pmn rows (param = pmn[:, :D]);
-    a no-op for every other optimizer or layout."""
+    """Refresh the table Parameters from pmn rows (param = pmn[:, :D]),
+    as after loading optimizer rows (`weights.opt_from_flax`) that the
+    tables do not hold; a no-op for every other optimizer or layout."""
     opt = state.optimizer
     if not isinstance(opt, LazyAdamState):
         return state
@@ -151,15 +158,10 @@ def sync_params_from_opt(state: TrainState) -> TrainState:
 
 def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable[
         [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
-    """The train step with the config's kernel gates, the table
-    Parameters synced from the optimizer rows after each step."""
-    raw = make_train_step_fn(model, cfg)
-
-    def step(state, batch, generator):
-        state, parts = raw(state, batch, generator)
-        return sync_params_from_opt(state), parts
-
-    return step
+    """The train step with the config's kernel gates.  Unlike the JAX
+    package's, it needs no parameter sync after a step: every lazy
+    update writes the touched table rows itself."""
+    return make_train_step_fn(model, cfg)
 
 
 def make_eval_step_fn(cfg: Config) -> Callable[

@@ -15,11 +15,14 @@ one train step at clsr.yaml widths on small tables, kernel path against
 plain path: loss parts to 1e-4 relative, gradients to 1e-4 of each
 gradient's max abs (1e-6 abs more for the biases whose gradient is zero
 up to rounding), BN running statistics to 1e-5, and the launch counts
-K3a 2, K3b 2, K1 2, K2 1; K5 (row scatter) and K4 (row sweep) bit-equal
-to their plain version (they only copy) at a small shape, at a ragged
-one (W not a multiple of 4, a partial last slab) and with the legacy
-path's duplicate ids, each with a dropped tail of ids >= N.  TF32 is off
-on both sides.
+K3a 2, K3b 2, K1 2, K2 1; K5 (row scatter, one entry and a group of
+seven widths) and K4 (row sweep) bit-equal to their plain version (they
+only copy) at a small shape, at a ragged one (W not a multiple of 4, a
+block that does not divide N), with the legacy path's duplicate ids,
+with negative ids, with ids past the last slab's end and with mostly
+empty slabs (K4's in-kernel segment search), each with a dropped tail of
+ids >= N; one lazy step launches K5 once, compact and legacy.  TF32 is
+off on both sides.
 """
 
 import numpy as np
@@ -233,42 +236,78 @@ def test_train_step_kernel_path_matches_plain(cuda):
         torch.testing.assert_close(bk[n], b, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("N, W, M, block, dup", [
-    (1000, 40, 300, 128, False),      # 16-byte copies, 8 slabs
-    (1003, 7, 250, 100, False),       # scalar copies, last slab of 3 rows
-    (1000, 96, 400, 256, True),       # duplicate ids with equal rows
-])
-def test_row_update_kernels_match_plain(cuda, N, W, M, block, dup):
-    g = torch.Generator(device=cuda).manual_seed(4)
-    table = torch.randn(N, W, generator=g, device=cuda)
+def _row_case(dev, g, N, W, M, case):
+    """(table, ids, rows) of a row-update case: M sorted int32 ids ending
+    in dropped ids >= N (past the last slab's end too for
+    "past_last_slab"), led by negative ones for "below_zero", with
+    duplicates carrying equal rows for "dup"."""
+    table = torch.randn(N, W, generator=g, device=dev)
     n_tail = 5
-    if dup:
-        valid = torch.randint(0, N, (M - n_tail,), generator=g, device=cuda)
+    if case == "dup":
+        valid = torch.randint(0, N, (M - n_tail,), generator=g, device=dev)
     else:
-        valid = torch.randperm(N, generator=g, device=cuda)[:M - n_tail]
-    ids = torch.cat([torch.sort(valid).values,
-                     N + torch.arange(n_tail, device=cuda)]).to(torch.int32)
-    rows = torch.randn(M, W, generator=g, device=cuda)
-    if dup:
+        valid = torch.randperm(N, generator=g, device=dev)[:M - n_tail]
+    step = 37 if case == "past_last_slab" else 1
+    parts = [torch.sort(valid).values,
+             N + step * torch.arange(n_tail, device=dev)]
+    if case == "below_zero":
+        parts.insert(0, torch.tensor([-9, -4, -1], device=dev))
+    ids = torch.cat(parts).to(torch.int32)
+    rows = torch.randn(ids.numel(), W, generator=g, device=dev)
+    if case == "dup":
         rows[:M - n_tail] = table[ids[:M - n_tail].long()] * 0.5 + 1.0
+    return table, ids, rows
+
+
+@pytest.mark.parametrize("N, W, M, block, case", [
+    (1000, 40, 300, 128, "unique"),   # 16-byte units, 8 slabs
+    (1003, 7, 250, 100, "unique"),    # 4-byte units, last slab of 3 rows
+    (1000, 96, 400, 256, "dup"),      # duplicate ids with equal rows
+    (1000, 40, 300, 128, "below_zero"),
+    (1003, 24, 250, 100, "past_last_slab"),   # block does not divide N
+    (5000, 40, 40, 64, "empty_slabs"),        # 79 slabs, most empty
+    (1000, 0, 300, 0, "group"),
+])
+def test_row_update_kernels_match_plain(cuda, N, W, M, block, case):
+    """K5 and K4 bit-equal to the plain version; "group" holds seven
+    entries of widths 40, 7, 96, 24, 120, 32 and 8 (one with duplicates)
+    in one K5 launch."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    if case == "group":
+        entries = [_row_case(cuda, g, N, w, M, "dup" if w == 24 else "unique")
+                   for w in (40, 7, 96, 24, 120, 32, 8)]
+        want = [t.clone() for t, _, _ in entries]
+        ru.scatter_rows_group_reference(
+            [(w, i, r) for w, (_, i, r) in zip(want, entries)])
+        got = [t.clone() for t, _, _ in entries]
+        before = ru.scatter_rows.launches
+        ru.scatter_rows_group([(o, i, r) for o, (_, i, r) in
+                               zip(got, entries)])
+        torch.cuda.synchronize()
+        assert ru.scatter_rows.launches == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
+    table, ids, rows = _row_case(cuda, g, N, W, M, case)
     want = ru.scatter_rows_reference(table.clone(), ids, rows)
     assert torch.equal(ru.sweep_rows_reference(table.clone(), ids, rows,
                                                block), want)
-    for fn in (ru.scatter_rows,
-               lambda t, i, r: ru.sweep_rows(t, i, r, block)):
-        counter = ru.scatter_rows if fn is ru.scatter_rows else ru.sweep_rows
+    for name, fn in (
+            ("scatter", ru.scatter_rows),
+            ("sweep", lambda t, i, r: ru.sweep_rows(t, i, r, block))):
+        counter = ru.sweep_rows if name == "sweep" else ru.scatter_rows
         before = counter.launches
         got = fn(table.clone(), ids, rows)
         torch.cuda.synchronize()
-        assert counter.launches == before + 1
-        assert torch.equal(got, want)
+        assert counter.launches == before + 1, name
+        assert torch.equal(got, want), name
 
 
 def test_lazy_train_step_compact_matches_legacy(cuda):
     """One lazyadam step at clsr.yaml widths on small tables with every
-    kernel on: compact rows against the legacy path, K5 launched 4 and 8
-    times, updated tables and moments within 1e-5 (index_add_ and the
-    dense embedding backward sum in other orders on the card)."""
+    kernel on: compact rows against the legacy path, K5 launched once
+    per step on both, updated tables and moments within 1e-5 (index_add_
+    and the dense embedding backward sum in other orders on the card),
+    the compact tables equal to pmn[:, :D]."""
     n_users, n_items, n_cates = 1000, 5000, 50
     base = load_config(f"{CONFIG_DIR}/clsr.yaml", user_vocab="u",
                        item_vocab="i", cate_vocab="c", seed=0,
@@ -285,7 +324,7 @@ def test_lazy_train_step_compact_matches_legacy(cuda):
         ru.scatter_rows.launches = 0
         _, parts = step(state, batch, torch.Generator(cuda).manual_seed(3))
         torch.cuda.synchronize()
-        assert ru.scatter_rows.launches == (4 if mode == "auto" else 8)
+        assert ru.scatter_rows.launches == 1
         runs[mode] = (parts, {n: p.detach() for n, p in
                               model.named_parameters()},
                       state.optimizer.moments)

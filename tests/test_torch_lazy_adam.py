@@ -17,15 +17,19 @@ Same numpy inputs and the same flax weights on both sides, JAX on the CPU:
     state after the first, carried across by `weights.from_flax` and
     `weights.opt_from_flax` (t = 2 bias correction, stale moments);
   * rows no batch touched stay bit-identical; on the compact path no
-    table Parameter gets a gradient; the K5 wrapper's plain version runs
-    where K5 would launch: 4 scatter-sets per compact step, 8 per legacy
-    step;
+    table Parameter gets a gradient; the K5 group's plain version runs
+    where K5 would launch, once per step with 8 scatter-sets (each
+    table's param rows and its optimizer rows), compact and legacy; the
+    compact step leaves the table Parameters equal to pmn[:, :D] bit for
+    bit without a sync;
   * lazy and dense Adam part where they should: a row touched by the
     first batch and not by the second stays put under lazyadam and moves
     under dense Adam (its stale moment), while a row first touched by
     the second batch takes the same step under both;
   * a split-layout state under compact rows `auto` (the engine's split
-    branch) gives the legacy step's parameters and moments.
+    branch) gives the legacy step's parameters and moments;
+  * `sync_params_from_opt`, for callers that load optimizer rows, copies
+    the pmn param column into the tables and leaves split layouts alone.
 
 The JAX step compiles once per compact mode (module fixtures).
 """
@@ -50,7 +54,8 @@ from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.ops import row_update as ru
 from clsr_tpu_torch.training import compact_rows as cr
 from clsr_tpu_torch.training.state import create_train_state
-from clsr_tpu_torch.training.steps import make_train_step
+from clsr_tpu_torch.training.steps import (make_train_step,
+                                           sync_params_from_opt)
 
 from test_torch_common import (N_CATES, N_ITEMS, N_USERS, TOL, jax_batch,
                                jax_clsr, numpy_batch, port_batch, port_cfg,
@@ -213,21 +218,23 @@ def test_permuted_rows_values_and_gather_backward():
 def test_lazy_step_matches_jax(jax_run, monkeypatch):
     mode, jcfg, params, stats, states, parts = jax_run
     calls = []   # K5's plain version runs where the kernel would launch
-    plain = ru.scatter_rows_reference
-    monkeypatch.setattr(ru, "scatter_rows_reference",
-                        lambda *a: calls.append(1) or plain(*a))
+    plain = ru.scatter_rows_group_reference
+    monkeypatch.setattr(ru, "scatter_rows_group_reference",
+                        lambda entries: calls.append(len(entries))
+                        or plain(entries))
     _, state, step = _port(jcfg, params, stats)
     layout = {"auto": 3, "off": 2}[mode]
     for name, mn in state.optimizer.moments.items():
         assert mn.shape[1] == layout * dict(
             state.model.named_parameters())[name].shape[1]
     state, got = _step(state, step, _batches()[0], 0)
-    assert len(calls) == {"auto": 4, "off": 8}[mode]
+    # one group a step: each table's param rows and its optimizer rows
+    assert calls == [2 * len(TABLES)]
     _assert_step_matches(states[0], parts[0], state, got)
     if mode == "auto":
         assert all(p.grad is None for n, p in state.model.named_parameters()
                    if n in TABLES)
-        # the table Parameters are pmn[:, :D] after the step's sync
+        # the update wrote the table Parameters: pmn[:, :D], no sync
         for name in TABLES:
             p = dict(state.model.named_parameters())[name]
             assert torch.equal(p, state.optimizer.moments[name][
@@ -316,6 +323,26 @@ def test_compact_step_on_split_moments_matches_legacy():
     for k, v in ma.items():
         assert v.shape == mb[k].shape
         np.testing.assert_allclose(v, mb[k], **TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sync_params_from_opt_copies_the_pmn_param_column(mode):
+    """The step needs no sync (the update writes the table rows), but a
+    caller that loads optimizer rows does: under pmn the tables become
+    pmn[:, :D] bit for bit; the split layout is left alone."""
+    cfg = port_cfg(small_jax_cfg(compact_rows=mode, **_STEP_CFG))
+    model = get_model_class("clsr")(cfg, N_USERS, N_ITEMS, N_CATES,
+                                    device="cpu")
+    state = create_train_state(model, cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for mn in state.optimizer.moments.values():
+        mn.add_(torch.randn(mn.shape, generator=torch.Generator()
+                            .manual_seed(0)))
+    sync_params_from_opt(state)
+    for name, mn in state.optimizer.moments.items():
+        p = dict(model.named_parameters())[name]
+        want = mn[:, :p.shape[1]] if mode == "auto" else before[name]
+        assert torch.equal(p, want), name
 
 
 def test_compact_rows_config_is_checked():

@@ -7,7 +7,11 @@ indices_are_sorted=True, unique_indices=True)`, exactly (they only copy):
 unique ids, an out-of-range tail (the compact update's dropped targets
 N + i), duplicate ids with equal rows (the legacy path; JAX is then told
 only that the ids are sorted), an empty id vector, and ids in the last,
-partial slab of the sweep.  No launch is counted on the CPU.
+partial slab of the sweep.  The K5 group (`scatter_rows_group`) equals
+the JAX scatter-set entry by entry over groups that mix widths 6, 8 and
+24, hold an empty entry, a dropped tail and duplicates, and outnumber
+one launch's MAX_GROUP entries; it refuses two entries on one table and
+int64 ids.  No launch is counted on the CPU.
 """
 
 import jax.numpy as jnp
@@ -69,6 +73,59 @@ def test_row_update_matches_jax_scatter_set(case, kernel):
     assert out is got                        # in place
     assert counter.launches == before        # the plain version, no kernel
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _group_entry(case, width, rng):
+    """(table, ids, rows, unique) of one group entry: `_case` at `width`
+    (its table of N rows, ids and rows drawn anew)."""
+    table, ids, rows = _case(case, rng)
+    table = rng.randn(N, width).astype(np.float32)
+    rows = rng.randn(len(ids), width).astype(np.float32)
+    if case == "duplicates":
+        rows = table[ids] * 0.5 + 1.0
+    return table, ids, rows, case != "duplicates"
+
+
+# each group mixes widths 6, 8 and 24; "many" has more entries than one
+# launch takes (MAX_GROUP), so the wrapper splits it
+GROUPS = {
+    "mixed": [("unique", 6), ("dropped_tail", 8), ("empty", 24),
+              ("duplicates", 24), ("last_slab", 6)],
+    "many": [(CASES[i % len(CASES)], (6, 8, 24)[i % 3])
+             for i in range(ru.MAX_GROUP + 4)],
+}
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_row_update_group_matches_jax_scatter_set(group):
+    rng = np.random.RandomState(len(group))
+    entries = [_group_entry(case, width, rng)
+               for case, width in GROUPS[group]]
+    got = [torch.from_numpy(t.copy()) for t, _, _, _ in entries]
+    before = ru.scatter_rows.launches
+    ru.scatter_rows_group([(g, torch.from_numpy(ids), torch.from_numpy(rows))
+                           for g, (_, ids, rows, _) in zip(got, entries)])
+    assert ru.scatter_rows.launches == before   # the plain version
+    for g, (table, ids, rows, unique) in zip(got, entries):
+        np.testing.assert_array_equal(g.numpy(),
+                                      _jax_set(table, ids, rows, unique))
+
+
+def test_row_update_group_checks_its_entries():
+    table, other = torch.zeros(5, 4), torch.zeros(5, 4)
+    ids, rows = torch.tensor([0, 1], dtype=torch.int32), torch.ones(2, 4)
+    ru.scatter_rows_group([(table, ids, rows), (other, ids, rows)])
+    with pytest.raises(ValueError, match="share one table"):
+        ru.scatter_rows_group([(table, ids, rows), (other, ids, rows),
+                               (table, ids, rows)])
+    with pytest.raises(ValueError, match="share one table"):  # a row view
+        ru.scatter_rows_group([(table, ids, rows),
+                               (table[3:], ids, rows)])
+    with pytest.raises(TypeError):
+        ru.scatter_rows_group([(table, ids, rows),
+                               (other, ids.long(), rows)])
+    assert torch.equal(other, torch.zeros(5, 4).index_fill_(0, ids.long(),
+                                                            1.0))
 
 
 def test_slab_starts_segments_the_sorted_ids():
