@@ -34,8 +34,14 @@ Phases, each fatal on failure:
      same shapes: output within 1e-4 abs, the four statistics as in 6,
      the gradient of every differentiable input within 1e-4 of its max
      abs; K1's time at G=5 and G=1, the forward and backward-recompute
-     times; then K2 at the train shape B=400 with its backward, which
-     recomputes through the plain recurrence: forward and backward times;
+     times; then K2 at the train shape B=400 (lengths 1..50): the
+     forward's carries against the plain ones (1e-5 abs), the backward
+     kernel plus its five weight products against the plain backward on
+     the same carries and against autograd of the plain recurrence (each
+     gradient within 1e-4 of its max abs); the forward with and without
+     carries, the backward kernel alone, the weight products, the whole
+     backward, the plain backward and the old route (the plain
+     recurrence recomputed under autograd), and both bounds;
   8. training at the clsr.yaml widths with the Taobao-sized tables:
      seeded numpy batches of B=400, L=50, lengths 1..50, in-batch
      negatives drawn on the card from a seeded torch.Generator (G=5).
@@ -47,9 +53,9 @@ Phases, each fatal on failure:
      bias under train-mode BN, an output bias under a softmax), BN
      running statistics within 1e-5.  Then 10 steps with the kernels in
      turns with 10 plain steps on the same batches, the counts read
-     around each: K3a 2, K3b 2, K1 2, K2 1 per kernel step, none per
-     plain step; finite losses; per path the median step ms (CUDA
-     events), examples/s and peak device memory.  Last, torch.profiler
+     around each: K3a 2, K3b 2, K1 2, K2 1 and K2's backward 1 per
+     kernel step, none per plain step; finite losses; per path the
+     median step ms (CUDA events), examples/s and peak device memory.  Last, torch.profiler
      over three steps of each path: host ms and device span per
      `train_step.<phase>` range, the device's busy share of the window,
      kernel launches per step and the kernels with the most device time.
@@ -82,7 +88,7 @@ Phases, each fatal on failure:
      steps in turns with 10 legacy steps and 10 dense-Adam steps from
      the same weights, the counts read around each: K5 1 per lazy step,
      compact and legacy, and none per dense step, K3a 2, K3b 2, K1 2,
-     K2 1; finite losses; per path
+     K2 1 and its backward 1; finite losses; per path
      the median step ms, examples/s, device memory kept between steps
      and its peak, and torch.profiler over three steps (host ms of
      `train_step.row_update`).  In phase 9, K4/K5 and index_copy_ are
@@ -664,35 +670,79 @@ def check_k2_backward(smi):
     w = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.15
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
     mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
-    args = [r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
+    args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
             r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
             r(B, U), w(U, 2 * U), w(U, U), w(H, 4 * H), w(H, 2 * H),
-            w(H, H)]
-    t = [a.requires_grad_(i != 8) for i, a in enumerate(args)]
-    diff = [x for i, x in enumerate(t) if i != 8]
-    cots = [torch.randn(*shape, generator=g, device=dev)
-            for shape in ((B, U), (B, L, H), (B, H))]
-    outs = fs.fused_scan(*t)
-    got = torch.autograd.grad(outs, diff, cots)
-    want = torch.autograd.grad(fs.scan_reference(*t), diff, cots)
+            w(H, H))
+    cots = tuple(torch.randn(*shape, generator=g, device=dev)
+                 for shape in ((B, U), (B, L, H), (B, H)))
+    *_, carries = fs._forward(*args, keep_carries=True)
+    *_, plain_carries = fs.scan_forward_reference(*args)
+    got = fs.scan_backward(args, carries, *cots)
+    plain = fs.scan_backward_reference(args, carries, *cots)
+    t = [a.detach().requires_grad_(i != 8) for i, a in enumerate(args)]
+    auto = torch.autograd.grad(fs.scan_reference(*t),
+                               [x for i, x in enumerate(t) if i != 8], cots)
     torch.cuda.synchronize()
-    err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-              for a, b in zip(got, want))
-    fwd_ms = cuda_ms(lambda: fs.fused_scan(*t), iters=10)
-    plain_fwd_ms = cuda_ms(lambda: fs.scan_reference(*t), iters=3)
-    outs = fs.fused_scan(*t)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(outs, diff, cots,
-                                                 retain_graph=True), iters=3)
-    log(f"K2 clsr_scan [train: B={B} L={L} U=H={U}]: forward kernel "
-        f"{fwd_ms:.4f} ms, plain forward {plain_fwd_ms:.4f} ms | backward "
-        f"(recompute through the plain recurrence + autograd) {bwd_ms:.4f} "
-        f"ms | gradients max err / max abs {err:.3e} (tol {GRAD_REL}) "
-        f"| {smi}")
-    if not err <= GRAD_REL:
-        raise AssertionError(f"K2's backward disagrees with autograd of the "
-                             f"plain recurrence: {err}")
-    return dict(fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
-                grad_rel=err)
+    drop_mask = lambda gs: [x for i, x in enumerate(gs) if i != 8]
+    got, plain = drop_mask(got), drop_mask(plain)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    carry_err = (carries - plain_carries).abs().max().item()
+    err = max((a - b).abs().max().item() for a, b in zip(got, plain))
+    rel_plain = max(rel(a, b) for a, b in zip(got, plain))
+    rel_auto = max(rel(a, b) for a, b in zip(got, auto))
+    del t, auto, plain_carries
+    fwd_ms = cuda_ms(lambda: fs._forward(*args), iters=10)
+    fwd_carries_ms = cuda_ms(lambda: fs._forward(*args, keep_carries=True),
+                             iters=10)
+    kernel_ms = cuda_ms(lambda: fs._backward_kernel(args, carries, *cots))
+    dx = fs._backward_kernel(args, carries, *cots)
+    gemm_ms = cuda_ms(lambda: fs.scan_weight_grads(
+        carries, dx[9], dx[0], dx[1], dx[2], dx[6], dx[7]))
+    ms = cuda_ms(lambda: fs.scan_backward(args, carries, *cots))
+    plain_ms = cuda_ms(lambda: fs.scan_backward_reference(args, carries,
+                                                          *cots), iters=3)
+    need = [i != 8 for i in range(15)]
+    recompute_ms = cuda_ms(lambda: fs.recompute_grads(
+        fs.scan_reference, args, need, cots), iters=3, warmup=1)
+    n_valid = int(mask.sum().item())
+    # forward: 2U^2 + 6H^2 gate and U^2 + H^2 candidate multiply-adds a
+    # valid step; the backward recomputes those and does as many again
+    # for the adjoints, and its weight products take the forward's count
+    # over every step
+    macs = 3 * U * U + 7 * H * H
+    n_in = sum(a.numel() for a in args)
+    fwd_bound = bound(4 * (n_in + B * L * H + B * U + B * H),
+                      2 * n_valid * macs)
+    # backward: the inputs but ushort, the carries and the cotangents
+    # read once; the 8 input gradients, d ushort and the 5 weight
+    # gradients written once
+    n_weights = sum(a.numel() for a in args[10:])
+    n_bwd = (n_in - B * U + carries.numel() + sum(c.numel() for c in cots)
+             + sum(a.numel() for a in args[:8]) + B * U + n_weights)
+    bwd_bound = bound(4 * n_bwd, 2 * (2 * n_valid * macs + B * L * macs))
+    log(f"K2 clsr_scan [train: B={B} L={L} U=H={U}, {n_valid}/{B * L} "
+        f"valid steps]: forward {fwd_ms:.4f} ms, with carries "
+        f"{fwd_carries_ms:.4f} ms (carries max_abs_err {carry_err:.3e}, "
+        f"tol 1e-5), bound {fwd_bound[0]:.5f} ms ({fwd_bound[1]}) | "
+        f"backward kernel {kernel_ms:.4f} ms, weight "
+        f"products {gemm_ms:.4f} ms, whole backward {ms:.4f} ms, bound "
+        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]}; the real floor is the {L} "
+        f"dependent steps), plain backward {plain_ms:.4f} ms, old route "
+        f"(recompute under autograd) {recompute_ms:.4f} ms | gradients max "
+        f"err / max abs {rel_plain:.3e} against the plain backward, "
+        f"{rel_auto:.3e} against autograd (tol {GRAD_REL}) | {smi}")
+    if not (carry_err <= K2_TOL and rel_plain <= GRAD_REL
+            and rel_auto <= GRAD_REL):
+        raise AssertionError(f"K2's backward disagrees with its plain "
+                             f"version or autograd: {rel_plain}, {rel_auto}")
+    return dict(max_abs_err=err, grad_rel_plain=rel_plain,
+                grad_rel_autograd=rel_auto, carry_err=carry_err, ms=ms,
+                kernel_ms=kernel_ms, gemm_ms=gemm_ms, plain_ms=plain_ms,
+                recompute_ms=recompute_ms, bound_ms=bwd_bound[0],
+                bound_by=bwd_bound[1], fwd_ms=fwd_ms,
+                fwd_carries_ms=fwd_carries_ms, fwd_bound_ms=fwd_bound[0],
+                fwd_bound_by=fwd_bound[1], n_valid=n_valid)
 
 
 def train_batches(n, seed, n_users, n_items, n_cates):
@@ -748,9 +798,11 @@ def train(smi):
             "plain": base.replace(use_pallas_train_attention="off",
                                   use_pallas_scan=False)}
     counters = (fta.train_stats0, fta.train_stats1, fa.fused_eval_attention,
-                fs.fused_scan)
-    names = ("train_stats0", "train_stats1", "eval_scorer", "clsr_scan")
-    per_step = (2, 2, 2, 1)
+                fs.fused_scan, fs.scan_backward)
+    names = ("train_stats0", "train_stats1", "eval_scorer", "clsr_scan",
+             "clsr_scan_backward")
+    per_step = (2, 2, 2, 1, 1)
+    none = (0,) * len(names)
 
     def reset():
         for c in counters:
@@ -816,7 +868,7 @@ def train(smi):
         f"{bn_err:.3e} (tol 1e-5) | launches kernel {dict(zip(names, ck))}, "
         f"plain {dict(zip(names, cp))} | loss {pk.loss.item():.6f} | {smi}")
     if not (loss_err <= 1e-4 and not grad_bad and bn_err <= 1e-5
-            and ck == per_step and cp == (0, 0, 0, 0)):
+            and ck == per_step and cp == none):
         raise AssertionError(f"train kernel path disagrees with the plain "
                              f"path: {grad_bad[:5]}")
 
@@ -848,7 +900,7 @@ def train(smi):
             before = counts()
             timed_step(run, i, b)
             step_counts = tuple(a - c for a, c in zip(counts(), before))
-            want = per_step if run == "kernel" else (0, 0, 0, 0)
+            want = per_step if run == "kernel" else none
             if step_counts != want:
                 raise AssertionError(
                     f"{run} step {i}: launches "
@@ -1270,11 +1322,11 @@ def train_lazy(smi):
             "legacy": base.replace(compact_rows="off"),
             "dense": base.replace(optimizer="adam")}
     counters = (fta.train_stats0, fta.train_stats1, fa.fused_eval_attention,
-                fs.fused_scan, ru.scatter_rows)
+                fs.fused_scan, ru.scatter_rows, fs.scan_backward)
     names = ("train_stats0", "train_stats1", "eval_scorer", "clsr_scan",
-             "row_scatter")
-    per_step = {"compact": (2, 2, 2, 1, 1), "legacy": (2, 2, 2, 1, 1),
-                "dense": (2, 2, 2, 1, 0)}
+             "row_scatter", "clsr_scan_backward")
+    per_step = {"compact": (2, 2, 2, 1, 1, 1), "legacy": (2, 2, 2, 1, 1, 1),
+                "dense": (2, 2, 2, 1, 0, 1)}
 
     def counts():
         return tuple(c.launches for c in counters)
@@ -1444,6 +1496,8 @@ def main():
                         "clsr_tpu/ops/pallas_attention.py:147"),
         "clsr_scan": ("clsr_tpu_torch/csrc/clsr_scan.cu",
                       "clsr_tpu/ops/pallas_scan.py:45"),
+        "clsr_scan_backward": ("clsr_tpu_torch/csrc/clsr_scan.cu",
+                               "clsr_tpu/ops/pallas_scan.py:243"),
         "train_stats0": ("clsr_tpu_torch/csrc/train_stats.cu",
                          "clsr_tpu/ops/pallas_attention.py:429"),
         "train_stats1": ("clsr_tpu_torch/csrc/train_stats.cu",
@@ -1453,11 +1507,12 @@ def main():
         "row_sweep": ("clsr_tpu_torch/csrc/row_update.cu",
                       "scripts/bench_pallas_update.py:143"),
     }
-    # K1 and K2 at the serving shapes of phases 3-4, K3a/K3b at the
-    # short-term train shape, K5 at the item-pmn shape of the compact
-    # update, K4 at the bench shape; the other shapes are in
-    # chip_smoke.json
+    # K1 and K2 at the serving shapes of phases 3-4, K2's backward (with
+    # its five weight products) and K3a/K3b at the train shape, K5 at the
+    # item-pmn shape of the compact update, K4 at the bench shape; the
+    # other shapes are in chip_smoke.json
     timed = {"eval_scorer": k1, "clsr_scan": k2,
+             "clsr_scan_backward": scorer["clsr_scan"],
              "train_stats0": k3["train_stats0/short"],
              "train_stats1": k3["train_stats1/short"],
              "row_scatter": rows["row_scatter/item_pmn"],

@@ -230,11 +230,33 @@ def _coerce(key: str, value: Any) -> Any:
     return value
 
 
+def _refuse_masked_bn_stats(flat: Dict[str, Any]) -> None:
+    """Raise where the JAX package would switch the attention scorers' BN
+    to statistics over real history positions only
+    (clsr_tpu/models/base.py:40-48 `bn_stats_mask_active`): the port has
+    no MaskedBatchNorm yet, and dropping the keys would train other math.
+    YAML reads an unquoted on/off as a bool."""
+    spell = lambda v: ("on" if v else "off") if isinstance(v, bool) else v
+    mask = spell(flat.get("bn_stats_mask", "auto"))
+    buckets = spell(flat.get("length_buckets", "off"))
+    if mask not in ("auto", "on", "off"):
+        raise ValueError(f"bn_stats_mask must be auto/on/off, got {mask}")
+    if buckets != "off":
+        raise NotImplementedError(
+            f"length_buckets {buckets!r} waits for ROADMAP queue 1 item 5 "
+            f"(length buckets, MaskedBatchNorm)")
+    if mask == "on":
+        raise NotImplementedError(
+            "bn_stats_mask 'on' (mask-aware scorer BN statistics) waits for "
+            "ROADMAP queue 1 item 5 (MaskedBatchNorm)")
+
+
 def load_config(yaml_file: Optional[str] = None, **overrides) -> Config:
     """A validated Config from an optional YAML file plus overrides.
 
     YAML values first, keyword overrides win, unknown keys ignored,
-    then validation (clsr_tpu/config.py:583-604).
+    then validation (clsr_tpu/config.py:583-604).  Settings that would
+    mask the scorers' BN statistics raise (`_refuse_masked_bn_stats`).
     """
     flat: Dict[str, Any] = {}
     if yaml_file is not None:
@@ -242,6 +264,7 @@ def load_config(yaml_file: Optional[str] = None, **overrides) -> Config:
         with open(yaml_file, "r") as f:
             flat.update(_flatten_yaml(yaml.safe_load(f)))
     flat.update(overrides)
+    _refuse_masked_bn_stats(flat)
 
     known = {f.name for f in dataclasses.fields(Config)}
     kwargs: Dict[str, Any] = {}

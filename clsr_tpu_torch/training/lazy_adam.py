@@ -166,8 +166,9 @@ class LazyAdam:
         p_old = mv[:, :D] if off else param.index_select(0, ids).float()
         new_rows, m_new, v_new = _adam_rows(p_old, mv[:, off:], g, t,
                                             self.lr)
-        parts = ([new_rows] if off else []) + [m_new, v_new]
-        return [(param.data, ids, new_rows.to(param.dtype)),
+        new_rows = new_rows.to(param.dtype)   # pmn's lane: the table's rows
+        parts = ([new_rows.float()] if off else []) + [m_new, v_new]
+        return [(param.data, ids, new_rows),
                 (mn, ids, torch.cat(parts, dim=-1))]
 
     @torch.no_grad()
@@ -204,9 +205,10 @@ class LazyAdam:
             mv = mn.index_select(0, safe) * vf
             p_old = w.index_select(0, sel).float()
         new_rows, m_new, v_new = _adam_rows(p_old, mv, g, t, self.lr)
+        new_rows = new_rows.to(param.dtype)   # pmn's lane: the table's rows
         tgt = torch.where(valid, uid, N + ar)
-        mn_rows = [new_rows, m_new, v_new] if fused else [m_new, v_new]
-        return [(param.data, tgt, new_rows.to(param.dtype)),
+        mn_rows = ([new_rows.float()] if fused else []) + [m_new, v_new]
+        return [(param.data, tgt, new_rows),
                 (mn, tgt, torch.cat(mn_rows, -1))]
 
     def _finish(self, model: nn.Module, state: LazyAdamState,

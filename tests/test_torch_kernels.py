@@ -8,14 +8,19 @@ runs where only PyTorch is installed:
 
 K1 at the serving shape (B=64, L=50, G=128, D=80, Dk=40, H0=80, H1=40)
 to 1e-4 abs, and at the train widths (D = 40 and 80) with G in {1, 5};
-K2 at B=64, L=50, U=H=40 to 1e-5 abs; K3a/K3b's batch means and
+K2 at B=64, L=50, U=H=40 to 1e-5 abs; K2's backward kernel (with its
+five weight products) at B=6, L=9, U=10, H=12 and at B=400, L=50,
+U=H=40, rows of lengths L, 3, 1 and 0 among them: the forward's carries
+to 1e-5 abs, every gradient within 1e-4 of its max abs of the plain
+backward and of autograd of the plain recurrence, one launch each way
+through autograd, a float64 tensor refused; K3a/K3b's batch means and
 variances to 1e-4 relative or 1e-6 abs (summation order); the served
 scores at clsr.yaml widths with the kernels on and off to 1e-4 abs; and
 one train step at clsr.yaml widths on small tables, kernel path against
 plain path: loss parts to 1e-4 relative, gradients to 1e-4 of each
 gradient's max abs (1e-6 abs more for the biases whose gradient is zero
 up to rounding), BN running statistics to 1e-5, and the launch counts
-K3a 2, K3b 2, K1 2, K2 1; K5 (row scatter, one entry and a group of
+K3a 2, K3b 2, K1 2, K2 1 and K2's backward 1; K5 (row scatter, one entry and a group of
 seven widths) and K4 (row sweep) bit-equal to their plain version (they
 only copy) at a small shape, at a ragged one (W not a multiple of 4, a
 block that does not divide N), with the legacy path's duplicate ids,
@@ -101,6 +106,79 @@ def test_scan_kernel_matches_plain(cuda):
     assert fs.fused_scan.launches == before + 1
     for x, y in zip(got, fs.scan_reference(*args)):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+
+
+def _scan_args(dev, B, L, U, H, seed):
+    """Recurrence inputs with lengths L, 3, 1, 0 in the first rows and
+    1..L after; glorot-scale recurrent weights (see above)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.7
+    w = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.15
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    lengths[:4] = torch.tensor([L, 3, 1, 0], device=dev)[:B]
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+    args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
+            r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
+            r(B, U), w(U, 2 * U), w(U, U), w(H, 4 * H), w(H, 2 * H),
+            w(H, H))
+    cots = (r(B, U), r(B, L, H), r(B, H))
+    return args, cots
+
+
+def _close_to_max_abs(got, want, rel=1e-4):
+    """Each gradient within `rel` of its own max abs (the kernel sums in
+    another order than the plain version and autograd)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+            continue
+        assert (a - b).abs().max().item() <= rel * b.abs().max().item(), i
+
+
+@pytest.mark.parametrize("B, L, U, H", [(6, 9, 10, 12), (400, 50, 40, 40)])
+def test_scan_backward_kernel_matches_plain(cuda, B, L, U, H):
+    """The forward's carries equal the plain ones; the backward kernel
+    (plus the five weight products) against the plain backward on the
+    same carries and against autograd of `scan_reference`, one launch."""
+    args, cots = _scan_args(cuda, B, L, U, H, seed=5)
+    *_, carries = fs._forward(*args, keep_carries=True)
+    *_, want_carries = fs.scan_forward_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(carries, want_carries, rtol=0, atol=1e-5)
+    before = fs.scan_backward.launches
+    got = fs.scan_backward(args, want_carries, *cots)
+    torch.cuda.synchronize()
+    assert fs.scan_backward.launches == before + 1
+    _close_to_max_abs(got, fs.scan_backward_reference(args, want_carries,
+                                                      *cots))
+    t = [a.detach().requires_grad_(i != 8) for i, a in enumerate(args)]
+    want = torch.autograd.grad(fs.scan_reference(*t),
+                               [x for i, x in enumerate(t) if i != 8], cots)
+    _close_to_max_abs([g for i, g in enumerate(got) if i != 8], want)
+
+
+def test_fused_scan_function_runs_both_kernels(cuda):
+    """Through autograd: one forward and one backward launch, gradients
+    as autograd of the plain recurrence; only `h_outs` used, so the
+    other cotangents arrive as zeros; a tensor the kernel cannot take
+    raises."""
+    args, cots = _scan_args(cuda, 16, 20, 40, 40, seed=6)
+    t = [a.detach().requires_grad_(i not in (8, 10)) for i, a in
+         enumerate(args)]
+    before = (fs.fused_scan.launches, fs.scan_backward.launches)
+    _, outs, _ = fs.fused_scan(*t)
+    diff = [x for i, x in enumerate(t) if i not in (8, 10)]
+    got = torch.autograd.grad((outs * cots[1]).sum(), diff)
+    torch.cuda.synchronize()
+    assert (fs.fused_scan.launches, fs.scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad((fs.scan_reference(*t)[1] * cots[1]).sum(),
+                               diff, allow_unused=True)
+    _close_to_max_abs(got, [torch.zeros_like(x) if w is None else w
+                            for x, w in zip(diff, want)])
+    *_, carries = fs.scan_forward_reference(*args)
+    with pytest.raises(TypeError, match="float32"):
+        fs.scan_backward(args, carries.double(), *cots)
 
 
 def test_service_kernels_match_plain_path(cuda):
@@ -215,11 +293,13 @@ def test_train_step_kernel_path_matches_plain(cuda):
                              n_users, n_items, n_cates)
         fta.train_stats0.launches = fta.train_stats1.launches = 0
         fa.fused_eval_attention.launches = fs.fused_scan.launches = 0
+        fs.scan_backward.launches = 0
         _, parts = step(state, batch, torch.Generator(cuda).manual_seed(3))
         torch.cuda.synchronize()
         counts = (fta.train_stats0.launches, fta.train_stats1.launches,
-                  fa.fused_eval_attention.launches, fs.fused_scan.launches)
-        assert counts == ((2, 2, 2, 1) if name == "kernel" else (0,) * 4)
+                  fa.fused_eval_attention.launches, fs.fused_scan.launches,
+                  fs.scan_backward.launches)
+        assert counts == ((2, 2, 2, 1, 1) if name == "kernel" else (0,) * 5)
         runs[name] = (parts, {n: p.grad for n, p in model.named_parameters()},
                       dict(model.named_buffers()))
     (pk, gk, bk), (pp, gp, bp) = runs["kernel"], runs["plain"]

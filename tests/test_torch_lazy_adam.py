@@ -29,7 +29,9 @@ Same numpy inputs and the same flax weights on both sides, JAX on the CPU:
   * a split-layout state under compact rows `auto` (the engine's split
     branch) gives the legacy step's parameters and moments;
   * `sync_params_from_opt`, for callers that load optimizer rows, copies
-    the pmn param column into the tables and leaves split layouts alone.
+    the pmn param column into the tables and leaves split layouts alone;
+  * with a bf16 table the pmn param lane gets the rows rounded to bf16,
+    equal to the table's (legacy and compact row updates called alone).
 
 The JAX step compiles once per compact mode (module fixtures).
 """
@@ -53,6 +55,7 @@ from clsr_tpu_torch.config import load_config
 from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.ops import row_update as ru
 from clsr_tpu_torch.training import compact_rows as cr
+from clsr_tpu_torch.training.lazy_adam import LazyAdam
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import (make_train_step,
                                            sync_params_from_opt)
@@ -343,6 +346,36 @@ def test_sync_params_from_opt_copies_the_pmn_param_column(mode):
         p = dict(model.named_parameters())[name]
         want = mn[:, :p.shape[1]] if mode == "auto" else before[name]
         assert torch.equal(p, want), name
+
+
+@pytest.mark.parametrize("path", ["legacy", "compact"])
+def test_pmn_param_lane_is_rounded_to_the_table_dtype(path):
+    """A bf16 table under the pmn layout: the row update writes the
+    rows rounded to bf16 into the table and, as f32, into pmn's param
+    lane, so the two stay equal (JAX: lazy_adam.py:188-189, 311,
+    317-318)."""
+    opt = LazyAdam(port_cfg(small_jax_cfg(**_STEP_CFG)))
+    N, D = 12, 8
+    g = torch.Generator().manual_seed(0)
+    param = torch.randn(N, D, generator=g).to(torch.bfloat16)
+    mn = torch.cat([param.float(), torch.rand(N, 2 * D, generator=g)], -1)
+    ids = torch.tensor([3, 1, 3, 7, 0, 11], dtype=torch.int32)
+    before = param.clone()
+    if path == "legacy":
+        entries = opt.table_update(param, torch.randn(N, D, generator=g), mn,
+                                   ids, 1)
+    else:
+        plan = cr.build_plan({"rows": ids})
+        w = mn.index_select(0, plan.sorted_ids.long())
+        entries = opt.compact_table_update(
+            param, w, torch.randn(w.shape[0], D, generator=g), mn, plan, 1)
+    ru.scatter_rows_group_reference(entries)
+    assert param.dtype == torch.bfloat16
+    assert torch.equal(mn[:, :D], param.float())
+    touched = torch.zeros(N, dtype=torch.bool)
+    touched[ids.long()] = True
+    assert not torch.equal(param[touched], before[touched])
+    assert torch.equal(param[~touched], before[~touched])
 
 
 def test_compact_rows_config_is_checked():

@@ -8,7 +8,8 @@ weights.from_flax) on both sides, JAX on the CPU:
     tests/test_pallas_train.py runs it: output and the four batch
     statistics to 2e-5, BN on and off; its recompute backward against
     `jax.grad` of `_xla_train_scorer`: rtol 1e-4, atol 1e-5;
-  * the `fused_scan` Function's backward against `jax.vjp` of
+  * the `fused_scan` Function's backward (on CPU its hand-derived
+    plain version from the saved carries) against `jax.vjp` of
     `_scan_reference`: 1e-5;
   * train-mode FcnNet (flax-semantics BN) outputs and running statistics
     against flax, and the running update alone against
