@@ -7,9 +7,13 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from csrc/ (nvcc, one per source, all at
      once) and print the build seconds and ptxas' register/spill lines;
   3. K1 (fused eval scorer) against its plain PyTorch version at the
-     serving shape B=64, L=50, G=128, D=80, Dk=40, H0=80, H1=40, with
-     history lengths 1..50, one all-masked row and BN folds from random
-     running statistics: max abs error <= 1e-4, kernel and plain times;
+     two serving buckets B=64 x G=128 and B=8 x G=16, L=50, D=80, Dk=40,
+     H0=80, H1=40, with history lengths 1..50, one all-masked row and BN
+     folds from random running statistics: max abs error <= 1e-4, kernel
+     and plain times (a call, and on the device alone by CUDA graph
+     replay), the FP32 bound and the bound at the rate of the
+     kernel's 3xTF32 tensor-core products, each with its achieved share;
+     once, the error one TF32 pass would give (emulated in PyTorch);
   4. K2 (three-cell recurrence) against its plain version at B=64, L=50,
      U=H=40 with mixed lengths: outs, h1, h2 within 1e-5 abs, times;
   5. serving at the clsr.yaml widths with Taobao UserBehavior-sized
@@ -33,15 +37,16 @@ Phases, each fatal on failure:
      batch folds; recompute backward) against `train_scorer_math` at the
      same shapes: output within 1e-4 abs, the four statistics as in 6,
      the gradient of every differentiable input within 1e-4 of its max
-     abs; K1's time at G=5 and G=1, the forward and backward-recompute
-     times; then K2 at the train shape B=400 (lengths 1..50): the
-     forward's carries against the plain ones (1e-5 abs), the backward
-     kernel plus its five weight products against the plain backward on
-     the same carries and against autograd of the plain recurrence (each
-     gradient within 1e-4 of its max abs); the forward with and without
-     carries, the backward kernel alone, the weight products, the whole
-     backward, the plain backward and the old route (the plain
-     recurrence recomputed under autograd), and both bounds;
+     abs; K1's time and bounds at G=5 and G=1, the forward and
+     backward-recompute times; then K2 at the train shape B=400
+     (lengths 1..50): the forward's carries against the plain ones (1e-5
+     abs), the backward kernel plus its five weight products against the
+     plain backward on the same carries and against autograd of the
+     plain recurrence (each gradient within 1e-4 of its max abs); the
+     forward with and without carries, the backward kernel alone, the
+     weight products, the whole backward, the plain backward and the
+     old route (the plain recurrence recomputed under autograd), and
+     both bounds;
   8. training at the clsr.yaml widths with the Taobao-sized tables:
      seeded numpy batches of B=400, L=50, lengths 1..50, in-batch
      negatives drawn on the card from a seeded torch.Generator (G=5).
@@ -113,6 +118,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores (data sheet)
 H100_HBM_BYTES = 3.35e12       # HBM3 bytes/s (data sheet)
+H100_TF32_FLOPS = 495e12       # TF32 on the tensor cores, dense (data sheet)
 K1_TOL, K2_TOL, SERVE_TOL = 1e-4, 1e-5, 1e-4
 # Taobao UserBehavior's users, items and categories, plus the OOV row
 USERS, ITEMS, CATES = 987_995 + 1, 4_162_025 + 1, 9_440 + 1
@@ -209,55 +215,112 @@ def build_kernels():
     return secs
 
 
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits, ties away), as the kernel
+    rounds the high parts of its tensor-core operands."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def one_pass_tf32_scorer(keys, kp, q, mask, wk, wq, wm, a0, c0, w1, a1, c1,
+                         w2):
+    """K1's function with both products taken once in TF32 (operands
+    rounded, f32 sums): what a one-pass TF32 kernel would give."""
+    from clsr_tpu_torch.ops import fused_attention as fa
+    x0 = tf32(kp[:, :, None, :] * q[:, None, :, :]) @ tf32(wm)
+    x0 = x0 + (tf32(kp) @ tf32(wk))[:, :, None, :] + (q @ wq)[:, None]
+    y0 = torch.relu(x0 * a0 + c0)
+    logits = torch.relu((tf32(y0) @ tf32(w1)) * a1 + c1) @ w2
+    logits = torch.where(mask[:, :, None] > 0, logits,
+                         torch.full_like(logits, fa.MASK_PADDING_VALUE))
+    return torch.einsum("blg,bld->bgd", torch.softmax(logits, dim=1), keys)
+
+
+def k1_cost(args):
+    """K1's work on these inputs (masked positions skip the MLP, so only
+    the valid ones count): flops, the FP32 bound (every multiply-add at
+    the FP32 rate, K1's `bound_ms`) and the bound at the rate of the
+    instructions the kernel issues (its two products 3xTF32 on the tensor
+    cores, three products each at the TF32 rate, the rest at FP32)."""
+    keys, kp, q, mask = args[:4]
+    B, L, Dk = keys.shape
+    G, D = q.shape[1:]
+    h0, h1 = args[9].shape
+    n = int(mask.sum().item())
+    mlp = 2 * n * G * (D * h0 + h0 * h1) + 2 * n * D * h0
+    rest = 2 * B * G * D * h0 + 2 * B * L * G * Dk
+    n_bytes = 4 * (sum(t.numel() for t in args) + B * G * Dk)
+    fp32_ms, fp32_by = bound(n_bytes, mlp + rest)
+    tc_ms = max(n_bytes / H100_HBM_BYTES,
+                3 * mlp / H100_TF32_FLOPS + rest / H100_FP32_FLOPS) * 1e3
+    return dict(flops=mlp + rest, bytes=n_bytes, n_valid=n,
+                bound_ms=fp32_ms, bound_by=fp32_by, tc_bound_ms=tc_ms)
+
+
+def k1_line(cost, ms, device_ms, plain_ms, err):
+    return (f"kernel {ms:.4f} ms a call ({device_ms:.4f} ms on the device "
+            f"by CUDA graph replay), plain {plain_ms:.4f} ms, "
+            f"max_abs_err {err:.3e} (tol {K1_TOL}) | "
+            f"{cost['flops'] / 1e9:.3f} GFLOP over {cost['n_valid']} valid "
+            f"positions, {cost['bytes'] / 1e6:.2f} MB | FP32 bound "
+            f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}, "
+            f"{cost['bound_ms'] / ms:.1%} achieved), 3xTF32 bound "
+            f"{cost['tc_bound_ms']:.4f} ms ({cost['tc_bound_ms'] / ms:.1%} "
+            f"achieved)")
+
+
 def check_k1(smi):
+    """K1 at the two serving buckets: B=64 x G=128 (the 64 x 100 batch)
+    and B=8 x G=16 (the 8 x 10 batch), with the one-pass TF32 error once
+    as a finding."""
     from clsr_tpu_torch.ops import fused_attention as fa
     from clsr_tpu_torch.ops.initializers import get_initializer
     from clsr_tpu_torch.ops.mlp import FcnNet
     dev = torch.device("cuda")
-    B, L, G, D, Dk, H0, H1 = 64, 50, 128, 80, 40, 80, 40
-    g = torch.Generator(device=dev).manual_seed(0)
-    fcn = FcnNet(D, (H0, H1), ("relu",), get_initializer("tnormal", 0.3), g,
-                 dev, enable_bn=True, out_dim=1, split_first=True).eval()
-    with torch.no_grad():
-        for i in range(2):
-            bn = getattr(fcn, f"bn{i}")
-            bn.mean.normal_(0.0, 0.3, generator=g)
-            bn.var.uniform_(0.5, 1.5, generator=g)
-            bn.scale.uniform_(0.5, 1.5, generator=g)
-            bn.bias.normal_(0.0, 0.3, generator=g)
-    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
-    lengths[0] = 0                                   # all-masked row
-    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
-    r = lambda *s: torch.randn(*s, generator=g, device=dev)
-    args = (r(B, L, Dk), r(B, L, D), r(B, G, D), mask) + \
-        fa.fold_scorer_params(fcn, D, True)
-    got = fa.fused_eval_attention(*args)
-    torch.cuda.synchronize()
-    want = fa.eval_scorer_reference(*args)
-    err = (got - want).abs().max().item()
-    rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max().item()
-    ms = cuda_ms(lambda: fa.fused_eval_attention(*args))
-    plain_ms = cuda_ms(lambda: fa.eval_scorer_reference(*args))
-    n_valid = int(mask.sum().item())
-    # masked positions skip the MLP, so count the valid ones
-    k1_flops = lambda n: (2 * n * G * (D * H0 + H0 * H1)  # per (b, l, g)
-                          + 2 * n * D * H0                # kp @ Wk_eff
-                          + 2 * B * G * D * H0            # q @ Wq_eff
-                          + 2 * B * L * G * Dk)           # sum of keys
-    flops = k1_flops(n_valid)
-    n_bytes = 4 * (sum(t.numel() for t in args) + B * G * Dk)
-    bound_ms, bound_by = bound(n_bytes, flops)
-    log(f"K1 eval_scorer: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-        f"(tol {K1_TOL} abs) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"| {flops / 1e9:.3f} GFLOP over {n_valid}/{B * L} valid positions "
-        f"({k1_flops(B * L) / 1e9:.3f} if all were valid), "
-        f"{n_bytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms ({bound_by}) | "
-        f"{smi}")
-    if not err <= K1_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version: {err}")
-    return dict(name="eval_scorer", max_abs_err=err, max_rel_err=rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                flops=flops, bytes=n_bytes)
+    L, D, Dk, H0, H1 = 50, 80, 40, 80, 40
+    out = {}
+    for shape, B, G in (("serve", 64, 128), ("serve_small", 8, 16)):
+        g = torch.Generator(device=dev).manual_seed(0)
+        fcn = FcnNet(D, (H0, H1), ("relu",), get_initializer("tnormal", 0.3),
+                     g, dev, enable_bn=True, out_dim=1,
+                     split_first=True).eval()
+        with torch.no_grad():
+            for i in range(2):
+                bn = getattr(fcn, f"bn{i}")
+                bn.mean.normal_(0.0, 0.3, generator=g)
+                bn.var.uniform_(0.5, 1.5, generator=g)
+                bn.scale.uniform_(0.5, 1.5, generator=g)
+                bn.bias.normal_(0.0, 0.3, generator=g)
+        lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+        lengths[0] = 0                                   # all-masked row
+        mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+        r = lambda *s: torch.randn(*s, generator=g, device=dev)
+        args = (r(B, L, Dk), r(B, L, D), r(B, G, D), mask) + \
+            fa.fold_scorer_params(fcn, D, True)
+        got = fa.fused_eval_attention(*args)
+        torch.cuda.synchronize()
+        want = fa.eval_scorer_reference(*args)
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max().item()
+        ms = cuda_ms(lambda: fa.fused_eval_attention(*args))
+        device_ms = graph_ms(lambda: fa.fused_eval_attention(*args), 20)
+        plain_ms = cuda_ms(lambda: fa.eval_scorer_reference(*args))
+        cost = k1_cost(args)
+        log(f"K1 eval_scorer [{shape}: B={B} L={L} G={G} D={D}] "
+            + k1_line(cost, ms, device_ms, plain_ms, err) + f" | {smi}")
+        if not err <= K1_TOL:
+            raise AssertionError(f"K1 [{shape}] disagrees with its plain "
+                                 f"version: {err}")
+        out[shape] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                          device_ms=device_ms, plain_ms=plain_ms, **cost)
+        if shape == "serve":
+            one_pass = (one_pass_tf32_scorer(*args) - want).abs().max().item()
+            log(f"finding: K1's products in one TF32 pass (operands rounded "
+                f"to TF32, emulated in PyTorch) give max_abs_err "
+                f"{one_pass:.3e} against the plain version (tol {K1_TOL}); "
+                f"the kernel's 3xTF32 split gives {err:.3e}")
+            out[shape]["one_pass_tf32_err"] = one_pass
+    return dict(out["serve"], serve_small=out["serve_small"])
 
 
 def check_k2(smi):
@@ -623,15 +686,11 @@ def check_train_scorer(smi):
             keys, kp, q, mask, wk + wd, wq - wd, wm, a0, sh0 - a0 * m0, w1,
             a1, sh1 - a1 * m1, w2)]
         k1_ms = cuda_ms(lambda: fa.fused_eval_attention(*k1_args))
+        k1_dev = graph_ms(lambda: fa.fused_eval_attention(*k1_args), 20)
         k1_plain = cuda_ms(lambda: fa.eval_scorer_reference(*k1_args))
         k1_err = (fa.fused_eval_attention(*k1_args)
                   - fa.eval_scorer_reference(*k1_args)).abs().max().item()
-        n_valid = int(mask.sum().item())
-        k1_flops = (2 * n_valid * G * (D * H0 + H0 * H1)
-                    + 2 * n_valid * D * H0 + 2 * TRAIN_B * G * D * H0
-                    + 2 * TRAIN_B * TRAIN_L * G * DK)
-        k1_bound = bound(4 * (sum(t.numel() for t in k1_args)
-                              + TRAIN_B * G * DK), k1_flops)
+        k1_c = k1_cost(k1_args)
         # forward and backward-recompute times of the Function
         t = [a.detach().requires_grad_(i in diff)
              for i, a in enumerate(args)]
@@ -644,16 +703,18 @@ def check_train_scorer(smi):
         plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             att_p, [t[i] for i in diff], cot, retain_graph=True), iters=10)
         del att, att_p
-        log(f"train scorer [{shape}]: K1 at G={G} D={D} {k1_ms:.4f} ms "
-            f"(plain {k1_plain:.4f} ms, bound {k1_bound[0]:.4f} ms "
-            f"{k1_bound[1]}, max_abs_err {k1_err:.3e}) | Function forward "
+        log(f"train scorer [{shape}]: K1 at G={G} D={D} (batch folds) "
+            + k1_line(k1_c, k1_ms, k1_dev, k1_plain, k1_err))
+        log(f"train scorer [{shape}]: Function forward "
             f"(K3a+K3b+K1) {fwd_ms:.4f} ms, plain math forward "
             f"{plain_fwd_ms:.4f} ms | backward (recompute + autograd) "
             f"{bwd_ms:.4f} ms, plain backward {plain_bwd_ms:.4f} ms | {smi}")
         if not k1_err <= K1_TOL:
             raise AssertionError(f"K1 at the {shape} train shape: {k1_err}")
         out[shape] = dict(att_err=att_err, grad_rel=grad_rel, k1_ms=k1_ms,
-                          k1_plain_ms=k1_plain, k1_bound_ms=k1_bound[0],
+                          k1_device_ms=k1_dev,
+                          k1_plain_ms=k1_plain, k1_bound_ms=k1_c["bound_ms"],
+                          k1_tc_bound_ms=k1_c["tc_bound_ms"],
                           k1_err=k1_err, fwd_ms=fwd_ms,
                           plain_fwd_ms=plain_fwd_ms, bwd_ms=bwd_ms,
                           plain_bwd_ms=plain_bwd_ms)

@@ -5,7 +5,8 @@ Pallas scorer path, run as tests/test_pallas_attention.py runs it
 (`use_eval_attention(True)`: interpret mode on the CPU).  The plain
 version of K1, `eval_scorer_reference`, must match
 `fused_eval_attention(..., interpret=True)` on the same folded weights,
-including a row whose history is all masked.  Tolerance 1e-5 in f32.
+including a row whose history is all masked, and at the widths the CUDA
+kernel is compiled for with G in {1, 5, 16}.  Tolerance 1e-5 in f32.
 """
 
 import jax
@@ -142,3 +143,30 @@ def test_scorer_reference_matches_jax_interpret_kernel(modules,
         np.testing.assert_allclose(to_np(got)[-1],
                                    np.broadcast_to(keys[-1].mean(0),
                                                    (G, DK)), **TOL)
+
+
+@pytest.mark.parametrize("D", [40, 80])
+@pytest.mark.parametrize("g", [1, 5, 16])
+def test_scorer_reference_matches_jax_at_kernel_widths(g, D):
+    """The plain version of K1 against JAX's interpret-mode kernel at the
+    widths the CUDA kernel is compiled for (Dk=40, H0=80, H1=40) and at
+    every G its row tiling serves (train 1 and 5, the serving bucket 16):
+    folded weights drawn with numpy, a ragged batch of 7 rows, an
+    all-masked row and a mask with holes."""
+    b, l, dk, h0, h1 = 7, 17, 40, 80, 40
+    rng = np.random.RandomState(100 + g + D)
+    f = lambda *s, std=1.0: (rng.randn(*s) * std).astype(np.float32)
+    lengths = rng.randint(1, l + 1, b)
+    lengths[0] = 0
+    mask = (np.arange(l)[None] < lengths[:, None]).astype(np.float32)
+    mask[1] = rng.rand(l) > 0.4                      # valid, not a prefix
+    mask[1, 0] = 1.0
+    pos = lambda n: (rng.rand(n) + 0.5).astype(np.float32)
+    arrays = [f(b, l, dk), f(b, l, D), f(b, g, D), mask,
+              f(D, h0, std=0.2), f(D, h0, std=0.2), f(D, h0, std=0.2),
+              pos(h0), f(h0, std=0.3), f(h0, h1, std=0.2), pos(h1),
+              f(h1, std=0.3), f(h1, std=0.3)]
+    want = jpa.fused_eval_attention(*arrays, interpret=True)
+    got = fa.fused_eval_attention(*(torch.from_numpy(x) for x in arrays))
+    assert got.shape == (b, g, dk)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)

@@ -7,7 +7,9 @@ runs where only PyTorch is installed:
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest -q
 
 K1 at the serving shape (B=64, L=50, G=128, D=80, Dk=40, H0=80, H1=40)
-to 1e-4 abs, and at the train widths (D = 40 and 80) with G in {1, 5};
+to 1e-4 abs, and over its row tiling: D = 40 and 80 with G in {1, 5, 16,
+128}, B = 7 (a ragged last tile), L = 1 and L = 130 (several chunks of
+positions), an all-masked row and masks with holes, one launch each;
 K2 at B=64, L=50, U=H=40 to 1e-5 abs; K2's backward kernel (with its
 five weight products) at B=6, L=9, U=10, H=12 and at B=400, L=50,
 U=H=40, rows of lengths L, 3, 1 and 0 among them: the forward's carries
@@ -208,11 +210,29 @@ def test_service_kernels_match_plain_path(cuda):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("D, G", [(80, 5), (40, 1), (40, 5)])
-def test_eval_scorer_kernel_at_train_widths(cuda, D, G):
-    args = _scorer_inputs(cuda, G=G, D=D)
+@pytest.mark.parametrize("D, G, B, L, mask", [
+    *[(D, G, 64, 50, "prefix") for D in (80, 40) for G in (1, 5, 16, 128)],
+    (80, 5, 7, 50, "prefix"),     # B·G not a multiple of the tile's queries
+    (40, 1, 7, 50, "prefix"),
+    (80, 5, 16, 1, "prefix"),     # one position
+    (80, 16, 9, 130, "prefix"),   # more than one chunk of positions
+    (40, 1, 9, 130, "holes"),
+    (80, 5, 11, 50, "holes"),     # valid positions that are not a prefix
+])
+def test_eval_scorer_kernel_at_train_widths(cuda, D, G, B, L, mask):
+    """K1's row tiling: every G the port uses at both widths, a ragged
+    last tile, one and several position chunks, an all-masked row (row
+    0) and masks with holes; one launch, 1e-4 abs of the plain version."""
+    args = list(_scorer_inputs(cuda, B=B, L=L, G=G, D=D))
+    if mask == "holes":
+        g = torch.Generator(device=cuda).manual_seed(9)
+        holes = (torch.rand(B, L, generator=g, device=cuda) > 0.4).float()
+        holes[0] = 0
+        args[3] = holes
+    before = fa.fused_eval_attention.launches
     got = fa.fused_eval_attention(*args)
     torch.cuda.synchronize()
+    assert fa.fused_eval_attention.launches == before + 1
     want = fa.eval_scorer_reference(*args)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
