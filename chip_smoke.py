@@ -30,9 +30,13 @@ Phases, each fatal on failure:
      device memory;
   6. K3a and K3b (train-mode BN statistics) against their plain version
      at the two train shapes of the clsr.yaml scorers, B=400, L=50 and
-     (G, D) = (5, 80) short-term, (1, 40) long-term: batch mean and var
-     within 1e-4 relative or 1e-6 abs (summation order); kernel, plain
-     and bound times;
+     (G, D) = (5, 80) short-term, (1, 40) long-term, and at the Kuaishou
+     history length L=250 (B=400, G=5, D=80): batch mean and var within
+     1e-4 relative or 1e-6 abs (summation order), a second call
+     bit-identical to the first; kernel times (a call, and on the device
+     alone by CUDA graph replay) and plain times, the FP32 bound and the
+     bound at the rate of the kernels' 3xTF32 tensor-core products, each
+     with its achieved share;
   7. the train-mode scorer `fused_train_attention` (K3a, K3b, K1 with the
      batch folds; recompute backward) against `train_scorer_math` at the
      same shapes: output within 1e-4 abs, the four statistics as in 6,
@@ -543,6 +547,11 @@ def serve(smi):
 
 TRAIN_SHAPES = (("short", 5, 80), ("long", 1, 40))   # (name, G, D)
 TRAIN_B, TRAIN_L, H0, H1, DK = 400, 50, 80, 40, 40
+# K3a/K3b's shapes: the two train scorers, and the short-term one at the
+# Kuaishou history length of tests/test_kuaishou_shape.py;
+# (name, G, D, L, seed)
+STATS_SHAPES = (("short", 5, 80, TRAIN_L, 15), ("long", 1, 40, TRAIN_L, 11),
+                ("kuaishou", 5, 80, 250, 16))
 STATS_REL, STATS_ABS, GRAD_REL = 1e-4, 1e-6, 1e-4
 
 
@@ -574,69 +583,83 @@ def train_inputs(g, G, D, B=TRAIN_B, L=TRAIN_L):
 
 
 def stats_cost(B, L, G, D, second):
-    """(bytes, flops) of K3a (second False) or K3b: inputs read once,
-    the per-channel sums written once."""
+    """K3a's (second False) or K3b's work on these shapes, inputs read
+    once and the per-channel sums written once: flops, the FP32 bound
+    (every multiply-add at the FP32 rate, `bound_ms`) and, as k1_cost
+    counts K1's, the bound at the rate of the instructions the kernel
+    issues (its products 3xTF32 on the tensor cores, three products each
+    at the TF32 rate, the rest at FP32)."""
     rows = B * L * G
-    flops = (2 * rows * D * H0 + 2 * B * L * D * H0 + 2 * B * G * D * H0
-             + rows * D + 2 * rows * H0)
+    mlp = 2 * rows * D * H0 + 2 * B * L * D * H0
+    rest = 2 * B * G * D * H0 + rows * D + 2 * rows * H0 + 3 * rows * H0
     n_in = B * G * D + B * L * D + 3 * D * H0
     if second:
-        flops += 3 * rows * H0 + 2 * rows * H0 * H1 + 3 * rows * H1
+        mlp += 2 * rows * H0 * H1
+        rest += 3 * rows * H1
         n_in += 2 * H0 + H0 * H1
         n_out = 2 * H1
     else:
-        flops += 3 * rows * H0
         n_out = 2 * H0
-    return 4 * (n_in + n_out), flops
+    n_bytes = 4 * (n_in + n_out)
+    fp32_ms, fp32_by = bound(n_bytes, mlp + rest)
+    tc_ms = max(n_bytes / H100_HBM_BYTES,
+                3 * mlp / H100_TF32_FLOPS + rest / H100_FP32_FLOPS) * 1e3
+    return dict(flops=mlp + rest, bytes=n_bytes, bound_ms=fp32_ms,
+                bound_by=fp32_by, tc_bound_ms=tc_ms)
 
 
 def check_k3(smi):
     from clsr_tpu_torch.ops import fused_train_attention as fta
     out = {}
-    for shape, G, D in TRAIN_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(10 + G)
-        _, kp, q, _, k0 = train_inputs(g, G, D)[:5]
+    for shape, G, D, L, seed in STATS_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        _, kp, q, _, k0 = train_inputs(g, G, D, L=L)[:5]
         wk, wq, wd, wm = k0.split(D)
         w = [(wk + wd).contiguous(), (wq - wd).contiguous(),
              wm.contiguous()]
-        n = TRAIN_B * TRAIN_L * G
-        s0 = fta.train_stats0(q, kp, *w)
-        torch.cuda.synchronize()
+        n = TRAIN_B * L * G
         p0 = fta.train_stats_reference(q, kp, *w)
         mean0, var0 = mean_var(*p0, n)
         a0 = torch.rsqrt(var0 + 1e-4).contiguous()
         fold = (a0, (-a0 * mean0).contiguous(),
                 (torch.randn(H0, H1, generator=g, device="cuda")
                  * 0.1).contiguous())
-        s1 = fta.train_stats1(q, kp, *w, *fold)
-        torch.cuda.synchronize()
-        p1 = fta.train_stats_reference(q, kp, *w, fold)
-        for name, got, want, second, call, plain in (
-                ("train_stats0", s0, p0, False,
+        for name, second, call, plain in (
+                ("train_stats0", False,
                  lambda: fta.train_stats0(q, kp, *w),
                  lambda: fta.train_stats_reference(q, kp, *w)),
-                ("train_stats1", s1, p1, True,
+                ("train_stats1", True,
                  lambda: fta.train_stats1(q, kp, *w, *fold),
                  lambda: fta.train_stats_reference(q, kp, *w, fold))):
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             errs = [stats_err(a, b) for a, b in
-                    zip(mean_var(*got, n), mean_var(*want, n))]
+                    zip(mean_var(*got, n), mean_var(*plain(), n))]
             excess = max(e[0] for e in errs)
             err = max(e[1] for e in errs)
             ms, plain_ms = cuda_ms(call), cuda_ms(plain)
-            n_bytes, flops = stats_cost(TRAIN_B, TRAIN_L, G, D, second)
-            bound_ms, bound_by = bound(n_bytes, flops)
+            device_ms = graph_ms(call, 20)
+            cost = stats_cost(TRAIN_B, L, G, D, second)
+            fp32, tc = cost["bound_ms"], cost["tc_bound_ms"]
             log(f"{'K3b' if second else 'K3a'} {name} [{shape}: B={TRAIN_B} "
-                f"L={TRAIN_L} G={G} D={D}]: mean/var max_abs_err {err:.3e} "
-                f"(tol {STATS_REL} rel or {STATS_ABS} abs) | kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {flops / 1e9:.3f} "
-                f"GFLOP, {n_bytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms "
-                f"({bound_by}) | {smi}")
-            if not excess <= 0:
+                f"L={L} G={G} D={D}]: mean/var max_abs_err {err:.3e} "
+                f"(tol {STATS_REL} rel or {STATS_ABS} abs), repeat "
+                f"{'bit-identical' if same else 'DIFFERS'} | kernel "
+                f"{ms:.4f} ms a call ({device_ms:.4f} ms on the device by "
+                f"CUDA graph replay), plain {plain_ms:.4f} ms | "
+                f"{cost['flops'] / 1e9:.3f} GFLOP, {cost['bytes'] / 1e6:.2f}"
+                f" MB | FP32 bound {fp32:.4f} ms ({cost['bound_by']}, "
+                f"{fp32 / ms:.1%} a call, {fp32 / device_ms:.1%} on the "
+                f"device), 3xTF32 bound {tc:.4f} ms ({tc / ms:.1%}, "
+                f"{tc / device_ms:.1%}) | {smi}")
+            if not (excess <= 0 and same):
                 raise AssertionError(f"{name} [{shape}] disagrees with its "
-                                     f"plain version: {err}")
+                                     f"plain version ({err}) or with "
+                                     f"itself (bit-identical: {same})")
             out[f"{name}/{shape}"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, flops=flops, bytes=n_bytes)
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, repeat_identical=same, **cost)
     return out
 
 

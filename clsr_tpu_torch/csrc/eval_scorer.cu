@@ -63,7 +63,14 @@
 #include <algorithm>
 #include <mutex>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using clsr::SplitA;
+using clsr::mma3;
+using clsr::split_a;
+using clsr::stage_fragment;
 
 constexpr int kWarps = 12;
 constexpr int kThreads = 32 * kWarps;
@@ -96,55 +103,6 @@ struct Layout {
   static_assert(a0 % 4 == 0 && warp0 % 2 == 0 && per_warp % 2 == 0,
                 "fragments are 16-byte loads, q rows 8-byte loads");
 };
-
-// TF32 high part (round to nearest, ties away) and the remainder, whose
-// f32 bits go to the unit as they are (it reads their top 19 bits)
-__device__ __forceinline__ unsigned tf32_hi(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-struct SplitA {
-  unsigned hi[4], lo[4];
-};
-
-__device__ __forceinline__ SplitA split_a(const float* a) {
-  SplitA s;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.hi[i] = tf32_hi(a[i]);
-    s.lo[i] = __float_as_uint(a[i] - __uint_as_float(s.hi[i]));
-  }
-  return s;
-}
-
-// d += a·b on the tensor cores, 3xTF32: lo·hi + hi·lo + hi·hi; b is a
-// staged fragment (hi0, hi1, lo0, lo1)
-__device__ __forceinline__ void mma3(float* d, const SplitA& a, float4 b) {
-  const unsigned bh[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
-  const unsigned bl[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
-#define CLSR_MMA(A, B)                                                      \
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "                 \
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"               \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                      \
-      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(B[0]), "r"(B[1]))
-  CLSR_MMA(a.lo, bh);
-  CLSR_MMA(a.hi, bl);
-  CLSR_MMA(a.hi, bh);
-#undef CLSR_MMA
-}
-
-// Fragment e = (ks, n, lane) of W in the permuted K order: rows k and
-// k + 1 of column col, split into high parts and remainders.
-__device__ __forceinline__ void stage_fragment(float* dst, const float* w,
-                                               int k, int col, int ld) {
-  const float b0 = w[k * ld + col], b1 = w[(k + 1) * ld + col];
-  const float h0 = __uint_as_float(tf32_hi(b0));
-  const float h1 = __uint_as_float(tf32_hi(b1));
-  dst[0] = h0;
-  dst[1] = h1;
-  dst[2] = b0 - h0;
-  dst[3] = b1 - h1;
-}
 
 // The logits of the 16·MT rows r0.. of the warp's chunk into its logit
 // buffer; rows past n_rows repeat the last row and are not written.  The

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 alone (no PyTorch headers) into `_build/<name>-<hash>.so`, the hash
-covering the source and the flags, so an edited source builds anew and
-an unchanged one is reused.  The first CUDA call of a kernel builds it;
+covering the source, the headers it includes by quotes (`csrc/*.cuh`)
+and the flags, so an edited source or header builds anew and an
+unchanged one is reused.  The first CUDA call of a kernel builds it;
 `build()` starts every missing build at once (one `nvcc` per source).
 Pointers go in as `c_void_p`, with PyTorch's current stream.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +46,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "clsr_scan_backward_smem_bytes": ((_I, _I), ctypes.c_longlong),
     },
     "train_stats": {
-        "clsr_train_stats0": ((_P,) * 7 + (_I,) * 5 + (_P,), _I),
-        "clsr_train_stats1": ((_P,) * 10 + (_I,) * 6 + (_P,), _I),
-        "clsr_train_stats_smem_bytes": ((_I, _I, _I), ctypes.c_longlong),
-        "clsr_train_stats_chunk_l": ((), _I),
+        "clsr_train_stats0": ((_P,) * 8 + (_I,) * 5 + (_P,), _I),
+        "clsr_train_stats1": ((_P,) * 11 + (_I,) * 6 + (_P,), _I),
+        "clsr_train_stats_max_blocks": ((_I, _I), _I),
     },
     "row_update": {
         # one packed int64 array each (the layouts are in the source)
@@ -57,6 +58,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
 }
 KERNELS = tuple(_SIGNATURES)
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -72,10 +74,23 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _sources(path: Path, seen: list) -> list:
+    """`path` and, depth first, every file it includes by quotes (found
+    beside the including file, as nvcc finds it), each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_text()):
+        _sources(path.parent / inc, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> float:

@@ -20,8 +20,11 @@ output bias b2 is not an input: it cancels in the softmax over L.
   * `train_stats_reference` — the plain version of K3a (no fold) and
     K3b (fold = (a0, c0, w1)): (sum, sum of squares) per channel.
   * `train_stats0` / `train_stats1` — the wrappers: plain version on CPU
-    tensors; on CUDA tensors they launch csrc/train_stats.cu or raise.
-    `.launches` counts kernel launches.
+    tensors; on CUDA tensors they launch csrc/train_stats.cu once (it
+    finishes its own reduction) or raise.  `.launches` counts kernel
+    launches.  Each (device, pass, D) keeps one workspace (per-block
+    partials and the kernel's ticket), so calls on one device are
+    ordered on one stream, as the port makes them.
   * `train_scorer_math` — the port of `_xla_train_scorer`: the exact
     train-mode math of the plain FcnNet path, used by the backward.
   * `fused_train_attention` — a `torch.autograd.Function`: the forward
@@ -65,6 +68,25 @@ def train_stats_reference(query, keys_proj, wk_eff, wq_eff, wm, fold=None):
     return x.sum(axes), (x * x).sum(axes)
 
 
+_workspaces = {}
+
+
+def _workspace(lib, device, kernel_pass, D, H):
+    """The kernel's per-block partials [blocks, 2, H] and its zeroed
+    ticket, made once per (device, pass, D)."""
+    key = (device.index, kernel_pass, D)
+    if key not in _workspaces:
+        with torch.cuda.device(device):
+            blocks = lib.clsr_train_stats_max_blocks(D, kernel_pass)
+        if blocks <= 0:
+            raise RuntimeError(f"train_stats{kernel_pass}: CUDA error "
+                               f"{-blocks} at setup")
+        _workspaces[key] = (
+            torch.empty(blocks, 2, H, device=device, dtype=torch.float32),
+            torch.zeros(1, device=device, dtype=torch.int32))
+    return _workspaces[key]
+
+
 def _stats(kernel_pass, query, keys_proj, wk_eff, wq_eff, wm, fold):
     args = (query, keys_proj, wk_eff, wq_eff, wm) + tuple(fold)
     if query.device.type == "cpu":
@@ -92,22 +114,17 @@ def _stats(kernel_pass, query, keys_proj, wk_eff, wq_eff, wm, fold):
         zeros = torch.zeros(H, device=query.device, dtype=torch.float32)
         return zeros, zeros.clone()
     lib = _build.load("train_stats")
-    if lib.clsr_train_stats_smem_bytes(D, G, kernel_pass) > _build.MAX_SMEM:
-        raise ValueError(f"the train statistics kernels do not fit G={G} "
-                         f"candidates in one block")
-    n_chunks = -(-L // lib.clsr_train_stats_chunk_l())
-    sums = torch.empty(B, n_chunks, H, device=query.device,
-                       dtype=torch.float32)
-    sqs = torch.empty_like(sums)
+    partials, ticket = _workspace(lib, query.device, kernel_pass, D, H)
+    out = torch.empty(2, H, device=query.device, dtype=torch.float32)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = lib.clsr_train_stats1 if kernel_pass else lib.clsr_train_stats0
         dims = (B, L, G, D, H0, H1) if kernel_pass else (B, L, G, D, H0)
-        rc = fn(*(t.data_ptr() for t in args), sums.data_ptr(),
-                sqs.data_ptr(), *dims, stream)
+        rc = fn(*(t.data_ptr() for t in args), partials.data_ptr(),
+                ticket.data_ptr(), out.data_ptr(), *dims, stream)
     _build.check(rc, f"train_stats{kernel_pass}")
     (train_stats1 if kernel_pass else train_stats0).launches += 1
-    return sums.sum((0, 1)), sqs.sum((0, 1))
+    return out[0], out[1]
 
 
 def train_stats0(query, keys_proj, wk_eff, wq_eff, wm):

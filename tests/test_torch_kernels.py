@@ -16,7 +16,10 @@ U=H=40, rows of lengths L, 3, 1 and 0 among them: the forward's carries
 to 1e-5 abs, every gradient within 1e-4 of its max abs of the plain
 backward and of autograd of the plain recurrence, one launch each way
 through autograd, a float64 tensor refused; K3a/K3b's batch means and
-variances to 1e-4 relative or 1e-6 abs (summation order); the served
+variances to 1e-4 relative or 1e-6 abs (summation order) over their
+row tiling (D 40 and 80; G 1, 5, 8, 13; L 1, 15, 16, 17, 50, 250; B 1, 3,
+400; K3b with c0 > 0), bit-identical on a second call, one launch each;
+the served
 scores at clsr.yaml widths with the kernels on and off to 1e-4 abs; and
 one train step at clsr.yaml widths on small tables, kernel path against
 plain path: loss parts to 1e-4 relative, gradients to 1e-4 of each
@@ -250,25 +253,42 @@ def stats_close(got, want, n_rows):
                 ).all(), (g - w).abs().max()
 
 
-@pytest.mark.parametrize("D, G", [(80, 5), (40, 1)])
-def test_train_stats_kernels_match_plain(cuda, D, G):
-    B, L, H0, H1 = 64, 50, 80, 40
+# K3a/K3b over their row tiling: both compiled D, G from the train scorers'
+# 1 and 5 up to 13, L from one position through ragged last m-tiles (15,
+# 17) to the Kuaishou length 250, and B from fewer queries than resident
+# warps (1, 3) to the train batch
+STATS_TILING = [(D, G, L, B) for D in (40, 80) for G in (1, 5, 8, 13)
+                for L in (1, 15, 16, 17, 50, 250) for B in (1, 3, 400)]
+
+
+@pytest.mark.parametrize("D, G, L, B", STATS_TILING)
+def test_train_stats_kernels_match_plain(cuda, D, G, L, B):
+    """Batch mean and var within the gate, two calls bit-identical, one
+    launch a call; K3b with c0 > 0, so a padding row counted would show."""
+    H0, H1 = 80, 40
     g = torch.Generator(device=cuda).manual_seed(2)
     r = lambda *s, std=1.0: torch.randn(*s, generator=g, device=cuda) * std
     q, kp = r(B, G, D), r(B, L, D)
     w = [r(D, H0, std=0.3) for _ in range(3)]
     n = B * L * G
-    before = (fta.train_stats0.launches, fta.train_stats1.launches)
+    before = fta.train_stats0.launches
     s0 = fta.train_stats0(q, kp, *w)
+    again = fta.train_stats0(q, kp, *w)
+    torch.cuda.synchronize()
+    assert fta.train_stats0.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(s0, again))
     stats_close(s0, fta.train_stats_reference(q, kp, *w), n)
     mean = s0[0] / n
     a0 = torch.rsqrt(s0[1] / n - mean * mean + 1e-4)
-    fold = (a0.contiguous(), (-a0 * mean).contiguous(), r(H0, H1, std=0.3))
+    c0 = torch.rand(H0, generator=g, device=cuda) + 0.1
+    fold = (a0.contiguous(), c0, r(H0, H1, std=0.3))
+    before = fta.train_stats1.launches
     s1 = fta.train_stats1(q, kp, *w, *fold)
-    stats_close(s1, fta.train_stats_reference(q, kp, *w, fold), n)
+    again = fta.train_stats1(q, kp, *w, *fold)
     torch.cuda.synchronize()
-    assert (fta.train_stats0.launches, fta.train_stats1.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert fta.train_stats1.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(s1, again))
+    stats_close(s1, fta.train_stats_reference(q, kp, *w, fold), n)
 
 
 def _train_batch(dev, rng, B, L, n_users, n_items, n_cates):

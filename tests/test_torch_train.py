@@ -8,6 +8,11 @@ weights.from_flax) on both sides, JAX on the CPU:
     tests/test_pallas_train.py runs it: output and the four batch
     statistics to 2e-5, BN on and off; its recompute backward against
     `jax.grad` of `_xla_train_scorer`: rtol 1e-4, atol 1e-5;
+  * K3a/K3b's plain version `train_stats_reference` against JAX's Pallas
+    kernels `_stats0_kernel` / `_stats1_kernel` through `_stats_call` in
+    interpret mode, their per-batch-row partials summed: the per-row
+    sums (sum / n, sum of squares / n) to 1e-5, at ragged B and L, G 1
+    and 5, L = 1, and c0 > 0 (so a padding row counted would show);
   * the `fused_scan` Function's backward (on CPU its hand-derived
     plain version from the saved carries) against `jax.vjp` of
     `_scan_reference`: 1e-5;
@@ -127,6 +132,57 @@ def test_train_stats_reference_matches_scorer_math():
                                          (a0, c0, w1))
     torch.testing.assert_close(s1_ / n + b1, m1, **TOL)
     torch.testing.assert_close(sq1 / n - (s1_ / n) ** 2, v1, **TOL)
+
+
+# (B, L, G, D, H0, H1): B not a multiple of the JAX kernel's 8 batch rows
+# a step, L not a multiple of its stats block of 8, G 1 and 5, a history
+# of length 1, and one case with no padding at all
+STATS_CASES = [(5, 13, 1, 8, 16, 8), (11, 17, 5, 16, 16, 8),
+               (5, 1, 5, 8, 16, 8), (11, 13, 5, 8, 24, 16),
+               (8, 16, 1, 16, 16, 8)]
+
+
+@pytest.mark.parametrize("second", [False, True], ids=["k3a", "k3b"])
+@pytest.mark.parametrize("case", STATS_CASES,
+                         ids=["-".join(map(str, c)) for c in STATS_CASES])
+def test_train_stats_reference_matches_jax_kernels(case, second):
+    """K3a/K3b's plain version against JAX's Pallas statistics kernels
+    (interpret mode): masked positions count, padding rows do not."""
+    B, L, G, D, H0, H1 = case
+    rng = np.random.RandomState(sum(case) + second)
+    f = lambda *s, std=1.0: (rng.randn(*s) * std).astype(np.float32)
+    q, kp = f(B, G, D), f(B, L, D)
+    w = [f(D, H0, std=0.3) for _ in range(3)]
+    a0 = (rng.rand(H0) + 0.5).astype(np.float32)
+    c0 = (rng.rand(H0) + 0.1).astype(np.float32)          # > 0
+    w1 = f(H0, H1, std=0.3)
+    bl = 8
+    n_l = -(-L // bl)
+    kp_pad = np.pad(kp, ((0, 0), (0, n_l * bl - L), (0, 0)))
+    if second:
+        spec = lambda *s: jpa.pl.BlockSpec(s, lambda b, l: (0, 0),
+                                           memory_space=jpa.pltpu.VMEM)
+        extra = [jnp.asarray(a0[None]), jnp.asarray(c0[None]),
+                 jnp.asarray(w1)]
+        sums, sqs = jpa._stats_call(
+            jpa._stats1_kernel, extra,
+            [spec(1, H0), spec(1, H0), spec(H0, H1)], B, bl, n_l, D, G, H1,
+            H0, jnp.asarray(q), jnp.asarray(kp_pad),
+            *map(jnp.asarray, w), True, jnp.float32, L)
+        fold = tuple(map(torch.from_numpy, (a0, c0, w1)))
+    else:
+        sums, sqs = jpa._stats_call(
+            jpa._stats0_kernel, [], [], B, bl, n_l, D, G, H0, H0,
+            jnp.asarray(q), jnp.asarray(kp_pad), *map(jnp.asarray, w), True,
+            jnp.float32, L)
+        fold = None
+    got = fta.train_stats_reference(torch.from_numpy(q),
+                                    torch.from_numpy(kp),
+                                    *map(torch.from_numpy, w), fold)
+    n = B * L * G
+    for g, want in zip(got, (sums, sqs)):
+        np.testing.assert_allclose(to_np(g) / n,
+                                   np.asarray(want).sum(0) / n, **TOL)
 
 
 # ---------------------------------------------------------- the recurrence
