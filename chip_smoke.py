@@ -14,8 +14,15 @@ Phases, each fatal on failure:
      replay), the FP32 bound and the bound at the rate of the
      kernel's 3xTF32 tensor-core products, each with its achieved share;
      once, the error one TF32 pass would give (emulated in PyTorch);
-  4. K2 (three-cell recurrence) against its plain version at B=64, L=50,
-     U=H=40 with mixed lengths: outs, h1, h2 within 1e-5 abs, times;
+  4. K2's forward (three-cell recurrence) against its plain version at
+     U=H=40 with history lengths 1..L: at the serving buckets B=64 and
+     B=8 (L=50, no carries) and at the Kuaishou length (B=400, L=250,
+     with and without the carries): outs, h1, h2 within 1e-5 abs of the
+     plain recurrence, the carries within 1e-5 abs of the plain ones, a
+     second call bit-identical; ms a call and on the device by CUDA graph
+     replay, also with each rows-a-block R forced (1, 4), us per
+     dependent step, the plain version's ms and the byte bound with its
+     share;
   5. serving at the clsr.yaml widths with Taobao UserBehavior-sized
      tables (987,995 users, 4,162,025 items, 9,440 categories, plus the
      OOV row), seeded random weights plus N(0, 0.1) noise: 64 requests
@@ -47,10 +54,10 @@ Phases, each fatal on failure:
      abs), the backward kernel plus its five weight products against the
      plain backward on the same carries and against autograd of the
      plain recurrence (each gradient within 1e-4 of its max abs); the
-     forward with and without carries, the backward kernel alone, the
-     weight products, the whole backward, the plain backward and the
-     old route (the plain recurrence recomputed under autograd), and
-     both bounds;
+     forward with and without carries (each as a phase 4 case), the
+     backward kernel alone, the weight products, the whole backward, the
+     plain backward and the old route (the plain recurrence recomputed
+     under autograd), and both bounds;
   8. training at the clsr.yaml widths with the Taobao-sized tables:
      seeded numpy batches of B=400, L=50, lengths 1..50, in-batch
      negatives drawn on the card from a seeded torch.Generator (G=5).
@@ -327,42 +334,98 @@ def check_k1(smi):
     return dict(out["serve"], serve_small=out["serve_small"])
 
 
-def check_k2(smi):
-    from clsr_tpu_torch.ops import fused_scan as fs
+def k2_inputs(B, L, seed, U=40, H=40):
+    """K2's inputs on the card: history lengths uniform in 1..L, inputs
+    at std 0.7 and recurrent weights at about the model's glorot scale
+    (with std 0.7 the GRUs turn chaotic and f32 itself drifts from f64 by
+    ~0.1 over 50 steps, which would test rounding, not the kernel)."""
     dev = torch.device("cuda")
-    B, L, U, H = 64, 50, 40, 40
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.7
-    # recurrent weights at about the model's glorot scale: with std 0.7
-    # the GRUs turn chaotic and f32 itself drifts from f64 by ~0.1 over
-    # 50 steps, which would test rounding, not the kernel
     w = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.15
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
     mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
-    args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
+    return (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
             r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
             r(B, U), w(U, 2 * U), w(U, U), w(H, 4 * H), w(H, 2 * H),
             w(H, H))
-    got = fs.fused_scan(*args)
+
+
+def k2_forward_case(shape, args, keep, smi, graph_calls=20, plain_iters=5):
+    """K2's forward on `args`, with the carries if `keep`: outs, h1f, h2f
+    against `scan_reference` and the carries against
+    `scan_forward_reference` (1e-5 abs), a second call bit-identical; ms
+    a call (CUDA events), on the device (CUDA graph replay) with the
+    wrapper's rows a block and with each of FORWARD_ROWS forced, the
+    plain version's ms, the byte bound, us per dependent step and the
+    bound's share of the device time."""
+    from clsr_tpu_torch.ops import fused_scan as fs
+    B, L = args[2].shape[:2]
+    U, H = args[9].shape[-1], args[14].shape[-1]
+    run = lambda: fs._forward(*args, keep_carries=keep)
+    first, second = run(), run()
     torch.cuda.synchronize()
-    want = fs.scan_reference(*args)
-    err = max((x - y).abs().max().item() for x, y in zip(got, want))
-    ms = cuda_ms(lambda: fs.fused_scan(*args))
-    plain_ms = cuda_ms(lambda: fs.scan_reference(*args), iters=5)
-    n_valid = int(mask.sum().item())
+    same = all(torch.equal(x, y) for x, y in zip(first, second)
+               if x is not None)
+    plain = ((lambda: fs.scan_forward_reference(*args)) if keep
+             else (lambda: fs.scan_reference(*args)))
+    want = plain()
+    err = max((x - y).abs().max().item() for x, y in zip(first, want))
+    ms = cuda_ms(run)
+    device_ms = graph_ms(run, graph_calls)
+    rows = fs.forward_rows_per_block(B, fs._sm_count(args[2].device))
+    pick = fs.forward_rows_per_block
+    rows_device_ms = {}
+    try:
+        for forced in fs.FORWARD_ROWS:
+            fs.forward_rows_per_block = lambda *_, r=forced: r
+            rows_device_ms[forced] = graph_ms(run, graph_calls)
+    finally:
+        fs.forward_rows_per_block = pick
+    plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
+    n_valid = int(args[8].sum().item())
     macs = U * 2 * U + U * U + H * 4 * H + H * 2 * H + H * H
     flops = 2 * n_valid * macs
-    n_bytes = 4 * (sum(t.numel() for t in args) + B * L * H + B * U + B * H)
+    n_out = B * L * H + B * U + B * H + (B * L * (U + 3 * H) if keep else 0)
+    n_bytes = 4 * (sum(t.numel() for t in args) + n_out)
     bound_ms, bound_by = bound(n_bytes, flops)
-    log(f"K2 clsr_scan: max_abs_err {err:.3e} (tol {K2_TOL} abs) | kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {n_bytes / 1e6:.2f} MB, "
-        f"{flops / 1e6:.1f} MFLOP, bound {bound_ms:.5f} ms ({bound_by}); "
-        f"the real floor is the {L} dependent steps | {smi}")
-    if not err <= K2_TOL:
-        raise AssertionError(f"K2 disagrees with its plain version: {err}")
-    return dict(name="clsr_scan", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                bytes=n_bytes)
+    us_step = device_ms * 1e3 / L
+    log(f"K2 clsr_scan [{shape}: B={B} L={L} U={U} H={H}"
+        f"{', carries' if keep else ''}, R={rows} rows a block]: "
+        f"max_abs_err "
+        f"{err:.3e} (tol {K2_TOL} abs), second call "
+        f"{'bit-identical' if same else 'DIFFERS'} | {ms:.4f} ms a call, "
+        f"{device_ms:.4f} ms on the device by CUDA graph replay "
+        f"({us_step:.3f} us per dependent step), device ms by R "
+        + ", ".join(f"{r}: {t:.4f}" for r, t in rows_device_ms.items())
+        + f" | plain {plain_ms:.4f} ms | {n_bytes / 1e6:.2f} MB, "
+        f"{flops / 1e6:.1f} MFLOP, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{bound_ms / device_ms:.1%} of the device time; the floor is the "
+        f"{L} dependent steps) | {smi}")
+    if not (err <= K2_TOL and same):
+        raise AssertionError(f"K2 [{shape}] disagrees with its plain "
+                             f"version ({err}) or with itself ({same})")
+    return dict(max_abs_err=err, bit_identical=same, ms=ms,
+                device_ms=device_ms, rows=rows,
+                rows_device_ms=rows_device_ms, us_per_step=us_step,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                flops=flops, bytes=n_bytes, n_valid=n_valid, B=B, L=L)
+
+
+def check_k2(smi):
+    """K2's forward at the two serving buckets (B = 64 and 8, L = 50, no
+    carries, as serving runs it) and at the Kuaishou length (B = 400,
+    L = 250, with and without the carries); the train shape is phase 7's."""
+    out = {}
+    for shape, B, L, keep, seed in (("serve", 64, 50, False, 1),
+                                    ("serve_small", 8, 50, False, 2),
+                                    ("kuaishou", 400, 250, False, 3),
+                                    ("kuaishou_carries", 400, 250, True, 3)):
+        out[shape] = k2_forward_case(shape, k2_inputs(B, L, seed), keep, smi,
+                                     graph_calls=10 if L > 50 else 20,
+                                     plain_iters=2 if L > 50 else 5)
+    return dict(out["serve"], name="clsr_scan",
+                **{k: v for k, v in out.items() if k != "serve"})
 
 
 def make_requests(rng, n_req, n_cands, n_users, n_items, n_cates):
@@ -749,15 +812,9 @@ def check_k2_backward(smi):
     from clsr_tpu_torch.ops import fused_scan as fs
     dev = torch.device("cuda")
     B, L, U, H = TRAIN_B, TRAIN_L, 40, 40
-    g = torch.Generator(device=dev).manual_seed(30)
-    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.7
-    w = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.15
-    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
-    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
-    args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
-            r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
-            r(B, U), w(U, 2 * U), w(U, U), w(H, 4 * H), w(H, 2 * H),
-            w(H, H))
+    args = k2_inputs(B, L, 30)
+    mask = args[8]
+    g = torch.Generator(device=dev).manual_seed(31)
     cots = tuple(torch.randn(*shape, generator=g, device=dev)
                  for shape in ((B, U), (B, L, H), (B, H)))
     *_, carries = fs._forward(*args, keep_carries=True)
@@ -776,9 +833,9 @@ def check_k2_backward(smi):
     rel_plain = max(rel(a, b) for a, b in zip(got, plain))
     rel_auto = max(rel(a, b) for a, b in zip(got, auto))
     del t, auto, plain_carries
-    fwd_ms = cuda_ms(lambda: fs._forward(*args), iters=10)
-    fwd_carries_ms = cuda_ms(lambda: fs._forward(*args, keep_carries=True),
-                             iters=10)
+    fwd = {keep: k2_forward_case("train" + ("_carries" if keep else ""),
+                                 args, keep, smi) for keep in (False, True)}
+    fwd_ms, fwd_carries_ms = fwd[False]["ms"], fwd[True]["ms"]
     kernel_ms = cuda_ms(lambda: fs._backward_kernel(args, carries, *cots))
     dx = fs._backward_kernel(args, carries, *cots)
     gemm_ms = cuda_ms(lambda: fs.scan_weight_grads(
@@ -826,7 +883,8 @@ def check_k2_backward(smi):
                 recompute_ms=recompute_ms, bound_ms=bwd_bound[0],
                 bound_by=bwd_bound[1], fwd_ms=fwd_ms,
                 fwd_carries_ms=fwd_carries_ms, fwd_bound_ms=fwd_bound[0],
-                fwd_bound_by=fwd_bound[1], n_valid=n_valid)
+                fwd_bound_by=fwd_bound[1], n_valid=n_valid,
+                forward=fwd[False], forward_carries=fwd[True])
 
 
 def train_batches(n, seed, n_users, n_items, n_cates):

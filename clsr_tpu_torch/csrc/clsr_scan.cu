@@ -26,17 +26,51 @@
 //
 // What bounds both on an H100: neither bytes (the backward moves ~1,240
 // floats a row and step, ~99 MB at B = 400, L = 50: 0.03 ms of HBM time)
-// nor operations (~32,000 multiply-adds a row and step) but the L
-// dependent steps: each step needs the whole carry of the one before.  The
-// design keeps that chain on chip: a block walks one row, the five
-// recurrent matrices (3U^2 + 7H^2 floats, 64 KB at U = H = 40) and the
-// carries stay in shared memory, and a step is a few phases split by
-// __syncthreads with one thread per output of the phase.  The backward
-// pads the matrices' rows to an odd stride, so a thread per row reading
-// one column (its transposed products dh[k] = Σ_o dga[o]·W[k][o]) hits 32
-// banks, as a thread per column does.  A masked step (mt == 0) changes no
-// carry and writes zero outputs, so the block skips its arithmetic; a
-// block whose row is short ends early and frees its SM for the next.
+// nor operations (~16,000 multiply-adds a row and step forward, twice
+// that backward) but the L dependent steps: each step needs the whole
+// carry of the one before.
+//
+// The forward is built for the least time per dependent step.  Its chain
+// is, per step, two dependent K-term products in each GRU (the gates from
+// h, then the candidate from r∘h) and one in the Time4LSTM (its four gates
+// from m), each closed by exact expf/tanhf.  So:
+// - the three cells run in blocks of their own (a grid of 3 x row groups):
+//   they share nothing but the mask, so no cell waits on another's phase,
+//   the Time4LSTM takes one block barrier a step (m double-buffered) and a
+//   GRU two (r∘h, then h), and the grid is three times the row groups;
+// - a block walks R rows (1 or 4; the wrapper picks the fewest that put
+//   every row group on an SM of its own, so B = 400 is one wave of 300
+//   blocks, three an SM at most by the launch bounds; R = 2 was never the
+//   fastest at any B measured) and has 4 lanes per
+//   unit j of its cell: lane q takes the terms k = q, q+4, ... of every
+//   product of unit j, for all R rows.  Each weight sits in a register of
+//   its lane (at most 4·ceil(K/4) a lane) and feeds R independent FMAs;
+//   the carries sit in shared memory as [k][R], so one load gives entry k
+//   of all R rows (a float4 at R = 4), conflict-free across the 4 lanes;
+// - the widths are template arguments (max(U, H) padded to a multiple of
+//   8, up to 64, with zero weights past the width), so the products
+//   unroll; a product of K terms is K/4 dependent FMAs a lane, then two
+//   __shfl_xor_sync rounds that leave lane q with the sums of its own row
+//   (a reduce-scatter over the R rows), where the cell's nonlinearities
+//   run once a row instead of once a lane;
+// - each step's inputs (gate terms, time gates, the mask of all R rows)
+//   are loaded one step ahead into registers, and the outputs and carries
+//   are stored by the lane that owns the row, so no device-memory access
+//   sits on the chain; a step that all R rows mask is skipped whole (the
+//   carries still written).
+// Not the tensor cores: the per-step products are [R, K] x [K, <= 4K] with
+// R <= 4, so an m16 mma.sync tile would be mostly padding, and the 3xTF32
+// split that the 1e-5 gate needs would add three dependent tensor-core
+// latencies per k-step to the chain.
+//
+// The backward keeps the first design of this file: a block walks one row,
+// the five recurrent matrices (3U^2 + 7H^2 floats, 64 KB at U = H = 40) and
+// the carries in shared memory, a step in phases split by __syncthreads
+// with one thread per output of the phase.  It pads the matrices' rows to
+// an odd stride, so a thread per row reading one column (its transposed
+// products dh[k] = Σ_o dga[o]·W[k][o]) hits 32 banks, as a thread per
+// column does.  A masked step (mt == 0) changes no carry and writes zero
+// outputs, so the block skips its arithmetic.
 // (Blocks of two rows sharing the matrices, so that all 400 rows of a
 // B = 400 batch fit the card's resident blocks at once, measured slower
 // on mixed history lengths than one row a block with a few rows left to
@@ -51,10 +85,9 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// The row stride of a matrix n wide in shared memory: odd for the backward
-// (see above).  The forward reads along rows only, and on the H100 odd
-// strides took it to more registers and more time, so it keeps the plain
-// layout.
+// The row stride of a matrix n wide in the backward's shared memory: odd
+// (see above).  The helpers from here to the backward kernel are the
+// backward's; the forward keeps its weights in registers.
 template <bool ODD>
 __host__ __device__ __forceinline__ int stride_(int n) {
   return ODD ? (n | 1) : n;
@@ -161,95 +194,6 @@ __device__ __forceinline__ float candidate(int o, float acc, const Weights& w,
       acc = fmaf(zc[U + k], w.c2[k * w.s_c2 + oo], acc);
   }
   return tanhf(acc);
-}
-
-__global__ void clsr_scan_kernel(
-    const float* __restrict__ xg1, const float* __restrict__ xc1,
-    const float* __restrict__ xw, const float* __restrict__ tn,
-    const float* __restrict__ tl, const float* __restrict__ ot,
-    const float* __restrict__ xg2, const float* __restrict__ xc2,
-    const float* __restrict__ mask, const float* __restrict__ ushort_,
-    const float* __restrict__ whg1, const float* __restrict__ whc1,
-    const float* __restrict__ wh4, const float* __restrict__ whg2,
-    const float* __restrict__ whc2, float* __restrict__ outs,
-    float* __restrict__ h1f, float* __restrict__ h2f,
-    float* __restrict__ carries, int L, int U, int H) {
-  extern __shared__ float sm[];
-  const int GW = 2 * U + 6 * H;      // gate outputs per step
-  const int CW = U + 3 * H;          // carry width
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const Weights w =
-      load_weights<false>(sm, whg1, whc1, wh4, whg2, whc2, U, H, tid, nt);
-  float* s_cy = sm + weight_floats<false>(U, H);  // [CW]: h1 | c | m | h2
-  float* s_ga = s_cy + CW;           // [GW]: sig(r1,u1) | i,j,f,o | sig(r2,u2)
-  float* s_zc = s_ga + GW;           // [U+H]: r1*h1 | r2*h2
-  float* s_h1 = s_cy;
-  float* s_c = s_cy + U;
-  float* s_m = s_c + H;
-  float* s_h2 = s_m + H;
-
-  for (int i = tid; i < U; i += nt) s_h1[i] = ushort_[(size_t)b * U + i];
-  for (int i = tid; i < H; i += nt) {
-    s_c[i] = 0.f;
-    s_m[i] = 0.f;
-    s_h2[i] = 0.f;
-  }
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const size_t bl = (size_t)b * L + l;
-    if (carries != nullptr)
-      for (int i = tid; i < CW; i += nt) carries[bl * CW + i] = s_cy[i];
-    const float mt = mask[bl];
-    if (mt == 0.f) {   // uniform over the block: carry through, output 0
-      for (int j = tid; j < H; j += nt) outs[bl * H + j] = 0.f;
-      continue;
-    }
-
-    // phase A: the three cells' carry-gate mat-vecs
-    for (int o = tid; o < GW; o += nt)
-      s_ga[o] = gate(o, gate_input(o, xg1, xw, xg2, bl, U, H), w, s_cy, U, H);
-    __syncthreads();
-
-    // phase B: Time4LSTM cell, GRU reset products
-    for (int j = tid; j < U; j += nt) s_zc[j] = s_ga[j] * s_h1[j];
-    for (int j = tid; j < H; j += nt) {
-      const float* mat = s_ga + 2 * U;
-      const float gi = mat[j], gj = mat[H + j], gf = mat[2 * H + j];
-      const float go = mat[3 * H + j] + ot[bl * H + j];
-      const float c = s_c[j];
-      const float c_new = sigmoidf_(gf + 1.f) * sigmoidf_(tl[bl * H + j]) * c +
-                          sigmoidf_(gi) * sigmoidf_(tn[bl * H + j]) * tanhf(gj);
-      const float m_new = sigmoidf_(go) * tanhf(c_new);
-      s_c[j] = mt * c_new + (1.f - mt) * c;
-      s_m[j] = mt * m_new + (1.f - mt) * s_m[j];
-      outs[bl * H + j] = mt * m_new;
-      s_zc[U + j] = s_ga[2 * U + 4 * H + j] * s_h2[j];
-    }
-    __syncthreads();
-
-    // phase C: GRU candidates and carry updates
-    for (int o = tid; o < U + H; o += nt) {
-      if (o < U) {
-        const float cand = candidate(o, xc1[bl * U + o], w, s_zc, U, H);
-        const float u = s_ga[U + o];
-        const float h = s_h1[o];
-        s_h1[o] = mt * (u * h + (1.f - u) * cand) + (1.f - mt) * h;
-      } else {
-        const int oo = o - U;
-        const float cand = candidate(o, xc2[bl * H + oo], w, s_zc, U, H);
-        const float u = s_ga[2 * U + 4 * H + H + oo];
-        const float h = s_h2[oo];
-        s_h2[oo] = mt * (u * h + (1.f - u) * cand) + (1.f - mt) * h;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < U; i += nt) h1f[(size_t)b * U + i] = s_h1[i];
-  for (int i = tid; i < H; i += nt) h2f[(size_t)b * H + i] = s_h2[i];
 }
 
 __device__ __forceinline__ void zero_(float* p, int n, int x, int nt) {
@@ -465,14 +409,303 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) clsr_scan_backward_kernel(
   if (x < U) dus[(size_t)b * U + x] = s_adj[x];
 }
 
-}  // namespace
+// ---- the forward ----
 
-// Shared memory the forward needs, in bytes (the wrapper checks the limit).
-extern "C" long long clsr_scan_smem_bytes(int U, int H) {
-  const long long floats = weight_floats<false>(U, H) + (U + 3LL * H) +
-                           (2LL * U + 6LL * H) + (U + H);
-  return floats * (long long)sizeof(float);
+constexpr int kLanes = 4;        // lanes per unit, each a quarter of the terms
+constexpr int kMaxWidth = 64;    // the widest U or H the forward takes
+constexpr int kBlocksPerSM = 3;  // resident blocks an SM, by the launch bounds
+constexpr unsigned kFull = 0xffffffffu;
+
+struct ScanArgs {
+  const float *xg1, *xc1, *xw, *tn, *tl, *ot, *xg2, *xc2, *mask, *ushort_;
+  const float *whg1, *whc1, *wh4, *whg2, *whc2;
+  float *outs, *h1f, *h2f, *carries;
+  int B, L, U, H;
+};
+
+// The row of its block's R that lane q owns, and whether it stores for it:
+// at R = 4 lane q owns row q; at R = 1 all four own row 0 (they hold the
+// same values) and lane 0 stores.
+template <int R>
+__device__ __forceinline__ int owned_row(int q) {
+  return R == 4 ? q : 0;
 }
+template <int R>
+__device__ __forceinline__ bool stores(int q) {
+  return R == 4 || q == 0;
+}
+
+// v[own] without indexing a register array by a run-time value
+template <int R>
+__device__ __forceinline__ float pick(const float (&v)[R], int own) {
+  float x = v[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) x = own == r ? v[r] : x;
+  return x;
+}
+
+// Entry k of all R rows of a carry laid out [k][R] in shared memory.
+template <int R>
+__device__ __forceinline__ void load_rows(const float* s, int k,
+                                          float (&v)[R]) {
+  if constexpr (R == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(s + 4 * k);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = s[k];
+  }
+}
+
+// Lane q's part of G products of unit j for R rows: the terms k = q + 4i,
+// w[g][i] = W[q + 4i][column g of unit j].  (Two partial sums a product
+// where R·G is small measured no faster, and one is simpler.)
+template <int KQ, int R, int G>
+__device__ __forceinline__ void partial_dots(const float* s, int q,
+                                             const float (&w)[G][KQ],
+                                             float (&acc)[R][G]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[r][g] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    float v[R];
+    load_rows<R>(s, i * kLanes + q, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[r][g] = fmaf(v[r], w[g][i], acc[r][g]);
+  }
+}
+
+// The four lanes' partial sums -> the G sums of the row lane q owns: two
+// __shfl_xor_sync rounds, at R = 4 each halving the rows a lane keeps (a
+// reduce-scatter), at R = 1 each summing across a pair (an all-reduce).
+template <int R, int G>
+__device__ __forceinline__ void reduce_lanes(const float (&acc)[R][G], int q,
+                                             float (&out)[G]) {
+  if constexpr (R == 4) {
+    const bool hi = q & 2, lo = q & 1;
+    float b[2][G];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float keep = hi ? acc[r + 2][g] : acc[r][g];
+        const float send = hi ? acc[r][g] : acc[r + 2][g];
+        b[r][g] = keep + __shfl_xor_sync(kFull, send, 2);
+      }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float keep = lo ? b[1][g] : b[0][g];
+      const float send = lo ? b[0][g] : b[1][g];
+      out[g] = keep + __shfl_xor_sync(kFull, send, 1);
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float t = acc[0][g] + __shfl_xor_sync(kFull, acc[0][g], 2);
+      out[g] = t + __shfl_xor_sync(kFull, t, 1);
+    }
+  }
+}
+
+// The mask of the block's R rows at step l (0 past the batch).
+template <int R>
+__device__ __forceinline__ void load_mask(const ScanArgs& a, int row0, int l,
+                                          float (&mk)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    mk[r] = row0 + r < a.B ? a.mask[(size_t)(row0 + r) * a.L + l] : 0.f;
+}
+
+template <int R>
+__device__ __forceinline__ bool any_valid(const float (&mk)[R]) {
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) any |= mk[r] != 0.f;
+  return any;
+}
+
+// A GRU over K units (U for the interest-evolve one, H for causal2): gates
+// [r | u] = sigmoid(xg + h·Wg), candidate tanh(xc + (r∘h)·Wc).  Its carry
+// h starts from h0 (null: zeros) and fills columns off .. off+K of the
+// carries; s_h and s_z are [KP][R] each.
+template <int KP, int R>
+__device__ void gru_cell(const ScanArgs& a, const float* __restrict__ xg,
+                         const float* __restrict__ xc,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ wg,
+                         const float* __restrict__ wc,
+                         float* __restrict__ hf, int K, int off, float* s_h,
+                         float* s_z, int row0) {
+  constexpr int KQ = KP / kLanes;
+  const int j = threadIdx.x / kLanes, q = threadIdx.x % kLanes;
+  const int own = owned_row<R>(q), b = row0 + own;
+  const bool st = stores<R>(q), live = j < K && b < a.B;
+  const int L = a.L, CW = a.U + 3 * a.H;
+  float wgate[2][KQ], wcand[1][KQ];
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    const int k = i * kLanes + q;
+    const bool in = j < K && k < K;
+    wgate[0][i] = in ? wg[k * 2 * K + j] : 0.f;
+    wgate[1][i] = in ? wg[k * 2 * K + K + j] : 0.f;
+    wcand[0][i] = in ? wc[k * K + j] : 0.f;
+  }
+  float h = live && h0 != nullptr ? h0[(size_t)b * K + j] : 0.f;
+  if (st) s_h[j * R + own] = h;
+  // step l's inputs: the gate terms, the candidate term and the mask
+  float xr = 0.f, xu = 0.f, xn = 0.f, mk[R];
+  auto load_step = [&](int l, float& r_, float& u_, float& n_, float (&m_)[R]) {
+    load_mask<R>(a, row0, l, m_);
+    if (live) {
+      const size_t bl = (size_t)b * L + l;
+      r_ = xg[bl * 2 * K + j];
+      u_ = xg[bl * 2 * K + K + j];
+      n_ = xc[bl * K + j];
+    }
+  };
+  load_step(0, xr, xu, xn, mk);
+  __syncthreads();
+
+  for (int l = 0; l < L; ++l) {
+    float xr1 = 0.f, xu1 = 0.f, xn1 = 0.f, mk1[R];
+    if (l + 1 < L) load_step(l + 1, xr1, xu1, xn1, mk1);
+    const size_t bl = (size_t)b * L + l;
+    if (a.carries != nullptr && st && live) a.carries[bl * CW + off + j] = h;
+    if (any_valid<R>(mk)) {
+      float acc[R][2], g[2];
+      partial_dots<KQ, R, 2>(s_h, q, wgate, acc);
+      reduce_lanes<R, 2>(acc, q, g);
+      const float rg = sigmoidf_(g[0] + xr), ug = sigmoidf_(g[1] + xu);
+      if (st) s_z[j * R + own] = rg * h;
+      __syncthreads();
+      float acc2[R][1], n[1];
+      partial_dots<KQ, R, 1>(s_z, q, wcand, acc2);
+      reduce_lanes<R, 1>(acc2, q, n);
+      const float cand = tanhf(n[0] + xn);
+      const float mt = pick<R>(mk, own);
+      h = mt * (ug * h + (1.f - ug) * cand) + (1.f - mt) * h;
+      if (st) s_h[j * R + own] = h;
+      __syncthreads();
+    }
+    xr = xr1, xu = xu1, xn = xn1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) mk[r] = mk1[r];
+  }
+  if (st && live) hf[(size_t)b * K + j] = h;
+}
+
+// The Time4LSTM over H units: gates i, j, f, o = xw + m·Wh4 (o + ot),
+// c' = sigmoid(f+1)·sigmoid(tl)·c + sigmoid(i)·sigmoid(tn)·tanh(j),
+// m' = sigmoid(o)·tanh(c').  Writes outs = mt·m' and carry columns
+// U .. U+2H; s_m is two [KP][R] buffers, one read and one written a step.
+template <int KP, int R>
+__device__ void lstm_cell(const ScanArgs& a, float* s_m, int row0) {
+  constexpr int KQ = KP / kLanes;
+  const int j = threadIdx.x / kLanes, q = threadIdx.x % kLanes;
+  const int own = owned_row<R>(q), b = row0 + own;
+  const int H = a.H, L = a.L, CW = a.U + 3 * H;
+  const bool st = stores<R>(q), live = j < H && b < a.B;
+  float w[4][KQ];
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    const int k = i * kLanes + q;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      w[g][i] = j < H && k < H ? a.wh4[k * 4 * H + g * H + j] : 0.f;
+  }
+  float c = 0.f, m = 0.f;
+  if (st) s_m[j * R + own] = 0.f;
+  // step l's inputs: the four gate terms, tn, tl, ot and the mask
+  float x[4] = {0.f, 0.f, 0.f, 0.f}, xtn = 0.f, xtl = 0.f, xot = 0.f, mk[R];
+  auto load_step = [&](int l, float (&x_)[4], float& tn_, float& tl_,
+                       float& ot_, float (&m_)[R]) {
+    load_mask<R>(a, row0, l, m_);
+    if (live) {
+      const size_t bl = (size_t)b * L + l;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x_[g] = a.xw[bl * 4 * H + g * H + j];
+      tn_ = a.tn[bl * H + j];
+      tl_ = a.tl[bl * H + j];
+      ot_ = a.ot[bl * H + j];
+    }
+  };
+  load_step(0, x, xtn, xtl, xot, mk);
+  __syncthreads();
+
+  int cur = 0;
+  for (int l = 0; l < L; ++l) {
+    float x1[4] = {0.f, 0.f, 0.f, 0.f}, xtn1 = 0.f, xtl1 = 0.f, xot1 = 0.f,
+          mk1[R];
+    if (l + 1 < L) load_step(l + 1, x1, xtn1, xtl1, xot1, mk1);
+    const size_t bl = (size_t)b * L + l;
+    if (a.carries != nullptr && st && live) {
+      a.carries[bl * CW + a.U + j] = c;
+      a.carries[bl * CW + a.U + H + j] = m;
+    }
+    if (any_valid<R>(mk)) {
+      float acc[R][4], g[4];
+      partial_dots<KQ, R, 4>(s_m + cur * KP * R, q, w, acc);
+      reduce_lanes<R, 4>(acc, q, g);
+      const float gi = g[0] + x[0], gj = g[1] + x[1], gf = g[2] + x[2];
+      const float go = (g[3] + x[3]) + xot;
+      const float c_new = sigmoidf_(gf + 1.f) * sigmoidf_(xtl) * c +
+                          sigmoidf_(gi) * sigmoidf_(xtn) * tanhf(gj);
+      const float m_new = sigmoidf_(go) * tanhf(c_new);
+      const float mt = pick<R>(mk, own);
+      c = mt * c_new + (1.f - mt) * c;
+      m = mt * m_new + (1.f - mt) * m;
+      if (st && live) a.outs[bl * H + j] = mt * m_new;
+      cur ^= 1;
+      if (st) s_m[cur * KP * R + j * R + own] = m;
+      __syncthreads();
+    } else if (st && live) {
+      a.outs[bl * H + j] = 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = x1[g];
+    xtn = xtn1, xtl = xtl1, xot = xot1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) mk[r] = mk1[r];
+  }
+}
+
+// Block 3·i + cell walks rows R·i .. R·i+R-1 of one cell: 0 the
+// interest-evolve GRU, 1 the Time4LSTM, 2 the causal2 GRU.
+template <int KP, int R>
+__global__ void __launch_bounds__(kLanes * KP, kBlocksPerSM)
+    clsr_scan_kernel(const ScanArgs a) {
+  __shared__ __align__(16) float sm[2 * KP * R];
+  const int cell = blockIdx.x % 3, row0 = (blockIdx.x / 3) * R;
+  if (cell == 0)
+    gru_cell<KP, R>(a, a.xg1, a.xc1, a.ushort_, a.whg1, a.whc1, a.h1f, a.U,
+                    0, sm, sm + KP * R, row0);
+  else if (cell == 1)
+    lstm_cell<KP, R>(a, sm, row0);
+  else
+    gru_cell<KP, R>(a, a.xg2, a.xc2, nullptr, a.whg2, a.whc2, a.h2f, a.H,
+                    a.U + 2 * a.H, sm, sm + KP * R, row0);
+}
+
+template <int KP, int R>
+int launch_forward(const ScanArgs& a, cudaStream_t stream) {
+  const int groups = (a.B + R - 1) / R;
+  clsr_scan_kernel<KP, R><<<3 * groups, kLanes * KP, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int KP>
+int forward_rows(const ScanArgs& a, int rows, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_forward<KP, 1>(a, stream);
+    case 4: return launch_forward<KP, 4>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // Shared memory the backward needs, in bytes.
 extern "C" long long clsr_scan_backward_smem_bytes(int U, int H) {
@@ -480,24 +713,33 @@ extern "C" long long clsr_scan_backward_smem_bytes(int U, int H) {
          (long long)sizeof(float);
 }
 
+// The forward over `rows` rows a block (1 or 4); every U and H from 1
+// to kMaxWidth.  The arguments before `rows` are those of the first
+// forward kernel, in the same order.
 extern "C" int clsr_scan_forward(
     const float* xg1, const float* xc1, const float* xw, const float* tn,
     const float* tl, const float* ot, const float* xg2, const float* xc2,
     const float* mask, const float* ushort_, const float* whg1,
     const float* whc1, const float* wh4, const float* whg2,
     const float* whc2, float* outs, float* h1f, float* h2f, float* carries,
-    int B, int L, int U, int H, void* stream) {
-  const int threads = row_threads(U, H);
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)clsr_scan_smem_bytes(U, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      clsr_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  clsr_scan_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xg1, xc1, xw, tn, tl, ot, xg2, xc2, mask, ushort_, whg1, whc1, wh4,
-      whg2, whc2, outs, h1f, h2f, carries, L, U, H);
-  return (int)cudaGetLastError();
+    int B, int L, int U, int H, int rows, void* stream) {
+  if (B < 0 || L < 1 || U < 1 || H < 1 || U > kMaxWidth || H > kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const ScanArgs a{xg1,  xc1,  xw,   tn,   tl,   ot,   xg2,  xc2, mask,
+                   ushort_, whg1, whc1, wh4, whg2, whc2, outs, h1f, h2f,
+                   carries, B, L, U, H};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch ((max(U, H) + 7) / 8 * 8) {   // the width padded to a multiple of 8
+    case 8: return forward_rows<8>(a, rows, s);
+    case 16: return forward_rows<16>(a, rows, s);
+    case 24: return forward_rows<24>(a, rows, s);
+    case 32: return forward_rows<32>(a, rows, s);
+    case 40: return forward_rows<40>(a, rows, s);
+    case 48: return forward_rows<48>(a, rows, s);
+    case 56: return forward_rows<56>(a, rows, s);
+    default: return forward_rows<64>(a, rows, s);
+  }
 }
 
 extern "C" int clsr_scan_backward(

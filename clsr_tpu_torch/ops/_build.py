@@ -40,8 +40,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "clsr_eval_scorer": ((_P,) * 14 + (_I,) * 7 + (_P,), _I),
     },
     "clsr_scan": {
-        "clsr_scan_forward": ((_P,) * 19 + (_I,) * 4 + (_P,), _I),
-        "clsr_scan_smem_bytes": ((_I, _I), ctypes.c_longlong),
+        "clsr_scan_forward": ((_P,) * 19 + (_I,) * 5 + (_P,), _I),
         "clsr_scan_backward": ((_P,) * 28 + (_I,) * 4 + (_P,), _I),
         "clsr_scan_backward_smem_bytes": ((_I, _I), ctypes.c_longlong),
     },

@@ -11,11 +11,13 @@ products.
 Parameters keep the flax names, shapes ([in, out]) and inits.  With
 `use_pallas` (cfg.use_pallas_scan) and both optional cells on, the loop
 is kernel K2 (ops/fused_scan.py), with the candidate biases folded into
-xc1/xc2 as in :291-298; in training its backward recomputes through the
-plain recurrence.  Otherwise it is the plain recurrence of the same
-module under autograd: JAX's block-diagonal scan differs from it only
-by exact +0.0 terms.  A cell switched off keeps its initial carry, as
-the JAX per-cell step does.
+xc1/xc2 as in :291-298; in training its forward also saves each step's
+carry and its backward is the `clsr_scan_backward` kernel from those
+carries plus five weight products (`fused_scan.scan_backward`).
+Otherwise it is the plain recurrence of the same module under autograd:
+JAX's block-diagonal scan differs from it only by exact +0.0 terms.  A
+cell switched off keeps its initial carry, as the JAX per-cell step
+does.
 """
 
 from __future__ import annotations

@@ -187,19 +187,55 @@ def _shapes(B, L, U, H):
             (U, U), (H, 4 * H), (H, 2 * H), (H, H)]
 
 
+# The forward kernel's limits (csrc/clsr_scan.cu: kMaxWidth, the rows a
+# block may walk, kBlocksPerSM): every U and H up to FORWARD_MAX_WIDTH;
+# its launch bounds keep FORWARD_BLOCKS_PER_SM blocks resident on an SM.
+FORWARD_MAX_WIDTH = 64
+FORWARD_ROWS = (1, 4)
+FORWARD_BLOCKS_PER_SM = 3
+
+
+def check_forward_widths(U, H):
+    """Raise ValueError unless the forward kernel takes widths U and H."""
+    if not (1 <= U <= FORWARD_MAX_WIDTH and 1 <= H <= FORWARD_MAX_WIDTH):
+        raise ValueError(f"the recurrence kernel takes U and H from 1 to "
+                         f"{FORWARD_MAX_WIDTH}, got U={U}, H={H}")
+
+
+def forward_rows_per_block(B, n_sm):
+    """Rows each block of the forward walks: the fewest of FORWARD_ROWS
+    that leave at most one row group per SM, so that the grid of
+    3 x ceil(B / R) blocks (one per cell and group) is one wave; the most
+    where none does."""
+    for rows in FORWARD_ROWS:
+        if -(-B // rows) <= n_sm:
+            return rows
+    return FORWARD_ROWS[-1]
+
+
+_sm_counts = {}
+
+
+def _sm_count(device):
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device]
+
+
 def _dims(args, backward):
     """(B, L, U, H), and the library once the kernel is known to fit."""
     B, L, _ = args[2].shape
     U, H = args[9].shape[-1], args[14].shape[-1]
     _build.check_args(_ARG_NAMES, args, _shapes(B, L, U, H), args[2].device)
+    if not backward:
+        check_forward_widths(U, H)
     lib = _build.load("clsr_scan")
-    smem = (lib.clsr_scan_backward_smem_bytes(U, H) if backward
-            else lib.clsr_scan_smem_bytes(U, H))
-    # a thread per gate output; the backward's launch bound is 640 threads
-    threads = 640 if backward else 1024
-    if 2 * U + 6 * H > threads or smem > _build.MAX_SMEM:
-        raise ValueError(f"the recurrence kernel does not fit U={U}, H={H} "
-                         f"in one block")
+    # the backward: a thread per gate output, at most 640 (its launch bound)
+    if backward and (2 * U + 6 * H > 640 or lib.clsr_scan_backward_smem_bytes(
+            U, H) > _build.MAX_SMEM):
+        raise ValueError(f"the recurrence's backward kernel does not fit "
+                         f"U={U}, H={H} in one block")
     return (B, L, U, H), lib
 
 
@@ -224,7 +260,8 @@ def _forward(*args, keep_carries=False):
         rc = lib.clsr_scan_forward(
             *(t.data_ptr() for t in args), outs.data_ptr(), h1f.data_ptr(),
             h2f.data_ptr(), None if carries is None else carries.data_ptr(),
-            B, L, U, H, stream)
+            B, L, U, H, forward_rows_per_block(B, _sm_count(xw.device)),
+            stream)
     _build.check(rc, "clsr_scan")
     fused_scan.launches += 1
     return h1f, outs, h2f, carries

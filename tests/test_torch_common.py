@@ -153,7 +153,7 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "probe_k2.py")]
     for root, _, files in os.walk(os.path.join(REPO, "clsr_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = {p: m for p in paths for m in _imports(p) if _forbidden(m)}

@@ -50,6 +50,70 @@ def test_scan_reference_matches_jax_kernel_and_reference():
     assert np.all(to_np(got[1])[2, 1:] == 0.0)
 
 
+@pytest.mark.parametrize("kind", ["holes", "all_masked_row"])
+def test_scan_reference_matches_jax_kernel_on_masks_with_holes(kind):
+    """Masks that are not prefixes: holes in every row but row 1, and
+    row 0 masked whole (`holes`), or a fully masked row beside two full
+    ones (`all_masked_row`).  Masked steps emit zeros and carry every
+    carry through, into the next step's saved carry."""
+    args = _scan_inputs(2)
+    rng = np.random.RandomState(3)
+    if kind == "holes":
+        mask = (rng.rand(B, L) > 0.4).astype(np.float32)
+        mask[0], mask[1] = 0.0, 1.0
+    else:
+        mask = np.ones((B, L), np.float32)
+        mask[1] = 0.0
+    args[8] = mask
+    kernel = jps.fused_scan(*map(jnp.asarray, args), 8, True)
+    ref = jps._scan_reference(*map(jnp.asarray, args))
+    targs = list(map(torch.from_numpy, args))
+    got = fs.fused_scan(*targs)
+    *plain, carries = fs.scan_forward_reference(*targs)
+    for g, p, k, r in zip(got, plain, kernel, ref):
+        np.testing.assert_allclose(to_np(g), np.asarray(k), **TOL)
+        np.testing.assert_allclose(to_np(p), np.asarray(r), **TOL)
+    outs, carries = to_np(got[1]), to_np(carries)
+    assert np.all(outs[mask == 0] == 0.0)
+    b, t = np.nonzero(mask[:, :-1] == 0)
+    np.testing.assert_array_equal(carries[b, t + 1], carries[b, t])
+
+
+@pytest.mark.parametrize("B", [0, 1, 8, 64, 132, 133, 264, 265, 400, 528,
+                               1000])
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+def test_forward_rows_per_block_covers_every_row_in_one_wave(B, n_sm):
+    """The forward's row groups cover each row once; the fewest rows a
+    block that leave one group per SM, so B = 400 on 132 SMs (4 rows a
+    block, 300 blocks) is one wave of the kernel's resident blocks."""
+    rows = fs.forward_rows_per_block(B, n_sm)
+    assert rows in fs.FORWARD_ROWS
+    groups = -(-B // rows)
+    covered = [g * rows + r for g in range(groups) for r in range(rows)
+               if g * rows + r < B]
+    assert covered == list(range(B))
+    if -(-B // fs.FORWARD_ROWS[-1]) <= n_sm:
+        assert 3 * groups <= fs.FORWARD_BLOCKS_PER_SM * n_sm
+    assert all(-(-B // r) > n_sm for r in fs.FORWARD_ROWS if r < rows)
+    if (B, n_sm) == (400, 132):
+        assert rows == 4 and 3 * groups == 300
+    if (B, n_sm) == (64, 132):
+        assert rows == 1
+
+
+@pytest.mark.parametrize("U, H, ok", [(1, 1, True), (16, 40, True),
+                                      (64, 64, True), (65, 40, False),
+                                      (40, 65, False), (0, 40, False)])
+def test_forward_width_check(U, H, ok):
+    """Every U and H from 1 to 64 runs the forward kernel; a width past
+    it raises ValueError naming the limit (checked without a launch)."""
+    if ok:
+        fs.check_forward_widths(U, H)
+    else:
+        with pytest.raises(ValueError, match=str(fs.FORWARD_MAX_WIDTH)):
+            fs.check_forward_widths(U, H)
+
+
 @pytest.fixture(scope="module")
 def encoders():
     rng = np.random.RandomState(1)

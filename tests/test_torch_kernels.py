@@ -10,7 +10,11 @@ K1 at the serving shape (B=64, L=50, G=128, D=80, Dk=40, H0=80, H1=40)
 to 1e-4 abs, and over its row tiling: D = 40 and 80 with G in {1, 5, 16,
 128}, B = 7 (a ragged last tile), L = 1 and L = 130 (several chunks of
 positions), an all-masked row and masks with holes, one launch each;
-K2 at B=64, L=50, U=H=40 to 1e-5 abs; K2's backward kernel (with its
+K2's forward over its tiling (B 0, 1, 8, 64, 133, 400; L 1, 50, 250;
+(U, H) (40, 40), (10, 12), (16, 40); prefix masks with lengths L, 3, 1,
+0 and masks with holes), with and without carries, to 1e-5 abs, one
+launch a call, a second call bit-identical, widths past 64 refused;
+K2's backward kernel (with its
 five weight products) at B=6, L=9, U=10, H=12 and at B=400, L=50,
 U=H=40, rows of lengths L, 3, 1 and 0 among them: the forward's carries
 to 1e-5 abs, every gradient within 1e-4 of its max abs of the plain
@@ -92,25 +96,60 @@ def test_eval_scorer_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
-def test_scan_kernel_matches_plain(cuda):
-    B, L, U, H = 64, 50, 40, 40
-    g = torch.Generator(device=cuda).manual_seed(1)
-    r = lambda *s: torch.randn(*s, generator=g, device=cuda) * 0.7
-    # glorot-scale recurrent weights: larger ones make the GRUs chaotic,
-    # and then f32 rounding alone drifts by ~0.1 over 50 steps
-    w = lambda *s: torch.randn(*s, generator=g, device=cuda) * 0.15
-    lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda)
-    mask = (torch.arange(L, device=cuda)[None] < lengths[:, None]).float()
-    args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
-            r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
-            r(B, U), w(U, 2 * U), w(U, U), w(H, 4 * H), w(H, 2 * H),
-            w(H, H))
-    before = fs.fused_scan.launches
-    got = fs.fused_scan(*args)
-    torch.cuda.synchronize()
-    assert fs.fused_scan.launches == before + 1
-    for x, y in zip(got, fs.scan_reference(*args)):
-        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+# K2's forward over its tiling: B from no launch (0) through one row, the
+# serving buckets (8, 64) and one row group past the SM count (133) to the
+# train batch (400), so both rows-a-block choices (1 and 4) run; L from one step to
+# the Kuaishou length; (U, H) at clsr.yaml's widths, the CPU tests' and the
+# zoo's user width 16; "prefix" masks hold lengths L, 3, 1 and 0 in the
+# first rows, "holes" masks an all-masked row 0 and random holes after
+SCAN_TILING = [
+    *[(B, 50, UH, "prefix") for UH in ((40, 40), (10, 12), (16, 40))
+      for B in (1, 8, 64, 133, 400)],
+    *[(B, 50, (40, 40), "holes") for B in (8, 133, 400)],
+    (64, 50, (10, 12), "holes"), (400, 50, (16, 40), "holes"),
+    *[(B, 1, (40, 40), "prefix") for B in (1, 64, 400)],
+    (133, 1, (10, 12), "holes"),
+    (400, 250, (40, 40), "prefix"), (64, 250, (16, 40), "holes"),
+    (133, 250, (10, 12), "prefix"),
+    (0, 50, (40, 40), "prefix"),
+]
+
+
+@pytest.mark.parametrize("B, L, UH, mask", SCAN_TILING)
+def test_scan_kernel_matches_plain(cuda, B, L, UH, mask):
+    """One launch a call (none at B = 0), with and without the carries:
+    outs, h1f and h2f within 1e-5 abs of `scan_reference`, the carries
+    within 1e-5 abs of `scan_forward_reference`, and a second call
+    bit-identical to the first."""
+    U, H = UH
+    args, _ = _scan_args(cuda, B, L, U, H, seed=1)
+    if mask == "holes":
+        g = torch.Generator(device=cuda).manual_seed(2)
+        holes = (torch.rand(B, L, generator=g, device=cuda) > 0.4).float()
+        holes[:1] = 0
+        args = args[:8] + (holes,) + args[9:]
+    want = fs.scan_forward_reference(*args)
+    for keep in (False, True):
+        before = fs.fused_scan.launches
+        first = fs._forward(*args, keep_carries=keep)
+        second = fs._forward(*args, keep_carries=keep)
+        torch.cuda.synchronize()
+        assert fs.fused_scan.launches == before + 2 * (B > 0)
+        for x, y in zip(first, second):
+            assert (x is None and y is None) or torch.equal(x, y)
+        for x, y in zip(first[:3], want[:3]):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+        if keep:
+            torch.testing.assert_close(first[3], want[3], rtol=0, atol=1e-5)
+        else:
+            assert first[3] is None
+
+
+@pytest.mark.parametrize("U, H", [(65, 40), (40, 65)])
+def test_scan_kernel_refuses_widths_past_its_limit(cuda, U, H):
+    args, _ = _scan_args(cuda, 4, 3, U, H, seed=3)
+    with pytest.raises(ValueError, match=str(fs.FORWARD_MAX_WIDTH)):
+        fs.fused_scan(*args)
 
 
 def _scan_args(dev, B, L, U, H, seed):
@@ -120,7 +159,7 @@ def _scan_args(dev, B, L, U, H, seed):
     r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.7
     w = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.15
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
-    lengths[:4] = torch.tensor([L, 3, 1, 0], device=dev)[:B]
+    lengths[:4] = torch.tensor([L, min(3, L), 1, 0], device=dev)[:B]
     mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
     args = (r(B, L, 2 * U), r(B, L, U), r(B, L, 4 * H), r(B, L, H),
             r(B, L, H), r(B, L, H), r(B, L, 2 * H), r(B, L, H), mask,
