@@ -4,8 +4,9 @@
 
 Phases, each fatal on failure:
   1. card check: CUDA present, `nvidia-smi` name and power limit, TF32 off;
-  2. build every CUDA kernel from csrc/ (nvcc, one per source, all at
-     once) and print the build seconds and ptxas' register/spill lines;
+  2. build every CUDA kernel from csrc/ and the C++ TSV parser from
+     native/ (nvcc and g++, one per source, all at once) and print the
+     build seconds and ptxas' register/spill lines;
   3. K1 (fused eval scorer) against its plain PyTorch version at the
      two serving buckets B=64 x G=128 and B=8 x G=16, L=50, D=80, Dk=40,
      H0=80, H1=40, with history lengths 1..50, one all-masked row and BN
@@ -110,17 +111,52 @@ Phases, each fatal on failure:
      `train_step.row_update`).  In phase 9, K4/K5 and index_copy_ are
      also timed on the device alone (one call per fresh set captured in
      a CUDA graph and replayed), beside their per-call time.
-Then one JSON line of the kernels, the card's name and power limit, and
-the final status line.  A copy of all numbers goes to
+ 11. train and evaluate end to end: the port's `write_synthetic_dataset`
+     (5,000 users, 50,000 items, 1,000 categories, seed 0; valid 1 + 4,
+     test 1 + 99) in a temporary directory; each split parsed by the C++
+     parser and by the Python loop, both timed, ids, offsets and labels
+     equal and the time features within 1e-6 abs.  Run A drives
+     `clsr_tpu_torch.cli.main` as a user does (the CLI's defaults: batch
+     500, L = 50, clsr.yaml widths; 2 epochs, seed 7, with
+     --write_prediction_to_file): epoch s and examples/s, valid and test
+     eval s, the test dict; the last valid auc above 0.5, one finite score
+     per test line; then --only_test must print the same test dict
+     (every key; it adds mean_alpha, as the JAX CLI does), and
+     `ScoringService.load_latest` on run A's model_dir must score 64 test
+     groups as the eval step does, within 1e-6.  Run B: the same config
+     with use_pallas_scan, use_pallas_train_attention 'on' and lazyadam,
+     `Trainer.fit` for one epoch and the test eval, the counts read
+     around each (K5 and K2's backward once a step, K3a, K3b and K1 twice,
+     K2's forward once a step and once a valid dispatch; K1 and K2 once a
+     test dispatch); every test prediction with K1 off on the same
+     weights within 1e-4 abs; at the fit's shapes (run B's first train
+     batch, B = 500, and one test batch of 5 x 100) on run B's weights,
+     the kernel-gated train and eval steps against the plain ones
+     (`training.kernel_check`: scores 1e-4 abs, loss parts 1e-4 rel,
+     gradients 1e-4 of their max abs, BN statistics 1e-5, K5's group bit
+     for bit against its plain version); torch.profiler over 20 steps
+     streamed as the fit
+     streams them (the device's idle share); a fit of 20 batches with
+     prefetch_batches 2 and 0 (dense Adam, kernels on) bit-identical.
+Then one JSON line of the kernels (`launches_by_path` with the phase-11
+paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
+epoch and test eval), the card's name and power limit, and the final
+status line.  A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
 
+import ast
+import contextlib
+import io
 import itertools
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -216,8 +252,8 @@ def card_check():
 
 def build_kernels():
     from clsr_tpu_torch.ops import _build
-    secs = _build.build()
-    log(f"build: {secs:.2f} s for {', '.join(_build.KERNELS)}")
+    secs = _build.build(_build.LIBRARIES)
+    log(f"build: {secs:.2f} s for {', '.join(_build.LIBRARIES)}")
     for name in _build.KERNELS:
         logf = _build.library_path(name).with_suffix(".log")
         for line in logf.read_text().splitlines():
@@ -1613,6 +1649,439 @@ def train_lazy(smi):
     return out
 
 
+# ------------------------------------------------------------- phase 11
+# train and evaluate end to end: the synthetic set at the size of a small
+# Taobao-shaped deployment, the CLI's defaults (batch 500, L = 50, valid
+# 1 + 4, test 1 + 99), the clsr.yaml widths
+P11_DATA = dict(n_users=5_000, n_items=50_000, n_cates=1_000, seed=0)
+P11_ARGV = ["--dataset", "synthetic", "--model", "CLSR", "--epochs", "2",
+            "--seed", "7"]
+P11_PROFILE_STEPS = 20
+P11_PREFETCH_ROWS = 10_000     # the prefetch on/off fits: 20 batches
+P11_SERVE_GROUPS = 64
+K1_ONOFF_TOL, SERVE_CKPT_TOL = 1e-4, 1e-6
+EPOCH_RE = re.compile(
+    r"^epoch (\d+) train time ([\d.]+)s \((\d+) steps, (\d+) examples, "
+    r"([\d.]+) examples/s\), eval time ([\d.]+)s$", re.M)
+VALID_RE = re.compile(r"^eval valid at epoch (\d+): (.*)$", re.M)
+TEST_RE = re.compile(r"^test eval time ([\d.]+)s$", re.M)
+PARSE_RE = re.compile(r"^parse (\w+): (\d+) lines in ([\d.]+)s$", re.M)
+
+
+def recording(step, out):
+    """`step` that also keeps each batch's (predictions, valid) in out,
+    on the device."""
+    def run(model, batch):
+        preds, alpha = step(model, batch)
+        out.append((preds, batch.valid))
+        return preds, alpha
+    return run
+
+
+def valid_preds(out):
+    """The predictions of the valid rows that `recording` kept."""
+    return torch.cat([p[v > 0] for p, v in out])
+
+
+class _Tee(io.TextIOBase):
+    """stdout to the console and to a buffer."""
+
+    def __init__(self):
+        self.buf = io.StringIO()
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        self.buf.write(text)
+        return len(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_cli(argv):
+    """`clsr_tpu_torch.cli.main(argv)` as a user runs it: (its printed
+    text, wall s, launches)."""
+    from clsr_tpu_torch import cli
+    from clsr_tpu_torch.training.kernel_check import counted
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc, launches = counted(lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return tee.buf.getvalue(), wall, launches
+
+
+def cli_numbers(text):
+    """The epochs, valid metrics, test eval s and the test dict that the
+    CLI printed."""
+    epochs = [dict(epoch=int(m[0]), train_s=float(m[1]), steps=int(m[2]),
+                   examples=int(m[3]), examples_per_s=float(m[4]),
+                   valid_eval_s=float(m[5]))
+              for m in EPOCH_RE.findall(text)]
+    valid = {int(ep): {k: float(v) for k, v in
+                       (kv.split(":") for kv in body.split(","))}
+             for ep, body in VALID_RE.findall(text)}
+    test_s = [float(t) for t in TEST_RE.findall(text)]
+    parse_s = {name: float(t) for name, _, t in PARSE_RE.findall(text)}
+    res = ast.literal_eval(text.strip().splitlines()[-1])
+    return dict(epochs=epochs, valid=valid, test_eval_s=test_s,
+                parse_s=parse_s, test=res)
+
+
+def head(ds, n):
+    """The first n rows of a ParsedDataset."""
+    from clsr_tpu_torch.data.parser import ParsedDataset
+    end = ds.offsets[n]
+    return ParsedDataset(
+        labels=ds.labels[:n], users=ds.users[:n], items=ds.items[:n],
+        cates=ds.cates[:n], times=ds.times[:n], offsets=ds.offsets[:n + 1],
+        hist_items=ds.hist_items[:end], hist_cates=ds.hist_cates[:end],
+        time_diff=ds.time_diff[:end], time_from_first=ds.time_from_first[:end],
+        time_to_now=ds.time_to_now[:end])
+
+
+def parse_both(paths, vocabs):
+    """Each split by the C++ parser and by the Python loop, timed, and
+    held to the test bounds: ids, offsets and labels exact, the time
+    features 1e-6 abs."""
+    from clsr_tpu_torch.data.parser import parse_file
+    out, native = {}, {}
+    for split in ("train", "valid", "test"):
+        row = {}
+        for route, use_native in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            row[route] = parse_file(paths[split], *vocabs,
+                                    use_native=use_native)
+            row[f"{route}_s"] = time.perf_counter() - t0
+        a, b = row["native"], row["python"]
+        exact = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+            "labels", "users", "items", "cates", "times", "offsets",
+            "hist_items", "hist_cates"))
+        err = max(float(np.abs(getattr(a, f) - getattr(b, f)).max())
+                  for f in ("time_diff", "time_from_first", "time_to_now"))
+        log(f"parse {split}: {len(a):,} lines, {len(a.hist_items):,} history "
+            f"events | C++ {row['native_s']:.3f} s, Python "
+            f"{row['python_s']:.3f} s ({row['python_s'] / row['native_s']:.1f}"
+            f"x) | ids/offsets/labels equal: {exact}, time features max abs "
+            f"err {err:.3e} (tol 1e-6)")
+        if not (exact and err <= 1e-6):
+            raise AssertionError(f"C++ and Python parses of {split} differ")
+        native[split] = a
+        out[split] = dict(lines=len(a), events=len(a.hist_items),
+                          native_s=row["native_s"],
+                          python_s=row["python_s"], time_feature_err=err)
+    return native, out
+
+
+def profile_fit_steps(trainer, loader, n, smi):
+    """torch.profiler over n train steps streamed as the fit streams them
+    (host batches, prefetch, train step): the device's busy share of the
+    window and the kernel launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+    from clsr_tpu_torch.data.prefetch import device_batches
+    cfg = trainer.cfg
+    it = device_batches(loader.train_batches(cfg.batch_size,
+                                             np.random.RandomState(1)),
+                        trainer.device, cfg.prefetch_batches)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    trainer.state, _ = trainer.train_step(trainer.state, next(it), gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _, b in zip(range(n), it):
+            trainer.state, parts = trainer.train_step(trainer.state, b, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    it.close()
+    kernels = kernel_events(prof)
+    busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels) / n
+    idle = 100 - 100 * busy_ms / wall_ms
+    log(f"profile[fit, kernel path]: {n} streamed steps, {wall_ms / n:.3f} ms "
+        f"each under the profiler; device busy {busy_ms / n:.3f} ms per step "
+        f"({100 - idle:.1f}% of the window, idle {idle:.1f}%), "
+        f"{launches:,.0f} kernel launches per step | {smi}")
+    return dict(steps=n, wall_ms_per_step=wall_ms / n,
+                busy_ms_per_step=busy_ms / n, idle_pct=idle,
+                launches_per_step=launches)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms on (warnings where an op has no
+    deterministic version), restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def check_counts(what, got, want):
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def train_and_evaluate(smi):
+    """Phase 11: the synthetic set through the CLI (run A), through
+    Trainer.fit with every kernel gate on (run B), and the gates."""
+    from clsr_tpu_torch import cli
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
+    from clsr_tpu_torch.data.vocab import load_vocab
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.serving import ScoreRequest, ScoringService
+    from clsr_tpu_torch.training import checkpoint, kernel_check
+    from clsr_tpu_torch.training.evaluator import run_weighted_eval
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.steps import make_eval_step_fn
+    from clsr_tpu_torch.training.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="clsr_phase11_")
+    try:
+        data_dir = os.path.join(root, "synthetic")
+        t0 = time.perf_counter()
+        paths = write_synthetic_dataset(data_dir, valid_num_ngs=4,
+                                        test_num_ngs=99, **P11_DATA)
+        os.replace(paths.pop("cate_vocab"),
+                   os.path.join(data_dir, "category_vocab.pkl"))
+        write_s = time.perf_counter() - t0
+        vocabs = [load_vocab(os.path.join(data_dir, f"{n}_vocab.pkl"))
+                  for n in ("user", "item", "category")]
+        sizes = tuple(map(len, vocabs))
+        log(f"phase 11: synthetic set {P11_DATA} written in {write_s:.3f} s")
+        parsed, parse = parse_both(paths, vocabs)
+
+        # ---- run A: the CLI as a user runs it ---------------------------
+        argv = P11_ARGV + ["--data_path", root]
+        text, wall, launches_a = run_cli(argv + ["--write_prediction_to_file"])
+        a = cli_numbers(text)
+        last = max(a["valid"])
+        with open(paths["test"]) as f:
+            n_test = sum(1 for _ in f)
+        scores = np.loadtxt(os.path.join(root, "output.txt"))
+        for e in a["epochs"]:
+            log(f"run A epoch {e['epoch']}: {e['train_s']:.3f} s, "
+                f"{e['steps']} steps, {e['examples_per_s']:,.1f} examples/s, "
+                f"valid eval {e['valid_eval_s']:.3f} s | {smi}")
+        log(f"run A: wall {wall:.3f} s, test eval {a['test_eval_s'][0]:.3f} "
+            f"s, test {a['test']} | launches {launches_a} | output.txt "
+            f"{scores.shape[0]:,} scores for {n_test:,} test lines")
+        if not (a["valid"][last]["auc"] > 0.5 and scores.shape == (n_test,)
+                and np.isfinite(scores).all()
+                and len(a["epochs"]) == 2 and launches_a["eval_scorer"] > 0):
+            raise AssertionError(f"run A failed its gates: valid "
+                                 f"{a['valid']}, {scores.shape[0]} scores")
+        text, wall_t, launches_t = run_cli(argv + ["--only_test"])
+        only = cli_numbers(text)["test"]
+        same = {k: only.get(k) for k in a["test"]} == a["test"]
+        log(f"run A --only_test: wall {wall_t:.3f} s, the same test dict: "
+            f"{same} (+ mean_alpha {only.get('mean_alpha')}) | launches "
+            f"{launches_t}")
+        if not same:
+            raise AssertionError(f"--only_test printed {only}, the run "
+                                 f"printed {a['test']}")
+
+        # ---- the checkpoint through ScoringService.load_latest ----------
+        cfg_a = cli.make_config(cli.build_arg_parser().parse_args(argv))
+        svc = ScoringService(cfg_a, *sizes, *vocabs)
+        svc.load_latest(cfg_a.model_dir)
+        with open(paths["test"]) as f:
+            rows = [next(f).rstrip("\n").split("\t")
+                    for _ in range(100 * P11_SERVE_GROUPS)]
+        reqs = [ScoreRequest(
+            user=c[1], hist_items=c[5].split(","), hist_cates=c[6].split(","),
+            hist_times=[float(t) for t in c[7].split(",")],
+            current_time=float(c[4]),
+            cand_items=[r[2] for r in rows[g * 100:(g + 1) * 100]],
+            cand_cates=[r[3] for r in rows[g * 100:(g + 1) * 100]])
+            for g, c in ((g, rows[g * 100]) for g in range(P11_SERVE_GROUPS))]
+        served = np.stack(svc.score(reqs))
+        model_a = get_model_class("clsr")(cfg_a, *sizes)
+        checkpoint.load_model(checkpoint.latest_epoch_dir(cfg_a.model_dir),
+                              model_a)
+        test_loader = SequenceLoader(parsed["test"], cfg_a.max_seq_length)
+        batch = next(test_loader.eval_batches(100, P11_SERVE_GROUPS))
+        preds, _ = make_eval_step_fn(cfg_a)(model_a, to_device(batch,
+                                                               "cuda"))
+        serve_err = float(np.abs(served - preds.cpu().numpy()).max())
+        log(f"ScoringService.load_latest: {P11_SERVE_GROUPS} x 100 scores "
+            f"against the eval step on the same groups, max abs err "
+            f"{serve_err:.3e} (tol {SERVE_CKPT_TOL})")
+        if not serve_err <= SERVE_CKPT_TOL:
+            raise AssertionError("load_latest scores differ from the eval "
+                                 "step's")
+        del svc, model_a
+
+        # ---- run B: every kernel on the path, one epoch ------------------
+        cfg_b = cfg_a.replace(use_pallas_scan=True,
+                              use_pallas_train_attention="on",
+                              optimizer="lazyadam", epochs=1,
+                              model_dir=os.path.join(root, "model_b"),
+                              summaries_dir=None)
+        loaders = {s: SequenceLoader(ds, cfg_b.max_seq_length)
+                   for s, ds in parsed.items()}
+        trainer = Trainer(get_model_class("clsr")(cfg_b, *sizes), cfg_b)
+        _, fit_counts = counted(lambda: trainer.fit(loaders["train"],
+                                                    loaders["valid"]))
+        stats = trainer.epoch_stats[0]
+        steps = stats["steps"]
+        n_valid = -(-len(parsed["valid"]) // 5 // (cfg_b.batch_size // 5))
+        check_counts("run B epoch", fit_counts, dict(
+            row_scatter=steps, clsr_scan_backward=steps,
+            train_stats0=2 * steps, train_stats1=2 * steps,
+            eval_scorer=2 * steps, clsr_scan=steps + n_valid, row_sweep=0))
+        t0 = time.perf_counter()
+        kept_on = []
+        res_on, test_counts = counted(lambda: run_weighted_eval(
+            recording(trainer.eval_step, kept_on), trainer.state.model,
+            loaders["test"], cfg_b, cfg_b.test_num_ngs))
+        test_b_s = time.perf_counter() - t0
+        n_test_calls = -(-len(parsed["test"]) // 100 // (cfg_b.batch_size
+                                                         // 100))
+        check_counts("run B test eval", test_counts, dict(
+            eval_scorer=n_test_calls, clsr_scan=n_test_calls))
+        losses = [s["mean_loss"] for s in trainer.epoch_stats]
+        log(f"run B epoch: {stats['train_s']:.3f} s, {steps} steps, "
+            f"{stats['examples'] / stats['train_s']:,.1f} examples/s, valid "
+            f"eval {stats['eval_s']:.3f} s, mean loss {losses[0]:.5f} | test "
+            f"eval {test_b_s:.3f} s ({n_test_calls} dispatches of "
+            f"{cfg_b.batch_size // 100} groups), test {res_on} | launches: "
+            f"epoch {fit_counts}, test eval {test_counts} | {smi}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"run B losses {losses}")
+
+        # ---- K1 on against K1 off on the same weights: every prediction --
+        cfg_off = cfg_b.replace(use_pallas_eval_attention="off")
+        model_off = get_model_class("clsr")(cfg_off, *sizes)
+        model_off.load_state_dict(trainer.state.model.state_dict())
+        kept_off = []
+        res_off, off_counts = counted(lambda: run_weighted_eval(
+            recording(make_eval_step_fn(cfg_off), kept_off), model_off,
+            loaders["test"], cfg_off, cfg_off.test_num_ngs))
+        on, off = valid_preds(kept_on), valid_preds(kept_off)
+        k1_pred_err = (on - off).abs().max().item()
+        k1_err = max(abs(res_on[k] - res_off[k]) for k in res_on)
+        log(f"test eval K1 on against K1 off: {on.numel():,} predictions, "
+            f"max abs err {k1_pred_err:.3e} (tol {K1_ONOFF_TOL}); the "
+            f"4-decimal metrics {k1_err:.4g} apart | K1 launches with it "
+            f"off {off_counts['eval_scorer']}")
+        if not (res_on.keys() == res_off.keys()
+                and on.shape == off.shape
+                and k1_pred_err <= K1_ONOFF_TOL
+                and off_counts["eval_scorer"] == 0):
+            raise AssertionError(f"K1 on {res_on} against off {res_off}: "
+                                 f"predictions {k1_pred_err:.3e} apart")
+        del model_off, kept_on, kept_off, on, off
+
+        # ---- the fit's shapes: the kernel steps against the plain ones ---
+        # run B's first train batch (B = 500) and one test batch (5 x 100)
+        # on run B's weights, every kernel of the path held against its
+        # plain version (kernel_check: scores 1e-4 abs, loss parts 1e-4
+        # rel, gradients 1e-4 of max abs, BN stats 1e-5, K5 bit for bit)
+        first = to_device(next(loaders["train"].train_batches(
+            cfg_b.batch_size, np.random.RandomState(cfg_b.seed),
+            min_seq_length=cfg_b.min_seq_length)), "cuda")
+        test_batch = to_device(next(loaders["test"].eval_batches(
+            group_size=cfg_b.test_num_ngs + 1,
+            batch_groups=cfg_b.batch_size // (cfg_b.test_num_ngs + 1),
+            min_seq_length=cfg_b.min_seq_length)), "cuda")
+        shapes = kernel_check.compare_steps(
+            cfg_b, trainer.state.model.state_dict(), sizes, first,
+            test_batch)
+        del first, test_batch
+        lc = shapes["launches"]
+        nonzero = {side: {k: n for k, n in c.items() if n}
+                   for side, c in lc.items()}
+        log(f"fit shapes, kernel steps against plain steps (train B = "
+            f"{cfg_b.batch_size}, eval {cfg_b.batch_size // 100} x 100): "
+            f"scores max abs err {shapes['score_err']:.3e} (tol 1e-4), loss "
+            f"parts max rel err {shapes['loss_rel_err']:.3e} (tol 1e-4), "
+            f"gradients max err / max abs {shapes['grad_rel_err']:.3e}, table "
+            f"row gradients {shapes['table_grad_rel_err']:.3e} (tol 1e-4; "
+            f"zero-by-construction biases max abs err "
+            f"{shapes['zero_grad_abs_err']:.3e}), BN running stats max abs "
+            f"err {shapes['bn_err']:.3e} (tol 1e-5), K5 bit-identical: "
+            f"{shapes['k5_identical']} ({shapes['k5_groups']} group) | "
+            f"launches {nonzero} | {smi}")
+        check_counts("fit shapes, kernel eval step", lc["eval/kernel"],
+                     dict(eval_scorer=1, clsr_scan=1))
+        check_counts("fit shapes, kernel train step", lc["train/kernel"],
+                     dict(train_stats0=2, train_stats1=2, eval_scorer=2,
+                          clsr_scan=1, clsr_scan_backward=1, row_scatter=1))
+        for side in ("eval/plain", "train/plain"):
+            check_counts(f"fit shapes, {side}", lc[side],
+                         {k: 0 for k in lc[side]})
+        bad = kernel_check.failures(shapes)
+        if bad or shapes["k5_identical"] is not True:
+            raise AssertionError(f"fit shapes: the kernel steps disagree "
+                                 f"with the plain ones: {bad}")
+        bare = cfg_b.replace(metrics=(), pairwise_metrics=(),
+                             weighted_metrics=())
+        t0 = time.perf_counter()
+        run_weighted_eval(trainer.eval_step, trainer.state.model,
+                          loaders["test"], bare, bare.test_num_ngs)
+        test_bare_s = time.perf_counter() - t0
+        log(f"run B test eval without the metrics (batches, dispatches, one "
+            f"copy back): {test_bare_s:.3f} s of {test_b_s:.3f} s, "
+            f"{len(parsed['test']) // 100 / test_bare_s:,.1f} groups/s | "
+            f"{smi}")
+        profile = profile_fit_steps(trainer, loaders["train"],
+                                    P11_PROFILE_STEPS, smi)
+        del trainer
+
+        # ---- prefetch on against off: a short fit, bit for bit ------------
+        short = SequenceLoader(head(parsed["train"], P11_PREFETCH_ROWS),
+                               cfg_b.max_seq_length)
+        fits = {}
+        # both under deterministic algorithms: PyTorch's dense embedding
+        # backward sums a row that repeats many times in a batch in a
+        # different order from call to call
+        with deterministic():
+            for depth in (2, 0):
+                cfg_p = cfg_b.replace(optimizer="adam", seed=3,
+                                      prefetch_batches=depth, model_dir=None)
+                t = Trainer(get_model_class("clsr")(cfg_p, *sizes), cfg_p,
+                            log=lambda *_: None)
+                t.fit(short, loaders["valid"])
+                fits[depth] = (t.state.model.state_dict(), t.eval_history,
+                               t.epoch_stats[0])
+        (sa, ha, ea), (sb, hb, eb) = fits[2], fits[0]
+        bit_same = (sa.keys() == sb.keys() and all(
+            torch.equal(sa[k], sb[k]) for k in sa) and ha == hb)
+        log(f"prefetch 2 against 0: {ea['steps']} steps each, the model and "
+            f"valid metrics bit-identical: {bit_same} | epoch {ea['train_s']:.3f}"
+            f" s against {eb['train_s']:.3f} s")
+        if not bit_same:
+            raise AssertionError("the fit with prefetch differs from the one "
+                                 "without")
+        return dict(
+            data=P11_DATA, write_s=write_s, parse=parse,
+            run_a=dict(a, wall_s=wall, launches=launches_a,
+                       only_test=only, only_test_wall_s=wall_t,
+                       only_test_launches=launches_t),
+            serve_ckpt_err=serve_err,
+            run_b=dict(epoch=stats, launches=fit_counts,
+                       test_launches=test_counts, test_eval_s=test_b_s,
+                       test_eval_no_metrics_s=test_bare_s,
+                       test=res_on, test_k1_off=res_off, k1_onoff_err=k1_err,
+                       k1_onoff_pred_err=k1_pred_err, fit_shapes=shapes,
+                       profile=profile),
+            prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
+            launches={"fit_cli": {k: launches_a[k] + launches_t[k]
+                                  for k in launches_a},
+                      "fit_kernels": {k: fit_counts[k] + test_counts[k]
+                                      for k in fit_counts}})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     smi = card_check()
     sys.path.insert(0, ROOT)
@@ -1625,6 +2094,7 @@ def main():
     trained = train(smi)
     rows = check_row_update(smi)
     lazy = train_lazy(smi)
+    fit = train_and_evaluate(smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -1632,7 +2102,8 @@ def main():
                   ["clsr_scan"]},
         "train": trained["launches"],
         "lazy_train": lazy["launches"],
-        "bench_row_update": rows["bench"]["launches"]}
+        "bench_row_update": rows["bench"]["launches"],
+        **fit["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -1679,7 +2150,8 @@ def main():
         json.dump({"card": smi, "build_s": build_s, "k1": k1, "k2": k2,
                    "serve": served, "k3": k3, "train_scorer": scorer,
                    "train": trained, "row_update": rows,
-                   "train_lazy": lazy}, f, indent=1)
+                   "train_lazy": lazy, "train_and_evaluate": fit}, f,
+                  indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

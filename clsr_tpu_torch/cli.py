@@ -1,0 +1,340 @@
+"""Experiment driver: train, evaluate and predict from the command line.
+
+Counterpart of clsr_tpu/cli.py:25-380 (itself after the reference's
+examples/00_quick_start/sequential.py:1-381): the same flags, per-dataset
+settings (taobao: max_seq 50, time unit 's', ndcg@2;4;6 + hit; kuaishou:
+250, 'ms', ndcg@1;2, sequential.py:77-87), the config from the YAML of
+`configs/` with the flags over it, then parse -> batch -> `Trainer.fit`
+(valid eval each epoch, early stop on wauc, a checkpoint on improvement)
+-> restore the best epoch -> the test eval on 1 + test_num_ngs groups ->
+optionally the prediction file.  One flag more: `--device` (default
+cuda; without a card that raises, `--device cpu` runs on the CPU).
+
+Flags whose path is not ported parse as in the JAX package and then
+raise NotImplementedError naming their ROADMAP queue 1 item.
+`--data_format auto` reads the TSVs (the packed format is item 11).
+
+Usage:
+    python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --epochs 2
+    python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --only_test
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs")
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="clsr_tpu_torch experiment "
+                                            "driver")
+    # sequential.py:36-68
+    p.add_argument("--dataset", default="taobao",
+                   choices=["taobao", "kuaishou", "synthetic"])
+    p.add_argument("--val_num_ngs", type=int, default=4)
+    p.add_argument("--test_num_ngs", type=int, default=99)
+    p.add_argument("--batch_size", type=int, default=500)
+    p.add_argument("--save_path", default="")
+    p.add_argument("--contrastive_loss", default="triplet",
+                   choices=["bpr", "triplet"])
+    p.add_argument("--contrastive_length_threshold", type=int, default=5)
+    p.add_argument("--contrastive_recent_k", type=int, default=3)
+    p.add_argument("--name", default=None,
+                   help="experiment name (default: <dataset>-<model>); "
+                        "keys the checkpoint/summary dirs")
+    p.add_argument("--model", default="CLSR")
+    p.add_argument("--only_test", action="store_true")
+    p.add_argument("--write_prediction_to_file", action="store_true")
+    p.add_argument("--manual_alpha", action="store_true")
+    p.add_argument("--manual_alpha_value", type=float, default=0.5)
+    p.add_argument("--no_interest_evolve", dest="interest_evolve",
+                   action="store_false")
+    p.add_argument("--no_predict_long_short", dest="predict_long_short",
+                   action="store_false")
+    p.add_argument("--is_clip_norm", type=int, default=1)
+    p.add_argument("--sequential_model", default="time4lstm",
+                   choices=["gru", "lstm", "time4lstm"])
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--early_stop", type=int, default=5)
+    p.add_argument("--data_path", default=os.path.join(
+        "tests", "resources", "deeprec", "sequential"))
+    p.add_argument("--train_num_ngs", type=int, default=4)
+    p.add_argument("--sample_rate", type=float, default=1.0)
+    p.add_argument("--embed_l2", type=float, default=1e-6)
+    p.add_argument("--layer_l2", type=float, default=1e-6)
+    p.add_argument("--attn_loss_weight", type=float, default=0.001)
+    p.add_argument("--triplet_margin", type=float, default=1.0)
+    p.add_argument("--discrepancy_loss_weight", type=float, default=0.01)
+    p.add_argument("--contrastive_loss_weight", type=float, default=0.1)
+    p.add_argument("--learning_rate", type=float, default=0.001)
+    p.add_argument("--show_step", type=int, default=500)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--raw_data", default=None,
+                   help="raw interaction CSV for on-demand preprocessing "
+                        "(ROADMAP queue 1 item 11)")
+    p.add_argument("--no_history_expanding", dest="is_history_expanding",
+                   action="store_false",
+                   help="one line per user instead of expanding prefixes "
+                        "(the ETL's option)")
+    # ablation iterator variants (sequential_iterator.py:735-793)
+    p.add_argument("--counterfactual_recent_k", type=int, default=None,
+                   help="keep only the last k history events (RecentSA)")
+    p.add_argument("--shuffle_history_seed", type=int, default=None,
+                   help="fixed per-user history shuffle (ShuffleSA)")
+    # the JAX package's extras; those not ported raise after parsing
+    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--mesh_flat_batch", default="auto",
+                   choices=("auto", "on", "off"))
+    p.add_argument("--mesh_update_routing", default="broadcast",
+                   choices=("broadcast", "owner"))
+    p.add_argument("--mesh_owner_capacity", type=float, default=4.0)
+    p.add_argument("--mesh_owner_overflow", default="fallback",
+                   choices=("fallback", "drop"))
+    p.add_argument("--mesh_row_layout", default="auto",
+                   choices=("auto", "interleaved", "contiguous"))
+    p.add_argument("--optimizer", default=None,
+                   help="override the YAML optimizer (adam or lazyadam)")
+    p.add_argument("--train_steps_per_call", type=int, default=None,
+                   help="K optimizer steps per dispatch (run as K single "
+                        "steps)")
+    p.add_argument("--autosave_every_calls", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--length_buckets", default=None)
+    p.add_argument("--resident_round_rows", type=int, default=None)
+    p.add_argument("--resident_data", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="auto and off stream the train data")
+    p.add_argument("--compute_dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--embedding_dtype", default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--use_pallas_train_attention", default=None,
+                   choices=["auto", "on", "off"],
+                   help="K3a + K3b + K1 in the train step (auto = on for "
+                        "CUDA tensors)")
+    p.add_argument("--use_pallas_eval_attention", default=None,
+                   choices=["auto", "on", "off"],
+                   help="K1 in eval at G >= 8 (auto = on for CUDA "
+                        "tensors)")
+    p.add_argument("--attention_block_size", type=int, default=None)
+    p.add_argument("--write_histograms", action="store_true")
+    p.add_argument("--write_tfevents", action="store_true")
+    p.add_argument("--etl_processes", type=int, default=1)
+    p.add_argument("--etl_native", action="store_true")
+    p.add_argument("--etl_format", default="tsv", choices=["tsv", "packed"])
+    p.add_argument("--data_format", default="auto",
+                   choices=["auto", "tsv", "packed"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (the default) raises without "
+                        "a card, cpu runs on the host")
+    return p
+
+
+def _waits(what: str, item: int, name: str):
+    raise NotImplementedError(
+        f"{what} waits for ROADMAP queue 1 item {item} ({name})")
+
+
+def refuse_unported(args) -> None:
+    """Raise for every parsed flag whose path the port does not run yet,
+    naming its ROADMAP queue 1 item."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.optimizer import check_optimizer
+
+    host, resident = "host remainder", "device-resident data"
+    if args.raw_data:
+        _waits("--raw_data (the ETL)", 11, host)
+    if args.data_format == "packed":
+        _waits("--data_format packed", 11, host)
+    if (args.etl_processes != 1 or args.etl_native
+            or args.etl_format != "tsv"):
+        _waits("the --etl_* flags", 11, host)
+    if (args.data_parallel > 1 or args.model_parallel > 1
+            or (args.mesh_flat_batch, args.mesh_update_routing,
+                args.mesh_owner_capacity, args.mesh_owner_overflow,
+                args.mesh_row_layout)
+            != ("auto", "broadcast", 4.0, "fallback", "auto")):
+        _waits("a device mesh (--data_parallel, --model_parallel, "
+               "--mesh_*)", 10, "parallel")
+    if args.resume or args.autosave_every_calls > 0:
+        _waits("--resume and --autosave_every_calls", 11, host)
+    if args.resident_data == "on":
+        _waits("--resident_data on", 5, resident)
+    if args.length_buckets not in (None, "off"):
+        _waits("--length_buckets", 5, resident)
+    if args.resident_round_rows:
+        _waits("--resident_round_rows", 5, resident)
+    if "bfloat16" in (args.compute_dtype, args.embedding_dtype):
+        _waits("bfloat16 --compute_dtype / --embedding_dtype", 6,
+               "mixed precision")
+    if args.attention_block_size and args.attention_block_size > 0:
+        _waits("--attention_block_size", 9, "long context")
+    if args.write_histograms or args.write_tfevents:
+        _waits("--write_histograms and --write_tfevents", 11, host)
+    if args.sequential_model != "time4lstm":
+        _waits(f"--sequential_model {args.sequential_model}", 8,
+               "model zoo")
+    get_model_class(args.model)
+    if args.optimizer is not None:
+        check_optimizer(args.optimizer)
+
+
+def dataset_settings(dataset: str):
+    """sequential.py:77-87."""
+    if dataset == "kuaishou":
+        return dict(pairwise_metrics=("mean_mrr", "ndcg@1;2"),
+                    weighted_metrics=("wauc",), max_seq_length=250,
+                    time_unit="ms")
+    return dict(pairwise_metrics=("mean_mrr", "ndcg@2;4;6", "hit@2;4;6"),
+                weighted_metrics=("wauc",), max_seq_length=50, time_unit="s")
+
+
+def make_config(args):
+    from clsr_tpu_torch.config import load_config
+
+    model_key = args.model.lower()
+    yaml_name = {"slirec": "sli_rec", "a2svd": "asvd"}.get(model_key,
+                                                           model_key)
+    yaml_file = os.path.join(CONFIG_DIR, f"{yaml_name}.yaml")
+    if not os.path.exists(yaml_file):
+        yaml_file = None
+
+    ds = dataset_settings(args.dataset)
+    data_dir = os.path.join(args.data_path, args.dataset)
+    name = args.name or f"{args.dataset}-{args.model.lower()}"
+    return load_config(
+        yaml_file,
+        model_type=model_key,
+        user_vocab=os.path.join(data_dir, "user_vocab.pkl"),
+        item_vocab=os.path.join(data_dir, "item_vocab.pkl"),
+        cate_vocab=os.path.join(data_dir, "category_vocab.pkl"),
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        early_stop=args.early_stop,
+        train_num_ngs=args.train_num_ngs,
+        valid_num_ngs=args.val_num_ngs,
+        test_num_ngs=args.test_num_ngs,
+        embed_l2=args.embed_l2,
+        layer_l2=args.layer_l2,
+        learning_rate=args.learning_rate,
+        show_step=args.show_step,
+        contrastive_loss=args.contrastive_loss,
+        contrastive_length_threshold=args.contrastive_length_threshold,
+        contrastive_recent_k=args.contrastive_recent_k,
+        triplet_margin=args.triplet_margin,
+        discrepancy_loss_weight=args.discrepancy_loss_weight,
+        contrastive_loss_weight=args.contrastive_loss_weight,
+        attn_loss_weight=args.attn_loss_weight,
+        manual_alpha=args.manual_alpha,
+        manual_alpha_value=args.manual_alpha_value,
+        interest_evolve=args.interest_evolve,
+        predict_long_short=args.predict_long_short,
+        is_clip_norm=bool(args.is_clip_norm),
+        sequential_model=args.sequential_model,
+        seed=args.seed,
+        model_dir=os.path.join(args.data_path, "model", name),
+        summaries_dir=os.path.join(args.data_path, "summary", name),
+        data_parallel=args.data_parallel,
+        model_parallel=args.model_parallel,
+        resident_data=args.resident_data,
+        autosave_every_calls=args.autosave_every_calls,
+        write_histograms=args.write_histograms,
+        write_tfevents=args.write_tfevents,
+        **{k: getattr(args, k) for k in
+           ("optimizer", "train_steps_per_call", "compute_dtype",
+            "embedding_dtype", "attention_block_size", "length_buckets")
+           if getattr(args, k) is not None},
+        **({"use_pallas_eval_attention": args.use_pallas_eval_attention}
+           if args.use_pallas_eval_attention is not None else {}),
+        **({"use_pallas_train_attention": args.use_pallas_train_attention}
+           if args.use_pallas_train_attention is not None else {}),
+        **ds,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    refuse_unported(args)
+
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.parser import parse_file
+    from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
+    from clsr_tpu_torch.data.vocab import load_vocab
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.evaluator import (predict_to_file,
+                                                   run_weighted_eval)
+    from clsr_tpu_torch.training.trainer import Trainer
+    from clsr_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = make_config(args)
+
+    data_dir = os.path.join(args.data_path, args.dataset)
+    files = {name: os.path.join(data_dir, f"{name}_data")
+             for name in ("train", "valid", "test")}
+    if not os.path.exists(files["train"]):
+        if args.dataset != "synthetic":
+            raise SystemExit(
+                f"{files['train']} missing; preprocessing a raw file "
+                f"(--raw_data) waits for ROADMAP queue 1 item 11")
+        os.makedirs(data_dir, exist_ok=True)
+        write_synthetic_dataset(data_dir, valid_num_ngs=args.val_num_ngs,
+                                test_num_ngs=args.test_num_ngs)
+        os.replace(os.path.join(data_dir, "cate_vocab.pkl"),
+                   os.path.join(data_dir, "category_vocab.pkl"))
+
+    uv = load_vocab(cfg.user_vocab)
+    iv = load_vocab(cfg.item_vocab)
+    cv = load_vocab(cfg.cate_vocab)
+    loaders = {}
+    for name, path in files.items():
+        t0 = time.perf_counter()
+        ds = parse_file(path, uv, iv, cv, time_unit=cfg.time_unit,
+                        recent_k=args.counterfactual_recent_k,
+                        shuffle_seed=args.shuffle_history_seed)
+        loaders[name] = SequenceLoader(ds, cfg.max_seq_length,
+                                       min_batch_rows=cfg.drop_remainder_min)
+        print(f"parse {name}: {len(ds)} lines in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+
+    model = get_model_class(cfg.model_type)(cfg, len(uv), len(iv), len(cv),
+                                            device=device)
+    trainer = Trainer(model, cfg)
+
+    def test_eval(**kw):
+        t0 = time.perf_counter()
+        res = run_weighted_eval(trainer.eval_step, trainer.state.model,
+                                loaders["test"], cfg,
+                                num_ngs=cfg.test_num_ngs, **kw)
+        print(f"test eval time {time.perf_counter() - t0:.3f}s", flush=True)
+        print(res, flush=True)
+        return res
+
+    if args.only_test:
+        trainer.load_latest(cfg.model_dir)
+        test_eval(calc_mean_alpha=cfg.model_type in ("clsr", "sli_rec"))
+        return 0
+
+    trainer.fit(loaders["train"], loaders["valid"],
+                valid_num_ngs=cfg.valid_num_ngs)
+    if trainer.best_epoch and cfg.model_dir:
+        try:
+            trainer.load_latest(cfg.model_dir)
+        except IOError:
+            pass
+    test_eval()
+    if args.write_prediction_to_file:
+        predict_to_file(trainer.eval_step, trainer.state.model,
+                        loaders["test"], cfg,
+                        os.path.join(args.data_path, "output.txt"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

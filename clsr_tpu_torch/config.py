@@ -1,8 +1,9 @@
-"""Typed configuration for the PyTorch port's CLSR model, serving and
-train step.
+"""Typed configuration for the PyTorch port's CLSR model, serving, train
+step, fit loop, evaluation and CLI.
 
 Counterpart of clsr_tpu/config.py, cut to the fields the CLSR forward,
-`ScoringService` and the train step read.  Semantics kept from there
+`ScoringService`, the train step, `Trainer.fit`, the evaluator and the
+CLI read.  Semantics kept from there
 (and so from the reference's deeprec_utils.py:25-534):
 
   * YAML files are sectioned (data/model/train/info) and flattened,
@@ -36,10 +37,10 @@ def _flatten_yaml(loaded: Dict[str, Any]) -> Dict[str, Any]:
 
 
 _INT_FIELDS = frozenset({
-    "max_seq_length", "hidden_size", "item_embedding_dim",
-    "cate_embedding_dim", "user_embedding_dim",
+    "epochs", "show_step", "max_seq_length", "hidden_size",
+    "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
     "contrastive_length_threshold", "contrastive_recent_k", "batch_size",
-    "train_num_ngs",
+    "train_num_ngs", "min_seq_length", "early_stop",
 })
 _FLOAT_FIELDS = frozenset({
     "init_value", "manual_alpha_value", "learning_rate", "embed_l2",
@@ -53,7 +54,8 @@ _STR_FIELDS = frozenset({
     "item_vocab", "cate_vocab", "compact_rows",
 })
 _LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation",
-                          "dropout"})
+                          "dropout", "metrics", "pairwise_metrics",
+                          "weighted_metrics"})
 
 # Required keys per model family (clsr_tpu/config.py:68-117).  Only CLSR
 # is ported; the registry refuses the other names.
@@ -95,6 +97,7 @@ class Config:
     user_embedding_dim: int = 40
     hidden_size: int = 40
     max_seq_length: int = 50
+    min_seq_length: int = 1
     enable_bn: bool = True
 
     # CLSR (the contrastive_* keys are required; the losses read them)
@@ -122,12 +125,29 @@ class Config:
     layer_l1: float = 0.0
     learning_rate: float = 0.001
     optimizer: str = "adam"
+    epochs: int = 100
     batch_size: int = 500
     is_clip_norm: bool = True
     max_grad_norm: float = 2.0
     need_sample: bool = True
     train_num_ngs: int = 4
+    valid_num_ngs: int = 4
+    test_num_ngs: int = 99
+    early_stop: int = 5
+    eval_metric: str = "wauc"
     seed: Optional[int] = None
+
+    # --- info / io ---------------------------------------------------------
+    show_step: int = 500
+    save_model: bool = True
+    model_dir: Optional[str] = None
+    summaries_dir: Optional[str] = None
+    write_tfevents: bool = False        # raise: ROADMAP queue 1 item 11
+    write_histograms: bool = False      # raise: ROADMAP queue 1 item 11
+    metrics: Tuple[str, ...] = ("auc", "logloss")
+    pairwise_metrics: Tuple[str, ...] = ("mean_mrr", "ndcg@2;4;6",
+                                         "hit@2;4;6", "group_auc")
+    weighted_metrics: Tuple[str, ...] = ("wauc",)
 
     # --- execution --------------------------------------------------------
     compute_dtype: str = "float32"
@@ -146,6 +166,17 @@ class Config:
                                     # per step, training/compact_rows.py)
     data_parallel: int = 1
     model_parallel: int = 1
+    # K optimizer steps a dispatch in the JAX package; here K single
+    # steps one after another (the same math; a CUDA graph of K steps is
+    # ROADMAP queue 1 item 5)
+    train_steps_per_call: int = 32
+    autosave_every_calls: int = 0   # > 0 raises: ROADMAP queue 1 item 11
+    prefetch_batches: int = 2       # host->device batches in flight
+    resident_data: str = "auto"     # 'auto' / 'off' stream; 'on' raises
+                                    # (ROADMAP queue 1 item 5)
+    drop_remainder_min: int = 5     # the reference drops train batches
+                                    # of < 5 rows (sequential_iterator.py
+                                    # :338-339)
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
@@ -208,6 +239,15 @@ class Config:
         if self.compact_rows not in ("auto", "off"):
             raise ValueError(
                 f"compact_rows must be auto/off, got {self.compact_rows}")
+        if self.resident_data not in ("auto", "on", "off"):
+            raise ValueError(
+                f"resident_data must be auto/on/off, got {self.resident_data}")
+        if self.autosave_every_calls < 0:
+            raise ValueError(
+                f"autosave_every_calls must be >= 0, got "
+                f"{self.autosave_every_calls}")
+        if self.autosave_every_calls > 0 and not self.model_dir:
+            raise ValueError("autosave_every_calls > 0 requires model_dir")
         if model == "clsr" and self.hidden_size != self.target_dim:
             # the alpha fusion adds att_fea_long (item+cate wide) to
             # att_fea_short (hidden wide), clsr.py:265
@@ -219,7 +259,12 @@ class Config:
 
 
 # YAML keys (reference spelling) -> Config field names.
-_KEY_ALIASES = {"enable_BN": "enable_bn"}
+_KEY_ALIASES = {
+    "EARLY_STOP": "early_stop",
+    "MODEL_DIR": "model_dir",
+    "SUMMARIES_DIR": "summaries_dir",
+    "enable_BN": "enable_bn",
+}
 
 
 def _coerce(key: str, value: Any) -> Any:

@@ -5,6 +5,9 @@ that replaces the reference's feed_dict, sequential_iterator.py:47-70):
 a row carries its history ONCE and `items`/`cates`/`labels` are [B, G],
 so the encoders run once per row and only the target-conditioned heads
 fan out over G.  `valid` marks real rows; padding rows are all zeros.
+The model reads tensors; the host loader (data/loader.py) yields the
+same dataclass with numpy fields, which data/prefetch.py moves to the
+device.
 """
 
 from __future__ import annotations

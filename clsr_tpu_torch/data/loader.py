@@ -1,0 +1,152 @@
+"""Host-side batching.
+
+Counterpart of clsr_tpu/data/loader.py:52-320 (the single-batch paths),
+which replaces the reference's per-batch Python assembly
+(sequential_iterator.py:194-503) with a pad-once design:
+
+  * the whole dataset is padded and left-truncated to [N, max_seq_length]
+    once (`PaddedView`); an epoch's batching is fancy indexing;
+  * train batches carry only the B positive rows (G = 1); the in-batch
+    negatives are drawn on the device by the train step;
+  * eval batches pack each run of (1 positive + num_ngs negative) file
+    rows into ONE row with G targets, since the negatives share the
+    positive's user and history (sequential_reviews.py:147-199);
+  * every batch has a static shape: the final partial batch is
+    zero-padded and masked by `valid`;
+  * a trailing train batch of fewer than `min_batch_rows` (5) real rows is
+    dropped (sequential_iterator.py:338-339), and rows whose history is
+    shorter than min_seq_length are skipped (:245-246).
+
+Batches stay on the host: `Batch` objects whose fields are numpy arrays.
+`data.prefetch.prefetch_to_device` (or `data.prefetch.to_device`) turns
+them into tensors on the device.  The epoch-gather pool and
+`train_batches_stacked` of the JAX package, and its length-bucketed
+`paddings`, wait for ROADMAP queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+
+from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.data.parser import ParsedDataset
+
+
+class PaddedView:
+    """Dense [N, L] padded view of a ParsedDataset (built once)."""
+
+    def __init__(self, ds: ParsedDataset, max_seq_length: int):
+        n = len(ds)
+        L = max_seq_length
+        lengths = np.diff(ds.offsets)
+        tl = np.minimum(lengths, L).astype(np.int64)
+
+        self.item_hist = np.zeros((n, L), dtype=np.int32)
+        self.cate_hist = np.zeros((n, L), dtype=np.int32)
+        self.time_diff = np.zeros((n, L), dtype=np.float32)
+        self.time_from_first = np.zeros((n, L), dtype=np.float32)
+        self.time_to_now = np.zeros((n, L), dtype=np.float32)
+        self.mask = np.zeros((n, L), dtype=np.float32)
+
+        total = int(tl.sum())
+        if total:
+            rows = np.repeat(np.arange(n), tl)
+            excl = np.concatenate([[0], np.cumsum(tl)[:-1]])
+            pos = np.arange(total) - np.repeat(excl, tl)
+            # keep the LAST tl entries of each ragged row (left-truncate)
+            flat_idx = np.repeat(ds.offsets[1:] - tl, tl) + pos
+            self.item_hist[rows, pos] = ds.hist_items[flat_idx]
+            self.cate_hist[rows, pos] = ds.hist_cates[flat_idx]
+            self.time_diff[rows, pos] = ds.time_diff[flat_idx]
+            self.time_from_first[rows, pos] = ds.time_from_first[flat_idx]
+            self.time_to_now[rows, pos] = ds.time_to_now[flat_idx]
+            self.mask[rows, pos] = 1.0
+
+        self.lengths = lengths
+        self.users = ds.users
+        self.items = ds.items
+        self.cates = ds.cates
+        self.labels = ds.labels
+
+
+class SequenceLoader:
+    """Batch iterator factory over a ParsedDataset."""
+
+    def __init__(self, ds: ParsedDataset, max_seq_length: int,
+                 min_batch_rows: int = 5):
+        self.ds = ds
+        self.max_seq_length = max_seq_length
+        self.min_batch_rows = min_batch_rows
+        self.view = PaddedView(ds, max_seq_length)
+
+    def train_batches(self, batch_rows: int, rng: np.random.RandomState,
+                      min_seq_length: int = 1) -> Iterator[Batch]:
+        """Shuffled batches of positive rows, G = 1, [batch_rows] rows."""
+        idx = np.flatnonzero(self.view.lengths >= min_seq_length)
+        rng.shuffle(idx)
+        for lo in range(0, len(idx), batch_rows):
+            take = idx[lo:lo + batch_rows]
+            if len(take) < self.min_batch_rows:
+                continue  # the reference drops tiny trailing train batches
+            yield self._make_batch(take, batch_rows, group=None)
+
+    def eval_batches(self, group_size: int, batch_groups: int,
+                     min_seq_length: int = 1) -> Iterator[Batch]:
+        """Grouped eval batches: one row per (1 pos + num_ngs neg) group.
+
+        File rows must come in whole groups of `group_size` with the same
+        user and history inside each group (the offline sampler's
+        layout).  With group_size 1 every row is its own group (the
+        predict path)."""
+        v = self.view
+        n_rows = len(v.labels)
+        if n_rows % group_size != 0:
+            raise ValueError(
+                f"eval file rows ({n_rows}) not divisible by group size "
+                f"({group_size})")
+        anchors = np.arange(0, n_rows, group_size)
+        if min_seq_length > 1:
+            anchors = anchors[v.lengths[anchors] >= min_seq_length]
+        for lo in range(0, len(anchors), batch_groups):
+            yield self._make_batch(anchors[lo:lo + batch_groups],
+                                   batch_groups, group=group_size)
+
+    def _make_batch(self, row_idx: np.ndarray, target_rows: int,
+                    group: Optional[int]) -> Batch:
+        v = self.view
+        n = len(row_idx)
+
+        def pad(arr):
+            if n == target_rows:
+                return arr
+            shape = (target_rows - n,) + arr.shape[1:]
+            return np.concatenate([arr, np.zeros(shape, dtype=arr.dtype)], 0)
+
+        if group is None:
+            items = v.items[row_idx][:, None]
+            cates = v.cates[row_idx][:, None]
+            labels = v.labels[row_idx][:, None]
+        else:
+            # group member g sits at file row anchor + g
+            member = row_idx[:, None] + np.arange(group)[None, :]
+            items = v.items[member]
+            cates = v.cates[member]
+            labels = v.labels[member]
+
+        valid = np.zeros(target_rows, dtype=np.float32)
+        valid[:n] = 1.0
+        return Batch(
+            users=pad(v.users[row_idx]),
+            items=pad(items),
+            cates=pad(cates),
+            labels=pad(labels.astype(np.float32)),
+            item_hist=pad(v.item_hist[row_idx]),
+            cate_hist=pad(v.cate_hist[row_idx]),
+            mask=pad(v.mask[row_idx]),
+            time_diff=pad(v.time_diff[row_idx]),
+            time_from_first=pad(v.time_from_first[row_idx]),
+            time_to_now=pad(v.time_to_now[row_idx]),
+            valid=valid,
+        )

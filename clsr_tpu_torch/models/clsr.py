@@ -53,7 +53,7 @@ class CLSRModel(SequentialModelBase):
         if not (cfg.use_fused_encoders and cfg.sequential_model == "time4lstm"):
             raise NotImplementedError(
                 "only the fused time4lstm encoder is ported; the unfused "
-                "GRU/LSTM encoders wait for ROADMAP queue 1, model zoo")
+                "GRU/LSTM encoders wait for ROADMAP queue 1 item 8, model zoo")
         U, H, T = cfg.user_embedding_dim, cfg.hidden_size, cfg.target_dim
         self.user_long_embedding = self.new_param((n_users, U))
         self.user_short_embedding = self.new_param((n_users, U))

@@ -27,7 +27,7 @@ def get_model_class(name: str) -> Type[SequentialModelBase]:
         return MODEL_REGISTRY[key]
     if key in _NOT_PORTED:
         raise NotImplementedError(
-            f"model {name} is not yet ported to PyTorch (ROADMAP queue 1, "
-            f"model zoo); ported: {sorted(MODEL_REGISTRY)}")
+            f"model {name} is not yet ported to PyTorch (ROADMAP queue 1 "
+            f"item 8, model zoo); ported: {sorted(MODEL_REGISTRY)}")
     raise ValueError(
         f"Unknown model {name}; available: {sorted(MODEL_REGISTRY)}")

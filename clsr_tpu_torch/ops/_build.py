@@ -1,12 +1,16 @@
-"""Build the CUDA sources under csrc/ and bind them with ctypes.
+"""Build the CUDA sources under csrc/ and the host C++ libraries, and
+bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 alone (no PyTorch headers) into `_build/<name>-<hash>.so`, the hash
 covering the source, the headers it includes by quotes (`csrc/*.cuh`)
 and the flags, so an edited source or header builds anew and an
-unchanged one is reused.  The first CUDA call of a kernel builds it;
-`build()` starts every missing build at once (one `nvcc` per source).
-Pointers go in as `c_void_p`, with PyTorch's current stream.
+unchanged one is reused.  The host libraries (`HOST_SOURCES`: the TSV
+parser `native/fastparse.cpp`) take the same path with `g++`.  The first
+call of a library builds it; `build()` starts every missing build at
+once (one compiler per source) and raises with the compiler's output if
+one fails.  Pointers go in as `c_void_p`, with PyTorch's current stream
+for the kernels.
 """
 
 from __future__ import annotations
@@ -31,9 +35,13 @@ BUILD_DIR = _PKG / "_build"
 MAX_SMEM = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# host C++ libraries, by name; every other name is csrc/<name>.cu
+HOST_SOURCES = {"fastparse": _PKG / "native" / "fastparse.cpp"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 # C signatures: (argtypes, restype) per exported function
 _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
     "eval_scorer": {
@@ -54,8 +62,19 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "clsr_row_scatter_group": ((_P,), _I),
         "clsr_row_sweep": ((_P,), _I),
     },
+    "fastparse": {
+        "clsr_vocab_new": ((ctypes.c_char_p, _I64, _P, _I64), _P),
+        "clsr_vocab_free": ((_P,), None),
+        "clsr_parse_file": ((ctypes.c_char_p, _P, _P, _P,
+                             ctypes.c_double), _P),
+        "clsr_result_n": ((_P,), _I64),
+        "clsr_result_total": ((_P,), _I64),
+        "clsr_result_fill": ((_P,) * 12, None),
+        "clsr_result_free": ((_P,), None),
+    },
 }
-KERNELS = tuple(_SIGNATURES)
+KERNELS = tuple(n for n in _SIGNATURES if n not in HOST_SOURCES)
+LIBRARIES = tuple(_SIGNATURES)
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 _lock = threading.Lock()
@@ -73,6 +92,26 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def gxx() -> str:
+    """Path of g++ (PATH): the host libraries' compiler."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host libraries cannot be "
+                           "built")
+    return found
+
+
+def source(name: str) -> Path:
+    return HOST_SOURCES.get(name, CSRC / f"{name}.cu")
+
+
+def _command(name: str, out: Path) -> list:
+    src = source(name)
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [gxx(), *GXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _sources(path: Path, seen: list) -> list:
     """`path` and, depth first, every file it includes by quotes (found
     beside the including file, as nvcc finds it), each once."""
@@ -86,15 +125,18 @@ def _sources(path: Path, seen: list) -> list:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for path in _sources(CSRC / f"{name}.cu", []):
+    src = source(name)
+    for path in _sources(src, []):
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS if src.suffix == ".cu"
+                           else GXX_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> float:
-    """Compile every missing library of `names`, all nvcc's at once;
-    return the wall seconds.  Raises with nvcc's output on failure."""
+    """Compile every missing library of `names`, all compilers at once;
+    return the wall seconds.  Raises with the compiler's output on
+    failure."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -103,25 +145,25 @@ def build(names: Iterable[str] = KERNELS) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{name}: {proc.args[0]} exited "
+                          f"{proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)    # atomic: concurrent builders agree
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library of kernel `name`, built on first use."""
+    """The bound library `name`, built on first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -5,7 +5,8 @@ it dumps predictions from the training session,
 sequential_base_model.py:326-347):
 
   * `ScoringService` — build the model once (random weights from the
-    seed, a saved state_dict, or flax trees through weights.from_flax),
+    seed, a saved state_dict, the newest checkpoint of a training run
+    (`load_latest`), or flax trees through weights.from_flax),
     then `score(requests)` batches of (user, history, C candidates)
     through the eval step.  One encoder pass per user scores all its
     candidates (the [B, G] Batch layout).
@@ -40,6 +41,7 @@ from clsr_tpu_torch.data.parser import (compute_time_features,
                                         time_range_for_unit)
 from clsr_tpu_torch.data.vocab import Vocab
 from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.steps import make_eval_step_fn
 from clsr_tpu_torch.utils.device import resolve_device
 
@@ -92,6 +94,12 @@ class ScoringService:
 
     def save(self, path: str) -> None:
         weights.save(self.model, path)
+
+    def load_latest(self, model_dir: str) -> None:
+        """Restore the model part of the newest `epoch_<n>` checkpoint
+        that `training.trainer.Trainer` wrote into `model_dir`."""
+        checkpoint.load_model(checkpoint.latest_epoch_dir(model_dir),
+                              self.model)
 
     # ------------------------------------------------------------ batch
     def _bucket(self, buckets: Sequence[int], n: int) -> int:

@@ -1,0 +1,131 @@
+"""Checkpoints of a TrainState.
+
+Counterpart of clsr_tpu/training/checkpoint.py:36-56 (the schema sidecar)
+and of the orbax save/restore of clsr_tpu/training/trainer.py:683-732.
+Orbax is not available to the port, so a checkpoint directory (the same
+`<model_dir>/epoch_<n>/` layout) holds this package's own format:
+
+  * `state.pt` (torch.save, read back with weights_only): the model's
+    state_dict (parameters and BN running statistics); the optimizer,
+    either dense Adam's state_dict or every tensor of a LazyAdamState
+    (the table rows in their pmn param|mu|nu or split mu|nu layout, the
+    count, the route counter and the dense Adam's state_dict); and the
+    step;
+  * `clsr_meta.json`: {"schema": SCHEMA_VERSION, "layout": "logical",
+    "format": "clsr_tpu_torch"}.
+
+A lazyadam state is restored whole: the table Parameters and the pmn
+rows both come from the file, so under the compact engine the tables
+equal pmn[:, :D] after a load as after every step.  Run state for a
+mid-epoch resume (`save_run_state` / `load_run_state`) waits for ROADMAP
+queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+from clsr_tpu_torch.training.state import TrainState
+
+# the JAX package's schema history: 1 LazyAdamState(moments, count,
+# dense_opt); 2 + route_overflow.  The port's LazyAdamState has all four.
+SCHEMA_VERSION = 2
+META_NAME = "clsr_meta.json"
+STATE_NAME = "state.pt"
+FORMAT = "clsr_tpu_torch"
+
+
+def write_meta(path: str, extra: Optional[Dict[str, Any]] = None) -> None:
+    meta = {"schema": SCHEMA_VERSION, "layout": "logical"}
+    if extra:
+        meta.update(extra)
+    with open(os.path.join(path, META_NAME), "w") as f:
+        json.dump(meta, f)
+
+
+def read_meta(path: str) -> Optional[Dict[str, Any]]:
+    p = os.path.join(path, META_NAME)
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
+def save_state(path: str, state: TrainState) -> None:
+    """Write `state` into the directory `path` (made if missing)."""
+    os.makedirs(path, exist_ok=True)
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        optimizer = {"kind": "lazyadam", "moments": dict(opt.moments),
+                     "count": opt.count,
+                     "route_overflow": opt.route_overflow,
+                     "dense": opt.dense_opt.state_dict()}
+    else:
+        optimizer = {"kind": "adam", "state_dict": opt.state_dict()}
+    tmp = os.path.join(path, f"{STATE_NAME}.{os.getpid()}.tmp")
+    torch.save({"model": state.model.state_dict(), "optimizer": optimizer,
+                "step": state.step}, tmp)
+    os.replace(tmp, os.path.join(path, STATE_NAME))
+    write_meta(path, {"format": FORMAT})
+
+
+def _read(path: str) -> Dict[str, Any]:
+    meta = read_meta(path)
+    if meta is None or meta.get("format") != FORMAT:
+        raise IOError(f"{path} is not a checkpoint of clsr_tpu_torch "
+                      f"(meta {meta}); the JAX package's orbax checkpoints "
+                      f"are not read here")
+    # on the host: load_state_dict puts each tensor where its owner lives
+    return torch.load(os.path.join(path, STATE_NAME), map_location="cpu",
+                      weights_only=True)
+
+
+def load_model(path: str, model: torch.nn.Module) -> None:
+    """Restore only the model part (parameters and BN statistics)."""
+    model.load_state_dict(_read(path)["model"])
+
+
+@torch.no_grad()
+def load_state(path: str, state: TrainState) -> TrainState:
+    """Restore the checkpoint at `path` into `state`, in place."""
+    blob = _read(path)
+    state.model.load_state_dict(blob["model"])
+    saved, opt = blob["optimizer"], state.optimizer
+    lazy = isinstance(opt, LazyAdamState)
+    if saved["kind"] != ("lazyadam" if lazy else "adam"):
+        raise ValueError(f"{path} holds a {saved['kind']} state; this run's "
+                         f"optimizer is {type(opt).__name__}")
+    if lazy:
+        if set(saved["moments"]) != set(opt.moments):
+            raise ValueError(f"moment tables {sorted(saved['moments'])} do "
+                             f"not match {sorted(opt.moments)}")
+        for name, rows in saved["moments"].items():
+            if rows.shape != opt.moments[name].shape:
+                raise ValueError(
+                    f"moments of {name} have shape {tuple(rows.shape)} in "
+                    f"{path}, {tuple(opt.moments[name].shape)} here (pmn "
+                    f"and split layouts do not convert)")
+            opt.moments[name].copy_(rows)
+        opt.count = int(saved["count"])
+        opt.route_overflow = int(saved["route_overflow"])
+        opt.dense_opt.load_state_dict(saved["dense"])
+    else:
+        opt.load_state_dict(saved["state_dict"])
+    state.step = int(blob["step"])
+    return state
+
+
+def latest_epoch_dir(model_dir: str) -> str:
+    """The `epoch_<n>` directory of `model_dir` with the largest n, as
+    tf.train.latest_checkpoint finds it (sequential.py:352-353)."""
+    epochs = ([d for d in os.listdir(model_dir) if d.startswith("epoch_")]
+              if os.path.isdir(model_dir) else [])
+    if not epochs:
+        raise IOError(f"Failed to find any matching files for {model_dir}")
+    return os.path.join(model_dir,
+                        max(epochs, key=lambda d: int(d.split("_")[1])))

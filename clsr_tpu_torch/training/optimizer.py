@@ -33,14 +33,18 @@ def clip_by_norm_each(grads: Iterable[torch.Tensor],
                            torch.ones_like(norm)))
 
 
+def check_optimizer(name: str) -> None:
+    """Raise unless optimizer `name` is ported."""
+    if name not in ("adam", "lazyadam"):
+        raise NotImplementedError(
+            f"optimizer {name} waits for ROADMAP queue 1 item 3, the other "
+            f"optimizers (adam and lazyadam are ported)")
+
+
 def build_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]
                     ) -> torch.optim.Optimizer:
     """Adam with optax's defaults (for lazyadam, the dense part over the
     parameters given); every other name raises."""
-    name = cfg.optimizer
-    if name in ("adam", "lazyadam"):
-        return torch.optim.Adam(params, lr=cfg.learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8, foreach=True)
-    raise NotImplementedError(
-        f"optimizer {name} waits for ROADMAP queue 1, the other optimizers "
-        f"(adam and lazyadam are ported)")
+    check_optimizer(cfg.optimizer)
+    return torch.optim.Adam(params, lr=cfg.learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8, foreach=True)

@@ -1,0 +1,187 @@
+"""The fit loop on the card (marked `gpu`; skips without one).
+
+Without JAX (the card's machine has none), so it runs there with
+`python -m pytest tests/test_torch_fit_gpu.py -m gpu --noconftest -q`.
+On the 200-user synthetic set at the clsr.yaml widths, batch 100:
+
+  * a one-epoch fit with `prefetch_batches: 2` (pinned host copies on a
+    copy stream, the compute stream waiting on an event) and one with
+    `prefetch_batches: 0` (a plain copy per batch) from the same seed:
+    every model tensor and every valid metric bit-identical, with every
+    kernel gate on and dense Adam, also a second fit without prefetch.
+    The fits run under `torch.use_deterministic_algorithms`: PyTorch's
+    dense embedding backward on the card sums a row that repeats many
+    times in a batch (the 41-row category table here) in a different
+    order from call to call, so without it two fits without prefetch
+    differ too;
+  * a short lazyadam fit with every kernel gate on: finite losses, each
+    kernel of the path launched (K5 once a step, K2's backward once a
+    step, K3a/K3b/K1 twice a step), every test prediction with K1 on
+    within 1e-4 of K1 off, a checkpoint restored by `load_latest` giving
+    the same test dict exactly;
+  * at that fit's shapes (its first train batch, B = 100, and one test
+    batch of 5 x 20) on its weights, the kernel-gated eval and train
+    steps against the plain ones (`training.kernel_check`): scores 1e-4
+    abs, loss parts 1e-4 relative, gradients 1e-4 of their max abs, BN
+    running statistics 1e-5, K5 bit-identical to its plain version.
+"""
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from clsr_tpu_torch.config import CONFIG_DIR, load_config
+from clsr_tpu_torch.data.loader import SequenceLoader
+from clsr_tpu_torch.data.parser import parse_file
+from clsr_tpu_torch.data.prefetch import to_device
+from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
+from clsr_tpu_torch.data.vocab import load_vocab
+from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.ops import fused_attention as fa
+from clsr_tpu_torch.ops import fused_scan as fs
+from clsr_tpu_torch.ops import fused_train_attention as fta
+from clsr_tpu_torch.ops import row_update as ru
+from clsr_tpu_torch.training import kernel_check
+from clsr_tpu_torch.training.evaluator import run_weighted_eval
+from clsr_tpu_torch.training.steps import make_eval_step_fn
+from clsr_tpu_torch.training.trainer import Trainer
+
+pytestmark = pytest.mark.gpu
+TEST_NGS = 19
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    out = tmp_path_factory.mktemp("fit_gpu")
+    paths = write_synthetic_dataset(str(out), n_users=200, n_items=1000,
+                                    n_cates=40, valid_num_ngs=4,
+                                    test_num_ngs=TEST_NGS)
+    vocabs = [load_vocab(paths[f"{n}_vocab"])
+              for n in ("user", "item", "cate")]
+    loaders = {s: SequenceLoader(parse_file(paths[s], *vocabs), 50)
+               for s in ("train", "valid", "test")}
+    return tuple(map(len, vocabs)), loaders
+
+
+def _cfg(**kw):
+    return load_config(f"{CONFIG_DIR}/clsr.yaml", user_vocab="u",
+                       item_vocab="i", cate_vocab="c", batch_size=100,
+                       epochs=1, seed=4, show_step=0, test_num_ngs=TEST_NGS,
+                       use_pallas_scan=True, use_pallas_train_attention="on",
+                       **kw)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms on (warnings where an op has no
+    deterministic version), restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _fit(sizes, loaders, cfg):
+    t = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                log=lambda *_: None)
+    t.fit(loaders["train"], loaders["valid"])
+    return t
+
+
+def _recording(step, out):
+    def run(model, batch):
+        preds, alpha = step(model, batch)
+        out.append(preds[batch.valid > 0])
+        return preds, alpha
+    return run
+
+
+def test_prefetch_on_and_off_fits_are_bit_identical(cuda, data):
+    sizes, loaders = data
+    with deterministic():
+        runs = [_fit(sizes, loaders, _cfg(prefetch_batches=d))
+                for d in (2, 0, 0)]
+    want = runs[1].state.model.state_dict()
+    for t in (runs[0], runs[2]):
+        got = t.state.model.state_dict()
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert t.eval_history == runs[1].eval_history
+    assert runs[0].epoch_stats[0]["steps"] > 5
+
+
+def test_lazy_fit_on_the_card_runs_every_kernel(cuda, data, tmp_path):
+    sizes, loaders = data
+    counters = {"K3a": fta.train_stats0, "K3b": fta.train_stats1,
+                "K1": fa.fused_eval_attention, "K2": fs.fused_scan,
+                "K2_bwd": fs.scan_backward, "K5": ru.scatter_rows}
+    for c in counters.values():
+        c.launches = 0
+    cfg = _cfg(optimizer="lazyadam", model_dir=str(tmp_path))
+    t = _fit(sizes, loaders, cfg)
+    torch.cuda.synchronize()
+    got = {n: c.launches for n, c in counters.items()}
+    steps = t.epoch_stats[0]["steps"]
+    assert np.isfinite(t.epoch_stats[0]["mean_loss"])
+    assert got["K5"] == got["K2_bwd"] == steps > 5
+    assert got["K3a"] == got["K3b"] == got["K1"] == 2 * steps
+    assert got["K2"] > steps                     # + the valid eval's
+    kept_on, kept_off = [], []
+    res_on = run_weighted_eval(_recording(t.eval_step, kept_on),
+                               t.state.model, loaders["test"], cfg, TEST_NGS)
+    cfg_off = dataclasses.replace(cfg, use_pallas_eval_attention="off")
+    model_off = get_model_class("clsr")(cfg_off, *sizes)
+    model_off.load_state_dict(t.state.model.state_dict())
+    res_off = run_weighted_eval(_recording(make_eval_step_fn(cfg_off),
+                                           kept_off),
+                                model_off, loaders["test"], cfg_off, TEST_NGS)
+    assert res_on.keys() == res_off.keys()
+    on, off = torch.cat(kept_on), torch.cat(kept_off)
+    assert on.shape == off.shape and on.numel() > 1000
+    assert (on - off).abs().max().item() <= 1e-4
+    fresh = Trainer(get_model_class("clsr")(cfg.replace(seed=9), *sizes),
+                    cfg)
+    fresh.load_latest(str(tmp_path))
+    assert run_weighted_eval(fresh.eval_step, fresh.state.model,
+                             loaders["test"], cfg, TEST_NGS) == res_on
+
+
+def test_kernel_steps_match_the_plain_ones_at_the_fit_shapes(cuda, data):
+    sizes, loaders = data
+    cfg = _cfg(optimizer="lazyadam")
+    t = _fit(sizes, loaders, cfg)
+    first = to_device(next(loaders["train"].train_batches(
+        cfg.batch_size, np.random.RandomState(cfg.seed),
+        min_seq_length=cfg.min_seq_length)), cuda)
+    test = to_device(next(loaders["test"].eval_batches(
+        group_size=TEST_NGS + 1, batch_groups=cfg.batch_size // (TEST_NGS + 1),
+        min_seq_length=cfg.min_seq_length)), cuda)
+    res = kernel_check.compare_steps(cfg, t.state.model.state_dict(), sizes,
+                                     first, test)
+    assert kernel_check.failures(res) == []
+    assert res["k5_identical"] is True and res["k5_groups"] == 1
+    assert res["table_grad_rel_err"] is not None
+    lc = res["launches"]
+    assert {k: lc["eval/kernel"][k] for k in ("eval_scorer", "clsr_scan")} \
+        == {"eval_scorer": 1, "clsr_scan": 1}
+    want = dict(train_stats0=2, train_stats1=2, eval_scorer=2, clsr_scan=1,
+                clsr_scan_backward=1, row_scatter=1, row_sweep=0)
+    assert lc["train/kernel"] == want
+    assert not any(lc["eval/plain"].values())
+    assert not any(lc["train/plain"].values())

@@ -1,0 +1,454 @@
+"""The port's fit loop, checkpoints and CLI against the JAX package's.
+
+On the 50-user synthetic set (valid 1 + 4, test 1 + 9 groups) at the
+narrow widths of tests/test_torch_common.py:
+
+  * two epochs of `Trainer.fit` with dense Adam against JAX's
+    `Trainer.fit` (`resident_data: off`, `train_steps_per_call: 1`), both
+    from the same weights (carried over by `weights.from_flax`) and the
+    same RandomState shuffle.  The in-batch negatives differ by design
+    (a torch.Generator against JAX's PRNG), so both step modules get the
+    same deterministic ones: the negatives of row b are the positives of
+    rows b + 1 ... b + k (mod the valid rows).  Both start from JAX's init
+    perturbed as tests/test_torch_common.py does: at the init the scores
+    are near ties, and the gradients that are zero by construction (a
+    bias under train-mode BN, the output bias under the softmax) are
+    rounding noise that Adam turns into steps of +-lr on either side, so
+    near ties would reorder.  Per show_step the loss and
+    data loss to 1e-4 relative (from scalars.jsonl, unrounded), per epoch
+    each valid metric within 2e-4, the same best epoch;
+  * `train_steps_per_call` K = 4 runs the same single steps as K = 1
+    (the same parameters, bit for bit) and logs at the JAX stacked
+    path's call boundaries;
+  * a checkpoint round trip for dense Adam and for lazyadam, compact and
+    legacy: the eval after `load_latest` into a fresh model equals the
+    eval before the save exactly, model and optimizer state are equal,
+    the tables equal pmn[:, :D], and one more step from each is
+    bit-identical; `ScoringService.load_latest` scores the test groups
+    as the eval step does, to 1e-6;
+  * the CLI (`--device cpu`) end to end with `--write_prediction_to_file`,
+    then `--only_test` printing the same test dict (every key exactly; as
+    in the JAX CLI, `--only_test` adds `mean_alpha`), the counterpart of
+    tests/test_cli_and_io.py:10; without `--device` and without a card it
+    raises; every unported flag raises naming its ROADMAP item;
+  * the Trainer's refusals of unported settings.
+"""
+
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import clsr_tpu.training.steps as jax_steps
+from clsr_tpu.data.loader import SequenceLoader as JaxLoader
+from clsr_tpu.data.parser import parse_file as jax_parse_file
+from clsr_tpu.data.vocab import load_vocab as jax_load_vocab
+from clsr_tpu.models.registry import get_model_class as jax_model_class
+from clsr_tpu.training.trainer import Trainer as JaxTrainer
+import clsr_tpu_torch.training.steps as port_steps
+from clsr_tpu_torch import cli, weights
+from clsr_tpu_torch.config import load_config
+from clsr_tpu_torch.data.loader import SequenceLoader
+from clsr_tpu_torch.data.parser import parse_file
+from clsr_tpu_torch.data.prefetch import to_device
+from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
+from clsr_tpu_torch.data.vocab import load_vocab
+from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.serving import ScoreRequest, ScoringService
+from clsr_tpu_torch.training import kernel_check
+from clsr_tpu_torch.training.evaluator import run_weighted_eval
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState, is_pmn
+from clsr_tpu_torch.training.trainer import Trainer
+
+from test_torch_common import (REPO, perturb, port_cfg, small_jax_cfg,
+                               to_np)
+
+L = 10
+TEST_NGS = 9
+SPLITS = ("train", "valid", "test")
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    out = tmp_path_factory.mktemp("fit")
+    paths = write_synthetic_dataset(str(out), valid_num_ngs=4,
+                                    test_num_ngs=TEST_NGS)
+    pv = [load_vocab(paths[f"{n}_vocab"]) for n in ("user", "item", "cate")]
+    jv = [jax_load_vocab(paths[f"{n}_vocab"])
+          for n in ("user", "item", "cate")]
+    port = {s: SequenceLoader(parse_file(paths[s], *pv), L) for s in SPLITS}
+    jax_l = {s: JaxLoader(jax_parse_file(paths[s], *jv), L) for s in SPLITS}
+    return paths, pv, port, jax_l
+
+
+def _sizes(pv):
+    return tuple(map(len, pv))
+
+
+# ------------------------------------------- deterministic negatives
+
+
+def _neg_index(B, num_ngs, n_valid, arange, mod):
+    return mod(arange(B)[:, None] + arange(1, num_ngs + 1)[None, :],
+               n_valid)
+
+
+def _jax_negatives(rng, batch, num_ngs):
+    B = batch.items.shape[0]
+    n_valid = jnp.maximum(batch.valid.sum().astype(jnp.int32), 1)
+    idx = _neg_index(B, num_ngs, n_valid, jnp.arange, jnp.mod)
+    pi, pc = batch.items[:, 0], batch.cates[:, 0]
+    items = jnp.concatenate([pi[:, None], pi[idx]], axis=1)
+    cates = jnp.concatenate([pc[:, None], pc[idx]], axis=1)
+    labels = jnp.zeros(items.shape, jnp.float32).at[:, 0].set(1.0)
+    return batch.replace(items=items, cates=cates, labels=labels)
+
+
+def _port_negatives(generator, batch, num_ngs):
+    B = batch.items.shape[0]
+    n_valid = batch.valid.sum().to(torch.int64).clamp_min(1)
+    idx = _neg_index(B, num_ngs, n_valid,
+                     lambda *a: torch.arange(*a, device=batch.items.device),
+                     torch.remainder)
+    pi, pc = batch.items[:, 0], batch.cates[:, 0]
+    items = torch.cat([pi[:, None], pi[idx]], dim=1)
+    cates = torch.cat([pc[:, None], pc[idx]], dim=1)
+    labels = torch.zeros(items.shape, dtype=torch.float32,
+                         device=items.device)
+    labels[:, 0] = 1.0
+    return dataclasses.replace(batch, items=items, cates=cates,
+                               labels=labels)
+
+
+def _scalars(path):
+    with open(os.path.join(path, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+# ------------------------------------------------ the fit trajectory
+
+FIT = dict(max_seq_length=L, batch_size=64, epochs=2, show_step=2,
+           train_steps_per_call=1, resident_data="off", valid_num_ngs=4,
+           test_num_ngs=TEST_NGS, save_model=False, early_stop=10,
+           contrastive_length_threshold=2, embed_l2=1e-4, layer_l2=1e-4)
+
+
+def test_fit_trajectory_matches_jax(data, tmp_path, monkeypatch):
+    _, pv, port, jax_l = data
+    monkeypatch.setattr(jax_steps, "expand_with_negatives", _jax_negatives)
+    monkeypatch.setattr(port_steps, "expand_with_negatives",
+                        _port_negatives)
+    jcfg = small_jax_cfg(**FIT, summaries_dir=str(tmp_path / "jax"))
+    sizes = _sizes(pv)
+    jmodel = jax_model_class("clsr")(cfg=jcfg, n_users=sizes[0],
+                                     n_items=sizes[1], n_cates=sizes[2])
+    sample = next(jax_l["train"].train_batches(jcfg.batch_size,
+                                               np.random.RandomState(0)))
+    jt = JaxTrainer(jmodel, jcfg, sample, log=lambda *a: None)
+    rng = np.random.RandomState(7)
+    jt.state = jt.state.replace(params=perturb(jt.state.params, rng),
+                                batch_stats=perturb(jt.state.batch_stats,
+                                                    rng))
+    cfg = port_cfg(jcfg, summaries_dir=str(tmp_path / "port"))
+    model = get_model_class("clsr")(cfg, *sizes, device="cpu")
+    weights.from_flax(model, jt.state.params, jt.state.batch_stats)
+    pt = Trainer(model, cfg, log=lambda *a: None)
+
+    jt.fit(jax_l["train"], jax_l["valid"])
+    pt.fit(port["train"], port["valid"])
+
+    got, want = _scalars(tmp_path / "port"), _scalars(tmp_path / "jax")
+    assert [r["step"] for r in got] == [r["step"] for r in want]
+    n_logged = 0
+    for g, w in zip(got, want):
+        for key in set(w) - {"step", "time"}:
+            assert key in g, key
+            if key.startswith("valid/"):
+                assert abs(g[key] - w[key]) <= 2e-4 + 1e-9, (g, w)
+            else:
+                n_logged += 1
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-4,
+                                           err_msg=f"{key} at {g['step']}")
+    assert n_logged >= 2 * 2 * 5            # losses at >= 5 show_steps
+    assert len(pt.eval_history) == len(jt.eval_history) == 2
+    for (ep, g), (jep, w) in zip(pt.eval_history, jt.eval_history):
+        assert ep == jep and g.keys() == w.keys()
+        for k in g:
+            assert abs(g[k] - w[k]) <= 2e-4 + 1e-9, (ep, k, g[k], w[k])
+    assert pt.best_epoch == jt.best_epoch > 0
+    assert [s["steps"] for s in pt.epoch_stats] == [
+        len(list(port["train"].train_batches(64, np.random.RandomState(0))))
+    ] * 2
+
+
+def _port_trainer(pv, seed=3, log=None, **kw):
+    cfg = load_config(None, **dict(
+        dataclasses.asdict(small_jax_cfg(**FIT)), seed=seed, **kw))
+    model = get_model_class("clsr")(cfg, *_sizes(pv), device="cpu")
+    return Trainer(model, cfg, log=log or (lambda *a: None))
+
+
+def test_steps_per_call_runs_the_same_single_steps(data, monkeypatch):
+    _, pv, port, _ = data
+    monkeypatch.setattr(port_steps, "expand_with_negatives",
+                        _port_negatives)
+    logs = {1: [], 4: []}
+    trainers = {k: _port_trainer(pv, log=logs[k].append, epochs=1,
+                                 show_step=3, train_steps_per_call=k)
+                for k in logs}
+    for t in trainers.values():
+        t.fit(port["train"], port["valid"])
+    one, four = (dict(trainers[k].model.state_dict()) for k in (1, 4))
+    for name, value in one.items():
+        torch.testing.assert_close(four[name], value, rtol=0, atol=0)
+    n = trainers[1].epoch_stats[0]["steps"]
+    grouped = (len(port["train"].view.labels) // 64) // 4 * 4
+    calls = list(range(4, grouped + 1, 4)) + list(range(grouped + 1, n + 1))
+    want = [s for p, s in zip([0] + calls, calls) if s // 3 > p // 3]
+    steps = [int(line.split(",")[0].split()[1]) for line in logs[4]
+             if line.startswith("step ")]
+    assert steps == want and steps != [3 * i for i in range(1, n // 3 + 1)]
+
+
+# ------------------------------------------------------- checkpoints
+
+OPTIMIZERS = {"adam": dict(optimizer="adam"),
+              "lazy_compact": dict(optimizer="lazyadam", compact_rows="auto"),
+              "lazy_legacy": dict(optimizer="lazyadam", compact_rows="off")}
+
+
+def _state_tensors(state):
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        out.update({f"moments/{k}": v for k, v in opt.moments.items()})
+        dense = opt.dense_opt
+    else:
+        dense = opt
+    for i, st in enumerate(dense.state_dict()["state"].values()):
+        out.update({f"opt/{i}/{k}": v for k, v in st.items()})
+    return out
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+def test_checkpoint_round_trip(data, tmp_path, opt):
+    _, pv, port, _ = data
+    kw = dict(OPTIMIZERS[opt], model_dir=str(tmp_path / "model"),
+              save_model=True, epochs=1)
+    before = _port_trainer(pv, **kw)
+    before.fit(port["train"], port["valid"])
+    assert os.path.isdir(tmp_path / "model" / "epoch_1")
+    evaluate = lambda t: run_weighted_eval(
+        t.eval_step, t.state.model, port["test"], t.cfg, TEST_NGS,
+        calc_mean_alpha=True)
+    want = evaluate(before)
+
+    after = _port_trainer(pv, seed=11, **kw)        # other weights
+    assert evaluate(after) != want
+    after.load_latest(kw["model_dir"])
+    assert evaluate(after) == want
+    got_t, want_t = _state_tensors(after.state), _state_tensors(before.state)
+    assert got_t.keys() == want_t.keys()
+    for k, v in want_t.items():
+        torch.testing.assert_close(got_t[k], v, rtol=0, atol=0, msg=k)
+    assert after.state.step == before.state.step > 0
+    if opt.startswith("lazy"):
+        assert after.state.optimizer.count == before.state.optimizer.count
+        params = dict(after.model.named_parameters())
+        for name, mn in after.state.optimizer.moments.items():
+            assert is_pmn(params[name], mn) == (opt == "lazy_compact")
+            if opt == "lazy_compact":
+                torch.testing.assert_close(
+                    params[name], mn[:, :params[name].shape[1]], rtol=0,
+                    atol=0)
+    batch = to_device(next(port["train"].train_batches(
+        64, np.random.RandomState(5))), "cpu")
+    for t in (before, after):
+        t.state, _ = t.train_step(t.state, batch,
+                                  torch.Generator().manual_seed(2))
+    got_t, want_t = _state_tensors(after.state), _state_tensors(before.state)
+    for k, v in want_t.items():
+        torch.testing.assert_close(got_t[k], v, rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+def test_kernel_check_holds_the_plain_steps_to_themselves(data, opt):
+    """kernel_check.compare_steps on CPU tensors, where both sides run
+    the plain versions: every gate holds, no launch is counted, K5's
+    groups (under lazyadam) agree with their plain version."""
+    _, pv, port, _ = data
+    t = _port_trainer(pv, use_pallas_scan=True,
+                      use_pallas_train_attention="on", **OPTIMIZERS[opt])
+    train = to_device(next(port["train"].train_batches(
+        64, np.random.RandomState(0))), "cpu")
+    test = to_device(next(port["test"].eval_batches(
+        group_size=TEST_NGS + 1, batch_groups=6)), "cpu")
+    res = kernel_check.compare_steps(t.cfg, t.state.model.state_dict(),
+                                     _sizes(pv), train, test)
+    assert kernel_check.failures(res) == []
+    assert not res["bad_grads"] and res["grad_rel_err"] <= 1e-4
+    assert all(n == 0 for counts in res["launches"].values()
+               for n in counts.values())
+    assert res["k5_groups"] == (opt != "adam")
+    assert res["k5_identical"] is (True if opt != "adam" else None)
+    assert (res["table_grad_rel_err"] is None) == (opt != "lazy_compact")
+    assert np.isfinite(res["loss"])
+
+
+def test_checkpoint_refuses_another_optimizer(data, tmp_path):
+    _, pv, port, _ = data
+    t = _port_trainer(pv, optimizer="adam", model_dir=str(tmp_path))
+    t.save(str(tmp_path / "epoch_3"))
+    lazy = _port_trainer(pv, optimizer="lazyadam")
+    with pytest.raises(ValueError, match="adam state"):
+        lazy.load_latest(str(tmp_path))
+    with pytest.raises(IOError, match="Failed to find"):
+        t.load_latest(str(tmp_path / "missing"))
+    (tmp_path / "orbax" / "epoch_1").mkdir(parents=True)
+    with pytest.raises(IOError, match="not a checkpoint"):
+        t.load_latest(str(tmp_path / "orbax"))
+
+
+def _requests(path, n_groups, group):
+    with open(path) as f:
+        lines = [line.rstrip("\n").split("\t") for line in f]
+    reqs = []
+    for g in range(n_groups):
+        rows = lines[g * group:(g + 1) * group]
+        c = rows[0]
+        reqs.append(ScoreRequest(
+            user=c[1], hist_items=c[5].split(","), hist_cates=c[6].split(","),
+            hist_times=[float(t) for t in c[7].split(",")],
+            current_time=float(c[4]), cand_items=[r[2] for r in rows],
+            cand_cates=[r[3] for r in rows]))
+    return reqs
+
+
+def test_scoring_service_load_latest(data, tmp_path):
+    paths, pv, port, _ = data
+    t = _port_trainer(pv, model_dir=str(tmp_path), save_model=True,
+                      epochs=1)
+    t.fit(port["train"], port["valid"])
+    svc = ScoringService(t.cfg, *_sizes(pv), *pv, device="cpu")
+    svc.load_latest(str(tmp_path))
+    n = 12
+    scores = svc.score(_requests(paths["test"], n, TEST_NGS + 1))
+    batch = next(port["test"].eval_batches(TEST_NGS + 1, n))
+    preds, _ = t.eval_step(t.state.model, to_device(batch, "cpu"))
+    np.testing.assert_allclose(np.stack(scores), to_np(preds), rtol=0,
+                               atol=1e-6)
+
+
+# --------------------------------------------------------------- CLI
+
+
+def _cli_args(tmp_path, *extra):
+    return ["--dataset", "synthetic", "--model", "CLSR", "--epochs", "2",
+            "--batch_size", "64", "--data_path", str(tmp_path),
+            "--test_num_ngs", str(TEST_NGS), "--val_num_ngs", "4",
+            "--show_step", "5", "--seed", "7", *extra]
+
+
+def _printed_dict(out):
+    return ast.literal_eval(out.strip().splitlines()[-1])
+
+
+def test_cli_end_to_end_then_only_test(tmp_path, capsys):
+    assert cli.main(_cli_args(tmp_path, "--device", "cpu",
+                              "--write_prediction_to_file")) == 0
+    out = capsys.readouterr().out
+    res = _printed_dict(out)
+    for key in ("auc", "logloss", "mean_mrr", "ndcg@2", "hit@6", "wauc"):
+        assert 0.0 <= res[key] <= 1.0 or key == "logloss", key
+    assert "best epoch:" in out and "eval valid at epoch 2" in out
+    model_dir = tmp_path / "model" / "synthetic-clsr"
+    assert any(d.startswith("epoch_") for d in os.listdir(model_dir))
+    assert (tmp_path / "synthetic" / "category_vocab.pkl").exists()
+    with open(tmp_path / "synthetic" / "test_data") as f:
+        n_lines = sum(1 for _ in f)
+    scores = np.loadtxt(tmp_path / "output.txt")
+    assert scores.shape == (n_lines,) and np.isfinite(scores).all()
+
+    assert cli.main(_cli_args(tmp_path, "--device", "cpu",
+                              "--only_test")) == 0
+    again = _printed_dict(capsys.readouterr().out)
+    assert {k: again[k] for k in res} == res
+    assert set(again) - set(res) == {"mean_alpha"}
+
+
+def test_cli_without_device_raises_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(_cli_args(tmp_path))
+    assert not (tmp_path / "synthetic").exists()
+
+
+def test_cli_module_runs_and_refuses_without_a_card(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "clsr_tpu_torch.cli", *_cli_args(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+UNPORTED = {
+    "raw_data": (["--raw_data", "x.csv"], 11),
+    "packed": (["--data_format", "packed"], 11),
+    "etl_processes": (["--etl_processes", "4"], 11),
+    "etl_native": (["--etl_native"], 11),
+    "etl_format": (["--etl_format", "packed"], 11),
+    "data_parallel": (["--data_parallel", "2"], 10),
+    "model_parallel": (["--model_parallel", "2"], 10),
+    "mesh_routing": (["--mesh_update_routing", "owner"], 10),
+    "mesh_layout": (["--mesh_row_layout", "contiguous"], 10),
+    "resume": (["--resume"], 11),
+    "autosave": (["--autosave_every_calls", "5"], 11),
+    "resident_on": (["--resident_data", "on"], 5),
+    "length_buckets": (["--length_buckets", "auto"], 5),
+    "resident_round_rows": (["--resident_round_rows", "1024"], 5),
+    "compute_bf16": (["--compute_dtype", "bfloat16"], 6),
+    "embedding_bf16": (["--embedding_dtype", "bfloat16"], 6),
+    "attention_block": (["--attention_block_size", "64"], 9),
+    "histograms": (["--write_histograms"], 11),
+    "tfevents": (["--write_tfevents"], 11),
+    "model": (["--model", "GRU4REC"], 8),
+    "sequential_model": (["--sequential_model", "gru"], 8),
+    "optimizer": (["--optimizer", "adagrad"], 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
+    flags, item = UNPORTED[name]
+    args = _cli_args(tmp_path, "--device", "cpu", *flags)
+    cli.build_arg_parser().parse_args(args)       # parses as in JAX
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1 item {item}\\b"):
+        cli.main(args)
+    assert not (tmp_path / "synthetic").exists()
+
+
+@pytest.mark.parametrize("kw, item", [
+    (dict(resident_data="on"), 5), (dict(data_parallel=2), 10),
+    (dict(autosave_every_calls=2, model_dir="m"), 11),
+    (dict(write_histograms=True), 11)])
+def test_trainer_refuses_unported_settings(data, kw, item):
+    _, pv, _, _ = data
+    model = _port_trainer(pv).model
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        Trainer(model, model.cfg.replace(**kw))
+
+
+def test_fit_resume_raises(data):
+    _, pv, port, _ = data
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _port_trainer(pv).fit(port["train"], port["valid"], resume=True)
