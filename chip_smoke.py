@@ -76,6 +76,10 @@ Phases, each fatal on failure:
      over three steps of each path: host ms and device span per
      `train_step.<phase>` range, the device's busy share of the window,
      kernel launches per step and the kernels with the most device time.
+     Then the cost of the reproducible gradient: 10 steps of each path
+     with the sorted segment sums (`ops.segment_sum`) in turns with 10
+     steps with the sums they replaced (`F.embedding`'s backward), the
+     median step ms of each;
   9. K5 (row scatter) and K4 (row sweep) against their plain version at
      the bench shape (N=500,000, W=40, 58,000 unique sorted ids with the
      bench's skew, slabs of 2,048 rows) and at the compact update's
@@ -98,8 +102,8 @@ Phases, each fatal on failure:
      compact row engine (compact_rows auto, pmn layout) and with the
      legacy lazy path (off), from the same weights and generator seed:
      loss parts within 1e-4 relative, updated tables and moments within
-     1e-5 abs (index_add_ and the dense embedding backward sum in
-     run-dependent orders on the card), rows no batch id touches
+     1e-5 abs (the two paths sum a repeated row's gradient in different
+     orders), rows no batch id touches
      bit-identical to before, the table Parameters equal to pmn[:, :D]
      after the step (the update writes them; no sync).  Then 10 compact
      steps in turns with 10 legacy steps and 10 dense-Adam steps from
@@ -108,24 +112,38 @@ Phases, each fatal on failure:
      K2 1 and its backward 1; finite losses; per path
      the median step ms, examples/s, device memory kept between steps
      and its peak, and torch.profiler over three steps (host ms of
-     `train_step.row_update`).  In phase 9, K4/K5 and index_copy_ are
+     `train_step.row_update`); the reproducible sums' cost as in phase 8
+     (compact: `segment_sum` against `index_add_`; legacy: the lookups).  In phase 9, K4/K5 and index_copy_ are
      also timed on the device alone (one call per fresh set captured in
      a CUDA graph and replayed), beside their per-call time.
+     Then the reproducible gradient's sums (`ops/segment_sum.py`) alone:
+     `table_grad` on a 41-row table with 25,000 ids and on the item table
+     with 20,000 ids half of them the padding id 0: three calls
+     bit-identical, no host sync (sync debug mode "error"), within 1e-5
+     of the largest entry of an f64 sum (F.embedding's gradient beside
+     it, and its three calls apart), the ms a call of `segment_sum` and
+     `table_grad`;
  11. train and evaluate end to end: the port's `write_synthetic_dataset`
      (5,000 users, 50,000 items, 1,000 categories, seed 0; valid 1 + 4,
      test 1 + 99) in a temporary directory; each split parsed by the C++
      parser and by the Python loop, both timed, ids, offsets and labels
      equal and the time features within 1e-6 abs.  Run A drives
      `clsr_tpu_torch.cli.main` as a user does (the CLI's defaults: batch
-     500, L = 50, clsr.yaml widths; 2 epochs, seed 7, with
+     500, L = 50, clsr.yaml widths, K = 32 train steps a host call, each
+     call replays a CUDA graph of the train step; 2 epochs, seed 7, with
      --write_prediction_to_file): epoch s and examples/s, valid and test
      eval s, the test dict; the last valid auc above 0.5, one finite score
      per test line; then --only_test must print the same test dict
      (every key; it adds mean_alpha, as the JAX CLI does), and
      `ScoringService.load_latest` on run A's model_dir must score 64 test
-     groups as the eval step does, within 1e-6.  Run B: the same config
+     groups as the eval step does, within 1e-6.  Then run A's config with
+     K = 1 (eager single steps) for one epoch in the same run, and
+     torch.profiler over 5 streamed eager steps and one streamed graphed
+     call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
+     share, kernels on the device and host launch calls a step).  Run B: the same config
      with use_pallas_scan, use_pallas_train_attention 'on' and lazyadam,
-     `Trainer.fit` for one epoch and the test eval, the counts read
+     `Trainer.fit` for one epoch through the graph (capture s, graph
+     pool, peak and kept device memory) and the test eval, the counts read
      around each (K5 and K2's backward once a step, K3a, K3b and K1 twice,
      K2's forward once a step and once a valid dispatch; K1 and K2 once a
      test dispatch); every test prediction with K1 off on the same
@@ -134,13 +152,24 @@ Phases, each fatal on failure:
      the kernel-gated train and eval steps against the plain ones
      (`training.kernel_check`: scores 1e-4 abs, loss parts 1e-4 rel,
      gradients 1e-4 of their max abs, BN statistics 1e-5, K5's group bit
-     for bit against its plain version); torch.profiler over 20 steps
-     streamed as the fit
-     streams them (the device's idle share); a fit of 20 batches with
-     prefetch_batches 2 and 0 (dense Adam, kernels on) bit-identical.
+     for bit against its plain version); torch.profiler over 10 eager
+     and 16 graphed streamed steps (two calls of 8); run B's config with
+     K = 1 for
+     one epoch; fits of 20 batches with prefetch_batches 2 and 0 (dense
+     Adam, kernels on) and two lazyadam fits, each pair bit-identical
+     (every model and optimizer tensor, the valid metrics) with
+     deterministic algorithms off;
+ 12. (inside phase 11, on its data) for the run A and run B configs,
+     from one state and one generator seed: one call of
+     `make_multi_train_step` at K = 32 (its first step the eager
+     warm-up, 31 replays of the captured step) and a replayed tail step
+     against 33 eager single steps on the same batches: every weight, BN
+     buffer, Adam and lazy tensor and every loss part bit-identical,
+     deterministic algorithms off; the call's launch counts 32 times the
+     eager step's.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
-epoch and test eval), the card's name and power limit, and the final
+graphed epoch and test eval), the card's name and power limit, and the final
 status line.  A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
@@ -1103,6 +1132,10 @@ def train(smi):
     out = dict(launches=main_counts, resident_mb=resident_mb, timing=timing,
                loss_rel_err=loss_err, grad_rel_err=grad_rel,
                zero_grad_abs_err=zero_abs, bn_err=bn_err)
+    out["repair_cost"] = {run: repair_cost(f"train[{run}]", models[run],
+                                           cfgs[run], states[run],
+                                           batches[1:], smi)
+                          for run in cfgs}
     out["profile"] = {run: profile_steps(steps[run], states[run],
                                          batches[1:4], run, smi)
                       for run in cfgs}
@@ -1574,8 +1607,8 @@ def train_lazy(smi):
     del pcm, plm
     log(f"train lazy first batch, compact vs legacy: loss parts max rel err "
         f"{loss_err:.3e} (tol 1e-4), tables max abs err {table_err:.3e}, "
-        f"moments {moment_err:.3e} (tol 1e-5 abs: index_add_ and the dense "
-        f"embedding backward sum in run-dependent orders on the card) | "
+        f"moments {moment_err:.3e} (tol 1e-5 abs: the two paths sum a "
+        f"repeated row's gradient in different orders) | "
         f"untouched rows bit-identical: compact {uc}, legacy {ul} | tables "
         f"== pmn[:, :D] after the step {synced} | launches compact "
         f"{dict(zip(names, cc))}, legacy {dict(zip(names, cl))} | loss "
@@ -1643,9 +1676,82 @@ def train_lazy(smi):
     out = dict(launches=main_counts, total_resident_mb=total_mb,
                timing=timing, loss_rel_err=loss_err, table_err=table_err,
                moment_err=moment_err, untouched_bit_identical=uc and ul)
+    out["repair_cost"] = {
+        run: repair_cost(f"train lazy[{run}]", models[run], cfgs[run],
+                         states[run], batches[1:], smi)
+        for run in ("compact", "legacy")}
     out["profile"] = {run: profile_steps(steps[run], states[run],
                                          batches[1:4], f"lazy {run}", smi)
                       for run in cfgs}
+    return out
+
+
+# the reproducible gradient's shapes: the 41-row table of the PR 10
+# finding, and a history block whose masked positions are the padding id
+# 0 (half of 20,000, as at B = 400, L = 50), in one long run
+SEGMENT_CASES = (("41 rows", 41, 25_000, 8, 0.0),
+                 ("padding run", 4_162_026, 20_000, 32, 0.5))
+
+
+def check_segment_sum(smi):
+    """The sorted sums on the card: `table_grad` three times
+    bit-identical, no host sync (`torch.cuda.set_sync_debug_mode("error")`
+    raises on one), and within 1e-5 of the largest entry of an f64 sum
+    (an f32 sum over a run of n rows rounds by ~sqrt(n) ulps of its
+    partial sums; F.embedding's backward, which adds in another order,
+    is held to the same sum for comparison); the ms of `segment_sum` and
+    `table_grad` a call."""
+    import torch.nn.functional as F
+    from clsr_tpu_torch.ops.segment_sum import (run_lengths, segment_sum,
+                                                sorted_runs, table_grad)
+    out = {}
+    for name, N, M, D, pad in SEGMENT_CASES:
+        rng = np.random.RandomState(M)
+        ids = rng.randint(1, N, M)
+        ids[rng.rand(M) < pad] = 0
+        ids = torch.from_numpy(ids).to("cuda")
+        g = torch.from_numpy(rng.randn(M, D).astype(np.float32)).to("cuda")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = [table_grad(ids, g, N) for _ in range(3)]
+            srt = torch.sort(ids).values
+            lengths = run_lengths(sorted_runs(srt)[2], min(M, N))
+            sums = segment_sum(g, lengths)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        same = all(torch.equal(grads[0], x) for x in grads[1:])
+        t = torch.zeros(N, D, device="cuda", requires_grad=True)
+        emb = []
+        for _ in range(3):
+            t.grad = None
+            F.embedding(ids, t).backward(g)
+            emb.append(t.grad)
+        emb_apart = max((emb[0] - x).abs().max().item() for x in emb[1:])
+        ref = torch.zeros(N, D, dtype=torch.float64, device="cuda")
+        ref.index_add_(0, ids, g.double())
+        scale = ref.abs().max().item()
+        err = (grads[0].double() - ref).abs().max().item()
+        emb_err = (emb[0].double() - ref).abs().max().item()
+        del emb, t, ref
+        row = dict(bit_identical=same, embedding_apart=emb_apart,
+                   err_vs_f64=err, embedding_err_vs_f64=emb_err,
+                   f64_max_abs=scale, no_sync=True,
+                   segment_sum_ms=cuda_ms(lambda: segment_sum(g, lengths)),
+                   table_grad_ms=cuda_ms(lambda: table_grad(ids, g, N)))
+        log(f"segment sums [{name}: N={N:,} M={M:,} D={D}, "
+            f"{int((lengths > 0).sum()):,} runs, the longest "
+            f"{int(lengths.max()):,}]: table_grad 3 calls bit-identical "
+            f"{same}, no host sync, max abs err against an f64 sum "
+            f"{err:.3e} (tol 1e-5 x {scale:.3e}); F.embedding's backward: 3 "
+            f"calls up to {emb_apart:.3e} apart, {emb_err:.3e} from the f64 "
+            f"sum | "
+            f"segment_sum {row['segment_sum_ms']:.4f} ms, table_grad "
+            f"{row['table_grad_ms']:.4f} ms a call | {smi}")
+        if not (same and err <= 1e-5 * scale
+                and sums.shape == (min(M, N), D)):
+            raise AssertionError(f"segment sums [{name}] are not "
+                                 f"reproducible or disagree")
+        out[name] = row
     return out
 
 
@@ -1656,7 +1762,7 @@ def train_lazy(smi):
 P11_DATA = dict(n_users=5_000, n_items=50_000, n_cates=1_000, seed=0)
 P11_ARGV = ["--dataset", "synthetic", "--model", "CLSR", "--epochs", "2",
             "--seed", "7"]
-P11_PROFILE_STEPS = 20
+P11_PROFILE_K = 8              # steps a graphed call while profiling
 P11_PREFETCH_ROWS = 10_000     # the prefetch on/off fits: 20 batches
 P11_SERVE_GROUPS = 64
 K1_ONOFF_TOL, SERVE_CKPT_TOL = 1e-4, 1e-6
@@ -1775,51 +1881,257 @@ def parse_both(paths, vocabs):
     return native, out
 
 
-def profile_fit_steps(trainer, loader, n, smi):
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(prof):
+    """The host's launch calls in a profile: kernels, graphs, copies and
+    sets (the CUDA runtime and driver calls by name)."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU
+               and e.key.startswith(HOST_LAUNCH_CALLS))
+
+
+def profile_fit(trainer, loader, smi, graphed, n):
     """torch.profiler over n train steps streamed as the fit streams them
-    (host batches, prefetch, train step): the device's busy share of the
-    window and the kernel launches per step."""
+    (host batches, prefetch, the step): eager, n single steps of
+    `trainer.train_step`; graphed, n // P11_PROFILE_K stacked calls of a
+    `make_multi_train_step` of K = P11_PROFILE_K on the trainer's model
+    (replays of one captured step, as the fit's K = 32 calls), after one
+    call outside the window that warms up and captures.  The device's
+    busy and idle share of the window, kernels run on the device and the
+    host's launch calls per step."""
     from torch.profiler import ProfilerActivity, profile
     from clsr_tpu_torch.data.prefetch import device_batches
+    from clsr_tpu_torch.training.steps import make_multi_train_step
     cfg = trainer.cfg
-    it = device_batches(loader.train_batches(cfg.batch_size,
-                                             np.random.RandomState(1)),
-                        trainer.device, cfg.prefetch_batches)
+    rng = np.random.RandomState(1)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    trainer.state, _ = trainer.train_step(trainer.state, next(it), gen)
+    if graphed:
+        K = P11_PROFILE_K
+        calls = n // K
+        n = calls * K
+        multi = make_multi_train_step(trainer.model, cfg, K)
+        items = (b for b in loader.train_batches_stacked(cfg.batch_size, K,
+                                                         rng)
+                 if b.users.ndim == 2)
+        run = lambda item: multi(trainer.state, item, gen)
+    else:
+        calls = n
+        items = loader.train_batches(cfg.batch_size, rng)
+        run = lambda item: trainer.train_step(trainer.state, item, gen)
+    it = device_batches(items, trainer.device, cfg.prefetch_batches)
+    trainer.state, _ = run(next(it))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _, b in zip(range(n), it):
-            trainer.state, parts = trainer.train_step(trainer.state, b, gen)
+        for _, b in zip(range(calls), it):
+            trainer.state, parts = run(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     it.close()
     kernels = kernel_events(prof)
     busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels) / n
     idle = 100 - 100 * busy_ms / wall_ms
-    log(f"profile[fit, kernel path]: {n} streamed steps, {wall_ms / n:.3f} ms "
-        f"each under the profiler; device busy {busy_ms / n:.3f} ms per step "
-        f"({100 - idle:.1f}% of the window, idle {idle:.1f}%), "
-        f"{launches:,.0f} kernel launches per step | {smi}")
-    return dict(steps=n, wall_ms_per_step=wall_ms / n,
-                busy_ms_per_step=busy_ms / n, idle_pct=idle,
-                launches_per_step=launches)
+    out = dict(steps=n, calls=calls, wall_ms_per_step=wall_ms / n,
+               busy_ms_per_step=busy_ms / n, idle_pct=idle,
+               device_kernels_per_step=sum(e.count for e in kernels) / n,
+               host_launches_per_step=host_launches(prof) / n)
+    log(f"profile[fit, {'graphed' if graphed else 'eager'}]: {n} streamed "
+        f"steps in {calls} calls, {out['wall_ms_per_step']:.3f} ms a step "
+        f"under the profiler; device busy {out['busy_ms_per_step']:.3f} ms "
+        f"a step ({100 - idle:.1f}% of the window, idle {idle:.1f}%), "
+        f"{out['device_kernels_per_step']:,.1f} kernels on the device and "
+        f"{out['host_launches_per_step']:,.1f} host launch calls a step | "
+        f"{smi}")
+    return out
+
+
+def state_tensors(state):
+    """Every tensor of a TrainState: the model's (weights, BN buffers),
+    the lazy rows and count, and the dense Adam state."""
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        out.update({f"moments/{k}": v for k, v in opt.moments.items()})
+        out["count"] = opt.count
+        opt = opt.dense_opt
+    for i, st in enumerate(opt.state_dict()["state"].values()):
+        out.update({f"adam/{i}/{k}": v for k, v in st.items()})
+    return out
+
+
+def differing(a, b):
+    """The names of the tensors of two state_tensors dicts that are not
+    bit-identical."""
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def graph_against_eager(what, cfg, sizes, loader, smi):
+    """Phase 12: from one state and one generator seed, one call of the
+    graphed K-step train step (its first step the eager warm-up, the
+    other K - 1 replays) and a tail step (a replay) against K + 1 eager
+    single steps on the same batches: every model, Adam and lazy tensor
+    and every loss part bit for bit, deterministic algorithms off; the
+    launch counts of the call are K times the eager step's."""
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import (LOSS_FIELDS,
+                                               make_multi_train_step,
+                                               make_train_step,
+                                               stack_batches)
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("deterministic algorithms are on")
+    K = cfg.train_steps_per_call
+    host = loader.train_batches(cfg.batch_size, np.random.RandomState(2))
+    batches = [to_device(b, "cuda") for _, b in zip(range(K + 1), host)]
+    if len(batches) != K + 1:
+        raise AssertionError("the loader gave too few batches")
+    rows = lambda p: torch.stack([getattr(p, f) for f in LOSS_FIELDS], -1)
+    runs, counts = {}, {}
+    for run in ("eager", "graph"):
+        model = get_model_class("clsr")(cfg, *sizes)
+        state = create_train_state(model, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        if run == "eager":
+            step = make_train_step(model, cfg)
+            parts, counts[run] = counted(
+                lambda: [step(state, b, gen)[1] for b in batches])
+            losses = torch.stack([rows(p) for p in parts])
+        else:
+            multi = make_multi_train_step(model, cfg, K)
+            (_, stacked), counts[run] = counted(
+                lambda: multi(state, stack_batches(batches[:K]), gen))
+            _, tail = multi.step(state, batches[K], gen)
+            losses = torch.cat([rows(stacked), rows(tail)[None]])
+        runs[run] = (state_tensors(state), losses)
+    (te, le), (tg, lg) = runs["eager"], runs["graph"]
+    bad = differing(te, tg)
+    same_losses = torch.equal(le, lg)
+    want = {k: n // (K + 1) * K for k, n in counts["eager"].items()}
+    log(f"phase 12 [{what}]: {K} graphed steps (1 eager warm-up, {K - 1} "
+        f"replays) + 1 replayed tail against {K + 1} eager steps, B = "
+        f"{cfg.batch_size}: {len(te)} state tensors, bit-identical "
+        f"{len(te) - len(bad)} (differ: {bad[:5]}), loss parts bit-identical "
+        f"{same_losses} | launches eager {counts['eager']}, graphed call "
+        f"{counts['graph']} (want K x the eager step's: {want}) | capture {multi.capture_stats['capture_s']:.3f} s, graph pool "
+        f"{multi.capture_stats['pool_bytes'] / 1e6:.1f} MB | {smi}")
+    if bad or not same_losses or counts["graph"] != want:
+        raise AssertionError(f"phase 12 [{what}]: the graphed steps differ "
+                             f"from the eager ones")
+    return dict(steps=K + 1, tensors=len(te), differ=bad,
+                losses_identical=same_losses, launches=counts,
+                capture=multi.capture_stats)
 
 
 @contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms on (warnings where an op has no
-    deterministic version), restored after."""
-    before = (torch.are_deterministic_algorithms_enabled(),
-              torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
+def old_sums():
+    """For timing only: the sums the reproducible gradient replaced, in
+    place while the block runs: `F.embedding` (whose backward adds a
+    repeated row with atomics) at the train lookups, and `index_add_`
+    over the run index (got back from the run lengths with one
+    `repeat_interleave`) in the compact update."""
+    import torch.nn.functional as F
+    from clsr_tpu_torch.models import base
+    from clsr_tpu_torch.training import lazy_adam
+
+    def index_add_sum(values, lengths):
+        seg = torch.repeat_interleave(
+            torch.arange(lengths.shape[0], device=values.device), lengths,
+            output_size=values.shape[0])
+        out = torch.zeros((lengths.shape[0],) + values.shape[1:],
+                          dtype=values.dtype, device=values.device)
+        return out.index_add_(0, seg, values)
+
+    saved = base.lookup, lazy_adam.segment_sum
+    base.lookup = lambda table, ids: F.embedding(ids, table)
+    lazy_adam.segment_sum = index_add_sum
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        base.lookup, lazy_adam.segment_sum = saved
+
+
+def repair_cost(what, model, cfg, state, batches, smi, rounds=3):
+    """The cost of the reproducible sums in a train step, against the
+    sums they replaced (`old_sums`), on the same state and batches:
+    eager, the step ms by CUDA events (host launches included), median of
+    len(batches) steps each in turns; graphed, the device ms a step of
+    one captured step replayed len(batches) times a call (each variant
+    captured with its own sums), median of `rounds` calls each in turns."""
+    from contextlib import nullcontext
+    from clsr_tpu_torch.training.steps import (make_multi_train_step,
+                                               make_train_step,
+                                               stack_batches)
+    variants = ("sorted sums", "old sums")
+    patch = lambda run: old_sums() if run == "old sums" else nullcontext()
+    step = make_train_step(model, cfg)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    gen = torch.Generator(device="cuda").manual_seed(300)
+
+    def timed(fn):
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    eager = {run: [] for run in variants}
+    for i, b in enumerate(batches):
+        for run in variants[::1 if i % 2 else -1]:
+            with patch(run):
+                eager[run].append(timed(lambda: step(state, b, gen)))
+    K = len(batches)
+    stacked = stack_batches(batches)
+    multi = {run: make_multi_train_step(model, cfg, K) for run in variants}
+    for run in variants:                 # warm-up, capture, replays
+        with patch(run):
+            multi[run](state, stacked, gen)
+    graphed = {run: [] for run in variants}
+    for i in range(rounds):
+        for run in variants[::1 if i % 2 else -1]:
+            graphed[run].append(timed(lambda: multi[run](state, stacked,
+                                                         gen)) / K)
+    del multi
+    med = {mode: {run: statistics.median(v) for run, v in ms.items()}
+           for mode, ms in (("eager", eager), ("graphed", graphed))}
+    cost = {mode: 100 * (m["sorted sums"] / m["old sums"] - 1)
+            for mode, m in med.items()}
+    log(f"{what}: the reproducible sums cost {cost['eager']:+.2f}% of an "
+        f"eager step (median {med['eager']['sorted sums']:.3f} ms against "
+        f"{med['eager']['old sums']:.3f} ms with F.embedding's backward and "
+        f"index_add_, {K} steps each in turns) and {cost['graphed']:+.2f}% "
+        f"of the graphed step's device time ({med['graphed']['sorted sums']:.3f}"
+        f" ms against {med['graphed']['old sums']:.3f} ms a replayed step, "
+        f"median of {rounds} calls of {K}) | {smi}")
+    return dict(median_ms=med, eager_ms=eager, graphed_ms=graphed,
+                cost_pct=cost)
+
+
+def eager_epoch(what, cfg, sizes, loaders, smi):
+    """One epoch of `Trainer.fit` with cfg's weights and gates but K = 1,
+    the eager single steps the graph replaces, in the same run as the
+    graphed fits: epoch s and examples/s, and the trainer."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.trainer import Trainer
+    cfg = cfg.replace(train_steps_per_call=1, epochs=1, model_dir=None,
+                      save_model=False, summaries_dir=None)
+    trainer = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                      log=lambda *_: None)
+    trainer.fit(loaders["train"], loaders["valid"])
+    e = trainer.epoch_stats[0]
+    out = dict(e, examples_per_s=e["examples"] / e["train_s"],
+               trainer=trainer)
+    log(f"{what} eager epoch (K = 1): {e['train_s']:.3f} s, {e['steps']} "
+        f"steps, {out['examples_per_s']:,.1f} examples/s, mean loss "
+        f"{e['mean_loss']:.5f} | {smi}")
+    return out
 
 
 def check_counts(what, got, want):
@@ -1844,6 +2156,12 @@ def train_and_evaluate(smi):
     from clsr_tpu_torch.training.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="clsr_phase11_")
+    t11, marks = time.perf_counter(), {}
+
+    def mark(label):
+        marks[label] = time.perf_counter() - t11
+        log(f"[phase 11: {label} done at {marks[label]:.1f} s]")
+
     try:
         data_dir = os.path.join(root, "synthetic")
         t0 = time.perf_counter()
@@ -1878,6 +2196,7 @@ def train_and_evaluate(smi):
                 and len(a["epochs"]) == 2 and launches_a["eval_scorer"] > 0):
             raise AssertionError(f"run A failed its gates: valid "
                                  f"{a['valid']}, {scores.shape[0]} scores")
+        mark("run A")
         text, wall_t, launches_t = run_cli(argv + ["--only_test"])
         only = cli_numbers(text)["test"]
         same = {k: only.get(k) for k in a["test"]} == a["test"]
@@ -1918,6 +2237,25 @@ def train_and_evaluate(smi):
             raise AssertionError("load_latest scores differ from the eval "
                                  "step's")
         del svc, model_a
+        loaders = {s: SequenceLoader(ds, cfg_a.max_seq_length)
+                   for s, ds in parsed.items()}
+
+        # ---- run A's steps eager, in the same run: the epoch before the
+        # graph, the idle shares eager and graphed, then phase 12 ----------
+        mark("run A --only_test and load_latest")
+        eager_a = eager_epoch("run A", cfg_a, sizes, loaders, smi)
+        mark("run A eager epoch")
+        trainer_a = eager_a.pop("trainer")
+        # few steps: each makes ~12,000 launches for the profiler
+        profile_a = {"eager": profile_fit(trainer_a, loaders["train"], smi,
+                                          graphed=False, n=5),
+                     "graphed": profile_fit(trainer_a, loaders["train"],
+                                            smi, graphed=True, n=8)}
+        del trainer_a
+        mark("run A profiles")
+        graph_a = graph_against_eager("run A", cfg_a, sizes,
+                                      loaders["train"], smi)
+        mark("phase 12 run A")
 
         # ---- run B: every kernel on the path, one epoch ------------------
         cfg_b = cfg_a.replace(use_pallas_scan=True,
@@ -1925,11 +2263,25 @@ def train_and_evaluate(smi):
                               optimizer="lazyadam", epochs=1,
                               model_dir=os.path.join(root, "model_b"),
                               summaries_dir=None)
-        loaders = {s: SequenceLoader(ds, cfg_b.max_seq_length)
-                   for s, ds in parsed.items()}
         trainer = Trainer(get_model_class("clsr")(cfg_b, *sizes), cfg_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_mb = torch.cuda.memory_allocated() / 1e6
         _, fit_counts = counted(lambda: trainer.fit(loaders["train"],
                                                     loaders["valid"]))
+        memory_b = dict(
+            before_fit_mb=before_mb,
+            peak_mb=torch.cuda.max_memory_allocated() / 1e6,
+            kept_mb=torch.cuda.memory_allocated() / 1e6,
+            graph_pool_mb=trainer.multi_step.capture_stats["pool_bytes"]
+            / 1e6, capture_s=trainer.multi_step.capture_stats["capture_s"])
+        log(f"run B fit through the graph (K = "
+            f"{cfg_b.train_steps_per_call}): capture and instantiate "
+            f"{memory_b['capture_s']:.3f} s, graph pool "
+            f"{memory_b['graph_pool_mb']:.1f} MB | device memory "
+            f"{before_mb:.1f} MB before the fit (model and optimizer), peak "
+            f"{memory_b['peak_mb']:.1f} MB, kept after it "
+            f"{memory_b['kept_mb']:.1f} MB | {smi}")
         stats = trainer.epoch_stats[0]
         steps = stats["steps"]
         n_valid = -(-len(parsed["valid"]) // 5 // (cfg_b.batch_size // 5))
@@ -1937,6 +2289,7 @@ def train_and_evaluate(smi):
             row_scatter=steps, clsr_scan_backward=steps,
             train_stats0=2 * steps, train_stats1=2 * steps,
             eval_scorer=2 * steps, clsr_scan=steps + n_valid, row_sweep=0))
+        mark("run B fit")
         t0 = time.perf_counter()
         kept_on = []
         res_on, test_counts = counted(lambda: run_weighted_eval(
@@ -1957,6 +2310,7 @@ def train_and_evaluate(smi):
         if not np.isfinite(losses).all():
             raise AssertionError(f"run B losses {losses}")
 
+        mark("run B test eval")
         # ---- K1 on against K1 off on the same weights: every prediction --
         cfg_off = cfg_b.replace(use_pallas_eval_attention="off")
         model_off = get_model_class("clsr")(cfg_off, *sizes)
@@ -2032,47 +2386,68 @@ def train_and_evaluate(smi):
             f"copy back): {test_bare_s:.3f} s of {test_b_s:.3f} s, "
             f"{len(parsed['test']) // 100 / test_bare_s:,.1f} groups/s | "
             f"{smi}")
-        profile = profile_fit_steps(trainer, loaders["train"],
-                                    P11_PROFILE_STEPS, smi)
+        mark("K1 on / off, fit shapes, bare test eval")
+        profile = {"eager": profile_fit(trainer, loaders["train"], smi,
+                                        graphed=False, n=10),
+                   "graphed": profile_fit(trainer, loaders["train"], smi,
+                                          graphed=True, n=16)}
         del trainer
+        mark("run B profiles")
+        eager_b = eager_epoch("run B", cfg_b, sizes, loaders, smi)
+        del eager_b["trainer"]
+        mark("run B eager epoch")
+        graph_b = graph_against_eager("run B", cfg_b, sizes,
+                                      loaders["train"], smi)
+        mark("phase 12 run B")
 
         # ---- prefetch on against off: a short fit, bit for bit ------------
         short = SequenceLoader(head(parsed["train"], P11_PREFETCH_ROWS),
                                cfg_b.max_seq_length)
+        # deterministic algorithms off: the train step sums a repeated
+        # row's gradient in sorted order, so two fits give the same bits;
+        # dense Adam with prefetch 2 and 0, and two lazyadam fits
+        if torch.are_deterministic_algorithms_enabled():
+            raise AssertionError("deterministic algorithms are on")
         fits = {}
-        # both under deterministic algorithms: PyTorch's dense embedding
-        # backward sums a row that repeats many times in a batch in a
-        # different order from call to call
-        with deterministic():
-            for depth in (2, 0):
-                cfg_p = cfg_b.replace(optimizer="adam", seed=3,
-                                      prefetch_batches=depth, model_dir=None)
-                t = Trainer(get_model_class("clsr")(cfg_p, *sizes), cfg_p,
-                            log=lambda *_: None)
-                t.fit(short, loaders["valid"])
-                fits[depth] = (t.state.model.state_dict(), t.eval_history,
-                               t.epoch_stats[0])
-        (sa, ha, ea), (sb, hb, eb) = fits[2], fits[0]
-        bit_same = (sa.keys() == sb.keys() and all(
-            torch.equal(sa[k], sb[k]) for k in sa) and ha == hb)
-        log(f"prefetch 2 against 0: {ea['steps']} steps each, the model and "
-            f"valid metrics bit-identical: {bit_same} | epoch {ea['train_s']:.3f}"
-            f" s against {eb['train_s']:.3f} s")
-        if not bit_same:
-            raise AssertionError("the fit with prefetch differs from the one "
-                                 "without")
+        for run, opt, depth in (("prefetch 2", "adam", 2),
+                                ("prefetch 0", "adam", 0),
+                                ("lazy a", "lazyadam", 2),
+                                ("lazy b", "lazyadam", 2)):
+            cfg_p = cfg_b.replace(optimizer=opt, seed=3,
+                                  prefetch_batches=depth, model_dir=None)
+            t = Trainer(get_model_class("clsr")(cfg_p, *sizes), cfg_p,
+                        log=lambda *_: None)
+            t.fit(short, loaders["valid"])
+            fits[run] = (state_tensors(t.state), t.eval_history,
+                         t.epoch_stats[0])
+            del t
+        bit_same = {}
+        for x, y in (("prefetch 2", "prefetch 0"), ("lazy a", "lazy b")):
+            (sa, ha, ea), (sb, hb, eb) = fits[x], fits[y]
+            bit_same[f"{x} / {y}"] = not differing(sa, sb) and ha == hb
+            log(f"fits {x} against {y}: {ea['steps']} steps each (graphed), "
+                f"every model and optimizer tensor and the valid metrics "
+                f"bit-identical: {bit_same[f'{x} / {y}']} | epoch "
+                f"{ea['train_s']:.3f} s against {eb['train_s']:.3f} s")
+        if not all(bit_same.values()):
+            raise AssertionError(f"two fits from one seed differ: {bit_same}")
+        ea, eb = fits["prefetch 2"][2], fits["prefetch 0"][2]
+        mark("fits from one seed")
         return dict(
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
                        only_test=only, only_test_wall_s=wall_t,
-                       only_test_launches=launches_t),
+                       only_test_launches=launches_t, eager_epoch=eager_a,
+                       profile=profile_a),
             serve_ckpt_err=serve_err,
             run_b=dict(epoch=stats, launches=fit_counts,
                        test_launches=test_counts, test_eval_s=test_b_s,
                        test_eval_no_metrics_s=test_bare_s,
                        test=res_on, test_k1_off=res_off, k1_onoff_err=k1_err,
                        k1_onoff_pred_err=k1_pred_err, fit_shapes=shapes,
-                       profile=profile),
+                       profile=profile, memory=memory_b,
+                       eager_epoch=eager_b),
+            graph=dict(run_a=graph_a, run_b=graph_b), marks_s=marks,
             prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
             launches={"fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
@@ -2085,16 +2460,26 @@ def train_and_evaluate(smi):
 def main():
     smi = card_check()
     sys.path.insert(0, ROOT)
-    build_s = build_kernels()
-    k1 = check_k1(smi)
-    k2 = check_k2(smi)
-    served = serve(smi)
-    k3 = check_k3(smi)
-    scorer = check_train_scorer(smi)
-    trained = train(smi)
-    rows = check_row_update(smi)
-    lazy = train_lazy(smi)
-    fit = train_and_evaluate(smi)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[{name}: {phase_s[name]:.1f} s]")
+        return out
+
+    build_s = timed("build", build_kernels)
+    k1 = timed("k1", check_k1, smi)
+    k2 = timed("k2", check_k2, smi)
+    served = timed("serve", serve, smi)
+    k3 = timed("k3", check_k3, smi)
+    scorer = timed("train scorer", check_train_scorer, smi)
+    trained = timed("train", train, smi)
+    rows = timed("row update", check_row_update, smi)
+    lazy = timed("train lazy", train_lazy, smi)
+    sums = timed("segment sums", check_segment_sum, smi)
+    fit = timed("train and evaluate", train_and_evaluate, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -2147,10 +2532,12 @@ def main():
                              if "library_ms" in k else no_library)})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "build_s": build_s, "k1": k1, "k2": k2,
+        json.dump({"card": smi, "phase_s": phase_s, "build_s": build_s,
+                   "k1": k1, "k2": k2,
                    "serve": served, "k3": k3, "train_scorer": scorer,
                    "train": trained, "row_update": rows,
-                   "train_lazy": lazy, "train_and_evaluate": fit}, f,
+                   "train_lazy": lazy, "segment_sums": sums,
+                   "train_and_evaluate": fit}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -17,21 +17,40 @@ which replaces the reference's per-batch Python assembly
     dropped (sequential_iterator.py:338-339), and rows whose history is
     shorter than min_seq_length are skipped (:245-246).
 
+For K train steps a host call, `train_batches_stacked` (JAX :174-230)
+gathers the whole epoch once, in a thread pool, into one of two buffer
+sets that alternate across epochs (`_epoch_gather`, :119-172), and
+yields [K, B, ...] views of whole batches, then the [B] tail batches.
+
 Batches stay on the host: `Batch` objects whose fields are numpy arrays.
 `data.prefetch.prefetch_to_device` (or `data.prefetch.to_device`) turns
-them into tensors on the device.  The epoch-gather pool and
-`train_batches_stacked` of the JAX package, and its length-bucketed
-`paddings`, wait for ROADMAP queue 1 item 5.
+them into tensors on the device.  The JAX package's length-bucketed
+`paddings` wait for ROADMAP queue 1 item 5c.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.parser import ParsedDataset
+
+# the epoch-gather pool, made at first use (numpy's fancy indexing
+# releases the GIL; the gather is bound by host memory and scales with
+# cores)
+_GATHER_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _gather_pool() -> ThreadPoolExecutor:
+    global _GATHER_POOL
+    if _GATHER_POOL is None:
+        _GATHER_POOL = ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 4))
+    return _GATHER_POOL
 
 
 class PaddedView:
@@ -80,6 +99,8 @@ class SequenceLoader:
         self.max_seq_length = max_seq_length
         self.min_batch_rows = min_batch_rows
         self.view = PaddedView(ds, max_seq_length)
+        self._stacked_bufs: list = [None, None]
+        self._buf_flip = 0
 
     def train_batches(self, batch_rows: int, rng: np.random.RandomState,
                       min_seq_length: int = 1) -> Iterator[Batch]:
@@ -91,6 +112,102 @@ class SequenceLoader:
             if len(take) < self.min_batch_rows:
                 continue  # the reference drops tiny trailing train batches
             yield self._make_batch(take, batch_rows, group=None)
+
+    def _epoch_gather(self, take: np.ndarray) -> dict:
+        """The epoch's rows `take`, gathered into reused contiguous
+        buffers.  Two buffer sets alternate across epochs, so views of
+        one epoch still queued for the device are not overwritten by the
+        next epoch's gather."""
+        v = self.view
+        src = {
+            "users": v.users, "items": v.items, "cates": v.cates,
+            "labels": v.labels,
+            "item_hist": v.item_hist, "cate_hist": v.cate_hist,
+            "mask": v.mask, "time_diff": v.time_diff,
+            "time_from_first": v.time_from_first,
+            "time_to_now": v.time_to_now,
+        }
+        n = len(take)
+        bufs = self._stacked_bufs[self._buf_flip]
+        self._buf_flip ^= 1
+        if bufs is None or len(next(iter(bufs.values()))) != n:
+            bufs = {key: np.empty((n,) + arr.shape[1:],
+                                  np.float32 if key == "labels"
+                                  else arr.dtype)
+                    for key, arr in src.items()}
+            self._stacked_bufs[self._buf_flip ^ 1] = bufs
+
+        pool = _gather_pool()
+        jobs = []
+        n_parts = pool._max_workers
+        for key, arr in src.items():
+            out = bufs[key]
+            if arr.ndim == 1:
+                jobs.append(pool.submit(np.take, arr, take, 0, out, "clip"))
+            else:
+                # the [N, L] gathers split by rows across the workers
+                for p in range(n_parts):
+                    lo, hi = p * n // n_parts, (p + 1) * n // n_parts
+                    jobs.append(pool.submit(
+                        np.take, arr, take[lo:hi], 0, out[lo:hi], "clip"))
+        for j in jobs:
+            j.result()
+        return {
+            "users": bufs["users"],
+            "items": bufs["items"][:, None],
+            "cates": bufs["cates"][:, None],
+            "labels": bufs["labels"][:, None],
+            "item_hist": bufs["item_hist"],
+            "cate_hist": bufs["cate_hist"],
+            "mask": bufs["mask"],
+            "time_diff": bufs["time_diff"],
+            "time_from_first": bufs["time_from_first"],
+            "time_to_now": bufs["time_to_now"],
+        }
+
+    def train_batches_stacked(self, batch_rows: int, steps_per_call: int,
+                              rng: np.random.RandomState,
+                              min_seq_length: int = 1) -> Iterator[Batch]:
+        """The epoch for K = steps_per_call steps a host call: [K, B, ...]
+        stacks of whole batches, then plain [B] batches for the tail
+        (told apart by users.ndim).  Rows, shuffle (the same RandomState
+        draws) and the drop of a trailing batch of fewer than
+        `min_batch_rows` rows are those of `train_batches`, so the steps
+        are the same; each stack is a view of the epoch's buffers."""
+        v = self.view
+        idx = np.flatnonzero(v.lengths >= min_seq_length)
+        rng.shuffle(idx)
+        n = len(idx)
+        rem = n % batch_rows
+        if rem and rem < self.min_batch_rows:
+            n -= rem  # the reference drops tiny trailing train batches
+        if n == 0:
+            return
+        take = idx[:n].astype(np.int64)
+        B, K = batch_rows, steps_per_call
+        n_batches = -(-n // B)
+        # only whole batches enter a stack; the last, padded one is a
+        # single step of the tail
+        n_calls = (n // B) // K
+
+        ep = self._epoch_gather(take)
+        for c in range(n_calls):
+            lo = c * K * B
+            yield Batch(
+                valid=np.ones((K, B), dtype=np.float32),
+                **{key: arr[lo:lo + K * B].reshape((K, B) + arr.shape[1:])
+                   for key, arr in ep.items()})
+        for b in range(n_calls * K, n_batches):
+            lo = b * B
+            take_n = min(B, n - lo)
+            row = {key: arr[lo:lo + take_n] for key, arr in ep.items()}
+            if take_n < B:
+                row = {key: np.concatenate(
+                    [arr, np.zeros((B - take_n,) + arr.shape[1:], arr.dtype)])
+                    for key, arr in row.items()}
+            valid = np.zeros(B, dtype=np.float32)
+            valid[:take_n] = 1.0
+            yield Batch(valid=valid, **row)
 
     def eval_batches(self, group_size: int, batch_groups: int,
                      min_seq_length: int = 1) -> Iterator[Batch]:

@@ -3,6 +3,8 @@
 Counterpart of clsr_tpu/data/prefetch.py:30-91.  A producer thread turns
 each host batch (numpy fields, data/loader.py) into tensors on the
 device while the consumer trains on earlier ones, `depth` batches ahead.
+An item is a [B] batch or a [K, B, ...] stack of K steps'
+(`SequenceLoader.train_batches_stacked`); either is one copy a field.
 
 On a CUDA device each field is copied into pinned host memory and then
 to the device with `non_blocking=True` on a copy stream of the

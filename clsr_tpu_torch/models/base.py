@@ -16,9 +16,12 @@ SequentialBaseModel, sequential_base_model.py:18-461):
     `attn_labels` (sequential_iterator.py:619,682).
 
 Subclasses implement `seq_graph(ctx, batch, generator, train_kernel,
-compact)` -> (model_output [B, G, D], aux).  Lookups are dense
-(`F.embedding`), so a table's gradient is dense, as `jax.grad` over the
-full table is.  Under the compact row engine (training/compact_rows.py,
+compact)` -> (model_output [B, G, D], aux).  Lookups are dense, so a
+table's gradient is dense, as `jax.grad` over the full table is; in
+train mode they go through `ops.segment_sum.lookup` (`embed`), whose
+gradient sums a repeated row in sorted order, the same bits on every
+call (`F.embedding`'s backward on the card does not), and eval keeps
+`F.embedding`.  Under the compact row engine (training/compact_rows.py,
 `compact` = {table name: CompactRows}, JAX models/base.py:177-190) the
 lookups are the gathered rows' sites and the lazy L2 comes from them: no
 table `Parameter` is read.  int8 tables and a device mesh raise or wait
@@ -38,6 +41,7 @@ from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.ops.initializers import get_initializer, new_param
 from clsr_tpu_torch.ops.mlp import FcnNet, dropout
+from clsr_tpu_torch.ops.segment_sum import lookup
 from clsr_tpu_torch.utils.device import resolve_device
 
 
@@ -53,7 +57,7 @@ def unique_rows_sumsq(table: torch.Tensor, ids: torch.Tensor
                       ) -> torch.Tensor:
     """sum(||table[id]||^2) over the UNIQUE ids (models/base.py:99-110)."""
     flat, first = _first_occurrence(ids)
-    rows = F.embedding(flat, table)
+    rows = lookup(table, flat)
     return ((rows * rows).sum(-1) * first).sum()
 
 
@@ -62,7 +66,7 @@ def unique_rows_stats(table_a: torch.Tensor, table_b: torch.Tensor,
     """(sumsq_a, sumsq_b, sum((a-b)^2), n_unique*dim) over unique ids
     (models/base.py:113-131)."""
     flat, first = _first_occurrence(ids)
-    ra, rb = F.embedding(flat, table_a), F.embedding(flat, table_b)
+    ra, rb = lookup(table_a, flat), lookup(table_b, flat)
     fa = first[:, None].to(ra.dtype)
     diff = ra - rb
     return ((ra * ra * fa).sum(), (rb * rb * fa).sum(),
@@ -138,6 +142,14 @@ class SequentialModelBase(nn.Module):
             self.generator, self.device, enable_bn=cfg.enable_bn, out_dim=1,
             dropout_rates=cfg.dropout if cfg.user_dropout else None)
 
+    def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """table[ids]: in train mode through `segment_sum.lookup`, whose
+        gradient sums a repeated row in one fixed order; else
+        `F.embedding`."""
+        if self.training:
+            return lookup(table, ids)
+        return F.embedding(ids, table)
+
     def dropout(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         """Embedding dropout, train mode only."""
@@ -164,11 +176,11 @@ class SequentialModelBase(nn.Module):
                                     cr_cate.site("targets")], dim=-1)
             embed_sumsq = cr_item.sumsq_unique() + cr_cate.sumsq_unique()
         else:
-            item_hist_emb = F.embedding(batch.item_hist, self.item_embedding)
-            cate_hist_emb = F.embedding(batch.cate_hist, self.cate_embedding)
+            item_hist_emb = self.embed(self.item_embedding, batch.item_hist)
+            cate_hist_emb = self.embed(self.cate_embedding, batch.cate_hist)
             target_emb = torch.cat(
-                [F.embedding(batch.items, self.item_embedding),
-                 F.embedding(batch.cates, self.cate_embedding)], dim=-1)
+                [self.embed(self.item_embedding, batch.items),
+                 self.embed(self.cate_embedding, batch.cates)], dim=-1)
         if self.training:
             if compact is None:
                 # lazy L2 bookkeeping BEFORE dropout, on raw table rows

@@ -35,7 +35,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
@@ -102,8 +101,8 @@ class CLSRModel(SequentialModelBase):
             user_long, user_short = cr_l.site("rows"), cr_s.site("rows")
             user_stats = cr_l.pair_stats(cr_s) if self.training else None
         else:
-            user_long = F.embedding(batch.users, self.user_long_embedding)
-            user_short = F.embedding(batch.users, self.user_short_embedding)
+            user_long = self.embed(self.user_long_embedding, batch.users)
+            user_short = self.embed(self.user_short_embedding, batch.users)
             user_stats = (unique_rows_stats(
                 self.user_long_embedding, self.user_short_embedding,
                 batch.users) if self.training else None)

@@ -9,7 +9,7 @@ Orbax is not available to the port, so a checkpoint directory (the same
     state_dict (parameters and BN running statistics); the optimizer,
     either dense Adam's state_dict or every tensor of a LazyAdamState
     (the table rows in their pmn param|mu|nu or split mu|nu layout, the
-    count, the route counter and the dense Adam's state_dict); and the
+    count as an int, the route counter and the dense Adam's state_dict); and the
     step;
   * `clsr_meta.json`: {"schema": SCHEMA_VERSION, "layout": "logical",
     "format": "clsr_tpu_torch"}.
@@ -62,7 +62,7 @@ def save_state(path: str, state: TrainState) -> None:
     opt = state.optimizer
     if isinstance(opt, LazyAdamState):
         optimizer = {"kind": "lazyadam", "moments": dict(opt.moments),
-                     "count": opt.count,
+                     "count": int(opt.count),
                      "route_overflow": opt.route_overflow,
                      "dense": opt.dense_opt.state_dict()}
     else:
@@ -111,7 +111,7 @@ def load_state(path: str, state: TrainState) -> TrainState:
                     f"{path}, {tuple(opt.moments[name].shape)} here (pmn "
                     f"and split layouts do not convert)")
             opt.moments[name].copy_(rows)
-        opt.count = int(saved["count"])
+        opt.count.fill_(int(saved["count"]))
         opt.route_overflow = int(saved["route_overflow"])
         opt.dense_opt.load_state_dict(saved["dense"])
     else:

@@ -31,8 +31,7 @@ import torch
 from torch import nn
 
 from clsr_tpu_torch.data.batch import Batch
-
-INT32_MAX = 2 ** 31 - 1
+from clsr_tpu_torch.ops.segment_sum import sorted_runs
 
 # Which batch id arrays can touch each known table (trace-order sites).
 SITE_SPECS = {
@@ -147,17 +146,10 @@ def build_plan(sites: Dict[str, torch.Tensor]) -> Plan:
     """Sort the concatenated site ids (stable); positions by the inverse
     argsort."""
     flat = torch.cat([ids.reshape(-1) for ids in sites.values()])
-    M = flat.shape[0]
     perm = torch.argsort(flat, stable=True)
     sorted_ids = flat[perm].to(torch.int32)
     inv = torch.argsort(perm)
-    first = torch.ones(M, dtype=torch.bool, device=flat.device)
-    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    seg = torch.cumsum(first, 0, dtype=torch.int32) - 1
-    idx_first = torch.full((M,), INT32_MAX, dtype=torch.int32,
-                           device=flat.device).scatter_reduce_(
-        0, seg.long(), torch.arange(M, dtype=torch.int32,
-                                    device=flat.device), "amin")
+    first, seg, idx_first = sorted_runs(sorted_ids)
     inv32 = inv.to(torch.int32)
     pos, slices, off = {}, [], 0
     for s, ids in sites.items():

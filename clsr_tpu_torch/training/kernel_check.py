@@ -34,10 +34,8 @@ import torch
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.registry import get_model_class
-from clsr_tpu_torch.ops import fused_attention as fa
-from clsr_tpu_torch.ops import fused_scan as fs
-from clsr_tpu_torch.ops import fused_train_attention as fta
 from clsr_tpu_torch.ops import row_update as ru
+from clsr_tpu_torch.ops.launches import kernel_counters
 from clsr_tpu_torch.training import lazy_adam
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import make_eval_step_fn, make_train_step
@@ -46,16 +44,6 @@ SCORE_TOL, LOSS_REL, GRAD_REL, ZERO_GRAD_ABS, BN_TOL = (
     1e-4, 1e-4, 1e-4, 1e-6, 1e-5)
 LOSS_FIELDS = ("loss", "data_loss", "regular_loss", "contrastive_loss",
                "discrepancy_loss")
-
-
-def kernel_counters() -> Dict[str, Callable]:
-    """Every kernel's wrapper (its `.launches` counter), by kernel name."""
-    return {"eval_scorer": fa.fused_eval_attention,
-            "clsr_scan": fs.fused_scan,
-            "clsr_scan_backward": fs.scan_backward,
-            "train_stats0": fta.train_stats0,
-            "train_stats1": fta.train_stats1,
-            "row_scatter": ru.scatter_rows, "row_sweep": ru.sweep_rows}
 
 
 def counted(fn: Callable):

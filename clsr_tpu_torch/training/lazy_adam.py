@@ -17,10 +17,14 @@ Two layouts of a table's optimizer rows, told apart by width:
   * pmn [N, 3D] = param | mu | nu, the compact row engine
     (training/compact_rows.py): the forward's one sorted gather brings
     the moments along, `compact_table_update` sums the w-space gradient
-    over the sorted runs (`index_add_` into [Mc, D], Mc = min(M, N)),
-    clips it by its norm, and writes the pmn rows, and the same new
+    over the sorted runs (`ops.segment_sum`, in row order, into [Mc, D],
+    Mc = min(M, N)), clips it by its norm, and writes the pmn rows, and the same new
     param rows into the table `Parameter`, which so stays equal to
     pmn[:, :D] bit for bit without an O(N) copy.
+
+The step count is a device int32 scalar, as JAX's is (:77, :162), and
+the bias corrections are f32 arithmetic on the device, so a step reads
+nothing from the host and can be captured in a CUDA graph.
 
 Each table's update returns its scatter-sets as (table, ids, rows)
 entries, and `_finish` writes every entry of the step with one
@@ -34,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -42,6 +45,7 @@ from torch.profiler import record_function
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.ops.row_update import Entry, scatter_rows_group
+from clsr_tpu_torch.ops.segment_sum import run_lengths, segment_sum
 from clsr_tpu_torch.training.compact_rows import Plan, supported_tables
 from clsr_tpu_torch.training.optimizer import (build_optimizer,
                                                clip_by_norm_each)
@@ -70,13 +74,14 @@ def batch_table_ids(batch: Batch) -> Dict[str, torch.Tensor]:
 @dataclasses.dataclass
 class LazyAdamState:
     """Per-table optimizer rows {table parameter name: [N, 2D] or [N, 3D]
-    f32}, the step count, and the dense Adam over the other parameters.
+    f32}, the step count (an int32 scalar on the tables' device), and the
+    dense Adam over the other parameters.
     `route_overflow` is the JAX state's counter of the mesh owner-routed
     merge; it stays 0 on a single device and is kept so that state
     carries over."""
 
     moments: Dict[str, torch.Tensor]
-    count: int
+    count: torch.Tensor
     dense_opt: torch.optim.Optimizer
     route_overflow: int = 0
 
@@ -100,10 +105,11 @@ def _split(model: nn.Module):
     return tables, dense
 
 
-def _bias_corrections(t: int) -> Tuple[float, float]:
-    """(1 - b1^t, 1 - b2^t) rounded as f32 arithmetic rounds them."""
-    f = np.float32
-    return (float(f(1.0) - f(B1) ** f(t)), float(f(1.0) - f(B2) ** f(t)))
+def _bias_corrections(t) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(1 - b1^t, 1 - b2^t) in f32, on the device of t (the step count,
+    a tensor or an int)."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    return 1.0 - torch.pow(B1, t), 1.0 - torch.pow(B2, t)
 
 
 def _adam_rows(p_old, mv, g, t, lr):
@@ -138,8 +144,10 @@ class LazyAdam:
                 return torch.cat([v.detach().float(), zeros], dim=-1)
             return zeros
 
+        device = next(model.parameters()).device
         return LazyAdamState(
-            moments={n: init_rows(v) for n, v in tables.items()}, count=0,
+            moments={n: init_rows(v) for n, v in tables.items()},
+            count=torch.zeros((), dtype=torch.int32, device=device),
             dense_opt=build_optimizer(self.cfg, list(dense.values())))
 
     def _clip_scale(self, sumsq):
@@ -151,7 +159,7 @@ class LazyAdam:
 
     @torch.no_grad()
     def table_update(self, param: torch.Tensor, grad_dense: torch.Tensor,
-                     mn: torch.Tensor, ids: torch.Tensor, t: int
+                     mn: torch.Tensor, ids: torch.Tensor, t
                      ) -> List[Entry]:
         """Legacy path (JAX :167-192): the param and mn rows at the sorted
         ids, as two scatter-set entries for K5."""
@@ -174,7 +182,7 @@ class LazyAdam:
     @torch.no_grad()
     def compact_table_update(self, param: torch.Tensor, w: torch.Tensor,
                              gw: torch.Tensor, mn: torch.Tensor, plan: Plan,
-                             t: int) -> List[Entry]:
+                             t) -> List[Entry]:
         """Row update from the compact w-space gradient (JAX :261-322), as
         two scatter-set entries for K5: the new param rows into `param`,
         and into mn either the whole pmn rows (`w` is [M, 3D]
@@ -187,8 +195,7 @@ class LazyAdam:
         fused = w.shape[1] == 3 * D
         M = plan.sorted_ids.shape[0]
         Mc = min(M, N)
-        g = torch.zeros(Mc, D, dtype=torch.float32, device=gw.device)
-        g.index_add_(0, plan.seg, gw.float())
+        g = segment_sum(gw.float(), run_lengths(plan.idx_first, Mc))
         nseg = plan.seg[-1] + 1
         ar = torch.arange(Mc, dtype=torch.int32, device=gw.device)
         valid = ar < nseg
@@ -212,14 +219,14 @@ class LazyAdam:
                 (mn, tgt, torch.cat(mn_rows, -1))]
 
     def _finish(self, model: nn.Module, state: LazyAdamState,
-                per_table: Callable[[str, torch.Tensor, torch.Tensor, int],
-                                    List[Entry]]) -> None:
+                per_table: Callable[[str, torch.Tensor, torch.Tensor,
+                                     torch.Tensor], List[Entry]]) -> None:
         """The shared tail (JAX :608-631): every table's row update, its
         entries written by one K5 launch, then per-tensor clip and dense
         Adam over the other parameters, each under its
         `train_step.<phase>` profiler range."""
         tables, dense = _split(model)
-        state.count += 1
+        state.count.add_(1)
         with record_function("train_step.row_update"):
             entries = []
             for name, param in tables.items():

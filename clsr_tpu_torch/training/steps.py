@@ -20,8 +20,8 @@ optimizer:
 
 All scatter-sets of a lazy step go out in one K5 launch.
 
-The port runs the step eagerly on the model's device and updates the
-state in place.  With use_pallas_train_attention on, both target-attention
+The port runs the step on the model's device and updates the state in
+place.  With use_pallas_train_attention on, both target-attention
 layers run K3a, K3b and K1; with use_pallas_scan, the recurrence runs K2
 forward and recomputes through the plain recurrence in the backward.
 Each phase runs under a `torch.profiler.record_function` range named
@@ -35,6 +35,11 @@ eval, serving and `weights.to_flax` read the updated rows.
 `sync_params_from_opt` stays for callers that load optimizer rows whose
 param column the tables do not hold yet.
 
+K train steps a host call (`make_multi_train_step`, :267-290, and
+`stack_batches`, :293): JAX scans K steps in one dispatch; here one
+train step is captured in a CUDA graph and replayed K times a call
+(`MultiTrainStep`), which the fit runs when train_steps_per_call > 1.
+
 The eval step (:331-364): BN running statistics, no dropout
 (base_model.py:366-392); preds = sigmoid(logit) for classification
 (base_model.py:89-109).
@@ -43,13 +48,15 @@ The eval step (:331-364): BN running statistics, no dropout
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.ops import launches
 from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
                                                   supported_tables)
@@ -60,20 +67,16 @@ from clsr_tpu_torch.training.negative_sampling import expand_with_negatives
 from clsr_tpu_torch.training.optimizer import clip_by_norm_each
 from clsr_tpu_torch.training.state import TrainState
 
+LOSS_FIELDS = tuple(f.name for f in dataclasses.fields(LossParts))
 
-def make_train_step_fn(model: torch.nn.Module, cfg: Config,
-                       allow_pallas: Optional[bool] = None) -> Callable[
-        [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
-    """The train step: (state, batch, generator) -> (state, LossParts).
 
-    `batch` carries G = 1 (positives only) when cfg.need_sample, and
-    1 + train_num_ngs candidates are drawn on its device from
-    `generator`, which also draws the dropout masks; with need_sample
-    False the batch's own candidates are used.  `allow_pallas` gates the
-    fused train scorer; None defers to cfg.use_pallas_train_attention
-    ('auto' = on for CUDA tensors).  After the step each parameter's
-    `.grad` holds its clipped gradient, except the tables under
-    lazyadam, which hold none."""
+def _make_step_body(model: torch.nn.Module, cfg: Config,
+                    allow_pallas: Optional[bool]) -> Callable[
+        [TrainState, Batch, torch.Generator], LossParts]:
+    """The device work of one train step, from the negatives to the
+    optimizer: (state, batch, generator) -> LossParts (not detached).
+    It touches no host state but the tensors of `state`, so a CUDA graph
+    can capture it; `make_train_step_fn` documents the step."""
     if cfg.data_parallel * cfg.model_parallel > 1:
         raise NotImplementedError(
             "a device mesh waits for ROADMAP queue 1, parallel")
@@ -114,7 +117,8 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
                             plans, ws_full if fused else ws, table_names)
         return parts
 
-    def step(state: TrainState, batch: Batch, generator: torch.Generator):
+    def body(state: TrainState, batch: Batch, generator: torch.Generator
+             ) -> LossParts:
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
                 batch = expand_with_negatives(generator, batch, num_ngs)
@@ -133,9 +137,31 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
                                           cfg.max_grad_norm)
                 with record_function("train_step.adam"):
                     state.optimizer.step()
+        return parts
+
+    return body
+
+
+def make_train_step_fn(model: torch.nn.Module, cfg: Config,
+                       allow_pallas: Optional[bool] = None) -> Callable[
+        [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
+    """The train step: (state, batch, generator) -> (state, LossParts).
+
+    `batch` carries G = 1 (positives only) when cfg.need_sample, and
+    1 + train_num_ngs candidates are drawn on its device from
+    `generator`, which also draws the dropout masks; with need_sample
+    False the batch's own candidates are used.  `allow_pallas` gates the
+    fused train scorer; None defers to cfg.use_pallas_train_attention
+    ('auto' = on for CUDA tensors).  After the step each parameter's
+    `.grad` holds its clipped gradient, except the tables under
+    lazyadam, which hold none."""
+    body = _make_step_body(model, cfg, allow_pallas)
+
+    def step(state: TrainState, batch: Batch, generator: torch.Generator):
+        parts = body(state, batch, generator)
         state.step += 1
-        return state, LossParts(**{f.name: getattr(parts, f.name).detach()
-                                   for f in dataclasses.fields(parts)})
+        return state, LossParts(**{f: getattr(parts, f).detach()
+                                   for f in LOSS_FIELDS})
 
     return step
 
@@ -162,6 +188,149 @@ def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable[
     package's, it needs no parameter sync after a step: every lazy
     update writes the touched table rows itself."""
     return make_train_step_fn(model, cfg)
+
+
+def _fields(batch: Batch) -> List[torch.Tensor]:
+    return [getattr(batch, f.name) for f in dataclasses.fields(Batch)]
+
+
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """Stack K same-shape batches of tensors into one [K, B, ...] batch
+    (JAX :293)."""
+    return Batch(*(torch.stack(ts) for ts in zip(*map(_fields, batches))))
+
+
+def _row(parts: LossParts) -> torch.Tensor:
+    """The loss parts as one [len(LOSS_FIELDS)] tensor."""
+    return torch.stack([getattr(parts, f).detach() for f in LOSS_FIELDS])
+
+
+def _parts(rows: torch.Tensor) -> LossParts:
+    """LossParts of [..., len(LOSS_FIELDS)] rows, a field a column."""
+    return LossParts(**{f: rows[..., i] for i, f in enumerate(LOSS_FIELDS)})
+
+
+class MultiTrainStep:
+    """K train steps a host call (JAX's `make_multi_train_step`,
+    :267-290): `multi(state, stacked, generator)` runs the steps of a
+    [K, B, ...] batch in order and returns (state, LossParts of [K]),
+    what K calls of `make_train_step` on its slices give; `step(state,
+    batch, generator)` runs one [B] batch (an epoch's tail).
+
+    On CPU tensors every step runs eagerly.  On CUDA the step from the
+    negatives to the optimizer is captured once in a `torch.cuda.CUDAGraph`
+    that reads static [B, ...] batch buffers, and each step copies its
+    slice into them (one `_foreach_copy_`), replays the graph and copies
+    out its loss parts: a few launches a step in place of the eager
+    step's thousands.  The padded tail batches have the same shape, so
+    the one graph serves them too.  The graph needs:
+
+      * a warm-up: the first step after a (re)bind runs eagerly, a real
+        step of the fit, which builds the kernels, Adam's state, the K1
+        and K3 workspaces and cuBLAS's; the next step is captured, and
+        every later one replays;
+      * the fit's generator registered with the graph, so that replay i
+        draws the negatives and dropout masks eager step i would;
+      * capturable Adam (training/optimizer.py) and lazyadam's device
+        step count (training/lazy_adam.py), so that the step reads
+        nothing from the host;
+      * the launch counters: a wrapper ticks once at capture and never
+        at replay, so the capture's counts are taken back and added
+        after every replay (`ops.launches`).
+
+    `.grad` and the captured outputs live in the graph's pool and hold
+    the last replay's values until the next replay.  The graph keeps
+    the state's tensors: `reset()` drops it (Trainer.load does, since
+    loading replaces the optimizers' tensors), and a call with another
+    state or generator warms up and captures again.  A capture that
+    fails raises; no CUDA step falls back to the eager step."""
+
+    def __init__(self, model: torch.nn.Module, cfg: Config,
+                 steps_per_call: int):
+        self.steps_per_call = steps_per_call
+        self._body = _make_step_body(model, cfg, None)
+        self.capture_stats: Optional[dict] = None
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop the graph; the next CUDA step warms up and captures."""
+        self._bound = None          # (state, generator) of the warm-up
+        self._graph = None
+        self._static: List[torch.Tensor] = []
+        self._out: Optional[torch.Tensor] = None
+        self._counts: Dict[str, int] = {}
+
+    def __call__(self, state: TrainState, stacked: Batch,
+                 generator: torch.Generator
+                 ) -> Tuple[TrainState, LossParts]:
+        K = stacked.users.shape[0]
+        if K != self.steps_per_call:
+            raise ValueError(f"a stacked batch of {K} steps, this call "
+                             f"runs {self.steps_per_call}")
+        rows = [self._step(state, Batch(*(t[i] for t in _fields(stacked))),
+                           generator) for i in range(K)]
+        return state, _parts(torch.stack(rows))
+
+    def step(self, state: TrainState, batch: Batch,
+             generator: torch.Generator) -> Tuple[TrainState, LossParts]:
+        return state, _parts(self._step(state, batch, generator))
+
+    def _step(self, state, batch, generator) -> torch.Tensor:
+        """One step; its loss parts as a [len(LOSS_FIELDS)] tensor."""
+        on_card = batch.users.device.type == "cuda"
+        bound = (self._bound is not None and self._bound[0] is state
+                 and self._bound[1] is generator)
+        if on_card and bound:
+            if self._graph is None:
+                self._capture(state, batch, generator)
+            torch._foreach_copy_(self._static, _fields(batch))
+            self._graph.replay()
+            launches.add(self._counts)
+            row = self._out.clone()
+        else:
+            if on_card:             # the warm-up of a new binding
+                self.reset()
+                self._bound = (state, generator)
+            row = _row(self._body(state, batch, generator))
+        state.step += 1
+        return row
+
+    def _capture(self, state, batch, generator) -> None:
+        device = batch.users.device
+        self._static = [t.clone() for t in _fields(batch)]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        before = launches.snapshot()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the prefetch thread may pin host memory and
+            # copy on its own stream while the step is captured
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._out = _row(self._body(state, Batch(*self._static),
+                                            generator))
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the train step in a CUDA graph failed: {e}"
+                + (f" (while: {e.__context__})" if e.__context__ else "")
+            ) from e
+        counts = {n: k - before[n] for n, k in launches.snapshot().items()}
+        launches.add(counts, -1)     # the capture launched nothing
+        self._counts = {n: k for n, k in counts.items() if k}
+        self._graph = graph
+        self.capture_stats = dict(
+            capture_s=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(device) - reserved,
+            launches=self._counts)
+
+
+def make_multi_train_step(model: torch.nn.Module, cfg: Config,
+                          steps_per_call: int) -> MultiTrainStep:
+    """K = steps_per_call train steps a host call (JAX :267-290); see
+    `MultiTrainStep`."""
+    return MultiTrainStep(model, cfg, steps_per_call)
 
 
 def make_eval_step_fn(cfg: Config) -> Callable[

@@ -19,11 +19,16 @@ How the port runs what the JAX package runs:
     the RandomState as `rng.shuffle` of the same ids does, and gathers
     the same rows with the same padding, so it is step for step the
     computation streamed here.  `on` raises (ROADMAP queue 1 item 5).
-  * `train_steps_per_call` K > 1 runs the K single steps of a dispatch
-    one after another: the same math.  The log groups them as the JAX
-    package's stacked path does (whole groups of K full batches, then
-    single steps), so the same steps log the same numbers; a CUDA graph
-    of K steps is ROADMAP queue 1 item 5.
+  * `train_steps_per_call` K > 1 takes JAX's stacked path (:112-115,
+    :567-594): the loader gathers the epoch once and yields [K, B, ...]
+    stacks of whole batches, then the [B] tail batches
+    (`train_batches_stacked`); each stack is one host-to-device copy and
+    one call of `make_multi_train_step`, which on the card replays a
+    CUDA graph of the train step K times (training/steps.py
+    `MultiTrainStep`), and each tail batch one replay.  The first step
+    of a fit is the graph's warm-up and runs eagerly.  The same steps
+    run as with K = 1, which keeps the eager single steps, and the log
+    groups them as JAX does (each call's K steps, then single steps).
   * The loss sums stay on the device; the host reads them at show_step
     boundaries and once at the end of an epoch.  The JAX streaming path
     reads `float(parts.loss)` every step, which here would make the host
@@ -47,7 +52,9 @@ from clsr_tpu_torch.data.prefetch import device_batches
 from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.state import create_train_state
-from clsr_tpu_torch.training.steps import make_eval_step_fn, make_train_step
+from clsr_tpu_torch.training.steps import (make_eval_step_fn,
+                                           make_multi_train_step,
+                                           make_train_step)
 from clsr_tpu_torch.utils.summaries import SummaryWriter
 
 
@@ -82,6 +89,9 @@ class Trainer:
         self.state = create_train_state(model, cfg)
         self.train_step = make_train_step(model, cfg)
         self.eval_step = make_eval_step_fn(cfg)
+        self.multi_step = (make_multi_train_step(
+            model, cfg, cfg.train_steps_per_call)
+            if cfg.train_steps_per_call > 1 else None)
         self.best_epoch = 0
         self.eval_history: List[Tuple[int, Dict[str, float]]] = []
         # per epoch: steps, examples, train and eval seconds, mean loss
@@ -112,17 +122,16 @@ class Trainer:
         generator.manual_seed(cfg.seed if cfg.seed is not None
                               else int(time.time()))
 
-        B, K = cfg.batch_size, max(1, cfg.train_steps_per_call)
-        eligible = int((train_loader.view.lengths
-                        >= cfg.min_seq_length).sum())
-        grouped = (eligible // B) // K * K    # steps in whole K groups
+        B, K = cfg.batch_size, cfg.train_steps_per_call
+        multi = self.multi_step
+        single = self.train_step if multi is None else multi.step
         best_metric = 0.0
         self.best_epoch = 0
         step = 0
         for epoch in range(1, cfg.epochs + 1):
             t0 = time.time()
             n_steps, n_examples = 0, 0
-            epoch_loss = call_loss = call_data = None
+            epoch_loss = None
 
             def counted(batches):
                 nonlocal n_examples
@@ -144,24 +153,20 @@ class Trainer:
                     self.summary.scalars(step, {"loss": loss_avg,
                                                 "data_loss": data_avg})
 
-            batches = device_batches(
-                counted(train_loader.train_batches(
-                    B, np_rng, min_seq_length=cfg.min_seq_length)),
-                self.device, cfg.prefetch_batches)
-            in_call = 0
-            for i, batch in enumerate(batches):
-                self.state, parts = self.train_step(self.state, batch,
-                                                    generator)
-                k = K if i < grouped else 1
-                if in_call == 0:
-                    call_loss, call_data = parts.loss, parts.data_loss
-                else:
-                    call_loss = call_loss + parts.loss
-                    call_data = call_data + parts.data_loss
-                in_call += 1
-                if in_call == k:
-                    emit(k, call_loss, call_data)
-                    in_call = 0
+            if multi is not None:
+                items = train_loader.train_batches_stacked(
+                    B, K, np_rng, min_seq_length=cfg.min_seq_length)
+            else:
+                items = train_loader.train_batches(
+                    B, np_rng, min_seq_length=cfg.min_seq_length)
+            for item in device_batches(counted(items), self.device,
+                                       cfg.prefetch_batches):
+                if item.users.ndim == 2:        # [K, B, ...] stacked
+                    self.state, parts = multi(self.state, item, generator)
+                    emit(K, parts.loss.sum(), parts.data_loss.sum())
+                else:                           # tail / single steps
+                    self.state, parts = single(self.state, item, generator)
+                    emit(1, parts.loss, parts.data_loss)
             mean_loss = (epoch_loss.item() / n_steps if n_steps
                          else float("nan"))
             train_time = time.time() - t0
@@ -204,7 +209,12 @@ class Trainer:
         checkpoint.save_state(os.path.abspath(path), self.state)
 
     def load(self, path: str) -> None:
+        """Restore a checkpoint into the state.  Loading replaces the
+        optimizers' tensors, which a captured train step still writes, so
+        the graph is dropped and the next step captures again."""
         checkpoint.load_state(os.path.abspath(path), self.state)
+        if self.multi_step is not None:
+            self.multi_step.reset()
 
     def load_latest(self, model_dir: str) -> None:
         """tf.train.latest_checkpoint equivalent (sequential.py:352-353)."""

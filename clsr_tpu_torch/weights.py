@@ -125,7 +125,7 @@ def opt_from_flax(state, moments: Mapping, count: int,
                              f"table {tuple(p.shape)}")
         opt.moments[name] = torch.from_numpy(
             np.array(value, dtype=np.float32)).to(p.device)
-    opt.count = int(count)
+    opt.count.fill_(int(count))
     state.step = int(count)
     if dense_mu is None:
         return
@@ -141,7 +141,9 @@ def opt_from_flax(state, moments: Mapping, count: int,
             if transpose:
                 mu, nu = mu.t(), nu.t()
             adam.state[p] = {
-                "step": torch.tensor(float(count)),
+                # capturable Adam (on CUDA) keeps its step on the device
+                "step": torch.tensor(float(count), device=(
+                    p.device if group["capturable"] else "cpu")),
                 "exp_avg": mu.to(p.device).contiguous(),
                 "exp_avg_sq": nu.to(p.device).contiguous()}
 
@@ -157,7 +159,7 @@ def opt_to_flax(state) -> Tuple[Dict, int]:
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = mn.detach().cpu().numpy().copy()
-    return trees, opt.count
+    return trees, int(opt.count)
 
 
 def save(module: nn.Module, path: str) -> None:

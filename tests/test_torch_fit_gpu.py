@@ -8,12 +8,23 @@ On the 200-user synthetic set at the clsr.yaml widths, batch 100:
     copy stream, the compute stream waiting on an event) and one with
     `prefetch_batches: 0` (a plain copy per batch) from the same seed:
     every model tensor and every valid metric bit-identical, with every
-    kernel gate on and dense Adam, also a second fit without prefetch.
-    The fits run under `torch.use_deterministic_algorithms`: PyTorch's
-    dense embedding backward on the card sums a row that repeats many
-    times in a batch (the 41-row category table here) in a different
-    order from call to call, so without it two fits without prefetch
-    differ too;
+    kernel gate on and dense Adam, also a second fit without prefetch,
+    and two lazyadam fits.  Deterministic algorithms stay off: the train
+    lookups sum a repeated row's gradient in sorted order
+    (`ops.segment_sum`), so two fits give the same bits;
+  * the train step graphed (`make_multi_train_step`, two calls of K = 4
+    and a tail step, every kernel gate on) against 9 eager single steps
+    from the same state and generator seed: every model and optimizer
+    tensor and every loss part bit-identical, for dense Adam and
+    lazyadam compact; the launch counts of the graphed calls are K times
+    the eager step's (the capture's counts added at each replay);
+  * `table_grad` on the 41-row table with 25,000 ids: two calls
+    bit-identical and within 1e-4 of `F.embedding`'s gradient;
+  * after a fit and a graphed call, `Trainer.load` of the fit's
+    checkpoint and a second call with the same generator equal a fresh
+    trainer that loads the checkpoint and makes that call, bit for bit
+    (the load drops the graph, which would keep writing dense Adam's old
+    tensors);
   * a short lazyadam fit with every kernel gate on: finite losses, each
     kernel of the path launched (K5 once a step, K2's backward once a
     step, K3a/K3b/K1 twice a step), every test prediction with K1 on
@@ -26,7 +37,6 @@ On the 200-user synthetic set at the clsr.yaml widths, batch 100:
     running statistics 1e-5, K5 bit-identical to its plain version.
 """
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -44,9 +54,15 @@ from clsr_tpu_torch.ops import fused_attention as fa
 from clsr_tpu_torch.ops import fused_scan as fs
 from clsr_tpu_torch.ops import fused_train_attention as fta
 from clsr_tpu_torch.ops import row_update as ru
+from clsr_tpu_torch.ops.segment_sum import table_grad
 from clsr_tpu_torch.training import kernel_check
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
-from clsr_tpu_torch.training.steps import make_eval_step_fn
+from clsr_tpu_torch.training.kernel_check import counted
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+from clsr_tpu_torch.training.state import create_train_state
+from clsr_tpu_torch.training.steps import (LOSS_FIELDS, make_eval_step_fn,
+                                           make_multi_train_step,
+                                           make_train_step, stack_batches)
 from clsr_tpu_torch.training.trainer import Trainer
 
 pytestmark = pytest.mark.gpu
@@ -83,17 +99,23 @@ def _cfg(**kw):
                        **kw)
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms on (warnings where an op has no
-    deterministic version), restored after."""
-    before = (torch.are_deterministic_algorithms_enabled(),
-              torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+def _state_tensors(state):
+    """Every tensor of a TrainState: the model's, the lazy rows and the
+    dense Adam state."""
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        out.update({f"moments/{k}": v for k, v in opt.moments.items()})
+        out["count"] = opt.count
+        opt = opt.dense_opt
+    for i, st in enumerate(opt.state_dict()["state"].values()):
+        out.update({f"opt/{i}/{k}": v for k, v in st.items()})
+    return out
+
+
+def _row(parts):
+    """Loss parts as [..., 5], a field a column."""
+    return torch.stack([getattr(parts, f) for f in LOSS_FIELDS], -1)
 
 
 def _fit(sizes, loaders, cfg):
@@ -111,11 +133,20 @@ def _recording(step, out):
     return run
 
 
+def _same_states(a, b):
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+
+
 def test_prefetch_on_and_off_fits_are_bit_identical(cuda, data):
     sizes, loaders = data
-    with deterministic():
-        runs = [_fit(sizes, loaders, _cfg(prefetch_batches=d))
-                for d in (2, 0, 0)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    runs = [_fit(sizes, loaders, _cfg(prefetch_batches=d))
+            for d in (2, 0, 0)]
+    lazy = [_fit(sizes, loaders, _cfg(optimizer="lazyadam"))
+            for _ in range(2)]
     want = runs[1].state.model.state_dict()
     for t in (runs[0], runs[2]):
         got = t.state.model.state_dict()
@@ -123,7 +154,91 @@ def test_prefetch_on_and_off_fits_are_bit_identical(cuda, data):
         for k in want:
             assert torch.equal(got[k], want[k]), k
         assert t.eval_history == runs[1].eval_history
+    _same_states(runs[0].state, runs[2].state)
+    _same_states(lazy[0].state, lazy[1].state)
+    assert lazy[0].eval_history == lazy[1].eval_history
     assert runs[0].epoch_stats[0]["steps"] > 5
+
+
+@pytest.mark.parametrize("opt", ["adam", "lazyadam"])
+def test_graphed_steps_equal_eager_steps(cuda, data, opt):
+    sizes, loaders = data
+    cfg = _cfg(optimizer=opt)
+    K = 4
+    host = list(loaders["train"].train_batches(cfg.batch_size,
+                                               np.random.RandomState(0)))
+    batches = [to_device(b, cuda) for b in host[:2 * K + 1]]
+    runs, counts = {}, {}
+    for run in ("eager", "graph"):
+        torch.manual_seed(0)
+        model = get_model_class("clsr")(cfg, *sizes)
+        state = create_train_state(model, cfg)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        if run == "eager":
+            step = make_train_step(model, cfg)
+            (_, first), counts["eager"] = counted(
+                lambda: step(state, batches[0], gen))
+            parts = [first] + [step(state, b, gen)[1] for b in batches[1:]]
+            rows = torch.stack([_row(p) for p in parts])
+        else:
+            multi = make_multi_train_step(model, cfg, K)
+            out = []
+            for c in range(2):
+                (_, p), counts[f"call{c}"] = counted(lambda: multi(
+                    state, stack_batches(batches[c * K:(c + 1) * K]), gen))
+                out.append(_row(p))
+            out.append(_row(multi.step(state, batches[2 * K], gen)[1])[None])
+            rows = torch.cat(out)
+            assert multi.capture_stats is not None
+        runs[run] = (state, rows)
+    (se, re_), (sg, rg) = runs["eager"], runs["graph"]
+    assert rg.shape == (2 * K + 1, 5) and torch.equal(re_, rg)
+    assert se.step == sg.step == 2 * K + 1
+    _same_states(se, sg)
+    per_step = {k: n for k, n in counts["eager"].items() if n}
+    assert per_step["clsr_scan_backward"] == 1
+    for c in range(2):
+        assert counts[f"call{c}"] == {k: K * per_step.get(k, 0)
+                                      for k in counts[f"call{c}"]}
+
+
+def test_table_grad_is_reproducible_on_41_rows(cuda):
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 41, 25_000)).to(cuda)
+    g = torch.from_numpy(rng.randn(25_000, 8).astype(np.float32)).to(cuda)
+    a, b = (table_grad(ids, g, 41) for _ in range(2))
+    assert torch.equal(a, b)
+    t = torch.zeros(41, 8, device=cuda, requires_grad=True)
+    torch.nn.functional.embedding(ids, t).backward(g)
+    assert (a - t.grad).abs().max().item() <= 1e-4
+
+
+def test_load_drops_the_graph(cuda, data, tmp_path):
+    sizes, loaders = data
+    K = 4
+    cfg = _cfg(model_dir=str(tmp_path), save_model=True,
+               train_steps_per_call=K)
+    first = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                    log=lambda *_: None)
+    first.fit(loaders["train"], loaders["valid"])
+    host = list(loaders["train"].train_batches(cfg.batch_size,
+                                               np.random.RandomState(1)))
+    stacks = [stack_batches([to_device(b, cuda)
+                             for b in host[c * K:(c + 1) * K]])
+              for c in range(2)]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    first.multi_step(first.state, stacks[0], gen)       # captures
+    assert first.multi_step.capture_stats is not None
+    gen_fresh = torch.Generator(device=cuda)
+    gen_fresh.set_state(gen.get_state())
+    first.load_latest(str(tmp_path))
+    fresh = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                    log=lambda *_: None)
+    fresh.load_latest(str(tmp_path))
+    # the same generator: without the drop, the old graph would replay
+    first.multi_step(first.state, stacks[1], gen)
+    fresh.multi_step(fresh.state, stacks[1], gen_fresh)
+    _same_states(first.state, fresh.state)
 
 
 def test_lazy_fit_on_the_card_runs_every_kernel(cuda, data, tmp_path):
