@@ -130,7 +130,8 @@ Phases, each fatal on failure:
      equal and the time features within 1e-6 abs.  Run A drives
      `clsr_tpu_torch.cli.main` as a user does (the CLI's defaults: batch
      500, L = 50, clsr.yaml widths, K = 32 train steps a host call, each
-     call replays a CUDA graph of the train step; 2 epochs, seed 7, with
+     call replays a CUDA graph of the train step, the train set resident
+     on the card, as `resident_data: auto` resolves; 2 epochs, seed 7, with
      --write_prediction_to_file): epoch s and examples/s, valid and test
      eval s, the test dict; the last valid auc above 0.5, one finite score
      per test line; then --only_test must print the same test dict
@@ -141,7 +142,8 @@ Phases, each fatal on failure:
      torch.profiler over 5 streamed eager steps and one streamed graphed
      call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
      share, kernels on the device and host launch calls a step).  Run B: the same config
-     with use_pallas_scan, use_pallas_train_attention 'on' and lazyadam,
+     with use_pallas_scan, use_pallas_train_attention 'on', lazyadam and
+     resident_data 'off' (streamed, as phase 13 compares),
      `Trainer.fit` for one epoch through the graph (capture s, graph
      pool, peak and kept device memory) and the test eval, the counts read
      around each (K5 and K2's backward once a step, K3a, K3b and K1 twice,
@@ -167,10 +169,34 @@ Phases, each fatal on failure:
      buffer, Adam and lazy tensor and every loss part bit-identical,
      deterministic algorithms off; the call's launch counts 32 times the
      eager step's.
+ 13. (inside phase 11, on its data) device-resident data and length
+     buckets.  (1) Run B's configuration resident and streamed, and a
+     dense-Adam pair, one graphed epoch each from one seed: every model,
+     optimizer and BN tensor and the valid metrics bit-identical; each
+     fit's epoch examples/s, the upload's MB and s; a resident call of 8
+     steps under `torch.cuda.set_sync_debug_mode("error")`, and
+     torch.profiler over two more (idle share, host launch calls a
+     step).  (2) Run C: run B's configuration with length_buckets 'auto'
+     (edges 16,32 if auto picks none; masked BN statistics, 64 refresh
+     batches): Lb x rows, each graph's capture s and pool, epoch
+     examples/s against (1)'s resident run B, the refresh's s; launches K5
+     and K2's backward once a step, K3a/K3b/K1 none in training, K2's
+     forward once a step, a refresh batch and a valid dispatch; the valid
+     auc above 0.5.  (3) On run C's weights the test eval with buckets
+     against without: every prediction and metric within 1e-4 abs, both
+     timed, K1 and K2 once a bucketed dispatch; K1 and K2 against their
+     plain versions on the inputs the eval gives them at every eval Lb
+     (1e-4 abs), and the kernel train and eval steps against the plain
+     ones at every train Lb (`training.kernel_check`).  (4) On the
+     bucket with the most rows, one graphed resident call of 32 steps and
+     a replayed tail against 33 eager steps on the same gathered batches:
+     every state tensor and loss part bit for bit, the call's launches 32
+     times the eager step's.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
-graphed epoch and test eval), the card's name and power limit, and the final
-status line.  A copy of all numbers goes to
+graphed epoch and test eval, and the phase-13 paths `fit_resident`, the
+resident run B epoch, and `fit_buckets`, run C's epoch and bucketed test
+eval), the card's name and power limit, and the final status line.  A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
 
@@ -2139,6 +2165,434 @@ def check_counts(what, got, want):
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
+# ------------------------------------------------------------- phase 13
+# device-resident data and length buckets, on phase 11's data
+P13_EDGES = "16,32"            # the edges when 'auto' picks no buckets
+P13_PROFILE_K = 8              # steps a resident call while profiling
+P13_TOL = 1e-4                 # bucketed / unbucketed predictions, and
+                               # K1 and K2 against their plain versions
+
+
+def p13_fit(cfg, sizes, loaders, **kw):
+    """A one-epoch `Trainer.fit` of cfg with kw over it, counted: (the
+    trainer, its launches, its log lines)."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.trainer import Trainer
+    cfg = cfg.replace(epochs=1, model_dir=None, save_model=False,
+                      summaries_dir=None, **kw)
+    lines = []
+    t = Trainer(get_model_class("clsr")(cfg, *sizes), cfg, log=lines.append)
+    _, counts = counted(lambda: t.fit(loaders["train"], loaders["valid"]))
+    return t, counts, lines
+
+
+def examples_per_s(trainer):
+    e = trainer.epoch_stats[0]
+    return e["examples"] / e["train_s"]
+
+
+def profile_resident(trainer, smi):
+    """A K = P13_PROFILE_K `make_resident_multi_step` on the trainer's
+    model and first feed: one call warms up and captures, one call runs
+    under `torch.cuda.set_sync_debug_mode("error")` (a host sync in it
+    raises), then torch.profiler over two calls: the device's idle share
+    of the window, kernels on the device and host launch calls a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from clsr_tpu_torch.training.steps import make_resident_multi_step
+    cfg, K = trainer.cfg, P13_PROFILE_K
+    B = cfg.batch_size
+    feed = trainer.feeds[0][0]
+    multi = make_resident_multi_step(trainer.model, cfg, K)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    state = trainer.state
+    multi(state, feed, 0, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        multi(state, feed, K * B, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in (2, 3):
+            multi(state, feed, c * K * B, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n = 2 * K
+    kernels = kernel_events(prof)
+    busy_ms = sum(self_device_us(e) for e in kernels) / 1e3
+    idle = 100 - 100 * busy_ms / wall_ms
+    out = dict(steps=n, calls=2, wall_ms_per_step=wall_ms / n,
+               busy_ms_per_step=busy_ms / n, idle_pct=idle,
+               device_kernels_per_step=sum(e.count for e in kernels) / n,
+               host_launches_per_step=host_launches(prof) / n,
+               no_sync_call=True)
+    log(f"profile[resident, graphed]: {n} steps in 2 calls of {K}, "
+        f"{out['wall_ms_per_step']:.3f} ms a step under the profiler; "
+        f"device busy {out['busy_ms_per_step']:.3f} ms a step (idle "
+        f"{idle:.1f}%), {out['device_kernels_per_step']:,.1f} kernels on "
+        f"the device and {out['host_launches_per_step']:,.1f} host launch "
+        f"calls a step; a call of {K} under sync debug mode 'error': no "
+        f"host sync | {smi}")
+    return out
+
+
+def resident_against_streamed(cfg_b, sizes, loaders, smi):
+    """Phase 13.1: run B's configuration (lazyadam) and a dense-Adam one,
+    each resident and streamed from one seed, one graphed epoch each:
+    every model, optimizer and BN tensor and the valid metrics
+    bit-identical, deterministic algorithms off."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("deterministic algorithms are on")
+    out, keep = {}, None
+    for opt in ("lazyadam", "adam"):
+        fits = {}
+        for r in ("on", "off"):
+            t, counts, _ = p13_fit(cfg_b, sizes, loaders, optimizer=opt,
+                                   resident_data=r, seed=3)
+            fits[r] = dict(state=state_tensors(t.state),
+                           valid=t.eval_history, epoch=t.epoch_stats[0],
+                           examples_per_s=examples_per_s(t),
+                           launches=counts, upload=t.upload,
+                           capture=(t.resident_step.capture_stats
+                                    if r == "on" else
+                                    t.multi_step.capture_stats))
+            if opt == "lazyadam" and r == "on":
+                keep = t
+            else:
+                del t
+        bad = differing(fits["on"]["state"], fits["off"]["state"])
+        same_valid = fits["on"]["valid"] == fits["off"]["valid"]
+        up = fits["on"]["upload"]
+        log(f"phase 13 [{opt}]: resident against streamed, one graphed "
+            f"epoch each (K = {cfg_b.train_steps_per_call}): "
+            f"{len(fits['on']['state'])} state tensors, differ {bad[:5]}, "
+            f"valid metrics bit-identical {same_valid} | epoch examples/s "
+            f"resident {fits['on']['examples_per_s']:,.1f}, streamed "
+            f"{fits['off']['examples_per_s']:,.1f} | upload "
+            f"{up['bytes'] / 1e6:.1f} MB in {up['s']:.3f} s | {smi}")
+        if bad or not same_valid:
+            raise AssertionError(f"phase 13 [{opt}]: the resident fit "
+                                 f"differs from the streamed one")
+        for f in fits.values():
+            del f["state"]
+        out[opt] = fits
+    out["profile"] = profile_resident(keep, smi)
+    out["fit_launches"] = out["lazyadam"]["on"]["launches"]
+    out["examples_per_s"] = out["lazyadam"]["on"]["examples_per_s"]
+    del keep
+    return out
+
+
+def eval_order(loader, group, paddings):
+    """The anchor rows of `run_weighted_eval`'s groups in the order it
+    scores them (by bucket under `paddings`)."""
+    from clsr_tpu_torch.data.resident import bucket_rows
+    v = loader.view
+    anchors = np.arange(0, len(v.labels), group)
+    if not paddings:
+        return anchors
+    return np.concatenate([anchors[local] for _, local in bucket_rows(
+        v.lengths[anchors], v.item_hist.shape[1], paddings)])
+
+
+def kernels_at(cfg, model, batch):
+    """K1 and K2 against their plain versions on the inputs the kernel
+    eval step gives them on `batch`: (K1 max abs err, K2 max abs err)."""
+    from clsr_tpu_torch.ops import fused_attention as fa
+    from clsr_tpu_torch.ops import fused_scan as fs
+    from clsr_tpu_torch.training.steps import make_eval_step_fn
+    seen = {}
+    k1, k2 = fa.fused_eval_attention, fs._forward
+
+    def rec1(*args):
+        out = k1(*args)
+        seen.setdefault("k1", (args, out))
+        return out
+
+    def rec2(*args, **kw):
+        out = k2(*args, **kw)
+        seen.setdefault("k2", (args, out))
+        return out
+
+    rec1.launches = 0     # the wrapper ticks its module name's counter
+    fa.fused_eval_attention, fs._forward = rec1, rec2
+    try:
+        make_eval_step_fn(cfg)(model, batch)
+    finally:
+        fa.fused_eval_attention, fs._forward = k1, k2
+    if set(seen) != {"k1", "k2"}:
+        raise AssertionError(f"the eval step launched {sorted(seen)}")
+    with torch.inference_mode():   # the eval step's tensors
+        args, got = seen["k1"]
+        e1 = (got - fa.eval_scorer_reference(*args)).abs().max().item()
+        args, got = seen["k2"]
+        want = fs.scan_reference(*args)
+        e2 = max((g - w).abs().max().item() for g, w in zip(got[:3], want))
+    return e1, e2
+
+
+def buckets_fit_and_eval(cfg_b, sizes, loaders, resident_eps, smi):
+    """Phase 13.2-13.3: run C (run B's configuration with length_buckets
+    'auto', so masked BN statistics and the epoch-end refresh), its
+    launches and graphs; then on its weights the test eval with buckets
+    against without them, and K1 and K2 against their plain versions at
+    every Lb the eval runs."""
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.data.resident import resolve_bucket_paddings
+    from clsr_tpu_torch.training import kernel_check
+    from clsr_tpu_torch.training.evaluator import run_weighted_eval
+    from clsr_tpu_torch.training.kernel_check import counted
+    cfg_c = cfg_b.replace(length_buckets="auto", resident_data="auto")
+    auto = resolve_bucket_paddings(cfg_c, loaders["train"].view.lengths)
+    if not auto:
+        log(f"phase 13: length_buckets 'auto' picks no buckets on this "
+            f"data; run C uses the edges {P13_EDGES}")
+        cfg_c = cfg_c.replace(length_buckets=P13_EDGES)
+    t, counts, lines = p13_fit(cfg_c, sizes, loaders)
+    e = t.epoch_stats[0]
+    steps, refresh = e["steps"], cfg_c.bn_refresh_batches
+    valid = loaders["valid"]
+    vpads = resolve_bucket_paddings(cfg_c, valid.view.lengths[
+        np.arange(0, len(valid.view.labels), 5)])
+    n_valid = sum(1 for _ in valid.eval_batches(
+        5, cfg_c.batch_size // 5, paddings=vpads))
+    graphs = {lb: dict(capture_s=st["capture_s"],
+                       pool_mb=st["pool_bytes"] / 1e6)
+              for lb, st in t.resident_step.capture_stats.items()}
+    lb_rows = [(f.res.seq_len, f.res.n_rows) for f, _ in t.feeds]
+    last = t.eval_history[-1][1]
+    eps = examples_per_s(t)
+    log(f"run C (length_buckets {cfg_c.length_buckets!r}, masked BN "
+        f"statistics, {refresh} refresh batches): Lb x rows "
+        f"{', '.join(f'{lb}x{n}' for lb, n in lb_rows)}; graphs (one "
+        f"memory pool each) {graphs}; epoch {e['train_s']:.3f} s, {steps} "
+        f"steps, {eps:,.1f} examples/s against run B resident "
+        f"{resident_eps:,.1f} ({eps / resident_eps:.2f}x); refresh "
+        f"{e['refresh_s']:.3f} s; valid {last} | launches {counts} | {smi}")
+    check_counts("run C epoch", counts, dict(
+        row_scatter=steps, clsr_scan_backward=steps, train_stats0=0,
+        train_stats1=0, eval_scorer=0,
+        clsr_scan=steps + refresh + n_valid))
+    if not (t.bucketed and last["auc"] > 0.5
+            and np.isfinite(e["mean_loss"])):
+        raise AssertionError(f"run C failed its gates: {last}, "
+                             f"{e['mean_loss']}")
+
+    # ---- 13.3: the test eval with buckets against without them ---------
+    test, G = loaders["test"], cfg_c.test_num_ngs + 1
+    runs = {}
+    for run, cfg in (("buckets", cfg_c),
+                     ("no buckets", cfg_c.replace(length_buckets="off"))):
+        kept = []
+        t0 = time.perf_counter()
+        res, c = counted(lambda: run_weighted_eval(
+            recording(t.eval_step, kept), t.state.model, test, cfg,
+            cfg.test_num_ngs))
+        secs = time.perf_counter() - t0
+        pads = (resolve_bucket_paddings(cfg, test.view.lengths[
+            np.arange(0, len(test.view.labels), G)]) if run == "buckets"
+            else [])
+        order = eval_order(test, G, pads)
+        preds = valid_preds(kept).cpu().numpy()
+        runs[run] = dict(res=res, s=secs, launches=c, pads=pads,
+                         preds=preds[np.argsort(order, kind="stable")])
+    # the dispatches and one copy back without the host's metrics, in
+    # turns (the first eval of a run pays its shapes' first calls)
+    bare = {"buckets": [], "no buckets": []}
+    for run in ("buckets", "no buckets", "no buckets", "buckets"):
+        cfg = cfg_c.replace(metrics=(), pairwise_metrics=(),
+                            weighted_metrics=(),
+                            length_buckets=("off" if run == "no buckets"
+                                            else cfg_c.length_buckets))
+        t0 = time.perf_counter()
+        run_weighted_eval(t.eval_step, t.state.model, test, cfg,
+                          cfg.test_num_ngs)
+        bare[run].append(time.perf_counter() - t0)
+    for run, r in runs.items():
+        r["bare_s"] = bare[run]
+    pb, pu = runs["buckets"]["preds"], runs["no buckets"]["preds"]
+    pred_err = float(np.abs(pb - pu).max())
+    rb, ru_ = runs["buckets"]["res"], runs["no buckets"]["res"]
+    metric_err = max(abs(rb[k] - ru_[k]) for k in ru_)
+    n_calls = sum(1 for _ in test.eval_batches(
+        G, cfg_c.batch_size // G, paddings=runs["buckets"]["pads"]))
+    log(f"test eval with buckets {runs['buckets']['pads']} against "
+        f"without: {pb.size:,} predictions, max abs err {pred_err:.3e}, "
+        f"metrics {metric_err:.3e} apart (tol {P13_TOL}) | "
+        f"{runs['buckets']['s']:.3f} s ({n_calls} dispatches) against "
+        f"{runs['no buckets']['s']:.3f} s, without the metrics (in turns) "
+        f"{bare['buckets']} s against {bare['no buckets']} s | launches "
+        f"{runs['buckets']['launches']} | {smi}")
+    check_counts("run C bucketed test eval", runs["buckets"]["launches"],
+                 dict(eval_scorer=n_calls, clsr_scan=n_calls))
+    if not (rb.keys() == ru_.keys() and pb.shape == pu.shape
+            and pred_err <= P13_TOL and metric_err <= P13_TOL):
+        raise AssertionError("the bucketed test eval differs from the "
+                             "unbucketed one")
+
+    # ---- K1 and K2 against their plain versions at every Lb ------------
+    per_lb = {}
+    for Lb, batch in first_batches(test, G, cfg_c.batch_size,
+                                   runs["buckets"]["pads"]).items():
+        e1, e2 = kernels_at(cfg_c, t.state.model, to_device(batch, "cuda"))
+        per_lb[Lb] = dict(k1_err=e1, k2_err=e2)
+    # and the kernel train and eval steps against the plain ones at each
+    # train Lb (kernel_check: scores 1e-4 abs, loss parts 1e-4 rel,
+    # gradients 1e-4 of max abs, BN statistics 1e-5, K5 bit for bit)
+    train_lb = {}
+    tests = first_batches(test, G, cfg_c.batch_size,
+                          [f.res.seq_len for f, _ in t.feeds])
+    for feed, _ in t.feeds:
+        Lb = feed.res.seq_len
+        res_ = kernel_check.compare_steps(
+            cfg_c, t.state.model.state_dict(), sizes,
+            gathered(feed, cfg_c.batch_size),
+            to_device(tests.get(Lb, next(iter(tests.values()))), "cuda"))
+        train_lb[Lb] = dict(
+            score_err=res_["score_err"], loss_rel_err=res_["loss_rel_err"],
+            grad_rel_err=res_["grad_rel_err"], bn_err=res_["bn_err"],
+            k5_identical=res_["k5_identical"],
+            failures=kernel_check.failures(res_),
+            launches=res_["launches"]["train/kernel"])
+    log(f"K1 and K2 against their plain versions at each eval Lb: "
+        f"{per_lb} (tol {P13_TOL}); the kernel train steps against the "
+        f"plain ones at each train Lb: {train_lb} | {smi}")
+    if any(v["k1_err"] > P13_TOL or v["k2_err"] > P13_TOL
+           for v in per_lb.values()):
+        raise AssertionError(f"K1 / K2 disagree at a bucket: {per_lb}")
+    for lb, v in train_lb.items():
+        check_counts(f"train step at Lb {lb}", v["launches"], dict(
+            clsr_scan=1, clsr_scan_backward=1, row_scatter=1,
+            train_stats0=0, train_stats1=0, eval_scorer=0))
+        if v["failures"] or v["k5_identical"] is not True:
+            raise AssertionError(f"the kernel train step at Lb {lb}: "
+                                 f"{v['failures']}")
+    for r in runs.values():
+        del r["preds"]
+    return dict(
+        length_buckets=cfg_c.length_buckets, lb_rows=lb_rows, graphs=graphs,
+        epoch=e, examples_per_s=eps, resident_b_examples_per_s=resident_eps,
+        launches=counts, valid=last, test=runs, pred_err=pred_err,
+        metric_err=metric_err, test_dispatches=n_calls, kernels_by_lb=per_lb,
+        steps_by_lb=train_lb, cfg=cfg_c), t
+
+
+def first_batches(loader, G, B, pads):
+    """{Lb: the first eval batch of each bucket} under `pads`."""
+    out = {}
+    for b in loader.eval_batches(G, B // G, paddings=pads):
+        out.setdefault(b.item_hist.shape[1], b)
+    return out
+
+
+def gathered(feed, B):
+    """The batch at the start of a feed's permutation."""
+    feed.offset.fill_(0)
+    return feed.batch(B)
+
+
+def bucket_graph_against_eager(cfg_c, sizes, loader, smi):
+    """Phase 13.4: on the bucket with the most rows, from one state and
+    one generator seed, one graphed resident call of K steps (its first
+    the eager warm-up) and a replayed tail step against K + 1 eager steps
+    on the same gathered batches: every state tensor and loss part bit
+    for bit; the call's launch counts K times the eager step's."""
+    from clsr_tpu_torch.data.resident import (EpochFeed, build_resident_buckets,
+                                              epoch_permutation, perm_length,
+                                              resolve_bucket_paddings)
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import (LOSS_FIELDS,
+                                               make_resident_multi_step,
+                                               make_train_step)
+    B = cfg_c.batch_size
+    pads = resolve_bucket_paddings(cfg_c, loader.view.lengths)
+    res, rows = max(build_resident_buckets(loader.view, pads, "cuda"),
+                    key=lambda b: len(b[1]))
+    elig = np.flatnonzero(loader.view.lengths[rows] >= cfg_c.min_seq_length)
+    perm, n_use, _, _ = epoch_permutation(elig, np.random.RandomState(2),
+                                          B, 1, cfg_c.drop_remainder_min)
+    K = min(cfg_c.train_steps_per_call, -(-n_use // B) - 1)
+    rows_of = lambda p: torch.stack([getattr(p, f) for f in LOSS_FIELDS], -1)
+    runs, counts = {}, {}
+    for run in ("eager", "graph"):
+        model = get_model_class("clsr")(cfg_c, *sizes)
+        state = create_train_state(model, cfg_c)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        feed = EpochFeed(res, perm_length(len(elig), B,
+                                          cfg_c.drop_remainder_min))
+        feed.set_epoch(perm, n_use)
+        if run == "eager":
+            step = make_train_step(model, cfg_c)
+
+            def eager():
+                out = []
+                for i in range(K + 1):
+                    feed.offset.fill_(i * B)
+                    out.append(step(state, feed.batch(B), gen)[1])
+                return out
+            parts, counts[run] = counted(eager)
+            losses = torch.stack([rows_of(p) for p in parts])
+        else:
+            multi = make_resident_multi_step(model, cfg_c, K)
+            (_, stacked), counts[run] = counted(
+                lambda: multi(state, feed, 0, gen))
+            _, tail = multi(state, feed, K * B, gen, 1)
+            losses = torch.cat([rows_of(stacked), rows_of(tail)])
+        runs[run] = (state_tensors(state), losses)
+    (te, le), (tg, lg) = runs["eager"], runs["graph"]
+    bad = differing(te, tg)
+    same_losses = torch.equal(le, lg)
+    want = {k: n // (K + 1) * K for k, n in counts["eager"].items()}
+    cap = multi.capture_stats[res.seq_len]
+    log(f"phase 13 [bucket Lb = {res.seq_len}, {res.n_rows} rows]: {K} "
+        f"graphed resident steps (1 eager warm-up, {K - 1} replays) + 1 "
+        f"replayed tail against {K + 1} eager steps on the same gathered "
+        f"batches, B = {B}: {len(te)} state tensors, bit-identical "
+        f"{len(te) - len(bad)} (differ: {bad[:5]}), loss parts "
+        f"bit-identical {same_losses} | launches eager {counts['eager']}, "
+        f"graphed call {counts['graph']} (want {want}) | capture "
+        f"{cap['capture_s']:.3f} s, pool {cap['pool_bytes'] / 1e6:.1f} MB "
+        f"| {smi}")
+    if bad or not same_losses or counts["graph"] != want:
+        raise AssertionError("phase 13: the bucketed graph differs from "
+                             "the eager steps")
+    return dict(Lb=res.seq_len, rows=res.n_rows, steps=K + 1,
+                tensors=len(te), differ=bad, losses_identical=same_losses,
+                launches=counts, capture=cap)
+
+
+def resident_and_buckets(cfg_b, sizes, loaders, smi):
+    """Phase 13: resident against streamed, the bucketed fit, the
+    bucketed test eval, and a bucketed graph against eager steps."""
+    t13, marks = time.perf_counter(), {}
+
+    def mark(label):
+        marks[label] = time.perf_counter() - t13
+        log(f"[phase 13: {label} done at {marks[label]:.1f} s]")
+
+    pair = resident_against_streamed(cfg_b, sizes, loaders, smi)
+    mark("resident against streamed")
+    bucketed, trainer = buckets_fit_and_eval(
+        cfg_b, sizes, loaders, pair["examples_per_s"], smi)
+    del trainer
+    mark("run C and its test eval")
+    graph = bucket_graph_against_eager(bucketed.pop("cfg"), sizes,
+                                       loaders["train"], smi)
+    mark("bucketed graph against eager")
+    return dict(resident=pair, buckets=bucketed, graph=graph, marks_s=marks,
+                launches={"fit_resident": pair["fit_launches"],
+                          "fit_buckets": {
+                              k: bucketed["launches"][k]
+                              + bucketed["test"]["buckets"]["launches"][k]
+                              for k in bucketed["launches"]}})
+
+
 def train_and_evaluate(smi):
     """Phase 11: the synthetic set through the CLI (run A), through
     Trainer.fit with every kernel gate on (run B), and the gates."""
@@ -2258,9 +2712,12 @@ def train_and_evaluate(smi):
         mark("phase 12 run A")
 
         # ---- run B: every kernel on the path, one epoch ------------------
+        # streamed (the CLI's auto is resident): phase 13 holds the
+        # resident path against this one
         cfg_b = cfg_a.replace(use_pallas_scan=True,
                               use_pallas_train_attention="on",
                               optimizer="lazyadam", epochs=1,
+                              resident_data="off",
                               model_dir=os.path.join(root, "model_b"),
                               summaries_dir=None)
         trainer = Trainer(get_model_class("clsr")(cfg_b, *sizes), cfg_b)
@@ -2433,6 +2890,9 @@ def train_and_evaluate(smi):
             raise AssertionError(f"two fits from one seed differ: {bit_same}")
         ea, eb = fits["prefetch 2"][2], fits["prefetch 0"][2]
         mark("fits from one seed")
+        del fits
+        p13 = resident_and_buckets(cfg_b, sizes, loaders, smi)
+        mark("phase 13")
         return dict(
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
@@ -2449,10 +2909,12 @@ def train_and_evaluate(smi):
                        eager_epoch=eager_b),
             graph=dict(run_a=graph_a, run_b=graph_b), marks_s=marks,
             prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
+            phase13={k: v for k, v in p13.items() if k != "launches"},
             launches={"fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
                       "fit_kernels": {k: fit_counts[k] + test_counts[k]
-                                      for k in fit_counts}})
+                                      for k in fit_counts},
+                      **p13["launches"]})
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -101,15 +101,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default=None,
                    help="override the YAML optimizer (adam or lazyadam)")
     p.add_argument("--train_steps_per_call", type=int, default=None,
-                   help="K optimizer steps per dispatch (run as K single "
-                        "steps)")
+                   help="K train steps a host call (on the card, replays "
+                        "of one captured step)")
     p.add_argument("--autosave_every_calls", type=int, default=0)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--length_buckets", default=None)
-    p.add_argument("--resident_round_rows", type=int, default=None)
+    p.add_argument("--length_buckets", default=None,
+                   help="length-aware batching on the resident path: "
+                        "off | auto | comma edges (data/resident.py)")
+    p.add_argument("--resident_round_rows", type=int, default=None,
+                   help="round resident row counts up to this multiple")
     p.add_argument("--resident_data", default="auto",
                    choices=["auto", "on", "off"],
-                   help="auto and off stream the train data")
+                   help="device-resident train data (data/resident.py); "
+                        "auto = on when it fits resident_max_bytes")
     p.add_argument("--compute_dtype", default=None,
                    choices=["float32", "bfloat16"])
     p.add_argument("--embedding_dtype", default=None,
@@ -147,7 +151,7 @@ def refuse_unported(args) -> None:
     from clsr_tpu_torch.models.registry import get_model_class
     from clsr_tpu_torch.training.optimizer import check_optimizer
 
-    host, resident = "host remainder", "device-resident data"
+    host = "host remainder"
     if args.raw_data:
         _waits("--raw_data (the ETL)", 11, host)
     if args.data_format == "packed":
@@ -164,12 +168,6 @@ def refuse_unported(args) -> None:
                "--mesh_*)", 10, "parallel")
     if args.resume or args.autosave_every_calls > 0:
         _waits("--resume and --autosave_every_calls", 11, host)
-    if args.resident_data == "on":
-        _waits("--resident_data on", 5, resident)
-    if args.length_buckets not in (None, "off"):
-        _waits("--length_buckets", 5, resident)
-    if args.resident_round_rows:
-        _waits("--resident_round_rows", 5, resident)
     if "bfloat16" in (args.compute_dtype, args.embedding_dtype):
         _waits("bfloat16 --compute_dtype / --embedding_dtype", 6,
                "mixed precision")
@@ -248,7 +246,8 @@ def make_config(args):
         write_tfevents=args.write_tfevents,
         **{k: getattr(args, k) for k in
            ("optimizer", "train_steps_per_call", "compute_dtype",
-            "embedding_dtype", "attention_block_size", "length_buckets")
+            "embedding_dtype", "attention_block_size", "length_buckets",
+            "resident_round_rows")
            if getattr(args, k) is not None},
         **({"use_pallas_eval_attention": args.use_pallas_eval_attention}
            if args.use_pallas_eval_attention is not None else {}),

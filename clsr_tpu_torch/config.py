@@ -166,14 +166,39 @@ class Config:
                                     # per step, training/compact_rows.py)
     data_parallel: int = 1
     model_parallel: int = 1
-    # K optimizer steps a dispatch in the JAX package; here K single
-    # steps one after another (the same math; a CUDA graph of K steps is
-    # ROADMAP queue 1 item 5)
+    # K train steps a host call: on the card one captured train step
+    # replayed K times (training/steps.py MultiTrainStep,
+    # ResidentMultiStep); the same math as K single steps
     train_steps_per_call: int = 32
     autosave_every_calls: int = 0   # > 0 raises: ROADMAP queue 1 item 11
     prefetch_batches: int = 2       # host->device batches in flight
-    resident_data: str = "auto"     # 'auto' / 'off' stream; 'on' raises
-                                    # (ROADMAP queue 1 item 5)
+    resident_data: str = "auto"     # 'auto' | 'on' | 'off': upload the
+                                    # padded train set to the device once
+                                    # and gather each batch there
+                                    # (data/resident.py); 'auto' is on
+                                    # when it fits resident_max_bytes
+    resident_max_bytes: int = 6_000_000_000
+    resident_round_rows: int = 0    # > 1: round the resident dataset's
+                                    # (or each length bucket's) rows up
+                                    # to this multiple with never-
+                                    # eligible zero rows
+                                    # (data/resident.py pad_view_rows)
+    length_buckets: str = "off"     # 'off' | 'auto' | comma edges ('16'):
+                                    # on the resident path, rows split by
+                                    # history length into buckets, each
+                                    # padded to its own Lb and trained by
+                                    # its own captured step; 'auto' picks
+                                    # edges over the length histogram
+                                    # (data/resident.py)
+    bn_refresh_batches: int = 64    # bucketed path: forward-only batches,
+                                    # round-robin over the buckets, that
+                                    # re-estimate the BN running
+                                    # statistics at each epoch's end
+    bn_stats_mask: str = "auto"     # 'auto' | 'on' | 'off': the scorers'
+                                    # BN batch statistics over real
+                                    # history positions only
+                                    # (ops/mlp.py MaskedBatchNorm); 'auto'
+                                    # = on exactly when length_buckets is
     drop_remainder_min: int = 5     # the reference drops train batches
                                     # of < 5 rows (sequential_iterator.py
                                     # :338-339)
@@ -242,6 +267,28 @@ class Config:
         if self.resident_data not in ("auto", "on", "off"):
             raise ValueError(
                 f"resident_data must be auto/on/off, got {self.resident_data}")
+        if self.length_buckets not in ("off", "auto"):
+            try:
+                edges = [int(e) for e in self.length_buckets.split(",")]
+            except ValueError:
+                raise ValueError(
+                    f"length_buckets must be off/auto or comma-separated "
+                    f"ints, got {self.length_buckets!r}")
+            if (sorted(edges) != edges or len(set(edges)) != len(edges)
+                    or any(e < 1 or e >= self.max_seq_length
+                           for e in edges)):
+                raise ValueError(
+                    f"length_buckets edges must be strictly ascending and "
+                    f"in [1, max_seq_length), got {self.length_buckets!r}")
+        if self.bn_stats_mask not in ("auto", "on", "off"):
+            raise ValueError(
+                f"bn_stats_mask must be auto/on/off, got "
+                f"{self.bn_stats_mask}")
+        if self.length_buckets != "off" and self.autosave_every_calls > 0:
+            raise ValueError(
+                "autosave_every_calls (mid-epoch resume) is not supported "
+                "with length_buckets: the run state stores a single "
+                "epoch permutation")
         if self.autosave_every_calls < 0:
             raise ValueError(
                 f"autosave_every_calls must be >= 0, got "
@@ -272,36 +319,19 @@ def _coerce(key: str, value: Any) -> Any:
         return tuple(value)
     if key == "is_clip_norm":
         return bool(value)
+    if key in ("bn_stats_mask", "length_buckets") and isinstance(value,
+                                                                 bool):
+        return "on" if value else "off"   # YAML's unquoted on / off
     return value
-
-
-def _refuse_masked_bn_stats(flat: Dict[str, Any]) -> None:
-    """Raise where the JAX package would switch the attention scorers' BN
-    to statistics over real history positions only
-    (clsr_tpu/models/base.py:40-48 `bn_stats_mask_active`): the port has
-    no MaskedBatchNorm yet, and dropping the keys would train other math.
-    YAML reads an unquoted on/off as a bool."""
-    spell = lambda v: ("on" if v else "off") if isinstance(v, bool) else v
-    mask = spell(flat.get("bn_stats_mask", "auto"))
-    buckets = spell(flat.get("length_buckets", "off"))
-    if mask not in ("auto", "on", "off"):
-        raise ValueError(f"bn_stats_mask must be auto/on/off, got {mask}")
-    if buckets != "off":
-        raise NotImplementedError(
-            f"length_buckets {buckets!r} waits for ROADMAP queue 1 item 5 "
-            f"(length buckets, MaskedBatchNorm)")
-    if mask == "on":
-        raise NotImplementedError(
-            "bn_stats_mask 'on' (mask-aware scorer BN statistics) waits for "
-            "ROADMAP queue 1 item 5 (MaskedBatchNorm)")
 
 
 def load_config(yaml_file: Optional[str] = None, **overrides) -> Config:
     """A validated Config from an optional YAML file plus overrides.
 
     YAML values first, keyword overrides win, unknown keys ignored,
-    then validation (clsr_tpu/config.py:583-604).  Settings that would
-    mask the scorers' BN statistics raise (`_refuse_masked_bn_stats`).
+    then validation (clsr_tpu/config.py:583-604).  YAML reads an
+    unquoted on / off as a bool; for bn_stats_mask and length_buckets it
+    means the word.
     """
     flat: Dict[str, Any] = {}
     if yaml_file is not None:
@@ -309,7 +339,6 @@ def load_config(yaml_file: Optional[str] = None, **overrides) -> Config:
         with open(yaml_file, "r") as f:
             flat.update(_flatten_yaml(yaml.safe_load(f)))
     flat.update(overrides)
-    _refuse_masked_bn_stats(flat)
 
     known = {f.name for f in dataclasses.fields(Config)}
     kwargs: Dict[str, Any] = {}

@@ -24,8 +24,10 @@ yields [K, B, ...] views of whole batches, then the [B] tail batches.
 
 Batches stay on the host: `Batch` objects whose fields are numpy arrays.
 `data.prefetch.prefetch_to_device` (or `data.prefetch.to_device`) turns
-them into tensors on the device.  The JAX package's length-bucketed
-`paddings` wait for ROADMAP queue 1 item 5c.
+them into tensors on the device.  The resident path
+(data/resident.py) uploads the `PaddedView` instead.  Eval batches can
+be length-bucketed (`eval_batches(paddings=)`, JAX :233-279): each
+bucket's batches carry only its Lb history columns.
 """
 
 from __future__ import annotations
@@ -210,13 +212,21 @@ class SequenceLoader:
             yield Batch(valid=valid, **row)
 
     def eval_batches(self, group_size: int, batch_groups: int,
-                     min_seq_length: int = 1) -> Iterator[Batch]:
+                     min_seq_length: int = 1,
+                     paddings: Optional[list] = None) -> Iterator[Batch]:
         """Grouped eval batches: one row per (1 pos + num_ngs neg) group.
 
         File rows must come in whole groups of `group_size` with the same
         user and history inside each group (the offline sampler's
         layout).  With group_size 1 every row is its own group (the
-        predict path)."""
+        predict path).
+
+        `paddings` (ascending bucket paddings, data/resident.py
+        `resolve_bucket_paddings`) buckets the groups by the anchor row's
+        history length (a group's negatives share its history), and each
+        bucket's batches carry its Lb history columns; strict edges keep
+        column Lb - 1 padding.  The metrics do not depend on the groups'
+        order."""
         v = self.view
         n_rows = len(v.labels)
         if n_rows % group_size != 0:
@@ -226,18 +236,31 @@ class SequenceLoader:
         anchors = np.arange(0, n_rows, group_size)
         if min_seq_length > 1:
             anchors = anchors[v.lengths[anchors] >= min_seq_length]
+        if paddings:
+            from clsr_tpu_torch.data.resident import bucket_rows
+            L = v.item_hist.shape[1]
+            for Lb, local in bucket_rows(v.lengths[anchors], L, paddings):
+                sub = anchors[local]
+                for lo in range(0, len(sub), batch_groups):
+                    yield self._make_batch(sub[lo:lo + batch_groups],
+                                           batch_groups, group=group_size,
+                                           Lb=None if Lb == L else Lb)
+            return
         for lo in range(0, len(anchors), batch_groups):
             yield self._make_batch(anchors[lo:lo + batch_groups],
                                    batch_groups, group=group_size)
 
     def _make_batch(self, row_idx: np.ndarray, target_rows: int,
-                    group: Optional[int]) -> Batch:
+                    group: Optional[int], Lb: Optional[int] = None) -> Batch:
+        """`Lb` cuts the history fields to a bucket's padding (its rows
+        all have clamped length <= Lb - 1; see eval_batches)."""
         v = self.view
         n = len(row_idx)
+        cols = slice(None) if Lb is None else slice(0, Lb)
 
         def pad(arr):
             if n == target_rows:
-                return arr
+                return np.ascontiguousarray(arr)
             shape = (target_rows - n,) + arr.shape[1:]
             return np.concatenate([arr, np.zeros(shape, dtype=arr.dtype)], 0)
 
@@ -259,11 +282,11 @@ class SequenceLoader:
             items=pad(items),
             cates=pad(cates),
             labels=pad(labels.astype(np.float32)),
-            item_hist=pad(v.item_hist[row_idx]),
-            cate_hist=pad(v.cate_hist[row_idx]),
-            mask=pad(v.mask[row_idx]),
-            time_diff=pad(v.time_diff[row_idx]),
-            time_from_first=pad(v.time_from_first[row_idx]),
-            time_to_now=pad(v.time_to_now[row_idx]),
+            item_hist=pad(v.item_hist[row_idx][:, cols]),
+            cate_hist=pad(v.cate_hist[row_idx][:, cols]),
+            mask=pad(v.mask[row_idx][:, cols]),
+            time_diff=pad(v.time_diff[row_idx][:, cols]),
+            time_from_first=pad(v.time_from_first[row_idx][:, cols]),
+            time_to_now=pad(v.time_to_now[row_idx][:, cols]),
             valid=valid,
         )

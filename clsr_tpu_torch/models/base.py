@@ -45,6 +45,16 @@ from clsr_tpu_torch.ops.segment_sum import lookup
 from clsr_tpu_torch.utils.device import resolve_device
 
 
+def bn_stats_mask_active(cfg) -> bool:
+    """Resolve cfg.bn_stats_mask (clsr_tpu/models/base.py:40-48): the
+    attention scorers' BN batch statistics over real history positions
+    only (ops/mlp.py MaskedBatchNorm).  'auto' = on exactly when length
+    buckets are, since each bucket pads its rows differently."""
+    v = getattr(cfg, "bn_stats_mask", "auto")
+    return v == "on" or (v == "auto"
+                         and getattr(cfg, "length_buckets", "off") != "off")
+
+
 def _first_occurrence(ids: torch.Tensor):
     """(sorted flat ids, mask of each id's first occurrence)."""
     flat = torch.sort(ids.reshape(-1)).values

@@ -38,6 +38,7 @@ import torch
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
+                                        bn_stats_mask_active,
                                         unique_rows_stats)
 from clsr_tpu_torch.ops.attention import TargetAttention
 from clsr_tpu_torch.ops.fused_clsr import FusedCLSREncoder
@@ -63,7 +64,8 @@ class CLSRModel(SequentialModelBase):
                 self.init, self.generator, self.device,
                 enable_bn=cfg.enable_bn,
                 use_kernel=cfg.use_pallas_eval_attention,
-                use_train_kernel=cfg.use_pallas_train_attention)
+                use_train_kernel=cfg.use_pallas_train_attention,
+                bn_stats_mask=bn_stats_mask_active(cfg))
 
         # creation order follows the flax tree (long, encoder, short, ...)
         self.long_term_att = attention(U, T)

@@ -17,6 +17,9 @@ a two-layer relu scorer with no weights returned:
     gated by `use_train_kernel` (cfg.use_pallas_train_attention) or the
     `train_kernel` argument of `forward`; the BN running statistics
     are then updated from the batch statistics the kernels return.
+    Not under `bn_stats_mask` with BN (attention.py:117): the scorer's
+    BN is then `MaskedBatchNorm` (ops/mlp.py), which the plain scorer
+    runs with the history mask as its statistics' weight.
 
 'on' switches a kernel on, 'auto' on for CUDA tensors, 'off' off.
 `SoftAttention` (A2SVD) waits for the model zoo slice.
@@ -44,16 +47,19 @@ class TargetAttention(nn.Module):
                  layer_sizes: Sequence[int], activations: Sequence[str],
                  init: Initializer, generator: torch.Generator,
                  device: torch.device, enable_bn: bool = False,
-                 use_kernel: str = "auto", use_train_kernel: str = "off"):
+                 use_kernel: str = "auto", use_train_kernel: str = "off",
+                 bn_stats_mask: bool = False):
         super().__init__()
         self.enable_bn = enable_bn
         self.use_kernel = use_kernel
         self.use_train_kernel = use_train_kernel
+        self.masked_stats = bn_stats_mask and enable_bn
         self.attention_mat = new_param((key_dim, query_dim), init,
                                        generator, device)
         self.att_fcn = FcnNet(query_dim, layer_sizes, activations, init,
                               generator, device, enable_bn=enable_bn,
-                              out_dim=1, split_first=True)
+                              out_dim=1, split_first=True,
+                              masked_bn=self.masked_stats)
 
     def _scorer_fusable(self, return_weights: bool) -> bool:
         fcn = self.att_fcn
@@ -68,11 +74,13 @@ class TargetAttention(nn.Module):
 
     def train_kernel_applies(self, keys: torch.Tensor, return_weights: bool,
                              train_kernel: Optional[bool] = None) -> bool:
-        """The gate of attention.py:115-121: train mode, any G;
-        `train_kernel` overrides use_train_kernel when given."""
+        """The gate of attention.py:115-121: train mode, any G, not under
+        masked BN statistics; `train_kernel` overrides use_train_kernel
+        when given."""
         on = (_switched_on(self.use_train_kernel, keys)
               if train_kernel is None else train_kernel)
-        return on and self.training and self._scorer_fusable(return_weights)
+        return (on and self.training and not self.masked_stats
+                and self._scorer_fusable(return_weights))
 
     def forward(self, query: torch.Tensor, keys: torch.Tensor,
                 mask: torch.Tensor, return_weights: bool = False,
@@ -97,7 +105,10 @@ class TargetAttention(nn.Module):
             att_fea = self._fused_train(query, keys, att_inputs, mask)
             return att_fea[:, 0] if squeeze_group else att_fea
 
-        logits = self.att_fcn(None, split_parts=(att_inputs, query))[..., 0]
+        logits = self.att_fcn(
+            None, split_parts=(att_inputs, query),
+            stats_weight=(mask[:, :, None, None] if self.masked_stats
+                          else None))[..., 0]
         masked = torch.where(mask[:, :, None] > 0, logits,
                              torch.full_like(logits, MASK_PADDING_VALUE))
         w = torch.softmax(masked, dim=1)                        # [B, L, G]

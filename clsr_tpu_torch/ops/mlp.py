@@ -11,7 +11,12 @@ its momentum convention and keeps the unbiased variance.  In train mode
 it normalises with the batch statistics over every axis but the last,
 mean and var = max(0, E[x^2] - E[x]^2), and then updates its running
 statistics in place (no gradient): r = 0.95 r + 0.05 batch.  In eval
-mode it applies the running statistics.  `FcnNet.update_bn_stats` is
+mode it applies the running statistics.  `MaskedBatchNorm` (:92-145)
+weights the train-mode statistics by a per-position weight (the history
+mask): mean = sum(w x) / max(sum w, 1) and the two-pass variance
+sum(w (x - mean)^2) / max(sum w, 1), so padded positions do not count;
+`FcnNet` builds it for a scorer with `masked_bn` and passes the
+`stats_weight` its forward gets.  `FcnNet.update_bn_stats` is
 the running update alone (`_BNStatsUpdate`, :146-170), for the fused
 train scorer, which computed the normalisation itself.  Dense layers are
 `nn.Linear`, so their `weight` is the transpose of the flax `kernel`
@@ -130,6 +135,32 @@ class BatchNorm(nn.Module):
         return a, (bias - self.mean) * a + self.bias
 
 
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm whose train-mode batch statistics cover the weighted
+    (real) positions only (clsr_tpu/ops/mlp.py:92-145), in f32: the
+    statistics no longer depend on how much of a batch is padding, which
+    differs from one length bucket to the next.  The same parameter and
+    buffer names as `BatchNorm`, so checkpoints and `weights.from_flax`
+    serve both; eval mode applies the running statistics."""
+
+    def forward(self, x: torch.Tensor, weight: torch.Tensor
+                ) -> torch.Tensor:
+        """x [..., C]; weight broadcastable to x.shape[:-1] + (1,)."""
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            wb = weight.float().expand(x.shape[:-1] + (1,))
+            den = wb.sum(axes).clamp_min(1.0)
+            mean = (xf * wb).sum(axes) / den
+            var = (wb * torch.square(xf - mean)).sum(axes) / den
+            self.update_running(mean, var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + BN_EPSILON) * self.scale \
+            + self.bias
+        return y.to(x.dtype)
+
+
 class FcnNet(nn.Module):
     """Dense stack with optional BN, per base_model.py:627-708.
 
@@ -137,7 +168,8 @@ class FcnNet(nn.Module):
     (keys_proj, query), both `in_dim` wide.  `dropout_rates` (the
     config's `dropout` under `user_dropout`) apply in train mode, after
     BN and before the activation, with masks from the generator passed
-    to `forward`.
+    to `forward`.  With `masked_bn` its BN layers are `MaskedBatchNorm`,
+    which read the `stats_weight` passed to `forward`.
     """
 
     def __init__(self, in_dim: int, layer_sizes: Sequence[int],
@@ -145,7 +177,8 @@ class FcnNet(nn.Module):
                  generator: torch.Generator, device: torch.device,
                  enable_bn: bool = False, out_dim: int = 1,
                  split_first: bool = False,
-                 dropout_rates: Optional[Sequence[float]] = None):
+                 dropout_rates: Optional[Sequence[float]] = None,
+                 masked_bn: bool = False):
         super().__init__()
         self.layer_sizes = tuple(layer_sizes)
         self.activations = tuple(activations)
@@ -162,8 +195,8 @@ class FcnNet(nn.Module):
                 layer = dense(width, size, init, generator, device)
             self.add_module(f"w_nn_layer{idx}", layer)
             if enable_bn:
-                self.add_module(f"bn{idx}",
-                                BatchNorm(size, generator, device))
+                bn = MaskedBatchNorm if masked_bn else BatchNorm
+                self.add_module(f"bn{idx}", bn(size, generator, device))
             width = size
         self.w_nn_output = dense(width, out_dim, init, generator, device)
 
@@ -172,14 +205,16 @@ class FcnNet(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor],
                 split_parts: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                = None, generator: Optional[torch.Generator] = None
+                = None, generator: Optional[torch.Generator] = None,
+                stats_weight: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         for idx in range(len(self.layer_sizes)):
             layer = getattr(self, f"w_nn_layer{idx}")
             x = layer(*split_parts) if (idx == 0 and self.split_first) \
                 else layer(x)
             if self.enable_bn:
-                x = getattr(self, f"bn{idx}")(x)
+                bn = getattr(self, f"bn{idx}")
+                x = bn(x) if stats_weight is None else bn(x, stats_weight)
             if self.dropout_rates is not None and self.training:
                 rate = self.dropout_rates[min(idx,
                                               len(self.dropout_rates) - 1)]

@@ -12,8 +12,11 @@ cfg.prefetch_batches in flight) and issues every eval step, keeping the
 predictions on the device; phase 2 copies them to the host once and
 assembles the metrics.  A dispatch takes max(1, batch_size // group)
 groups, as in the JAX package (5 groups of 100 on the test split with
-the CLI's defaults).  Length-bucketed eval waits for ROADMAP queue 1
-item 5.
+the CLI's defaults).  Under cfg.length_buckets the groups are bucketed
+by the anchor row's history length (`resolve_bucket_paddings` over the
+anchors, JAX :34-46), each bucket's batches at its Lb; eval-mode BN reads
+the running statistics and the metrics do not depend on the groups'
+order.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.loader import SequenceLoader
 from clsr_tpu_torch.data.prefetch import device_batches
+from clsr_tpu_torch.data.resident import resolve_bucket_paddings
 from clsr_tpu_torch.metrics import (cal_mean_alpha_metric, cal_metric,
                                     cal_weighted_metric)
 
@@ -65,10 +69,16 @@ def run_weighted_eval(eval_step: Callable, model: torch.nn.Module,
     group = num_ngs + 1
     if batch_groups is None:
         batch_groups = max(1, cfg.batch_size // group)
+    paddings = None
+    if cfg.length_buckets != "off":
+        anchors = np.arange(0, len(loader.view.labels), group)
+        paddings = resolve_bucket_paddings(
+            cfg, loader.view.lengths[anchors]) or None
     host, preds, alphas = _predict(
         eval_step, model,
         loader.eval_batches(group_size=group, batch_groups=batch_groups,
-                            min_seq_length=cfg.min_seq_length),
+                            min_seq_length=cfg.min_seq_length,
+                            paddings=paddings),
         cfg, calc_mean_alpha)
 
     users_all, preds_all, labels_all, alphas_all = [], [], [], []

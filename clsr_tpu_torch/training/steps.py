@@ -40,6 +40,14 @@ K train steps a host call (`make_multi_train_step`, :267-290, and
 train step is captured in a CUDA graph and replayed K times a call
 (`MultiTrainStep`), which the fit runs when train_steps_per_call > 1.
 
+Resident steps (clsr_tpu/data/resident.py:530-639): `make_resident_step`
+and `make_resident_multi_step` gather each step's batch on the device
+from an `EpochFeed` (data/resident.py) at its offset, inside the
+captured step, one graph per dataset shape (each length bucket's Lb);
+`make_bn_refresh_fn` (JAX steps.py:301-328) and
+`make_resident_bn_refresh` re-estimate the BN running statistics with
+forward-only train-mode passes.
+
 The eval step (:331-364): BN running statistics, no dropout
 (base_model.py:366-392); preds = sigmoid(logit) for classification
 (base_model.py:89-109).
@@ -56,6 +64,8 @@ from torch.profiler import record_function
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
+                                          gather_batch)
 from clsr_tpu_torch.ops import launches
 from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
@@ -296,34 +306,43 @@ class MultiTrainStep:
         return row
 
     def _capture(self, state, batch, generator) -> None:
-        device = batch.users.device
         self._static = [t.clone() for t in _fields(batch)]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        before = launches.snapshot()
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        try:
-            # thread_local: the prefetch thread may pin host memory and
-            # copy on its own stream while the step is captured
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._out = _row(self._body(state, Batch(*self._static),
-                                            generator))
-        except RuntimeError as e:
-            raise RuntimeError(
-                f"capturing the train step in a CUDA graph failed: {e}"
-                + (f" (while: {e.__context__})" if e.__context__ else "")
-            ) from e
-        counts = {n: k - before[n] for n, k in launches.snapshot().items()}
-        launches.add(counts, -1)     # the capture launched nothing
-        self._counts = {n: k for n, k in counts.items() if k}
-        self._graph = graph
-        self.capture_stats = dict(
-            capture_s=time.perf_counter() - t0,
-            pool_bytes=torch.cuda.memory_reserved(device) - reserved,
-            launches=self._counts)
+        self._graph, self._out, self._counts, self.capture_stats = \
+            _capture_step(lambda: _row(self._body(
+                state, Batch(*self._static), generator)),
+                generator, batch.users.device)
+
+
+def _capture_step(run: Callable[[], torch.Tensor],
+                  generator: torch.Generator, device: torch.device):
+    """Capture `run` (one train step, returning its loss row) in a CUDA
+    graph of its own memory pool, with `generator` registered:
+    (graph, the captured row, the launch counts a replay adds, stats).
+    Capturing runs nothing, so the counters' ticks are taken back."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    before = launches.snapshot()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    try:
+        # thread_local: the prefetch thread may pin host memory and copy
+        # on its own stream while the step is captured
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = run()
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"capturing the train step in a CUDA graph failed: {e}"
+            + (f" (while: {e.__context__})" if e.__context__ else "")
+        ) from e
+    counts = {n: k - before[n] for n, k in launches.snapshot().items()}
+    launches.add(counts, -1)     # the capture launched nothing
+    counts = {n: k for n, k in counts.items() if k}
+    stats = dict(capture_s=time.perf_counter() - t0,
+                 pool_bytes=torch.cuda.memory_reserved(device) - reserved,
+                 launches=counts)
+    return graph, out, counts, stats
 
 
 def make_multi_train_step(model: torch.nn.Module, cfg: Config,
@@ -331,6 +350,146 @@ def make_multi_train_step(model: torch.nn.Module, cfg: Config,
     """K = steps_per_call train steps a host call (JAX :267-290); see
     `MultiTrainStep`."""
     return MultiTrainStep(model, cfg, steps_per_call)
+
+
+def make_resident_step(model: torch.nn.Module, cfg: Config) -> Callable[
+        [TrainState, EpochFeed, int, torch.Generator],
+        Tuple[TrainState, LossParts]]:
+    """One resident step, eagerly (JAX resident.py:577-603):
+    (state, feed, offset, generator) -> (state, LossParts), the batch
+    gathered from feed's rows [offset, offset + B).  Unlike JAX's, it
+    needs no `sync_params_from_opt` at its end: the lazy update writes the
+    table rows itself (`make_train_step`)."""
+    step = make_train_step_fn(model, cfg)
+    B = cfg.batch_size
+
+    def run(state: TrainState, feed: EpochFeed, offset: int,
+            generator: torch.Generator):
+        feed.offset.fill_(offset)
+        return step(state, feed.batch(B), generator)
+
+    return run
+
+
+class ResidentMultiStep:
+    """K resident steps a host call (JAX resident.py:606-639):
+    `multi(state, feed, offset, generator, steps=K)` runs `steps` train
+    steps on the batches of feed's rows [offset, offset + steps * B) and
+    returns (state, LossParts of [steps]), what as many eager steps give.
+
+    On CPU tensors every step runs eagerly.  On CUDA the step, from the
+    gather (`EpochFeed.batch`: the permutation at the device offset, the
+    valid mask and `gather_batch`) to the optimizer and the offset's
+    advance, is captured in a `torch.cuda.CUDAGraph`, one for each feed
+    (a length bucket's Lb is a shape of its own), each in a memory pool
+    of its own, since the buckets' calls come in a shuffled order.  A
+    call fills the offset once and replays: it sends the device one
+    scalar and no batch.  As in `MultiTrainStep`, the first step on a
+    feed after a (re)bind to a state and generator runs eagerly (its
+    warm-up, a real step), the next is captured, the fit's generator is
+    registered with every graph, and each replay adds its capture's
+    launch counts.  A feed must keep its tensors for the graph's life
+    (`EpochFeed.set_epoch` writes in place); `reset()` drops every graph.
+    `.grad` holds whichever graph's last values; nothing reads it
+    between steps.  A capture that fails raises."""
+
+    def __init__(self, model: torch.nn.Module, cfg: Config,
+                 steps_per_call: int):
+        self.steps_per_call = steps_per_call
+        self.batch_size = cfg.batch_size
+        self._body = _make_step_body(model, cfg, None)
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop every graph; each feed's next CUDA step warms up again."""
+        self._bound = None          # (state, generator)
+        self._feeds: Dict[int, EpochFeed] = {}   # warmed up, by id
+        self._graphs: Dict[int, tuple] = {}      # (graph, row, counts)
+        self.capture_stats: Dict[int, dict] = {}  # by the feed's Lb
+
+    def __call__(self, state: TrainState, feed: EpochFeed, offset: int,
+                 generator: torch.Generator, steps: Optional[int] = None
+                 ) -> Tuple[TrainState, LossParts]:
+        steps = self.steps_per_call if steps is None else steps
+        feed.offset.fill_(offset)
+        rows = [self._step(state, feed, generator) for _ in range(steps)]
+        return state, _parts(torch.stack(rows))
+
+    def _step(self, state, feed, generator) -> torch.Tensor:
+        B = self.batch_size
+        if not feed.perm.is_cuda:
+            row = _row(self._body(state, feed.batch(B), generator))
+        else:
+            if not (self._bound is not None and self._bound[0] is state
+                    and self._bound[1] is generator):
+                self.reset()
+                self._bound = (state, generator)
+            key = id(feed)
+            if self._feeds.get(key) is not feed:     # its warm-up
+                self._feeds[key] = feed
+                self._graphs.pop(key, None)
+                row = _row(self._body(state, feed.batch(B), generator))
+            else:
+                if key not in self._graphs:
+                    graph, out, counts, stats = _capture_step(
+                        lambda: _row(self._body(state, feed.batch(B),
+                                                generator)),
+                        generator, feed.perm.device)
+                    self._graphs[key] = (graph, out, counts)
+                    self.capture_stats[feed.res.seq_len] = stats
+                graph, out, counts = self._graphs[key]
+                graph.replay()
+                launches.add(counts)
+                row = out.clone()
+        state.step += 1
+        return row
+
+
+def make_resident_multi_step(model: torch.nn.Module, cfg: Config,
+                             steps_per_call: int) -> ResidentMultiStep:
+    """K = steps_per_call resident steps a host call; see
+    `ResidentMultiStep`."""
+    return ResidentMultiStep(model, cfg, steps_per_call)
+
+
+def make_bn_refresh_fn(model: torch.nn.Module, cfg: Config) -> Callable[
+        [TrainState, Batch, torch.Generator], TrainState]:
+    """Forward-only BN running-statistics refresh (JAX steps.py:301-328):
+    (state, batch, generator) -> state.  The train-mode forward (the
+    in-batch negatives, dropout, batch-statistics BN) under no_grad; the
+    port's BN updates its running buffers in place, and nothing else of
+    the state changes: no gradient, no optimizer, no step.  The length-
+    bucketed epoch runs it over bucket-interleaved batches before the
+    eval, since its K-step calls are each one bucket's and longer than
+    the running averages' horizon."""
+    num_ngs = cfg.train_num_ngs
+
+    @torch.no_grad()
+    def refresh(state: TrainState, batch: Batch,
+                generator: torch.Generator) -> TrainState:
+        if cfg.need_sample and num_ngs > 0:
+            batch = expand_with_negatives(generator, batch, num_ngs)
+        model.train()
+        model(batch, generator=generator)
+        return state
+
+    return refresh
+
+
+def make_resident_bn_refresh(model: torch.nn.Module, cfg: Config
+                             ) -> Callable[[TrainState, ResidentDataset,
+                                            torch.Tensor, torch.Generator],
+                                           TrainState]:
+    """The refresh on resident rows (JAX resident.py:530-545):
+    (state, res, idx [B], generator) -> state, every row valid."""
+    refresh = make_bn_refresh_fn(model, cfg)
+
+    def run(state: TrainState, res: ResidentDataset, idx: torch.Tensor,
+            generator: torch.Generator) -> TrainState:
+        valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        return refresh(state, gather_batch(res, idx, valid), generator)
+
+    return run
 
 
 def make_eval_step_fn(cfg: Config) -> Callable[

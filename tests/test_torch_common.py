@@ -82,6 +82,26 @@ def numpy_batch(rng, B, G, L, lengths=None, n_users=N_USERS,
     )
 
 
+def padded_view(seed, n=40, L=9):
+    """A PaddedView-like namespace of n rows (lengths 0..L+3, clamped to
+    L in the history arrays), for the resident and bucket helpers."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(0, L + 4, n)
+    mask = np.arange(L)[None] < np.minimum(lengths, L)[:, None]
+    f32 = np.float32
+    return types.SimpleNamespace(
+        users=rng.randint(0, N_USERS, n).astype(np.int32),
+        items=rng.randint(1, N_ITEMS, n).astype(np.int32),
+        cates=rng.randint(1, N_CATES, n).astype(np.int32),
+        labels=rng.randint(0, 2, n).astype(f32),
+        lengths=lengths.astype(np.int64),
+        item_hist=(rng.randint(1, N_ITEMS, (n, L)) * mask).astype(np.int32),
+        cate_hist=(rng.randint(1, N_CATES, (n, L)) * mask).astype(np.int32),
+        time_diff=(rng.randn(n, L) * mask).astype(f32),
+        time_from_first=(rng.rand(n, L) * mask).astype(f32),
+        time_to_now=(rng.rand(n, L) * mask).astype(f32))
+
+
 def jax_batch(arrays) -> JaxBatch:
     return JaxBatch(**{k: jnp.asarray(v) for k, v in arrays.items()})
 

@@ -4,7 +4,8 @@ Without JAX (the card's machine has none), so it runs there with
 `python -m pytest tests/test_torch_fit_gpu.py -m gpu --noconftest -q`.
 On the 200-user synthetic set at the clsr.yaml widths, batch 100:
 
-  * a one-epoch fit with `prefetch_batches: 2` (pinned host copies on a
+  * streamed (`resident_data: off`): a one-epoch fit with
+    `prefetch_batches: 2` (pinned host copies on a
     copy stream, the compute stream waiting on an event) and one with
     `prefetch_batches: 0` (a plain copy per batch) from the same seed:
     every model tensor and every valid metric bit-identical, with every
@@ -12,6 +13,15 @@ On the 200-user synthetic set at the clsr.yaml widths, batch 100:
     and two lazyadam fits.  Deterministic algorithms stay off: the train
     lookups sum a repeated row's gradient in sorted order
     (`ops.segment_sum`), so two fits give the same bits;
+  * a resident fit (`resident_data: on`, K = 4 replays of a step that
+    gathers its own batch on the card) against the streamed fit from the
+    same seed, dense Adam and lazyadam: every model and optimizer tensor
+    and every valid metric bit-identical;
+  * a length-bucketed fit (edges 16, 32; masked BN statistics, lazyadam,
+    every kernel gate): K5 and K2's backward once a step, K3a, K3b and
+    K1 never in training (the masked scorer runs plain), K2's forward
+    once a step, once a refresh batch and once a valid dispatch, one
+    graph a bucket;
   * the train step graphed (`make_multi_train_step`, two calls of K = 4
     and a tail step, every kernel gate on) against 9 eager single steps
     from the same state and generator seed: every model and optimizer
@@ -143,9 +153,11 @@ def _same_states(a, b):
 def test_prefetch_on_and_off_fits_are_bit_identical(cuda, data):
     sizes, loaders = data
     assert not torch.are_deterministic_algorithms_enabled()
-    runs = [_fit(sizes, loaders, _cfg(prefetch_batches=d))
+    runs = [_fit(sizes, loaders, _cfg(prefetch_batches=d,
+                                      resident_data="off"))
             for d in (2, 0, 0)]
-    lazy = [_fit(sizes, loaders, _cfg(optimizer="lazyadam"))
+    lazy = [_fit(sizes, loaders, _cfg(optimizer="lazyadam",
+                                      resident_data="off"))
             for _ in range(2)]
     want = runs[1].state.model.state_dict()
     for t in (runs[0], runs[2]):
@@ -158,6 +170,48 @@ def test_prefetch_on_and_off_fits_are_bit_identical(cuda, data):
     _same_states(lazy[0].state, lazy[1].state)
     assert lazy[0].eval_history == lazy[1].eval_history
     assert runs[0].epoch_stats[0]["steps"] > 5
+
+
+@pytest.mark.parametrize("opt", ["adam", "lazyadam"])
+def test_resident_fit_equals_streamed_fit(cuda, data, opt):
+    sizes, loaders = data
+    assert not torch.are_deterministic_algorithms_enabled()
+    runs = {r: _fit(sizes, loaders, _cfg(optimizer=opt, resident_data=r,
+                                         train_steps_per_call=4))
+            for r in ("on", "off")}
+    assert runs["on"].feeds is not None and runs["off"].feeds is None
+    assert runs["on"].resident_step.capture_stats
+    _same_states(runs["on"].state, runs["off"].state)
+    assert runs["on"].eval_history == runs["off"].eval_history
+    assert runs["on"].epoch_stats[0]["steps"] > 8
+
+
+def test_bucketed_fit_launch_counts(cuda, data):
+    sizes, loaders = data
+    counters = {"K3a": fta.train_stats0, "K3b": fta.train_stats1,
+                "K1": fa.fused_eval_attention, "K2": fs.fused_scan,
+                "K2_bwd": fs.scan_backward, "K5": ru.scatter_rows}
+    cfg = _cfg(optimizer="lazyadam", length_buckets="16,32",
+               train_steps_per_call=4, bn_refresh_batches=6)
+    for c in counters.values():
+        c.launches = 0
+    t = _fit(sizes, loaders, cfg)
+    torch.cuda.synchronize()
+    got = {n: c.launches for n, c in counters.items()}
+    steps = t.epoch_stats[0]["steps"]
+    lbs = [f.res.seq_len for f, _ in t.feeds]
+    assert t.bucketed and len(lbs) >= 2
+    assert sorted(t.resident_step.capture_stats) == lbs
+    from clsr_tpu_torch.data.resident import resolve_bucket_paddings
+    valid = loaders["valid"]
+    anchors = np.arange(0, len(valid.view.labels), 5)
+    pads = resolve_bucket_paddings(cfg, valid.view.lengths[anchors])
+    n_valid = sum(1 for _ in valid.eval_batches(
+        5, cfg.batch_size // 5, paddings=pads))
+    assert np.isfinite(t.epoch_stats[0]["mean_loss"])
+    assert got["K5"] == got["K2_bwd"] == steps > 5
+    assert got["K3a"] == got["K3b"] == got["K1"] == 0
+    assert got["K2"] == steps + cfg.bn_refresh_batches + n_valid
 
 
 @pytest.mark.parametrize("opt", ["adam", "lazyadam"])

@@ -30,8 +30,10 @@ narrow widths of tests/test_torch_common.py:
     then `--only_test` printing the same test dict (every key exactly; as
     in the JAX CLI, `--only_test` adds `mean_alpha`), the counterpart of
     tests/test_cli_and_io.py:10; without `--device` and without a card it
-    raises; every unported flag raises naming its ROADMAP item;
-  * the Trainer's refusals of unported settings.
+    raises; every unported flag raises naming its ROADMAP item, and the
+    flags of item 5 (resident data, length buckets) reach the Config;
+  * the Trainer's refusals of unported settings; `resident_data: on`
+    fits.
 """
 
 import ast
@@ -426,11 +428,24 @@ UNPORTED = {
 }
 
 
+# ROADMAP items ported since their flags were refused: those flags now
+# parse and reach the Config, and those settings fit
+PORTED_ITEMS = {5}
+PORTED_FIELDS = {"resident_on": ("resident_data", "on"),
+                 "length_buckets": ("length_buckets", "auto"),
+                 "resident_round_rows": ("resident_round_rows", 1024)}
+
+
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
     flags, item = UNPORTED[name]
     args = _cli_args(tmp_path, "--device", "cpu", *flags)
-    cli.build_arg_parser().parse_args(args)       # parses as in JAX
+    parsed = cli.build_arg_parser().parse_args(args)   # parses as in JAX
+    if item in PORTED_ITEMS:
+        cli.refuse_unported(parsed)
+        field, value = PORTED_FIELDS[name]
+        assert getattr(cli.make_config(parsed), field) == value
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}\\b"):
         cli.main(args)
@@ -442,8 +457,14 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
     (dict(autosave_every_calls=2, model_dir="m"), 11),
     (dict(write_histograms=True), 11)])
 def test_trainer_refuses_unported_settings(data, kw, item):
-    _, pv, _, _ = data
+    _, pv, port, _ = data
     model = _port_trainer(pv).model
+    if item in PORTED_ITEMS:        # it fits, on the resident path
+        t = Trainer(model, model.cfg.replace(epochs=1, **kw),
+                    log=lambda *a: None)
+        t.fit(port["train"], port["valid"])
+        assert t.feeds is not None and t.epoch_stats[0]["steps"] > 0
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         Trainer(model, model.cfg.replace(**kw))
 
