@@ -192,11 +192,42 @@ Phases, each fatal on failure:
      a replayed tail against 33 eager steps on the same gathered batches:
      every state tensor and loss part bit for bit, the call's launches 32
      times the eager step's.
+ 14. the other optimizers, bf16 tables and compute, int8 serving tables.
+     After phase 10, on the Taobao-sized tables: (a) K5 on bf16 rows at
+     phase 9's bench shape (500,000 x 40, 58,000 skewed ids) bit-
+     identical to its plain version and to index_copy_, a call, on the
+     device by graph replay and on the host, the bound the function's
+     bytes; the compact step's group of 8 with the four tables in bf16
+     beside their f32 pmn rows, one launch, bit-identical; (b) the
+     lazyadam compact step at B = 400 in f32, with bf16 tables, and with
+     bf16 tables and compute: each configuration's kernel step against
+     its plain step on phase 10's first batch (f32: phase 8/10's gates;
+     bf16 tables: the errors the f32 code gives on the same values, the
+     table rows no further off than there, one bf16 step aside; bf16
+     compute: scores 2e-2 abs, loss parts 1e-2 rel; K5 bit-identical;
+     K2 not launched under bf16 compute), then a graphed call of 8 steps
+     timed: ms a step, memory kept and peak, table MB; (e) int8 serving:
+     the f32 service's weights saved and loaded by `ScoringService(...,
+     checkpoint=..., int8_tables=True)`, 64 x 100 and 8 x 10: one K1
+     launch a dispatch, scores within 0.03 of the f32 service and 1e-4
+     of the CPU port's int8 service, table MB, dispatch ms, peak.
+     Inside phase 11, after phase 13, on its data: (c) run B resident
+     and graphed with bf16 tables and compute for one epoch (finite
+     loss, valid auc > 0.5, K2 never, K1/K3a/K3b twice and K5 once a
+     step, examples/s beside phase 13's f32 run B, the trainer's note
+     that K2 gives way) and 32 graphed steps + a tail against 33 eager
+     ones bit for bit; (d) each other optimizer (adadelta, adagrad,
+     sgd, pgd, rmsprop, ftrl, padagrad, and "momentum", which runs sgd)
+     with dense tables: 8 graphed steps + a tail against 9 eager ones
+     bit for bit, finite loss, examples/s of a call of 8 replays.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
-graphed epoch and test eval, and the phase-13 paths `fit_resident`, the
+graphed epoch and test eval, the phase-13 paths `fit_resident`, the
 resident run B epoch, and `fit_buckets`, run C's epoch and bucketed test
-eval), the card's name and power limit, and the final status line.  A copy of all numbers goes to
+eval, and the phase-14 paths `p14_bf16_train` (the timed bf16 calls),
+`p14_int8_serve`, `p14_bf16_fit` and `p14_optimizers` (the graphed
+calls)), the card's name and power limit, and the final status line.
+A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
 
@@ -1306,17 +1337,20 @@ STEP_TABLES = (ITEM_PMN_SHAPE, K5_PATH_SHAPES[0], K5_PATH_SHAPES[1],
                dict(K5_PATH_SHAPES[1], name="user_short_pmn"))
 
 
-def check_step_group(smi):
+def check_step_group(smi, param_dtype=torch.float32,
+                     variants=(("pmn", False), ("pmn+params", True))):
     """The compact step's group, the four pmn entries alone ("pmn") and
-    with the four param entries ("pmn+params", what the step launches):
-    K5 in one launch bit-identical to its plain version and to the same
-    entries by index_copy_, then per call, on the device (CUDA graph)
-    and on the host, each call on the next of TIMED_SETS fresh id and
-    row sets."""
+    with the four param entries ("pmn+params", what the step launches;
+    the tables in `param_dtype`, bf16 under embedding_dtype bfloat16,
+    beside the f32 pmn rows): K5 in one launch bit-identical to its
+    plain version and to the same entries by index_copy_, then per call,
+    on the device (CUDA graph) and on the host, each call on the next of
+    TIMED_SETS fresh id and row sets."""
     from clsr_tpu_torch.ops import row_update as ru
     g = torch.Generator(device="cuda").manual_seed(42)
     tables = [(torch.randn(s["N"], s["W"], generator=g, device="cuda"),
-               torch.randn(s["N"], s["W"] // 3, generator=g, device="cuda"))
+               torch.randn(s["N"], s["W"] // 3, generator=g, device="cuda"
+                           ).to(param_dtype))
               for s in STEP_TABLES]
 
     def draw(with_params):
@@ -1326,12 +1360,12 @@ def check_step_group(smi):
             ids, rows, n = row_update_ids(shape, g)
             entries.append((pmn, ids, rows, n))
             if with_params:
-                entries.append((param, ids,
-                                rows[:, :param.shape[1]].contiguous(), n))
+                entries.append((param, ids, rows[:, :param.shape[1]].to(
+                    param_dtype).contiguous(), n))
         return entries
 
     out = {}
-    for name, with_params in (("pmn", False), ("pmn+params", True)):
+    for name, with_params in variants:
         group = draw(with_params)
         work = {id(t): t.clone() for t, _, _, _ in group}
 
@@ -1363,8 +1397,8 @@ def check_step_group(smi):
                               [(t, i, r) for t, i, r, _ in es])),
             "index_copy_": cycling([(es,) for es in lib_sets], lambda es: [
                 t.index_copy_(0, i, r) for t, i, r in es])}
-        n_bytes = sum(4 * (i.numel() + r.numel() + n * r.shape[1])
-                      for _, i, r, n in group)
+        n_bytes = sum(4 * i.numel() + r.element_size() * (
+            r.numel() + n * r.shape[1]) for _, i, r, n in group)
         bound_ms, bound_by = bound(n_bytes, 0)
         per_call, host = in_turns(calls)
         res = {k: dict(ms=per_call[k], device_ms=graph_ms(c, TIMED_SETS),
@@ -1997,13 +2031,15 @@ def differing(a, b):
     return sorted(k for k in a if not torch.equal(a[k], b[k]))
 
 
-def graph_against_eager(what, cfg, sizes, loader, smi):
+def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False):
     """Phase 12: from one state and one generator seed, one call of the
     graphed K-step train step (its first step the eager warm-up, the
     other K - 1 replays) and a tail step (a replay) against K + 1 eager
-    single steps on the same batches: every model, Adam and lazy tensor
-    and every loss part bit for bit, deterministic algorithms off; the
-    launch counts of the call are K times the eager step's."""
+    single steps on the same batches: every model, optimizer and lazy
+    tensor and every loss part bit for bit, deterministic algorithms off;
+    the launch counts of the call are K times the eager step's.  With
+    `timed_call`, one more call of K replays on the same batches is
+    timed (host clock to a sync): examples/s."""
     from clsr_tpu_torch.data.prefetch import to_device
     from clsr_tpu_torch.models.registry import get_model_class
     from clsr_tpu_torch.training.kernel_check import counted
@@ -2051,9 +2087,19 @@ def graph_against_eager(what, cfg, sizes, loader, smi):
     if bad or not same_losses or counts["graph"] != want:
         raise AssertionError(f"phase 12 [{what}]: the graphed steps differ "
                              f"from the eager ones")
-    return dict(steps=K + 1, tensors=len(te), differ=bad,
-                losses_identical=same_losses, launches=counts,
-                capture=multi.capture_stats)
+    out = dict(steps=K + 1, tensors=len(te), differ=bad,
+               losses_identical=same_losses, launches=counts,
+               capture=multi.capture_stats,
+               loss=float(losses[-1, 0]))
+    if timed_call:
+        stack = stack_batches(batches[:K])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(state, stack, gen)
+        torch.cuda.synchronize()
+        out["examples_per_s"] = K * cfg.batch_size / (
+            time.perf_counter() - t0)
+    return out
 
 
 @contextlib.contextmanager
@@ -2593,6 +2639,446 @@ def resident_and_buckets(cfg_b, sizes, loaders, smi):
                               for k in bucketed["launches"]}})
 
 
+# ------------------------------------------------------------- phase 14
+# the other optimizers, bf16 tables and compute, int8 serving tables
+P14_BF16 = dict(embedding_dtype="bfloat16", compute_dtype="bfloat16")
+# the seven other rules, and a name the JAX package runs as sgd
+P14_RULES = ("adadelta", "adagrad", "sgd", "pgd", "rmsprop", "ftrl",
+             "padagrad", "momentum")
+P14_OPT_K = 8                  # graphed steps a rule (then a tail)
+P14_TRAIN_K = 8                # graphed steps a timed call at Taobao size
+P14_SCORE_TOL, P14_LOSS_REL = 2e-2, 1e-2   # bf16 compute: kernel / plain
+INT8_F32_TOL = 0.03            # int8 / f32 scores (JAX's own test)
+INT8_CPU_TOL = 1e-4            # the card's int8 service / the CPU port's
+
+
+def table_mb(model):
+    """MB of the model's embedding tables (and int8 scales)."""
+    return sum(p.numel() * p.element_size()
+               for n, p in model.named_parameters()
+               if "_embedding" in n) / 1e6
+
+
+def check_row_update_bf16(smi):
+    """Phase 14 (a): K5 on bf16 rows at phase 9's bench shape (500,000
+    x 40, 58,000 skewed ids) bit-identical to its plain version and to
+    index_copy_, timed as phase 9 times it (a call, on the device by
+    graph replay, the host, index_copy_ and the plain version, fresh ids
+    and rows a call), its bound the function's bytes (ids, bf16 rows
+    read and written); then the compact step's group of 8 entries, the
+    four tables in bf16 beside their f32 pmn rows, in one launch."""
+    from clsr_tpu_torch.ops import row_update as ru
+    shape = BENCH_SHAPE
+    N, W = shape["N"], shape["W"]
+    g = torch.Generator(device="cuda").manual_seed(43)
+    table = torch.randn(N, W, generator=g, device="cuda").bfloat16()
+
+    def draw():
+        ids, rows, n = row_update_ids(shape, g)
+        return ids, rows.bfloat16(), n
+
+    ids, rows, n_valid = draw()
+    want = ru.scatter_rows_reference(table.clone(), ids, rows)
+    got = ru.scatter_rows(table.clone(), ids, rows)
+    lib = table.clone().index_copy_(0, ids[:n_valid].long(), rows[:n_valid])
+    torch.cuda.synchronize()
+    same = dict(plain=torch.equal(got, want),
+                index_copy_=torch.equal(got, lib))
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want, lib
+    sets = [draw() for _ in range(TIMED_SETS)]
+    lib_sets = [(i[:n].long(), r[:n]) for i, r, n in sets]
+    work = table.clone()
+    M = ids.numel()
+    n_mean = statistics.mean(n for _, _, n in sets)
+    n_bytes = 4 * M + 2 * (M * W + n_mean * W)
+    bound_ms, bound_by = bound(n_bytes, 0)
+    plain_ms = cuda_ms(cycling(sets, lambda i, r, n:
+                               ru.scatter_rows_reference(work, i, r)))
+    calls = {"row_scatter": cycling(sets, lambda i, r, n:
+                                    ru.scatter_rows(work, i, r)),
+             "index_copy_": cycling(lib_sets, lambda i, r:
+                                    work.index_copy_(0, i, r))}
+    per_call, host = in_turns(calls)
+    device = {k: graph_ms(c, TIMED_SETS) for k, c in calls.items()}
+    res = dict(bit_identical=same, max_abs_err=err,
+               ms=per_call["row_scatter"], device_ms=device["row_scatter"],
+               host_us=host["row_scatter"], plain_ms=plain_ms,
+               library_ms=per_call["index_copy_"],
+               library_device_ms=device["index_copy_"],
+               library_host_us=host["index_copy_"], bound_ms=bound_ms,
+               bound_by=bound_by, bytes=n_bytes, N=N, W=W, M=M,
+               n_valid=n_mean, timed_sets=TIMED_SETS, turns=TURNS)
+    log(f"phase 14 (a) K5 row_scatter [bf16 bench: N={N} W={W} M={M}, "
+        f"{n_mean:.1f} valid, {TIMED_SETS} fresh sets]: bit-identical to "
+        f"the plain version {same['plain']}, to index_copy_ "
+        f"{same['index_copy_']} | per call (median of {TURNS} in turns): "
+        f"kernel {res['ms']:.4f} ms, plain {plain_ms:.4f} ms, index_copy_ "
+        f"{res['library_ms']:.4f} ms | on the device (CUDA graph): kernel "
+        f"{res['device_ms']:.4f} ms ({100 * bound_ms / res['device_ms']:.1f}"
+        f"% of bound), index_copy_ {res['library_device_ms']:.4f} ms | "
+        f"host per call: wrapper {res['host_us']:.2f} us | the function's "
+        f"{n_bytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms ({bound_by}) | "
+        f"{smi}")
+    if not all(same.values()):
+        raise AssertionError(f"K5 on bf16 rows differs: {same}")
+    del work, sets, lib_sets, table
+    torch.cuda.empty_cache()
+    out = {"row_scatter_bf16/bench": res}
+    out.update(check_step_group(smi, torch.bfloat16,
+                                (("bf16 tables+pmn", True),)))
+    return out
+
+
+def eval_batch_from(batch, G, rows, seed):
+    """The first `rows` rows of a train batch with G random candidates
+    each: an eval batch at a K1 shape (G >= 8)."""
+    import dataclasses
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cut = {f.name: getattr(batch, f.name)[:rows].clone()
+           for f in dataclasses.fields(batch)}
+    cut["items"] = torch.randint(1, ITEMS, (rows, G), generator=g,
+                                 device="cuda", dtype=torch.int32)
+    cut["cates"] = torch.randint(1, CATES, (rows, G), generator=g,
+                                 device="cuda", dtype=torch.int32)
+    cut["labels"] = torch.zeros(rows, G, device="cuda")
+    return type(batch)(**cut)
+
+
+def train_bf16(smi):
+    """Phase 14 (b): the lazyadam compact train step at Taobao size (B =
+    400, G = 5, L = 50, every kernel gate on) in f32, with bf16 tables
+    under f32 compute, and with bf16 tables and compute, from the same
+    weights (phase 10's).  Each configuration's kernel step against its
+    plain step on phase 10's first batch (`training.kernel_check`): f32,
+    phase 8/10's gates; bf16 tables under f32 compute, the same scores,
+    loss parts, dense gradient and BN errors as the f32 code gives on
+    the same values (f32 tables holding the bf16 ones; phase 8/10's
+    gradient gate is data-sensitive on the kernel path itself,
+    `probe_kernel_gate.py`) and table-row gradients no further from the
+    plain step than there (or than the gate), one bf16 rounding aside;
+    bf16 compute, scores 2e-2 abs and loss parts 1e-2 relative; K5
+    bit-identical to its plain version everywhere; the launches (K2
+    none under bf16 compute).  Then per configuration a graphed call of
+    P14_TRAIN_K steps (warm-up and capture) and a timed one: ms a step,
+    examples/s, device memory kept between steps and peak, table MB."""
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training import kernel_check
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import (make_multi_train_step,
+                                               stack_batches)
+    sizes = (USERS, ITEMS, CATES)
+    K = P14_TRAIN_K
+    base = load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
+                       user_vocab="u", item_vocab="i", cate_vocab="c", seed=0,
+                       optimizer="lazyadam", use_pallas_train_attention="on",
+                       use_pallas_scan=True, train_steps_per_call=K)
+    cfgs = {"f32": base,
+            "bf16 tables": base.replace(embedding_dtype="bfloat16"),
+            "bf16 tables+compute": base.replace(**P14_BF16)}
+    # phase 10's batches (its first batch is where phase 8/10's gates
+    # were set; the gradient gate is data-sensitive, PERF.md PR 13)
+    batches = train_batches(2 * K + 1, 8, *sizes)
+    test_batch = eval_batch_from(batches[0], 100, 8, 15)
+    weights, out, path_counts = None, {}, {}
+    for run, cfg in cfgs.items():
+        model = get_model_class("clsr")(cfg, *sizes)
+        if weights is None:
+            g = torch.Generator(device="cuda").manual_seed(6)
+            with torch.no_grad():      # weights and BN away from init
+                for p in model.parameters():
+                    p.add_(torch.randn(p.shape, generator=g,
+                                       device="cuda") * 0.1)
+            weights = {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)   # bf16 tables: rounded
+        res = {"table_mb": table_mb(model)}
+        bf16_compute = cfg.compute_dtype == "bfloat16"
+        shapes = kernel_check.compare_steps(cfg, model.state_dict(),
+                                            sizes, batches[0],
+                                            test_batch)
+        lc = shapes["launches"]
+        k2 = 0 if bf16_compute else 1
+        check_counts(f"phase 14 (b) [{run}] kernel train step",
+                     lc["train/kernel"], dict(
+                         train_stats0=2, train_stats1=2, eval_scorer=2,
+                         clsr_scan=k2, clsr_scan_backward=k2,
+                         row_scatter=1))
+        check_counts(f"phase 14 (b) [{run}] kernel eval step",
+                     lc["eval/kernel"], dict(eval_scorer=1,
+                                             clsr_scan=k2))
+        if bf16_compute:
+            bad = ([] if shapes["score_err"] <= P14_SCORE_TOL else
+                   [f"scores {shapes['score_err']:.3e}"]) + (
+                [] if shapes["loss_rel_err"] <= P14_LOSS_REL else
+                [f"loss parts {shapes['loss_rel_err']:.3e}"])
+        elif cfg.embedding_dtype == "bfloat16":
+            # the f32 code on the same numbers (f32 tables that hold the
+            # bf16 values) gives the yardstick: the phase 8/10 gradient
+            # gate is data-sensitive on the kernel path itself
+            # (probe_kernel_gate.py), so bf16 tables must reproduce its
+            # dense results exactly and pass the table-row gate
+            ref = kernel_check.compare_steps(
+                base, {k: (v.bfloat16().float()
+                           if k.endswith("_embedding") else v)
+                       for k, v in weights.items()},
+                sizes, batches[0], test_batch)
+            same = {k: shapes[k] == ref[k] for k in (
+                "score_err", "loss_rel_err", "grad_rel_err",
+                "zero_grad_abs_err", "bn_err")}
+            rows_ok = shapes["table_grad_rel_err"] <= max(
+                kernel_check.GRAD_REL, ref["table_grad_rel_err"])
+            bad = ([f"differs from the f32 code on the same values: "
+                    f"{same}"] if not all(same.values()) else []) + (
+                [] if rows_ok else [
+                    f"table rows {shapes['table_grad_rel_err']:.3e} past "
+                    f"the f32 code's {ref['table_grad_rel_err']:.3e}"])
+            res["f32_code_same_values"] = {
+                k: v for k, v in ref.items() if k != "launches"}
+            log(f"phase 14 (b) [{run}]: the f32 code on the same values "
+                f"(f32 tables holding the bf16 ones): scores, loss parts, "
+                f"dense gradients, BN stats equal {same}; table rows "
+                f"{shapes['table_grad_rel_err']:.3e} here (one bf16 step "
+                f"allowed), {ref['table_grad_rel_err']:.3e} there; phase "
+                f"8/10's gates missed there {kernel_check.failures(ref)} "
+                f"and here {kernel_check.failures(shapes)} | {smi}")
+        else:
+            bad = kernel_check.failures(shapes)
+        if shapes["k5_identical"] is not True:
+            bad.append("K5 differs from its plain version")
+        log(f"phase 14 (b) [{run}] kernel step against plain step, "
+            f"first batch (B = {TRAIN_B}, eval 8 x 100): scores max abs "
+            f"err {shapes['score_err']:.3e}, loss parts max rel err "
+            f"{shapes['loss_rel_err']:.3e} (tol "
+            + (f"{P14_SCORE_TOL} / {P14_LOSS_REL}" if bf16_compute
+               else "1e-4 / 1e-4") + f"), gradients max err / max abs "
+            f"{shapes['grad_rel_err']:.3e}, table row gradients "
+            f"{shapes['table_grad_rel_err']:.3e}, BN stats "
+            f"{shapes['bn_err']:.3e}, K5 bit-identical "
+            f"{shapes['k5_identical']} | launches kernel train "
+            f"{ {k: n for k, n in lc['train/kernel'].items() if n} } | "
+            f"{smi}")
+        if bad:
+            raise AssertionError(f"phase 14 (b) [{run}]: {bad}")
+        res["kernel_check"] = {k: v for k, v in shapes.items()
+                               if k != "launches"}
+        res["kernel_check_launches"] = lc
+        state = create_train_state(model, cfg)
+        multi = make_multi_train_step(model, cfg, K)
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        multi(state, stack_batches(batches[1:K + 1]), gen)   # capture
+        stack = stack_batches(batches[K + 1:2 * K + 1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 1e6
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        (_, parts), counts = counted(lambda: multi(state, stack, gen))
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / K
+        losses = parts.loss.cpu().numpy()
+        kept = path_resident_mb(model, state.optimizer)
+        res.update(ms_per_step=ms, examples_per_s=TRAIN_B / ms * 1e3,
+                   kept_mb=kept, peak_mb=kept + torch.cuda.
+                   max_memory_allocated() / 1e6 - base_mb,
+                   losses=losses.tolist(), launches=counts,
+                   capture=multi.capture_stats)
+        path_counts[run] = counts
+        log(f"phase 14 (b) [{run}]: tables {res['table_mb']:.1f} MB | a "
+            f"graphed call of {K} steps: {ms:.3f} ms a step, "
+            f"{res['examples_per_s']:,.0f} examples/s | device memory kept "
+            f"{kept:.1f} MB, peak {res['peak_mb']:.1f} MB | losses "
+            f"{losses[0]:.5f} .. {losses[-1]:.5f} | launches "
+            f"{ {k: n for k, n in counts.items() if n} } | {smi}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"phase 14 (b) [{run}]: losses {losses}")
+        out[run] = res
+        del model, state, multi, stack
+        torch.cuda.empty_cache()
+    k2_16 = path_counts["bf16 tables+compute"]
+    if k2_16["clsr_scan"] or k2_16["clsr_scan_backward"]:
+        raise AssertionError(f"K2 launched under bf16 compute: {k2_16}")
+    out["launches"] = {k: path_counts["bf16 tables"][k] + k2_16[k]
+                       for k in k2_16}
+    return out
+
+
+def dispatch_ms(svc, reqs, reps=10):
+    """Median ms of one `score(reqs)` dispatch (host clock; it ends in a
+    device-to-host copy)."""
+    svc.score(reqs)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        svc.score(reqs)
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def serve_int8(smi):
+    """Phase 14 (e): int8 serving tables at phase 5's Taobao sizes: a
+    service with seeded random weights (phase 5's noise), its float
+    weights saved and given to `ScoringService(..., checkpoint=...,
+    int8_tables=True)`; 64 x 100 and 8 x 10 requests, one K1 launch a
+    dispatch, scores within INT8_F32_TOL of the f32 service and within
+    INT8_CPU_TOL of the CPU port's int8 service on the 8 x 10 requests;
+    table MB (f32 against int8 + scales), median dispatch ms and peak
+    device memory."""
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    from clsr_tpu_torch.ops.fused_attention import fused_eval_attention
+    from clsr_tpu_torch.serving import ScoringService
+    cfg = load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
+                      user_vocab="u", item_vocab="i", cate_vocab="c", seed=0)
+    sizes = (USERS, ITEMS, CATES)
+    rng = np.random.RandomState(14)
+    big = make_requests(rng, 64, 100, *sizes)
+    small = make_requests(rng, 8, 10, *sizes)
+    vocabs = vocab_for(big + small)
+    f32 = ScoringService(cfg, *sizes, *vocabs)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():      # phase 5's noise: spread the scores
+        for p in f32.model.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
+        for name, buf in f32.model.named_buffers():
+            if name.endswith(".mean"):
+                buf.normal_(0.0, 0.05, generator=g)
+            elif name.endswith(".var"):
+                buf.uniform_(0.5, 1.5, generator=g)
+    root = tempfile.mkdtemp(prefix="clsr_phase14_")
+    try:
+        path = os.path.join(root, "f32.pt")
+        f32.save(path)
+        want = f32.score(big) + f32.score(small)
+        f32_ms = dispatch_ms(f32, big)
+        f32_mb = table_mb(f32.model)
+        del f32
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        svc = ScoringService(cfg, *sizes, *vocabs, checkpoint=path,
+                             int8_tables=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        resident_mb = torch.cuda.memory_allocated() / 1e6
+        torch.cuda.reset_peak_memory_stats()
+        got, counts = [], []
+        for reqs in (big, small):
+            fused_eval_attention.launches = 0
+            got += svc.score(reqs)
+            torch.cuda.synchronize()
+            counts.append(fused_eval_attention.launches)
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        int8_ms = dispatch_ms(svc, big)
+        int8_mb = table_mb(svc.model)
+        cpu = ScoringService(cfg, *sizes, *vocabs, checkpoint=path,
+                             int8_tables=True, device="cpu")
+        cpu_small = cpu.score(small)
+        del cpu
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d_f32 = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    d_cpu = max(float(np.abs(a - b).max())
+                for a, b in zip(got[64:], cpu_small))
+    finite = all(np.isfinite(s).all() and s.shape == (len(r.cand_items),)
+                 for s, r in zip(got, big + small))
+    log(f"phase 14 (e) int8 serving at Taobao sizes: tables {f32_mb:.1f} MB "
+        f"f32, {int8_mb:.1f} MB int8 + scales | 64x100 dispatch median "
+        f"{int8_ms:.3f} ms int8, {f32_ms:.3f} ms f32 | K1 launches a "
+        f"dispatch {counts} | |int8 - f32| {d_f32:.3e} (tol {INT8_F32_TOL}), "
+        f"|card - cpu| int8 on 8x10 {d_cpu:.3e} (tol {INT8_CPU_TOL}) | "
+        f"device memory {resident_mb:.1f} MB after the build, peak "
+        f"{peak_mb:.1f} MB over the two dispatches (service built in "
+        f"{build_s:.2f} s) | {smi}")
+    if not (finite and counts == [1, 1] and d_f32 <= INT8_F32_TOL
+            and d_cpu <= INT8_CPU_TOL):
+        raise AssertionError("phase 14 (e): int8 serving failed its gates")
+    del svc
+    torch.cuda.empty_cache()
+    return dict(f32_table_mb=f32_mb, int8_table_mb=int8_mb,
+                f32_dispatch_ms=f32_ms, int8_dispatch_ms=int8_ms,
+                resident_mb=resident_mb, peak_mb=peak_mb,
+                k1_per_dispatch=counts, d_f32=d_f32, build_s=build_s,
+                d_cpu=d_cpu, launches={"eval_scorer": sum(counts)})
+
+
+def mixed_precision(smi):
+    """Phase 14 (a), (b) and (e), on phase 5/8's Taobao-sized tables;
+    (c) and (d) run inside phase 11 (`mixed_on_p11_data`)."""
+    t14, marks = time.perf_counter(), {}
+
+    def mark(label):
+        marks[label] = time.perf_counter() - t14
+        log(f"[phase 14: {label} done at {marks[label]:.1f} s]")
+
+    rows = check_row_update_bf16(smi)
+    mark("(a) K5 on bf16 rows")
+    trained = train_bf16(smi)
+    mark("(b) bf16 train steps")
+    served = serve_int8(smi)
+    mark("(e) int8 serving")
+    return dict(row_update=rows, train=trained, serve=served, marks_s=marks)
+
+
+def mixed_on_p11_data(cfg_b, sizes, loaders, f32_examples_per_s, smi):
+    """Phase 14 (c) and (d), on phase 11's data: run B's configuration
+    resident and graphed with bf16 tables and compute for one epoch
+    (finite loss, valid auc > 0.5, K2 never launched, K1, K3a, K3b and
+    K5 as in run B, examples/s beside run B's resident f32 epoch of
+    phase 13, the trainer's note that K2 gives way) and its graphed
+    steps against eager ones bit for bit; then each of the other
+    optimizers with dense tables, P14_OPT_K graphed steps and a tail
+    against eager ones bit for bit, finite losses, examples/s."""
+    t, counts, lines = p13_fit(cfg_b, sizes, loaders, resident_data="on",
+                               seed=3, **P14_BF16)
+    steps = t.epoch_stats[0]["steps"]
+    auc = t.eval_history[-1][1]["auc"]
+    loss = t.epoch_stats[0]["mean_loss"]
+    eps = examples_per_s(t)
+    note = [line for line in lines if "not K2" in line]
+    log(f"phase 14 (c) run B resident, graphed, bf16 tables and compute: "
+        f"{steps} steps, {eps:,.1f} examples/s against "
+        f"{f32_examples_per_s:,.1f} "
+        f"in f32 (phase 13) | mean loss {loss:.5f}, valid auc {auc:.4f} | "
+        f"launches {counts} | the trainer's note: {note} | {smi}")
+    check_counts("phase 14 (c) bf16 epoch", counts, dict(
+        row_scatter=steps, train_stats0=2 * steps, train_stats1=2 * steps,
+        eval_scorer=2 * steps, clsr_scan=0, clsr_scan_backward=0,
+        row_sweep=0))
+    if not (np.isfinite(loss) and auc > 0.5 and note):
+        raise AssertionError(f"phase 14 (c): loss {loss}, auc {auc}, note "
+                             f"{note}")
+    fit = dict(steps=steps, examples_per_s=eps,
+               f32_examples_per_s=f32_examples_per_s, mean_loss=loss,
+               valid_auc=auc, launches=counts, upload=t.upload)
+    del t
+    cfg16 = cfg_b.replace(**P14_BF16)
+    fit["graph"] = graph_against_eager("phase 14 bf16", cfg16, sizes,
+                                       loaders["train"], smi)
+    rules = {}
+    for name in P14_RULES:
+        cfg = cfg_b.replace(optimizer=name, train_steps_per_call=P14_OPT_K)
+        r = graph_against_eager(f"phase 14 {name}", cfg, sizes,
+                                loaders["train"], smi, timed_call=True)
+        if not np.isfinite(r["loss"]):
+            raise AssertionError(f"phase 14 (d) {name}: loss {r['loss']}")
+        log(f"phase 14 (d) [{name}]: {r['steps']} graphed steps equal the "
+            f"eager ones bit for bit, loss {r['loss']:.5f}, "
+            f"{r['examples_per_s']:,.1f} examples/s (a call of "
+            f"{P14_OPT_K} replays) | {smi}")
+        rules[name] = r
+    opt_counts = {}
+    for r in rules.values():
+        for k, n in r["launches"]["graph"].items():
+            opt_counts[k] = opt_counts.get(k, 0) + n
+    return dict(fit=fit, rules=rules,
+                launches={"p14_bf16_fit": counts,
+                          "p14_optimizers": opt_counts})
+
+
 def train_and_evaluate(smi):
     """Phase 11: the synthetic set through the CLI (run A), through
     Trainer.fit with every kernel gate on (run B), and the gates."""
@@ -2893,6 +3379,9 @@ def train_and_evaluate(smi):
         del fits
         p13 = resident_and_buckets(cfg_b, sizes, loaders, smi)
         mark("phase 13")
+        p14 = mixed_on_p11_data(cfg_b, sizes, loaders,
+                                p13["resident"]["examples_per_s"], smi)
+        mark("phase 14 (c) and (d)")
         return dict(
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
@@ -2910,11 +3399,12 @@ def train_and_evaluate(smi):
             graph=dict(run_a=graph_a, run_b=graph_b), marks_s=marks,
             prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
             phase13={k: v for k, v in p13.items() if k != "launches"},
+            phase14={k: v for k, v in p14.items() if k != "launches"},
             launches={"fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
                       "fit_kernels": {k: fit_counts[k] + test_counts[k]
                                       for k in fit_counts},
-                      **p13["launches"]})
+                      **p13["launches"], **p14["launches"]})
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2941,6 +3431,7 @@ def main():
     rows = timed("row update", check_row_update, smi)
     lazy = timed("train lazy", train_lazy, smi)
     sums = timed("segment sums", check_segment_sum, smi)
+    mixed = timed("mixed precision", mixed_precision, smi)
     fit = timed("train and evaluate", train_and_evaluate, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
@@ -2950,6 +3441,8 @@ def main():
         "train": trained["launches"],
         "lazy_train": lazy["launches"],
         "bench_row_update": rows["bench"]["launches"],
+        "p14_bf16_train": mixed["train"]["launches"],
+        "p14_int8_serve": mixed["serve"]["launches"],
         **fit["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
@@ -2999,6 +3492,7 @@ def main():
                    "serve": served, "k3": k3, "train_scorer": scorer,
                    "train": trained, "row_update": rows,
                    "train_lazy": lazy, "segment_sums": sums,
+                   "mixed_precision": mixed,
                    "train_and_evaluate": fit}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))

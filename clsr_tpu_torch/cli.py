@@ -99,7 +99,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_row_layout", default="auto",
                    choices=("auto", "interleaved", "contiguous"))
     p.add_argument("--optimizer", default=None,
-                   help="override the YAML optimizer (adam or lazyadam)")
+                   help="override the YAML optimizer (adam, lazyadam, "
+                        "adadelta, adagrad, sgd, gd, pgd, rmsprop, ftrl, "
+                        "padagrad; any other name runs sgd)")
     p.add_argument("--train_steps_per_call", type=int, default=None,
                    help="K train steps a host call (on the card, replays "
                         "of one captured step)")
@@ -149,7 +151,6 @@ def refuse_unported(args) -> None:
     """Raise for every parsed flag whose path the port does not run yet,
     naming its ROADMAP queue 1 item."""
     from clsr_tpu_torch.models.registry import get_model_class
-    from clsr_tpu_torch.training.optimizer import check_optimizer
 
     host = "host remainder"
     if args.raw_data:
@@ -168,9 +169,6 @@ def refuse_unported(args) -> None:
                "--mesh_*)", 10, "parallel")
     if args.resume or args.autosave_every_calls > 0:
         _waits("--resume and --autosave_every_calls", 11, host)
-    if "bfloat16" in (args.compute_dtype, args.embedding_dtype):
-        _waits("bfloat16 --compute_dtype / --embedding_dtype", 6,
-               "mixed precision")
     if args.attention_block_size and args.attention_block_size > 0:
         _waits("--attention_block_size", 9, "long context")
     if args.write_histograms or args.write_tfevents:
@@ -179,8 +177,6 @@ def refuse_unported(args) -> None:
         _waits(f"--sequential_model {args.sequential_model}", 8,
                "model zoo")
     get_model_class(args.model)
-    if args.optimizer is not None:
-        check_optimizer(args.optimizer)
 
 
 def dataset_settings(dataset: str):

@@ -257,6 +257,12 @@ class Config:
             raise ValueError(
                 f"embedding_dtype must be float32 or bfloat16, got "
                 f"{self.embedding_dtype}")
+        if (self.embedding_dtype == "bfloat16"
+                and self.optimizer != "lazyadam"):
+            # the dense optimizers keep no f32 update path for bf16
+            # tables (clsr_tpu/config.py:464-469)
+            raise ValueError(
+                "embedding_dtype=bfloat16 requires optimizer=lazyadam")
         for key in ("use_pallas_eval_attention", "use_pallas_train_attention"):
             if getattr(self, key) not in ("auto", "on", "off"):
                 raise ValueError(

@@ -1,5 +1,5 @@
 // K5 (row scatter, grouped) and K4 (row sweep): set sorted rows of [N, W]
-// f32 tables, CUDA C++ for sm_90a.
+// tables, CUDA C++ for sm_90a: K5 on f32 and bf16 rows, K4 on f32.
 //
 // Both compute one function, the last write of the LazyAdam row update
 // (clsr_tpu/training/lazy_adam.py:191-192, 315-322):
@@ -21,8 +21,12 @@
 // block finds its entry by scanning those offsets.  Inside an entry the
 // flattened (row, 16-byte unit) space maps onto threads, so no lane idles
 // whatever W is, and each thread issues the loads of kUnitsVec units (ids
-// and rows) before its first store.  Entries whose W % 4 != 0 or whose
-// bases are not 16-byte aligned take 4-byte units in the same kernel.  (A
+// and rows) before its first store.  Each entry carries its element size (4
+// for f32, 2 for bf16: a lazy step's group mixes bf16 tables with their f32
+// pmn rows), and the kernel only moves bits: an entry whose row bytes are a
+// multiple of 16 and whose bases are 16-byte aligned takes 16-byte units
+// (bf16 rows of 40, 32 and 8 are 80, 64 and 16 bytes), any other takes
+// units of its element size, in the same launch.  (A
 // Hopper bulk-copy design, one cp.async.bulk of a block's rows into shared
 // memory, then one bulk store per row, was measured beside it and was no
 // faster on the card: PERF.md.)  Ids past the valid prefix (>= N) are
@@ -46,6 +50,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,29 +61,24 @@ constexpr int kWideThreads = 1024;   // K4 on dense slabs: 2 blocks an SM
 constexpr int kSamples = 256;        // K4's search samples per round
 constexpr int kMaxEntries = 16;      // entries of one grouped launch
 constexpr int kUnitsVec = 4;         // 16-byte units in flight a thread
-constexpr int kUnitsScalar = 8;      // 4-byte units in flight a thread
+constexpr int kUnitsScalar = 8;      // 4- or 2-byte units in flight a thread
 
-template <bool kVec> struct Unit {
-  using T = float;
-  static constexpr int kPerThread = kUnitsScalar;
-};
-template <> struct Unit<true> {
-  using T = float4;
-  static constexpr int kPerThread = kUnitsVec;
+// units in flight a thread, by unit: 16 bytes, or one element of 4 or 2
+template <typename T> struct PerThread {
+  static constexpr int value = sizeof(T) == 16 ? kUnitsVec : kUnitsScalar;
 };
 
 // Copy units [u0, u1) of the flattened (row j, unit c) space of `rows`
-// ([M, n] units) to unit c of table row ids[j], dropping ids outside
+// ([M, n] units of T) to unit c of table row ids[j], dropping ids outside
 // [0, N).  Thread t of kT takes u0 + t, u0 + t + kT, ...: it loads its
-// kPerThread ids and row units, then stores them.
-template <bool kVec, int kT>
-__device__ __forceinline__ void copy_units(float* __restrict__ table, int N,
+// units' ids and rows, then stores them.
+template <typename T, int kT>
+__device__ __forceinline__ void copy_units(void* __restrict__ table, int N,
                                            unsigned n,
                                            const int* __restrict__ ids,
-                                           const float* __restrict__ rows,
+                                           const void* __restrict__ rows,
                                            unsigned u0, unsigned u1) {
-  using T = typename Unit<kVec>::T;
-  constexpr int U = Unit<kVec>::kPerThread;
+  constexpr int U = PerThread<T>::value;
   const T* src = reinterpret_cast<const T*>(rows);
   T* dst = reinterpret_cast<T*>(table);
   for (unsigned base = u0 + threadIdx.x; base < u1; base += U * kT) {
@@ -101,12 +101,15 @@ __device__ __forceinline__ void copy_units(float* __restrict__ table, int N,
   }
 }
 
+enum UnitKind { kUnit16 = 0, kUnit4 = 1, kUnit2 = 2 };
+
 struct Entry {
-  float* table;
+  void* table;
   const int* ids;
-  const float* rows;
-  int N, W, M;
-  int vec;  // 16-byte units: W % 4 == 0 and aligned bases
+  const void* rows;
+  int N, M;
+  unsigned n;  // units a row
+  int unit;    // UnitKind
 };
 
 struct Group {
@@ -115,6 +118,15 @@ struct Group {
   int count;
 };
 
+template <typename T>
+__device__ __forceinline__ void scatter_block(const Entry& t, unsigned lb) {
+  const unsigned span = kThreads * PerThread<T>::value;
+  const unsigned total = (unsigned)t.M * t.n;
+  const unsigned u0 = lb * span;
+  const unsigned u1 = total - u0 < span ? total : u0 + span;
+  copy_units<T, kThreads>(t.table, t.N, t.n, t.ids, t.rows, u0, u1);
+}
+
 __global__ void __launch_bounds__(kThreads)
     row_scatter_group_kernel(const __grid_constant__ Group g) {
   int e = 0;
@@ -122,15 +134,12 @@ __global__ void __launch_bounds__(kThreads)
     if ((int)blockIdx.x >= g.first[k]) e = k;
   const Entry& t = g.e[e];
   const unsigned lb = blockIdx.x - g.first[e];
-  const unsigned n = t.vec ? t.W / 4 : t.W;
-  const unsigned span = kThreads * (t.vec ? kUnitsVec : kUnitsScalar);
-  const unsigned total = (unsigned)t.M * n;
-  const unsigned u0 = lb * span;
-  const unsigned u1 = total - u0 < span ? total : u0 + span;
-  if (t.vec)
-    copy_units<true, kThreads>(t.table, t.N, n, t.ids, t.rows, u0, u1);
+  if (t.unit == kUnit16)
+    scatter_block<uint4>(t, lb);
+  else if (t.unit == kUnit4)
+    scatter_block<unsigned>(t, lb);
   else
-    copy_units<false, kThreads>(t.table, t.N, n, t.ids, t.rows, u0, u1);
+    scatter_block<unsigned short>(t, lb);
 }
 
 // s0 = the first j with ids[j] >= x0, s1 = the first with ids[j] >= x1:
@@ -201,13 +210,14 @@ __global__ void __launch_bounds__(kT, kT == kWideThreads ? 2 : 16)
     row_sweep_kernel(float* table, int N, unsigned n,
                      const int* __restrict__ ids, int M,
                      const float* __restrict__ rows, int block) {
+  using T = typename std::conditional<kVec, uint4, unsigned>::type;
   prefetch_share<kT>(ids, M, rows, (long long)M * n * (kVec ? 4 : 1));
   const long long lo = (long long)blockIdx.x * block;
   int s0, s1;
   segment<kT>(ids, M, lo, lo + block, s0, s1);
   if (s0 < s1)
-    copy_units<kVec, kT>(table, N, n, ids, rows, (unsigned)s0 * n,
-                         (unsigned)s1 * n);
+    copy_units<T, kT>(table, N, n, ids, rows, (unsigned)s0 * n,
+                      (unsigned)s1 * n);
 }
 
 template <bool kVec>
@@ -250,8 +260,8 @@ T* as_ptr(long long v) {
 // pointer: the cheapest call from Python.
 
 // args: count (<= kMaxEntries), device, stream, then `count` entries of
-// six: table, N, W, ids (int32), M, rows.  Entries with no work are
-// skipped.
+// seven: table, N, W, ids (int32), M, rows, element size (4 or 2).  Entries
+// with no work are skipped.
 extern "C" int clsr_row_scatter_group(const long long* args) {
   const long long count = args[0];
   const int device = (int)args[1];
@@ -262,23 +272,26 @@ extern "C" int clsr_row_scatter_group(const long long* args) {
   long long blocks = 0;
   int k = 0;
   for (int i = 0; i < count; ++i) {
-    const long long* d = desc + 6 * i;
-    const long long N = d[1], W = d[2], M = d[4];
+    const long long* d = desc + 7 * i;
+    const long long N = d[1], W = d[2], M = d[4], esize = d[6];
     if (N < 0 || W < 0 || M < 0 || N > INT_MAX || W > INT_MAX ||
-        M > INT_MAX)
+        M > INT_MAX || (esize != 4 && esize != 2))
       return (int)cudaErrorInvalidValue;
     if (N == 0 || W == 0 || M == 0) continue;
     Entry& t = g.e[k];
-    t.table = as_ptr<float>(d[0]);
+    t.table = as_ptr<void>(d[0]);
     t.ids = as_ptr<const int>(d[3]);
-    t.rows = as_ptr<const float>(d[5]);
+    t.rows = as_ptr<const void>(d[5]);
     t.N = (int)N;
-    t.W = (int)W;
     t.M = (int)M;
-    t.vec = W % 4 == 0 && aligned16(t.table) && aligned16(t.rows);
-    const long long n = t.vec ? W / 4 : W;
+    const long long row_bytes = W * esize;
+    const bool vec =
+        row_bytes % 16 == 0 && aligned16(t.table) && aligned16(t.rows);
+    t.unit = vec ? kUnit16 : esize == 4 ? kUnit4 : kUnit2;
+    const long long n = vec ? row_bytes / 16 : W;
     if (M * n > INT_MAX) return (int)cudaErrorInvalidValue;
-    const long long span = kThreads * (t.vec ? kUnitsVec : kUnitsScalar);
+    t.n = (unsigned)n;
+    const long long span = kThreads * (vec ? kUnitsVec : kUnitsScalar);
     g.first[k++] = (int)blocks;
     blocks += (M * n + span - 1) / span;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -294,7 +307,7 @@ extern "C" int clsr_row_scatter_group(const long long* args) {
 // Blocks of kWideThreads when the average slab holds more units than a
 // quarter of their pass, else of kSparseThreads (the slabs are then
 // sparse or empty, and small blocks, all resident at once, search them).
-// args: table, N, W, ids (int32), M, rows, block, device, stream.
+// f32 only.  args: table, N, W, ids (int32), M, rows, block, device, stream.
 extern "C" int clsr_row_sweep(const long long* args) {
   if (args[1] > INT_MAX || args[2] > INT_MAX || args[4] > INT_MAX ||
       args[6] > INT_MAX)

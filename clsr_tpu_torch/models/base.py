@@ -24,8 +24,20 @@ call (`F.embedding`'s backward on the card does not), and eval keeps
 `F.embedding`.  Under the compact row engine (training/compact_rows.py,
 `compact` = {table name: CompactRows}, JAX models/base.py:177-190) the
 lookups are the gathered rows' sites and the lazy L2 comes from them: no
-table `Parameter` is read.  int8 tables and a device mesh raise or wait
-for their ROADMAP items.
+table `Parameter` is read.
+
+Precision (JAX :51-97): under `embedding_dtype: bfloat16` the tables are
+bf16 (drawn in f32 from the generator, then rounded), and every lookup
+is upcast to f32 right after the gather (`lookup_cast`), so the
+gradient a table gets is bf16, each cotangent row rounded, as JAX's is.
+`compute_dtype: bfloat16` runs the dense layers, the scorers' plain path
+and the recurrence's matmuls in bf16 (`compute_dtype`, passed down to
+ops/mlp.py, ops/attention.py and ops/fused_clsr.py); parameters, BN
+statistics and the carries stay f32.  A serving model may hold int8
+tables with `<name>_scales` [N, 1] f32 beside them (serving.py
+`quantize_tables`): `lookup_rows` dequantizes after the gather, and
+training refuses such a model (`check_not_quantized`).  A device mesh
+waits for its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,6 +67,29 @@ def bn_stats_mask_active(cfg) -> bool:
                          and getattr(cfg, "length_buckets", "off") != "off")
 
 
+def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """None for float32 (the default), else the torch dtype of mixed
+    precision (clsr_tpu/models/base.py:51-55)."""
+    if cfg.compute_dtype in ("float32", "f32", None):
+        return None
+    return getattr(torch, cfg.compute_dtype)
+
+
+def lookup_cast(emb: torch.Tensor) -> torch.Tensor:
+    """Upcast bf16-stored rows to the f32 compute path (JAX :72-76)."""
+    return emb.float() if emb.dtype == torch.bfloat16 else emb
+
+
+def check_not_quantized(model: nn.Module) -> None:
+    """Raise if `model` holds int8 tables: a quantized model serves only
+    (clsr_tpu/serving.py:125-133)."""
+    int8 = sorted(n for n, p in model.named_parameters()
+                  if p.dtype == torch.int8)
+    if int8:
+        raise ValueError(f"int8 tables {int8} are for serving only; train "
+                         f"the float model and quantize it for serving")
+
+
 def _first_occurrence(ids: torch.Tensor):
     """(sorted flat ids, mask of each id's first occurrence)."""
     flat = torch.sort(ids.reshape(-1)).values
@@ -67,7 +102,7 @@ def unique_rows_sumsq(table: torch.Tensor, ids: torch.Tensor
                       ) -> torch.Tensor:
     """sum(||table[id]||^2) over the UNIQUE ids (models/base.py:99-110)."""
     flat, first = _first_occurrence(ids)
-    rows = lookup(table, flat)
+    rows = lookup_cast(lookup(table, flat))
     return ((rows * rows).sum(-1) * first).sum()
 
 
@@ -76,7 +111,8 @@ def unique_rows_stats(table_a: torch.Tensor, table_b: torch.Tensor,
     """(sumsq_a, sumsq_b, sum((a-b)^2), n_unique*dim) over unique ids
     (models/base.py:113-131)."""
     flat, first = _first_occurrence(ids)
-    ra, rb = lookup(table_a, flat), lookup(table_b, flat)
+    ra = lookup_cast(lookup(table_a, flat))
+    rb = lookup_cast(lookup(table_b, flat))
     fa = first[:, None].to(ra.dtype)
     diff = ra - rb
     return ((ra * ra * fa).sum(), (rb * rb * fa).sum(),
@@ -103,16 +139,11 @@ def check_supported(cfg: Config) -> None:
     if cfg.data_parallel * cfg.model_parallel > 1:
         raise NotImplementedError(
             "a device mesh (data_parallel*model_parallel > 1) waits for "
-            "ROADMAP queue 1, int8 and mesh serving")
-    if cfg.embedding_dtype != "float32" or cfg.compute_dtype not in (
-            "float32", "f32"):
-        raise NotImplementedError(
-            "bf16 tables or compute wait for ROADMAP queue 1, mixed "
-            "precision")
+            "ROADMAP queue 1 item 10 (parallel)")
     if cfg.attention_block_size > 0:
         raise NotImplementedError(
-            "blockwise long-context attention waits for ROADMAP queue 1, "
-            "long context")
+            "blockwise long-context attention waits for ROADMAP queue 1 "
+            "item 9 (long context)")
 
 
 class SequentialModelBase(nn.Module):
@@ -131,14 +162,23 @@ class SequentialModelBase(nn.Module):
             generator.manual_seed(cfg.seed if cfg.seed is not None else 0)
         self.generator = generator
         self.init = get_initializer(cfg.init_method, cfg.init_value)
-        self.item_embedding = self.new_param(
+        self.dtype = compute_dtype(cfg)
+        self.item_embedding = self.new_table(
             (n_items, cfg.item_embedding_dim))
-        self.cate_embedding = self.new_param(
+        self.cate_embedding = self.new_table(
             (n_cates, cfg.cate_embedding_dim))
 
     def new_param(self, shape, init=None) -> nn.Parameter:
         return new_param(shape, init or self.init, self.generator,
                          self.device)
+
+    def new_table(self, shape) -> nn.Parameter:
+        """An embedding table in cfg.embedding_dtype: drawn in f32 and
+        rounded to bf16 (JAX `embedding_init`, :58-69)."""
+        p = self.new_param(shape)
+        if self.cfg.embedding_dtype == "bfloat16":
+            p = nn.Parameter(p.detach().to(torch.bfloat16))
+        return p
 
     def head_in_dim(self) -> int:
         raise NotImplementedError
@@ -150,15 +190,23 @@ class SequentialModelBase(nn.Module):
         self.logit_fcn = FcnNet(
             self.head_in_dim(), cfg.layer_sizes, cfg.activation, self.init,
             self.generator, self.device, enable_bn=cfg.enable_bn, out_dim=1,
-            dropout_rates=cfg.dropout if cfg.user_dropout else None)
+            dropout_rates=cfg.dropout if cfg.user_dropout else None,
+            dtype=self.dtype)
 
-    def embed(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """table[ids]: in train mode through `segment_sum.lookup`, whose
-        gradient sums a repeated row in one fixed order; else
-        `F.embedding`."""
+    def lookup_rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of table `name` at `ids`, in f32 (JAX `lookup_rows`,
+        :79-97): in train mode through `segment_sum.lookup`, whose
+        gradient sums a repeated row in one fixed order, else
+        `F.embedding`; bf16 rows upcast, int8 rows dequantized by their
+        gathered `<name>_scales`."""
+        table = getattr(self, name)
         if self.training:
-            return lookup(table, ids)
-        return F.embedding(ids, table)
+            return lookup_cast(lookup(table, ids))
+        rows = F.embedding(ids, table)
+        if table.dtype == torch.int8:
+            scales = F.embedding(ids, getattr(self, f"{name}_scales"))
+            return rows.float() * scales
+        return lookup_cast(rows)
 
     def dropout(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -180,17 +228,20 @@ class SequentialModelBase(nn.Module):
             # lookups and the lazy L2 from the gathered rows
             cr_item = compact["item_embedding"]
             cr_cate = compact["cate_embedding"]
-            item_hist_emb = cr_item.site("hist")
-            cate_hist_emb = cr_cate.site("hist")
-            target_emb = torch.cat([cr_item.site("targets"),
-                                    cr_cate.site("targets")], dim=-1)
+            item_hist_emb = lookup_cast(cr_item.site("hist"))
+            cate_hist_emb = lookup_cast(cr_cate.site("hist"))
+            target_emb = torch.cat([lookup_cast(cr_item.site("targets")),
+                                    lookup_cast(cr_cate.site("targets"))],
+                                   dim=-1)
             embed_sumsq = cr_item.sumsq_unique() + cr_cate.sumsq_unique()
         else:
-            item_hist_emb = self.embed(self.item_embedding, batch.item_hist)
-            cate_hist_emb = self.embed(self.cate_embedding, batch.cate_hist)
+            item_hist_emb = self.lookup_rows("item_embedding",
+                                             batch.item_hist)
+            cate_hist_emb = self.lookup_rows("cate_embedding",
+                                             batch.cate_hist)
             target_emb = torch.cat(
-                [self.embed(self.item_embedding, batch.items),
-                 self.embed(self.cate_embedding, batch.cates)], dim=-1)
+                [self.lookup_rows("item_embedding", batch.items),
+                 self.lookup_rows("cate_embedding", batch.cates)], dim=-1)
         if self.training:
             if compact is None:
                 # lazy L2 bookkeeping BEFORE dropout, on raw table rows

@@ -24,7 +24,9 @@ clsr.py:20-455):
     clsr.py:173-177), seq_len, and the involved users' L2 and
     discrepancy sums over unique rows;
   * under the compact row engine, the user rows and those sums from the
-    gathered rows (`site("rows")`, `pair_stats`), no table read.
+    gathered rows (`site("rows")`, `pair_stats`), no table read;
+  * under compute_dtype bfloat16 the attentions, the encoder, the fusion
+    MLP and the head run in bf16 (JAX clsr.py:105-197, base.py:254).
 
 Only the fused time4lstm encoder is ported; the unfused GRU/LSTM
 encoders (ops/rnn.py) wait for the model zoo slice.
@@ -38,7 +40,7 @@ import torch
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
-                                        bn_stats_mask_active,
+                                        bn_stats_mask_active, lookup_cast,
                                         unique_rows_stats)
 from clsr_tpu_torch.ops.attention import TargetAttention
 from clsr_tpu_torch.ops.fused_clsr import FusedCLSREncoder
@@ -55,8 +57,8 @@ class CLSRModel(SequentialModelBase):
                 "only the fused time4lstm encoder is ported; the unfused "
                 "GRU/LSTM encoders wait for ROADMAP queue 1 item 8, model zoo")
         U, H, T = cfg.user_embedding_dim, cfg.hidden_size, cfg.target_dim
-        self.user_long_embedding = self.new_param((n_users, U))
-        self.user_short_embedding = self.new_param((n_users, U))
+        self.user_long_embedding = self.new_table((n_users, U))
+        self.user_short_embedding = self.new_table((n_users, U))
 
         def attention(query_dim, key_dim):
             return TargetAttention(
@@ -65,7 +67,7 @@ class CLSRModel(SequentialModelBase):
                 enable_bn=cfg.enable_bn,
                 use_kernel=cfg.use_pallas_eval_attention,
                 use_train_kernel=cfg.use_pallas_train_attention,
-                bn_stats_mask=bn_stats_mask_active(cfg))
+                bn_stats_mask=bn_stats_mask_active(cfg), dtype=self.dtype)
 
         # creation order follows the flax tree (long, encoder, short, ...)
         self.long_term_att = attention(U, T)
@@ -73,7 +75,7 @@ class CLSRModel(SequentialModelBase):
             T, U, H, self.generator, self.device,
             interest_evolve=cfg.interest_evolve,
             predict_long_short=cfg.predict_long_short,
-            use_pallas=cfg.use_pallas_scan)
+            use_pallas=cfg.use_pallas_scan, dtype=self.dtype)
         self.short_term_att = attention(U + T, H)
         if not cfg.manual_alpha:
             fusion_in = ((H if cfg.predict_long_short else 0)
@@ -81,7 +83,7 @@ class CLSRModel(SequentialModelBase):
             self.fcn_alpha = FcnNet(
                 fusion_in, cfg.att_fcn_layer_sizes, cfg.activation,
                 self.init, self.generator, self.device,
-                enable_bn=cfg.enable_bn, out_dim=1)
+                enable_bn=cfg.enable_bn, out_dim=1, dtype=self.dtype)
         self.build_head()
 
     def head_in_dim(self) -> int:
@@ -100,11 +102,13 @@ class CLSRModel(SequentialModelBase):
             # the gathered rows (clsr_tpu/models/clsr.py:69-82)
             cr_l = compact["user_long_embedding"]
             cr_s = compact["user_short_embedding"]
-            user_long, user_short = cr_l.site("rows"), cr_s.site("rows")
+            user_long = lookup_cast(cr_l.site("rows"))
+            user_short = lookup_cast(cr_s.site("rows"))
             user_stats = cr_l.pair_stats(cr_s) if self.training else None
         else:
-            user_long = self.embed(self.user_long_embedding, batch.users)
-            user_short = self.embed(self.user_short_embedding, batch.users)
+            user_long = self.lookup_rows("user_long_embedding", batch.users)
+            user_short = self.lookup_rows("user_short_embedding",
+                                          batch.users)
             user_stats = (unique_rows_stats(
                 self.user_long_embedding, self.user_short_embedding,
                 batch.users) if self.training else None)

@@ -22,6 +22,11 @@ a two-layer relu scorer with no weights returned:
     runs with the history mask as its statistics' weight.
 
 'on' switches a kernel on, 'auto' on for CUDA tensors, 'off' off.
+
+With a compute `dtype` (bfloat16) the key projection and the plain
+scorer run in it and the logits are upcast before the masked softmax
+(attention.py:53-56, :174-187); the kernels compute in f32 on inputs
+cast to f32 first, as JAX's do (:91-95, :137-141).
 `SoftAttention` (A2SVD) waits for the model zoo slice.
 """
 
@@ -48,8 +53,10 @@ class TargetAttention(nn.Module):
                  init: Initializer, generator: torch.Generator,
                  device: torch.device, enable_bn: bool = False,
                  use_kernel: str = "auto", use_train_kernel: str = "off",
-                 bn_stats_mask: bool = False):
+                 bn_stats_mask: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.enable_bn = enable_bn
         self.use_kernel = use_kernel
         self.use_train_kernel = use_train_kernel
@@ -59,7 +66,7 @@ class TargetAttention(nn.Module):
         self.att_fcn = FcnNet(query_dim, layer_sizes, activations, init,
                               generator, device, enable_bn=enable_bn,
                               out_dim=1, split_first=True,
-                              masked_bn=self.masked_stats)
+                              masked_bn=self.masked_stats, dtype=dtype)
 
     def _scorer_fusable(self, return_weights: bool) -> bool:
         fcn = self.att_fcn
@@ -92,23 +99,26 @@ class TargetAttention(nn.Module):
         if squeeze_group:
             query = query[:, None, :]
         G, Dq = query.shape[1:]
-        att_inputs = keys @ self.attention_mat                  # [B, L, Dq]
+        ct = self.dtype or keys.dtype
+        att_inputs = keys.to(ct) @ self.attention_mat.to(ct)    # [B, L, Dq]
 
-        if self.kernel_applies(keys, G, return_weights):
-            folded = fa.fold_scorer_params(self.att_fcn, Dq, self.enable_bn)
-            att_fea = fa.fused_eval_attention(
-                keys.contiguous(), att_inputs.contiguous(),
-                query.contiguous(), mask.contiguous(), *folded)
-            return att_fea[:, 0] if squeeze_group else att_fea
-
-        if self.train_kernel_applies(keys, return_weights, train_kernel):
-            att_fea = self._fused_train(query, keys, att_inputs, mask)
+        kernel = self.kernel_applies(keys, G, return_weights)
+        if kernel or self.train_kernel_applies(keys, return_weights,
+                                               train_kernel):
+            f32 = lambda t: t.float().contiguous()
+            args = tuple(map(f32, (keys, att_inputs, query, mask)))
+            if kernel:
+                folded = fa.fold_scorer_params(self.att_fcn, Dq,
+                                               self.enable_bn)
+                att_fea = fa.fused_eval_attention(*args, *folded)
+            else:
+                att_fea = self._fused_train(*args)
             return att_fea[:, 0] if squeeze_group else att_fea
 
         logits = self.att_fcn(
             None, split_parts=(att_inputs, query),
             stats_weight=(mask[:, :, None, None] if self.masked_stats
-                          else None))[..., 0]
+                          else None))[..., 0].float()
         masked = torch.where(mask[:, :, None] > 0, logits,
                              torch.full_like(logits, MASK_PADDING_VALUE))
         w = torch.softmax(masked, dim=1)                        # [B, L, G]
@@ -120,7 +130,7 @@ class TargetAttention(nn.Module):
         weights = w.transpose(1, 2)                             # [B, G, L]
         return att_fea, (weights[:, 0] if squeeze_group else weights)
 
-    def _fused_train(self, query, keys, att_inputs, mask):
+    def _fused_train(self, keys, att_inputs, query, mask):
         """The fused train scorer (attention.py:122-159), then the BN
         running-average updates from its batch statistics."""
         fcn = self.att_fcn
@@ -132,9 +142,8 @@ class TargetAttention(nn.Module):
             s0 = sh0 = torch.ones_like(b0)
             s1 = sh1 = torch.ones_like(b1)
         att_fea, m0, v0, m1, v1 = fused_train_attention(
-            keys.contiguous(), att_inputs.contiguous(), query.contiguous(),
-            mask.contiguous(), fcn.w_nn_layer0.kernel, b0, s0, sh0,
-            fcn.w_nn_layer1.weight.t(), b1, s1, sh1,
+            keys, att_inputs, query, mask, fcn.w_nn_layer0.kernel, b0, s0,
+            sh0, fcn.w_nn_layer1.weight.t(), b1, s1, sh1,
             fcn.w_nn_output.weight[0], self.enable_bn)
         if self.enable_bn:
             fcn.update_bn_stats([(m0, v0), (m1, v1)])

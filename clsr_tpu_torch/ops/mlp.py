@@ -22,6 +22,12 @@ train scorer, which computed the normalisation itself.  Dense layers are
 `nn.Linear`, so their `weight` is the transpose of the flax `kernel`
 (weights.from_flax).  Dropout draws its mask from an explicit
 `torch.Generator`; the masks differ from flax's by design.
+
+`FcnNet` and `SplitFirstDense` take a compute `dtype` (JAX :173-240):
+with bfloat16 the dense layers cast their input, kernel and bias to it
+and compute there (the parameters stay f32), BN takes its statistics
+and normalises in f32 and hands back the layer's dtype, as flax's does,
+and FcnNet's output is cast back to f32.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= rate
+                      dtype=torch.promote_types(x.dtype, torch.float32)
+                      ) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -76,25 +83,30 @@ class SplitFirstDense(nn.Module):
     """
 
     def __init__(self, in_dim: int, features: int, init: Initializer,
-                 generator: torch.Generator, device: torch.device):
+                 generator: torch.Generator, device: torch.device,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = new_param((4 * in_dim, features), init, generator,
                                 device)
         self.bias = new_param((features,), zeros_init, generator, device)
 
     def forward(self, keys_proj: torch.Tensor, query: torch.Tensor
                 ) -> torch.Tensor:
-        """keys_proj [B, L, D], query [B, G, D] -> [B, L, G, features]."""
+        """keys_proj [B, L, D], query [B, G, D] -> [B, L, G, features],
+        in the compute dtype (else keys_proj's)."""
         B, L, D = keys_proj.shape
         G = query.shape[1]
         H = self.kernel.shape[1]
-        wk, wq, wd, wm = self.kernel.split(D, dim=0)
+        ct = self.dtype or keys_proj.dtype
+        keys_proj, query = keys_proj.to(ct), query.to(ct)
+        wk, wq, wd, wm = self.kernel.to(ct).split(D, dim=0)
         term_k = keys_proj @ (wk + wd)                        # [B, L, H]
         term_q = query @ (wq - wd)                            # [B, G, H]
         qw = torch.einsum("bgd,dh->bdgh", query, wm)          # [B, D, G, H]
         term_m = torch.bmm(keys_proj, qw.reshape(B, D, G * H))
         return (term_m.reshape(B, L, G, H) + term_k[:, :, None, :]
-                + term_q[:, None, :, :] + self.bias)
+                + term_q[:, None, :, :] + self.bias.to(ct))
 
 
 class BatchNorm(nn.Module):
@@ -110,15 +122,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """In f32 (flax's statistics and normalisation of a bf16 input),
+        handed back in x's dtype."""
+        xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + BN_EPSILON) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
     @torch.no_grad()
     def update_running(self, batch_mean: torch.Tensor,
@@ -178,8 +193,10 @@ class FcnNet(nn.Module):
                  enable_bn: bool = False, out_dim: int = 1,
                  split_first: bool = False,
                  dropout_rates: Optional[Sequence[float]] = None,
-                 masked_bn: bool = False):
+                 masked_bn: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.layer_sizes = tuple(layer_sizes)
         self.activations = tuple(activations)
         self.enable_bn = enable_bn
@@ -190,7 +207,7 @@ class FcnNet(nn.Module):
         for idx, size in enumerate(self.layer_sizes):
             if idx == 0 and split_first:
                 layer = SplitFirstDense(in_dim, size, init, generator,
-                                        device)
+                                        device, dtype)
             else:
                 layer = dense(width, size, init, generator, device)
             self.add_module(f"w_nn_layer{idx}", layer)
@@ -208,10 +225,12 @@ class FcnNet(nn.Module):
                 = None, generator: Optional[torch.Generator] = None,
                 stats_weight: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        if x is not None and self.dtype is not None:
+            x = x.to(self.dtype)
         for idx in range(len(self.layer_sizes)):
             layer = getattr(self, f"w_nn_layer{idx}")
             x = layer(*split_parts) if (idx == 0 and self.split_first) \
-                else layer(x)
+                else self._dense(layer, x)
             if self.enable_bn:
                 bn = getattr(self, f"bn{idx}")
                 x = bn(x) if stats_weight is None else bn(x, stats_weight)
@@ -220,7 +239,16 @@ class FcnNet(nn.Module):
                                               len(self.dropout_rates) - 1)]
                 x = dropout(x, rate, generator)
             x = activate(x, self.activation(idx))
-        return self.w_nn_output(x)
+        x = self._dense(self.w_nn_output, x)
+        return x if self.dtype is None else x.float()
+
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """layer(x), or in the compute dtype: x @ kernel, then + bias, as
+        flax's Dense rounds them."""
+        if self.dtype is None:
+            return layer(x)
+        dt = self.dtype
+        return x @ layer.weight.to(dt).t() + layer.bias.to(dt)
 
     def update_bn_stats(self, stats) -> None:
         """Running-average updates of bn0, bn1, ... from batch (mean,

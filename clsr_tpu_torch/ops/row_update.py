@@ -13,8 +13,10 @@ the compact path, and on the legacy path duplicates carry identical rows.
   * `scatter_rows_group` (K5, `clsr_row_scatter_group` in
     csrc/row_update.cu) replaces scripts/bench_pallas_update.py:
     rowdma_kernel (:239, call :282): one launch writes up to MAX_GROUP
-    (table, ids, rows) entries, each row's 16-byte units spread over
-    threads, O(M) bytes.  A lazy train step hands it every scatter-set of
+    (table, ids, rows) entries, f32 or bf16 (each entry's table and rows
+    of one type; a lazy step mixes bf16 tables with f32 optimizer rows),
+    each row's 16-byte units (else its elements) spread over threads,
+    O(M) bytes.  A lazy train step hands it every scatter-set of
     the step at once, so it launches K5 once.  `scatter_rows` is the
     one-entry case.  Dropped ids stay on the device: the kernel drops
     them itself, so the step issues no host sync.
@@ -23,7 +25,7 @@ the compact path, and on the legacy path duplicates carry identical rows.
     streaming sweep: one block per slab of `block` table rows finds the
     slab's segment of the sorted ids itself and writes those rows; the
     table stays where it is.  It runs on the bench entry point
-    (clsr_tpu_torch.bench_row_update).
+    (clsr_tpu_torch.bench_row_update), f32 only.
 
 Both are bound by the function's bytes: the ids, the rows read, the valid
 rows written.  Each wrapper computes its plain PyTorch version for CPU
@@ -52,9 +54,12 @@ from clsr_tpu_torch.ops import _build
 MAX_GROUP = 16          # entries per K5 launch (kMaxEntries in the source)
 _INT_MAX = 2 ** 31 - 1
 # the C arguments of a K5 launch of k entries: count, device, stream,
-# then 6 int64s an entry (table, N, W, ids, M, rows); of K4: one entry's
-# 6, then block, device, stream
-_GROUP_ARGS = [struct.Struct(f"{3 + 6 * k}q") for k in range(MAX_GROUP + 1)]
+# then 7 int64s an entry (table, N, W, ids, M, rows, element size); of K4:
+# one entry's first 6, then block, device, stream
+_ENTRY_ARGS = 7
+_GROUP_ARGS = [struct.Struct(f"{3 + _ENTRY_ARGS * k}q")
+               for k in range(MAX_GROUP + 1)]
+K5_DTYPES = (torch.float32, torch.bfloat16)
 _SWEEP_ARGS = struct.Struct("9q")
 Entry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -72,20 +77,22 @@ def _c_function(name: str):
     return fn
 
 
-def _scan(entries: Sequence[Entry]) -> Tuple[Optional[int], List[int]]:
-    """One pass over the entries: raise unless each is (table [N, W] f32,
-    ids [M] int32, rows [M, W] f32), each contiguous, all on one device,
-    no two tables overlapping in memory, and within the kernels' int32
-    indexing.  Return the device's index (-1 for the CPU, None for no
-    entries) and the C arguments of the entries with work, six a entry
-    (table, N, W, ids, M, rows), in one list."""
+def _scan(entries: Sequence[Entry], dtypes=K5_DTYPES
+          ) -> Tuple[Optional[int], List[int]]:
+    """One pass over the entries: raise unless each is (table [N, W],
+    ids [M] int32, rows [M, W]) with table and rows of one of `dtypes`,
+    each contiguous, all on one device, no two tables overlapping in
+    memory, and within the kernels' int32 indexing.  Return the device's
+    index (-1 for the CPU, None for no entries) and the C arguments of
+    the entries with work, seven a entry (table, N, W, ids, M, rows,
+    element size), in one list."""
     index, args, spans = None, [], []
     for table, ids, rows in entries:
         if ids.dtype != torch.int32:
             raise TypeError(f"ids must be int32, got {ids.dtype}")
-        if table.dtype != torch.float32 or rows.dtype != torch.float32:
-            raise TypeError(f"table and rows must be float32, got "
-                            f"{table.dtype} and {rows.dtype}")
+        if table.dtype != rows.dtype or table.dtype not in dtypes:
+            raise TypeError(f"table and rows must be one of {dtypes}, of "
+                            f"one type; got {table.dtype} and {rows.dtype}")
         t_shape, i_shape = table.shape, ids.shape
         if (len(t_shape) != 2 or len(i_shape) != 1
                 or rows.shape != (i_shape[0], t_shape[1])):
@@ -105,13 +112,14 @@ def _scan(entries: Sequence[Entry]) -> Tuple[Optional[int], List[int]]:
                              f"on {rows.device}")
         (N, W), M = t_shape, i_shape[0]
         if N and W:
-            start = table.data_ptr()
-            spans.append((start, start + 4 * N * W))
+            start, esize = table.data_ptr(), table.element_size()
+            spans.append((start, start + esize * N * W))
             if M:
                 if N > _INT_MAX or M * W > _INT_MAX:
                     raise ValueError(f"table {N} x {W} with {M} ids is past "
                                      f"the kernels' int32 indexing")
-                args += (start, N, W, ids.data_ptr(), M, rows.data_ptr())
+                args += (start, N, W, ids.data_ptr(), M, rows.data_ptr(),
+                         esize)
     if len(spans) > 1:
         spans.sort()
         for (_, end), (start, _) in zip(spans, spans[1:]):
@@ -168,10 +176,10 @@ def sweep_rows_reference(table: torch.Tensor, ids: torch.Tensor,
 
 
 def scatter_rows_group(entries: Sequence[Entry]) -> None:
-    """K5: table[ids] = rows for every (table [N, W] f32, ids [M] int32
-    sorted, rows [M, W] f32) entry, in place, ids outside [0, N) dropped;
-    one launch per MAX_GROUP entries that have work.  No two entries may
-    share a table."""
+    """K5: table[ids] = rows for every (table [N, W], ids [M] int32
+    sorted, rows [M, W] of the table's type, f32 or bf16) entry, in
+    place, ids outside [0, N) dropped; one launch per MAX_GROUP entries
+    that have work.  No two entries may share a table."""
     index, args = _scan(entries)
     if index is None:
         return
@@ -181,9 +189,9 @@ def scatter_rows_group(entries: Sequence[Entry]) -> None:
         return
     fn = _c_function("clsr_row_scatter_group")
     stream = _raw_stream(index)
-    for i in range(0, len(args), 6 * MAX_GROUP):
-        part = args[i:i + 6 * MAX_GROUP]
-        count = len(part) // 6
+    for i in range(0, len(args), _ENTRY_ARGS * MAX_GROUP):
+        part = args[i:i + _ENTRY_ARGS * MAX_GROUP]
+        count = len(part) // _ENTRY_ARGS
         _build.check(fn(_GROUP_ARGS[count].pack(count, index, stream, *part)),
                      "row_scatter")
         scatter_rows.launches += 1
@@ -191,8 +199,9 @@ def scatter_rows_group(entries: Sequence[Entry]) -> None:
 
 def scatter_rows(table: torch.Tensor, ids: torch.Tensor,
                  rows: torch.Tensor) -> torch.Tensor:
-    """K5 on one table: table [N, W] f32, ids [M] int32 sorted, rows
-    [M, W] f32 -> table, updated in place (ids outside [0, N) dropped)."""
+    """K5 on one table: table [N, W] f32 or bf16, ids [M] int32 sorted,
+    rows [M, W] of the table's type -> table, updated in place (ids
+    outside [0, N) dropped)."""
     scatter_rows_group(((table, ids, rows),))
     return table
 
@@ -202,10 +211,10 @@ scatter_rows.launches = 0
 
 def sweep_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
                block: int = 2048) -> torch.Tensor:
-    """K4: the same function as `scatter_rows`, by one block per slab of
-    `block` table rows, in place."""
+    """K4: the same function as `scatter_rows` on an f32 table, by one
+    block per slab of `block` table rows, in place."""
     entry = ((table, ids, rows),)
-    index, args = _scan(entry)
+    index, args = _scan(entry, (torch.float32,))
     if block <= 0:
         raise ValueError(f"block must be positive, got {block}")
     if index < 0:
@@ -213,7 +222,7 @@ def sweep_rows(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
         return sweep_rows_reference(table, ids, rows, block)
     if args:
         _build.check(_c_function("clsr_row_sweep")(_SWEEP_ARGS.pack(
-            *args, block, index, _raw_stream(index))), "row_sweep")
+            *args[:6], block, index, _raw_stream(index))), "row_sweep")
         sweep_rows.launches += 1
     return table
 

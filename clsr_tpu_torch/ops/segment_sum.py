@@ -28,6 +28,16 @@ step.  Here every sum is taken in sorted order:
 
 The train-mode forward looks every table up through `lookup`; eval and
 serving keep `F.embedding`, which they never differentiate.
+
+On a bf16 table the cotangent rows arrive in bf16 (the model upcasts
+right after the gather, so each row is rounded once) and `segment_sum`
+adds a run's rows one after another in bf16, in their order: the
+gradient of a bf16 `jnp.take` on the CPU, where XLA scatter-adds the
+rounded rows in bf16 in order, bit for bit for one lookup.  A table
+read at several sites gets each site's gradient summed first, and the
+sites' sums then added in bf16; XLA may add them in another order, and
+inside a jitted step it may keep f32 bits it would round op by op
+(excess precision).
 """
 
 from __future__ import annotations

@@ -16,9 +16,14 @@ sequential_base_model.py:326-347):
   * `AsyncScoringService` — a thread-safe micro-batching frontend:
     callers submit() single requests and get futures; one dispatcher
     thread coalesces what has queued into shared dispatches.
+  * int8 tables (`int8_tables=True`, JAX :125-144): after the optional
+    checkpoint is loaded, `quantize_tables` replaces each table by
+    symmetric per-row int8 rows and `<name>_scales` [N, 1] f32 beside
+    it; lookups dequantize after the gather (models/base.py
+    `lookup_rows`), and K1 runs as before.  The service honours the
+    config's compute_dtype and embedding_dtype as training does.
 
-int8 tables and a device mesh wait for ROADMAP queue 1 (int8 and mesh
-serving) and raise here.
+A device mesh waits for ROADMAP queue 1 item 10 (parallel) and raises.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from clsr_tpu_torch import weights
 from clsr_tpu_torch.config import Config
@@ -59,6 +65,33 @@ class ScoreRequest:
     cand_cates: Sequence[str]
 
 
+@torch.no_grad()
+def quantize_tables(model: nn.Module) -> None:
+    """Row-quantize every `*_embedding` table of `model` to int8, in
+    place (JAX `quantize_tables`, :125-144): symmetric per row, scale =
+    max(max|row| / 127, 1e-12) in f32, q = clip(round(row / scale),
+    -127, 127) rounding half to even as np.round does; the scales go
+    beside the table as `<name>_scales` [N, 1].  Both are parameters
+    without gradient, so `state_dict` and `weights.save` carry them.
+    Serving only: training refuses the model."""
+    for name, p in list(model.named_parameters()):
+        path, _, leaf = name.rpartition(".")
+        if not leaf.endswith("_embedding"):
+            continue
+        owner = model.get_submodule(path) if path else model
+        table = p.detach().float()
+        # divisions by tensors: true divisions, as numpy's (a CUDA
+        # division by a Python number multiplies by its reciprocal)
+        scale = torch.clamp(table.abs().amax(dim=1, keepdim=True)
+                            / torch.full_like(table[:1, :1], 127.0),
+                            min=1e-12)
+        q = torch.clamp(torch.round(table / scale), -127, 127)
+        setattr(owner, leaf, nn.Parameter(q.to(torch.int8),
+                                          requires_grad=False))
+        setattr(owner, f"{leaf}_scales",
+                nn.Parameter(scale, requires_grad=False))
+
+
 class ScoringService:
     """Candidate scorer with shape-bucketed batching."""
 
@@ -70,11 +103,8 @@ class ScoringService:
                  cand_buckets: Sequence[int] = (16, 128, 512),
                  int8_tables: bool = False,
                  device=None):
-        if int8_tables:
-            raise NotImplementedError(
-                "int8 tables wait for ROADMAP queue 1, int8 and mesh "
-                "serving")
         self.cfg = cfg
+        self.int8_tables = int8_tables
         self.device = resolve_device(device)
         self.vocabs = (user_vocab, item_vocab, cate_vocab)
         self.model = get_model_class(cfg.model_type)(
@@ -86,10 +116,14 @@ class ScoringService:
         self._eval_step = make_eval_step_fn(cfg)
         if checkpoint is not None:
             self.load(checkpoint)
+        if int8_tables:
+            quantize_tables(self.model)
 
     # ------------------------------------------------------------- ckpt
     def load(self, path: str) -> None:
-        """Restore a state_dict written by `save` (weights.save)."""
+        """Restore a state_dict written by `save` (weights.save) of a
+        service like this one; a checkpoint given to the constructor is
+        loaded before the tables are quantized."""
         weights.load(self.model, path)
 
     def save(self, path: str) -> None:
@@ -97,9 +131,18 @@ class ScoringService:
 
     def load_latest(self, model_dir: str) -> None:
         """Restore the model part of the newest `epoch_<n>` checkpoint
-        that `training.trainer.Trainer` wrote into `model_dir`."""
+        that `training.trainer.Trainer` wrote into `model_dir`; with
+        int8 tables it is quantized again after the load."""
+        if self.int8_tables:        # the checkpoint holds float tables
+            cfg = self.cfg
+            self.model = get_model_class(cfg.model_type)(
+                cfg, self.model.n_users, self.model.n_items,
+                self.model.n_cates, device=self.device)
+            self.model.eval()
         checkpoint.load_model(checkpoint.latest_epoch_dir(model_dir),
                               self.model)
+        if self.int8_tables:
+            quantize_tables(self.model)
 
     # ------------------------------------------------------------ batch
     def _bucket(self, buckets: Sequence[int], n: int) -> int:

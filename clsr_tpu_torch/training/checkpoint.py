@@ -6,11 +6,12 @@ Orbax is not available to the port, so a checkpoint directory (the same
 `<model_dir>/epoch_<n>/` layout) holds this package's own format:
 
   * `state.pt` (torch.save, read back with weights_only): the model's
-    state_dict (parameters and BN running statistics); the optimizer,
-    either dense Adam's state_dict or every tensor of a LazyAdamState
-    (the table rows in their pmn param|mu|nu or split mu|nu layout, the
-    count as an int, the route counter and the dense Adam's state_dict); and the
-    step;
+    state_dict (parameters and BN running statistics, bf16 tables as
+    bf16); the optimizer, either the dense rule's state_dict under its
+    name (`kind`: adam, adagrad, ftrl, ...; training/optimizer.py) or
+    every tensor of a LazyAdamState (the f32 table rows in their pmn
+    param|mu|nu or split mu|nu layout, the count as an int, the route
+    counter and the dense Adam's state_dict); and the step;
   * `clsr_meta.json`: {"schema": SCHEMA_VERSION, "layout": "logical",
     "format": "clsr_tpu_torch"}.
 
@@ -40,6 +41,11 @@ STATE_NAME = "state.pt"
 FORMAT = "clsr_tpu_torch"
 
 
+def _kind(opt: torch.optim.Optimizer) -> str:
+    """The dense rule's name: a DenseRule's `rule`, else adam."""
+    return getattr(opt, "rule", "adam")
+
+
 def write_meta(path: str, extra: Optional[Dict[str, Any]] = None) -> None:
     meta = {"schema": SCHEMA_VERSION, "layout": "logical"}
     if extra:
@@ -66,7 +72,7 @@ def save_state(path: str, state: TrainState) -> None:
                      "route_overflow": opt.route_overflow,
                      "dense": opt.dense_opt.state_dict()}
     else:
-        optimizer = {"kind": "adam", "state_dict": opt.state_dict()}
+        optimizer = {"kind": _kind(opt), "state_dict": opt.state_dict()}
     tmp = os.path.join(path, f"{STATE_NAME}.{os.getpid()}.tmp")
     torch.save({"model": state.model.state_dict(), "optimizer": optimizer,
                 "step": state.step}, tmp)
@@ -97,9 +103,10 @@ def load_state(path: str, state: TrainState) -> TrainState:
     state.model.load_state_dict(blob["model"])
     saved, opt = blob["optimizer"], state.optimizer
     lazy = isinstance(opt, LazyAdamState)
-    if saved["kind"] != ("lazyadam" if lazy else "adam"):
+    kind = "lazyadam" if lazy else _kind(opt)
+    if saved["kind"] != kind:
         raise ValueError(f"{path} holds a {saved['kind']} state; this run's "
-                         f"optimizer is {type(opt).__name__}")
+                         f"optimizer is {kind}")
     if lazy:
         if set(saved["moments"]) != set(opt.moments):
             raise ValueError(f"moment tables {sorted(saved['moments'])} do "

@@ -115,14 +115,15 @@ class CompactRows:
     def sumsq_unique(self) -> torch.Tensor:
         """sum ||row||^2 over the UNIQUE involved rows (the lazy L2 term,
         sequential_base_model.py:409-433)."""
-        return ((self.w * self.w).sum(-1) * self.plan.first).sum()
+        w = self.w.float()
+        return ((w * w).sum(-1) * self.plan.first).sum()
 
     def pair_stats(self, other: "CompactRows"):
         """(sumsq_self, sumsq_other, sum||a-b||^2, n_unique*D) over unique
         rows: CLSR's involved-user L2 and discrepancy statistics
         (clsr.py:73-82, 118-127).  Both tables share one plan (the same
         ids), so the statistics come from the gathered rows."""
-        wa, wb = self.w, other.w
+        wa, wb = self.w.float(), other.w.float()
         ff = self.plan.first[:, None].to(wa.dtype)
         diff = wa - wb
         return ((wa * wa * ff).sum(), (wb * wb * ff).sum(),

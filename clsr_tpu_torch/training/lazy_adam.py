@@ -22,6 +22,13 @@ Two layouts of a table's optimizer rows, told apart by width:
     param rows into the table `Parameter`, which so stays equal to
     pmn[:, :D] bit for bit without an O(N) copy.
 
+Under `embedding_dtype: bfloat16` (JAX :146-149, :188, :301-311) the
+tables are bf16 and their gradients bf16; the moments, the gathered old
+rows and the update arithmetic are f32, the new rows are stored
+round-to-nearest in the table's type, and pmn's f32 param lane holds
+those rounded rows, so a compact gather recovers the bf16 path exactly
+(the step hands the lane to the model in the table's type).
+
 The step count is a device int32 scalar, as JAX's is (:77, :162), and
 the bias corrections are f32 arithmetic on the device, so a step reads
 nothing from the host and can be captured in a CUDA graph.

@@ -6,8 +6,8 @@ in-batch negatives, the train-mode forward (dropout, batch-statistics BN
 and its running-average update), the four-part loss, backward, then the
 optimizer:
 
-  * `adam` (:210-219): per-tensor clip and dense Adam over every
-    parameter;
+  * `adam` and the other dense rules (:210-219): per-tensor clip and
+    the config's optimizer (training/optimizer.py) over every parameter;
   * `lazyadam` with `compact_rows: auto`, the compact row engine
     (`compact_step`, :58-129): one sorted gather per table (of the pmn
     param|mu|nu rows, so the moments ride along), the model's lookups
@@ -66,6 +66,7 @@ from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
                                           gather_batch)
+from clsr_tpu_torch.models.base import check_not_quantized
 from clsr_tpu_torch.ops import launches
 from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
@@ -90,6 +91,7 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
     if cfg.data_parallel * cfg.model_parallel > 1:
         raise NotImplementedError(
             "a device mesh waits for ROADMAP queue 1, parallel")
+    check_not_quantized(model)
     num_ngs = cfg.train_num_ngs
     lazy = LazyAdam(cfg) if cfg.optimizer == "lazyadam" else None
     table_names = (supported_tables(model)
@@ -117,8 +119,10 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
         fused = all(is_pmn(p, opt.moments[n]) for n, p in tables.items())
         ws_full = gather_ws({n: opt.moments[n] for n in tables} if fused
                             else tables, table_names, plans)
+        # pmn: the param lane in the table's dtype (exact: it holds the
+        # table's rounded rows), so the gradient is of that dtype too
         ws = {table_names[n]: (ws_full[table_names[n]][:, :p.shape[1]]
-                               .contiguous() if fused
+                               .to(p.dtype).contiguous() if fused
                                else ws_full[table_names[n]]
                                ).requires_grad_()
               for n, p in tables.items()}

@@ -107,6 +107,10 @@ class Trainer:
         self.cfg = cfg
         self.log = log
         self.device = next(model.parameters()).device
+        if cfg.use_pallas_scan and cfg.compute_dtype == "bfloat16":
+            log("compute_dtype bfloat16: the recurrence runs its plain bf16 "
+                "path, not K2 (the JAX package runs K2 under f32 compute "
+                "only, ops/fused_clsr.py:291)")
         self.state = create_train_state(model, cfg)
         self.train_step = make_train_step(model, cfg)
         self.eval_step = make_eval_step_fn(cfg)

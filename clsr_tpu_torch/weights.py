@@ -10,10 +10,14 @@ JAX, so two ways in:
     `a/b/leaf`, BN running statistics (`mean`, `var`) come from
     `batch_stats`, and an `nn.Linear`'s `weight` is the transpose of
     the flax Dense `kernel` ([in, out]).  Any name left over or missing
-    raises.
+    raises.  Each value is read as f32 and stored in the module's own
+    type: a bf16 table given as JAX's bf16 or as its f32 widening lands
+    bit for bit (the widening is exact), and a value a bf16 table cannot
+    hold exactly raises.
   * `to_flax(module)` is the inverse: (params, batch_stats) as nested
     dicts of numpy arrays under the flax names, so a test can compare
-    the port's state with the JAX package's by flax path.
+    the port's state with the JAX package's by flax path; bf16 tensors
+    come out widened to f32 (numpy has no bf16).
   * `opt_from_flax(state, moments, count, dense_mu, dense_nu)` and
     `opt_to_flax(state)` carry a JAX `LazyAdamState` across: the table
     moment rows (pmn [N, 3D] or split [N, 2D], keyed by flax table path),
@@ -84,7 +88,11 @@ def from_flax(module: nn.Module, params: Mapping,
             raise ValueError(f"{collection}/{flax} has shape "
                              f"{tuple(value.shape)}, {name} needs "
                              f"{tuple(state[name].shape)}")
-        state[name].copy_(value)
+        cast = value.to(state[name].dtype)
+        if not torch.equal(cast.float(), value):
+            raise ValueError(f"{collection}/{flax} is not exact in "
+                             f"{state[name].dtype} ({name})")
+        state[name].copy_(cast)
 
 
 def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
@@ -94,6 +102,8 @@ def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
     state = module.state_dict()
     for name, (collection, flax, transpose) in flax_names(module).items():
         value = state[name].detach().cpu()
+        if value.dtype == torch.bfloat16:
+            value = value.float()
         node = trees[collection]
         *parents, leaf = flax.split("/")
         for key in parents:

@@ -25,9 +25,11 @@ On the 200-user synthetic set at the clsr.yaml widths, batch 100:
   * the train step graphed (`make_multi_train_step`, two calls of K = 4
     and a tail step, every kernel gate on) against 9 eager single steps
     from the same state and generator seed: every model and optimizer
-    tensor and every loss part bit-identical, for dense Adam and
-    lazyadam compact; the launch counts of the graphed calls are K times
-    the eager step's (the capture's counts added at each replay);
+    tensor and every loss part bit-identical, for dense Adam, lazyadam
+    compact, each of the seven other optimizers, and lazyadam with bf16
+    tables and bf16 compute (K2 not launched there); the launch counts
+    of the graphed calls are K times the eager step's (the capture's
+    counts added at each replay);
   * `table_grad` on the 41-row table with 25,000 ids: two calls
     bit-identical and within 1e-4 of `F.embedding`'s gradient;
   * after a fit and a graphed call, `Trainer.load` of the fit's
@@ -214,10 +216,17 @@ def test_bucketed_fit_launch_counts(cuda, data):
     assert got["K2"] == steps + cfg.bn_refresh_batches + n_valid
 
 
-@pytest.mark.parametrize("opt", ["adam", "lazyadam"])
+# every optimizer, and lazyadam with bf16 tables and compute
+BF16 = dict(optimizer="lazyadam", embedding_dtype="bfloat16",
+            compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("opt", ["adam", "lazyadam", "adadelta", "adagrad",
+                                 "sgd", "pgd", "rmsprop", "ftrl", "padagrad",
+                                 "lazyadam_bf16"])
 def test_graphed_steps_equal_eager_steps(cuda, data, opt):
     sizes, loaders = data
-    cfg = _cfg(optimizer=opt)
+    cfg = _cfg(**(BF16 if opt == "lazyadam_bf16" else dict(optimizer=opt)))
     K = 4
     host = list(loaders["train"].train_batches(cfg.batch_size,
                                                np.random.RandomState(0)))
@@ -250,7 +259,10 @@ def test_graphed_steps_equal_eager_steps(cuda, data, opt):
     assert se.step == sg.step == 2 * K + 1
     _same_states(se, sg)
     per_step = {k: n for k, n in counts["eager"].items() if n}
-    assert per_step["clsr_scan_backward"] == 1
+    # under bf16 compute the recurrence is the plain one (no K2)
+    assert per_step.get("clsr_scan_backward") == (
+        None if opt == "lazyadam_bf16" else 1)
+    assert per_step["train_stats0"] == 2
     for c in range(2):
         assert counts[f"call{c}"] == {k: K * per_step.get(k, 0)
                                       for k in counts[f"call{c}"]}

@@ -35,8 +35,13 @@ only copy) at a small shape, at a ragged one (W not a multiple of 4, a
 block that does not divide N), with the legacy path's duplicate ids,
 with negative ids, with ids past the last slab's end and with mostly
 empty slabs (K4's in-kernel segment search), each with a dropped tail of
-ids >= N; one lazy step launches K5 once, compact and legacy.  TF32 is
-off on both sides.
+ids >= N; one lazy step launches K5 once, compact and legacy.  K5 on
+bf16 rows (80-, 64- and 16-byte rows in 16-byte units, 14- and 24-byte
+rows and a misaligned base in 2-byte units, duplicates, negative and
+dropped ids) bit-equal to its plain version and to index_copy_, a
+lazy step's mixed group (four bf16 tables and four f32 pmn arrays) in
+one launch bit-equal to index_copy_, and the wrappers' refusals of
+other types (K4 stays f32).  TF32 is off on both sides.
 """
 
 import numpy as np
@@ -459,6 +464,80 @@ def test_row_update_kernels_match_plain(cuda, N, W, M, block, case):
         torch.cuda.synchronize()
         assert counter.launches == before + 1, name
         assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("W, case, layout", [
+    (40, "unique", "aligned"),   # 80-byte rows: 16-byte units (user)
+    (32, "unique", "aligned"),   # 64 bytes (item)
+    (8, "dup", "aligned"),       # 16 bytes (cate), duplicate ids
+    (40, "below_zero", "aligned"),
+    (7, "unique", "aligned"),    # 14 bytes: 2-byte units
+    (12, "unique", "aligned"),   # 24 bytes: 2-byte units
+    (40, "unique", "offset"),    # a base 2 bytes past 16: 2-byte units
+])
+def test_row_scatter_bf16_matches_plain(cuda, W, case, layout):
+    """K5 on bf16 rows bit-equal to its plain version and to
+    index_copy_ on the valid ids, ids >= N (and < 0) dropped, one
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    N, M = 1000, 300
+    table, ids, rows = (t.bfloat16() if t.is_floating_point() else t
+                        for t in _row_case(cuda, g, N, W, M, case))
+    if layout == "offset":
+        buf = torch.empty(N * W + 1, dtype=torch.bfloat16, device=cuda)
+        buf[1:].copy_(table.reshape(-1))
+        table = buf[1:].view(N, W)
+        assert table.data_ptr() % 16 != 0
+    want = ru.scatter_rows_reference(table.clone(), ids, rows)
+    keep = (ids >= 0) & (ids < N)
+    lib = table.clone().index_copy_(0, ids[keep].long(), rows[keep])
+    before = ru.scatter_rows.launches
+    got = ru.scatter_rows(table.clone(), ids, rows)
+    torch.cuda.synchronize()
+    assert ru.scatter_rows.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want) and (case == "dup" or torch.equal(got, lib))
+
+
+def test_row_scatter_mixed_group_matches_plain(cuda):
+    """A lazy step's group: four bf16 tables (user 40, 40, item 32, cate
+    8) and their four f32 pmn row arrays (120, 120, 96, 24), in one K5
+    launch, bit-equal to index_copy_ entry by entry."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    entries = []
+    for W in (40, 40, 32, 8):
+        table, ids, rows = _row_case(cuda, g, 2000, W, 400, "unique")
+        pmn = torch.randn(2000, 3 * W, generator=g, device=cuda)
+        pmn_rows = torch.randn(ids.numel(), 3 * W, generator=g, device=cuda)
+        entries += [(table.bfloat16(), ids, rows.bfloat16()),
+                    (pmn, ids, pmn_rows)]
+    want = []
+    for table, ids, rows in entries:
+        keep = (ids >= 0) & (ids < table.shape[0])
+        want.append(table.clone().index_copy_(0, ids[keep].long(),
+                                              rows[keep]))
+    got = [t.clone() for t, _, _ in entries]
+    before = ru.scatter_rows.launches
+    ru.scatter_rows_group([(o, i, r) for o, (_, i, r) in zip(got, entries)])
+    torch.cuda.synchronize()
+    assert ru.scatter_rows.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_row_update_wrappers_refuse_other_types(cuda):
+    """K5 takes f32 or bf16 where the table and the rows agree; K4 takes
+    f32 only."""
+    table = torch.zeros(10, 8, dtype=torch.bfloat16, device=cuda)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="one type"):
+        ru.scatter_rows(table, ids, torch.zeros(4, 8, device=cuda))
+    with pytest.raises(TypeError, match="one type"):
+        ru.scatter_rows(table.half(), ids, torch.zeros(
+            4, 8, dtype=torch.half, device=cuda))
+    with pytest.raises(TypeError, match="one type"):
+        ru.sweep_rows(table, ids, torch.zeros(4, 8, dtype=torch.bfloat16,
+                                              device=cuda))
 
 
 def test_lazy_train_step_compact_matches_legacy(cuda):

@@ -80,9 +80,10 @@ def test_train_mode_and_unported_settings_raise():
     cfg = port_cfg(small_jax_cfg())
     model = get_model_class("clsr")(cfg, N_USERS, N_ITEMS, N_CATES,
                                     device="cpu")
+    # the other optimizers are ported: each is its dense rule
     for name in ("ftrl", "adagrad", "rmsprop"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_train_state(model, cfg.replace(optimizer=name))
+        assert create_train_state(model, cfg.replace(
+            optimizer=name)).optimizer.rule == name
     # lazyadam is ported: its state holds the tables' moment rows
     lazy = create_train_state(model, cfg.replace(optimizer="lazyadam"))
     assert sorted(lazy.optimizer.moments) == sorted(
@@ -92,8 +93,11 @@ def test_train_mode_and_unported_settings_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step_fn(model, cfg.replace(optimizer="lazyadam",
                                               data_parallel=2))
-    for bad in (dict(data_parallel=2), dict(use_fused_encoders=False),
-                dict(compute_dtype="bfloat16")):
+    # bf16 compute is ported: the model builds with bf16 layers
+    assert get_model_class("clsr")(
+        cfg.replace(compute_dtype="bfloat16"), N_USERS, N_ITEMS, N_CATES,
+        device="cpu").logit_fcn.dtype == torch.bfloat16
+    for bad in (dict(data_parallel=2), dict(use_fused_encoders=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model_class("clsr")(cfg.replace(**bad), N_USERS, N_ITEMS,
                                     N_CATES, device="cpu")

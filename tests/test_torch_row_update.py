@@ -11,7 +11,10 @@ partial slab of the sweep.  The K5 group (`scatter_rows_group`) equals
 the JAX scatter-set entry by entry over groups that mix widths 6, 8 and
 24, hold an empty entry, a dropped tail and duplicates, and outnumber
 one launch's MAX_GROUP entries; it refuses two entries on one table and
-int64 ids.  No launch is counted on the CPU.
+int64 ids.  A group of bf16 tables beside f32 optimizer rows equals
+JAX's bf16 and f32 scatter-sets bit for bit; a table and rows of two
+types, or of another type, are refused (K4 takes f32 only).  No launch
+is counted on the CPU.
 """
 
 import jax.numpy as jnp
@@ -148,3 +151,44 @@ def test_row_update_checks_its_arguments():
     with pytest.raises(ValueError):
         ru.sweep_rows(table, torch.tensor([0, 1], dtype=torch.int32), rows,
                       block=0)
+
+
+def test_row_update_group_bf16_and_mixed_match_jax_scatter_set():
+    """A lazy step's group on bf16 tables beside f32 optimizer rows: the
+    plain version equals JAX's bf16 and f32 scatter-sets bit for bit,
+    and the tables keep their types."""
+    rng = np.random.RandomState(3)
+    entries, want = [], []
+    for case, width in (("unique", 8), ("dropped_tail", 5),
+                        ("duplicates", 4)):
+        table, ids, rows = _case(case, rng)
+        table, rows = table[:, :width], rows[:, :width]
+        bf_table = jnp.asarray(table, jnp.bfloat16)
+        bf_rows = jnp.asarray(rows, jnp.bfloat16)
+        want.append(np.asarray(bf_table.at[jnp.asarray(ids)].set(
+            bf_rows, mode="drop"), np.float32))
+        entries.append((torch.from_numpy(table.copy()).bfloat16(),
+                        torch.from_numpy(ids),
+                        torch.from_numpy(rows.copy()).bfloat16()))
+        pmn = rng.randn(N, 3 * width).astype(np.float32)
+        pmn_rows = rng.randn(len(ids), 3 * width).astype(np.float32)
+        want.append(_jax_set(pmn, ids, pmn_rows, case != "duplicates"))
+        entries.append((torch.from_numpy(pmn), torch.from_numpy(ids),
+                        torch.from_numpy(pmn_rows)))
+    before = ru.scatter_rows.launches
+    ru.scatter_rows_group(entries)
+    assert ru.scatter_rows.launches == before
+    for (table, _, _), w in zip(entries, want):
+        assert table.dtype in ru.K5_DTYPES
+        np.testing.assert_array_equal(table.float().numpy(), w)
+
+
+def test_row_update_refuses_mixed_or_other_types():
+    ids = torch.tensor([0, 1], dtype=torch.int32)
+    bf = torch.zeros(5, 4, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="one type"):
+        ru.scatter_rows(bf, ids, torch.ones(2, 4))
+    with pytest.raises(TypeError, match="one type"):
+        ru.scatter_rows(bf.half(), ids, torch.ones(2, 4).half())
+    with pytest.raises(TypeError, match="one type"):      # K4: f32 only
+        ru.sweep_rows(bf, ids, torch.ones(2, 4, dtype=torch.bfloat16))

@@ -132,8 +132,10 @@ def test_save_load_round_trip(services, tmp_path):
 def test_device_rule_and_unported_options(services):
     _, psvc = services
     args = (psvc.cfg, N_USERS, N_ITEMS, N_CATES) + psvc.vocabs
-    with pytest.raises(NotImplementedError, match="int8"):
-        ScoringService(*args, int8_tables=True, device="cpu")
+    # int8 tables are ported: the tables and their scales are quantized
+    q = ScoringService(*args, int8_tables=True, device="cpu")
+    assert q.model.item_embedding.dtype == torch.int8
+    assert q.model.item_embedding_scales.shape == (N_ITEMS, 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ScoringService(*args)

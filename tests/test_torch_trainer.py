@@ -418,7 +418,8 @@ UNPORTED = {
     "length_buckets": (["--length_buckets", "auto"], 5),
     "resident_round_rows": (["--resident_round_rows", "1024"], 5),
     "compute_bf16": (["--compute_dtype", "bfloat16"], 6),
-    "embedding_bf16": (["--embedding_dtype", "bfloat16"], 6),
+    "embedding_bf16": (["--embedding_dtype", "bfloat16", "--optimizer",
+                        "lazyadam"], 6),
     "attention_block": (["--attention_block_size", "64"], 9),
     "histograms": (["--write_histograms"], 11),
     "tfevents": (["--write_tfevents"], 11),
@@ -430,10 +431,13 @@ UNPORTED = {
 
 # ROADMAP items ported since their flags were refused: those flags now
 # parse and reach the Config, and those settings fit
-PORTED_ITEMS = {5}
+PORTED_ITEMS = {3, 5, 6}
 PORTED_FIELDS = {"resident_on": ("resident_data", "on"),
                  "length_buckets": ("length_buckets", "auto"),
-                 "resident_round_rows": ("resident_round_rows", 1024)}
+                 "resident_round_rows": ("resident_round_rows", 1024),
+                 "compute_bf16": ("compute_dtype", "bfloat16"),
+                 "embedding_bf16": ("embedding_dtype", "bfloat16"),
+                 "optimizer": ("optimizer", "adagrad")}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
