@@ -139,7 +139,7 @@ Phases, each fatal on failure:
      `ScoringService.load_latest` on run A's model_dir must score 64 test
      groups as the eval step does, within 1e-6.  Then run A's config with
      K = 1 (eager single steps) for one epoch in the same run, and
-     torch.profiler over 5 streamed eager steps and one streamed graphed
+     torch.profiler over 2 streamed eager steps and one streamed graphed
      call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
      share, kernels on the device and host launch calls a step).  Run B: the same config
      with use_pallas_scan, use_pallas_train_attention 'on', lazyadam and
@@ -154,8 +154,8 @@ Phases, each fatal on failure:
      the kernel-gated train and eval steps against the plain ones
      (`training.kernel_check`: scores 1e-4 abs, loss parts 1e-4 rel,
      gradients 1e-4 of their max abs, BN statistics 1e-5, K5's group bit
-     for bit against its plain version); torch.profiler over 10 eager
-     and 16 graphed streamed steps (two calls of 8); run B's config with
+     for bit against its plain version); torch.profiler over 4 eager
+     and 8 graphed streamed steps (one call of 8); run B's config with
      K = 1 for
      one epoch; fits of 20 batches with prefetch_batches 2 and 0 (dense
      Adam, kernels on) and two lazyadam fits, each pair bit-identical
@@ -220,13 +220,44 @@ Phases, each fatal on failure:
      sgd, pgd, rmsprop, ftrl, padagrad, and "momentum", which runs sgd)
      with dense tables: 8 graphed steps + a tail against 9 eager ones
      bit for bit, finite loss, examples/s of a call of 8 replays.
+ 15. the model zoo (GRU4Rec, A2SVD, DIN, DIEN, SLI-Rec at their yaml
+     widths, and CLSR with use_fused_encoders false and sequential_model
+     time4lstm and gru) with phase 5's Taobao-sized tables, seeded
+     weights plus N(0, 0.1) noise and BN statistics away from 0 / 1.
+     After phase 14: (a) each model served, 64 x 100 (bucket 128) and
+     8 x 10 (bucket 16) through ScoringService, the counts read around
+     the two dispatches: K1 once a dispatch for DIN, SLI-Rec and CLSR
+     (the short-term scorer), none for the rest, K2 never; scores finite
+     in [0, 1], one per candidate; DIN and SLI-Rec with K1 against
+     use_pallas_eval_attention 'off' and every model against the CPU
+     port on the 8 x 10 requests, 1e-4 abs; the median 64 x 100 dispatch
+     ms and candidates/s.  (b) each model trained at B = 400, L = 50,
+     lengths 1..50, G = 5, use_pallas_train_attention 'on': for DIN and
+     SLI-Rec the kernel steps against the plain ones on the first batch
+     (`kernel_check.compare_steps`, lazyadam compact, phase 8's gates;
+     past them the per-tensor numbers are printed and the phase stops);
+     then dense Adam and lazyadam compact, each as one call of 32
+     graphed steps (the first the eager warm-up) and a replayed tail
+     against 33 eager steps, every state tensor and loss part bit for
+     bit, the launches a step K3a = K3b = K1 = 1 (DIN, SLI-Rec), 2
+     (CLSR), 0 (the rest), K2 0, K5 1 a lazyadam step; one more call of
+     32 replays timed by CUDA events (ms a step, examples/s, peak
+     memory), beside CLSR's fused lazyadam step (phase 10's
+     configuration) in the same run; torch.profiler over one eager
+     lazyadam step of each (kernels a step, device busy ms, the kernels
+     with the most device time).  Inside phase 11, after phase 14,
+     on its data: (c) one epoch of `clsr_tpu_torch.cli` with --model DIN
+     and --model DIEN (the CLI's defaults): epoch examples/s, test eval
+     s, valid auc above 0.5, K1 in DIN's evals only, K2 never.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
 resident run B epoch, and `fit_buckets`, run C's epoch and bucketed test
 eval, and the phase-14 paths `p14_bf16_train` (the timed bf16 calls),
 `p14_int8_serve`, `p14_bf16_fit` and `p14_optimizers` (the graphed
-calls)), the card's name and power limit, and the final status line.
+calls), and the phase-15 paths `p15_zoo_serve` (the served dispatches),
+`p15_zoo_train` (the graphed calls) and `p15_zoo_fit` (the CLI epochs
+and their evals)), the card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
@@ -580,6 +611,20 @@ def vocab_for(reqs):
     return [Vocab(dict(m, default=0)) for m in (users, items, cates)]
 
 
+def spread(model, seed):
+    """Seeded N(0, 0.1) noise on every parameter and BN running
+    statistics away from 0 / 1 (phase 5's), in place."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
+        for name, buf in model.named_buffers():
+            if name.endswith(".mean"):
+                buf.normal_(0.0, 0.05, generator=g)
+            elif name.endswith(".var"):
+                buf.uniform_(0.5, 1.5, generator=g)
+
+
 def serve(smi):
     from clsr_tpu_torch.config import CONFIG_DIR, load_config
     from clsr_tpu_torch.ops.fused_attention import fused_eval_attention
@@ -598,15 +643,7 @@ def serve(smi):
 
     t0 = time.perf_counter()
     base = ScoringService(cfg, *sizes, *vocabs)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    with torch.no_grad():      # spread the scores; BN stats away from 0/1
-        for p in base.model.parameters():
-            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
-        for name, buf in base.model.named_buffers():
-            if name.endswith(".mean"):
-                buf.normal_(0.0, 0.05, generator=g)
-            elif name.endswith(".var"):
-                buf.uniform_(0.5, 1.5, generator=g)
+    spread(base.model, 5)      # spread the scores; BN stats away from 0/1
     state = base.model.state_dict()
     torch.cuda.synchronize()
     table_mb = sum(p.numel() for n, p in state.items()
@@ -2031,15 +2068,19 @@ def differing(a, b):
     return sorted(k for k in a if not torch.equal(a[k], b[k]))
 
 
-def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False):
+def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
+                        weights=None):
     """Phase 12: from one state and one generator seed, one call of the
     graphed K-step train step (its first step the eager warm-up, the
     other K - 1 replays) and a tail step (a replay) against K + 1 eager
     single steps on the same batches: every model, optimizer and lazy
     tensor and every loss part bit for bit, deterministic algorithms off;
-    the launch counts of the call are K times the eager step's.  With
+    the launch counts of the call are K times the eager step's.
+    `loader` gives the batches (or is a list of K + 1 device batches);
+    `weights`, a state_dict, replaces both models' seeded init.  With
     `timed_call`, one more call of K replays on the same batches is
-    timed (host clock to a sync): examples/s."""
+    timed: examples/s by the host clock to a sync, ms a step by CUDA
+    events, and the call's peak device memory."""
     from clsr_tpu_torch.data.prefetch import to_device
     from clsr_tpu_torch.models.registry import get_model_class
     from clsr_tpu_torch.training.kernel_check import counted
@@ -2051,14 +2092,20 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False):
     if torch.are_deterministic_algorithms_enabled():
         raise AssertionError("deterministic algorithms are on")
     K = cfg.train_steps_per_call
-    host = loader.train_batches(cfg.batch_size, np.random.RandomState(2))
-    batches = [to_device(b, "cuda") for _, b in zip(range(K + 1), host)]
+    if isinstance(loader, list):
+        batches = loader[:K + 1]
+    else:
+        host = loader.train_batches(cfg.batch_size,
+                                    np.random.RandomState(2))
+        batches = [to_device(b, "cuda") for _, b in zip(range(K + 1), host)]
     if len(batches) != K + 1:
         raise AssertionError("the loader gave too few batches")
     rows = lambda p: torch.stack([getattr(p, f) for f in LOSS_FIELDS], -1)
     runs, counts = {}, {}
     for run in ("eager", "graph"):
-        model = get_model_class("clsr")(cfg, *sizes)
+        model = get_model_class(cfg.model_type)(cfg, *sizes)
+        if weights is not None:
+            model.load_state_dict(weights)
         state = create_train_state(model, cfg)
         gen = torch.Generator(device="cuda").manual_seed(21)
         if run == "eager":
@@ -2092,13 +2139,20 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False):
                capture=multi.capture_stats,
                loss=float(losses[-1, 0]))
     if timed_call:
+        del runs, te, tg, step, parts    # the eager model's memory
         stack = stack_batches(batches[:K])
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
+        start.record()
         multi(state, stack, gen)
+        end.record()
         torch.cuda.synchronize()
         out["examples_per_s"] = K * cfg.batch_size / (
             time.perf_counter() - t0)
+        out["step_ms"] = start.elapsed_time(end) / K
+        out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
     return out
 
 
@@ -2939,15 +2993,7 @@ def serve_int8(smi):
     small = make_requests(rng, 8, 10, *sizes)
     vocabs = vocab_for(big + small)
     f32 = ScoringService(cfg, *sizes, *vocabs)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    with torch.no_grad():      # phase 5's noise: spread the scores
-        for p in f32.model.parameters():
-            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
-        for name, buf in f32.model.named_buffers():
-            if name.endswith(".mean"):
-                buf.normal_(0.0, 0.05, generator=g)
-            elif name.endswith(".var"):
-                buf.uniform_(0.5, 1.5, generator=g)
+    spread(f32.model, 5)       # phase 5's noise: spread the scores
     root = tempfile.mkdtemp(prefix="clsr_phase14_")
     try:
         path = os.path.join(root, "f32.pt")
@@ -3079,6 +3125,235 @@ def mixed_on_p11_data(cfg_b, sizes, loaders, f32_examples_per_s, smi):
                           "p14_optimizers": opt_counts})
 
 
+# ------------------------------------------------------------- phase 15
+# the model zoo at its yaml widths with phase 5's Taobao-sized tables:
+# (name, yaml, overrides); the last row is CLSR's fused reference (timed
+# beside the zoo in training only)
+ZOO = (("gru4rec", "gru4rec", {}), ("a2svd", "asvd", {}),
+       ("din", "din", {}), ("dien", "dien", {}), ("sli_rec", "sli_rec", {}),
+       ("clsr_time4lstm", "clsr", dict(use_fused_encoders=False)),
+       ("clsr_gru", "clsr", dict(sequential_model="gru")))
+ZOO_REFERENCE = ("clsr_fused", "clsr", dict(use_pallas_scan=True))
+ZOO_K = 32                     # graphed steps a call, as phase 12
+ZOO_TOL = 1e-4                 # K1 on / off and card / CPU scores
+# K1 launches a serving dispatch and, per train step with
+# use_pallas_train_attention 'on', K3a = K3b = K1: the scorers of each
+# model that the kernels take (relu, no weights returned)
+ZOO_SCORERS = {"gru4rec": 0, "a2svd": 0, "din": 1, "dien": 0, "sli_rec": 1,
+               "clsr_time4lstm": 2, "clsr_gru": 2, "clsr_fused": 2}
+ZOO_SERVE_K1 = {"din", "sli_rec", "clsr_time4lstm", "clsr_gru"}
+ZOO_FITS = ("DIN", "DIEN")     # (c): the CLI on phase 11's data
+
+
+def zoo_cfg(yaml, kw):
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    return load_config(os.path.join(CONFIG_DIR, f"{yaml}.yaml"),
+                       user_vocab="u", item_vocab="i", cate_vocab="c",
+                       seed=0, **kw)
+
+
+def zoo_serve(name, cfg, big, small, vocabs, smi):
+    """Phase 15 (a) for one model: 64 x 100 and 8 x 10 requests through
+    ScoringService, the counts read around them; K1 on against off; the
+    card against the CPU port on the 8 x 10; the dispatch latency."""
+    from clsr_tpu_torch.serving import ScoringService
+    from clsr_tpu_torch.training.kernel_check import counted
+    sizes = (USERS, ITEMS, CATES)
+    svc = ScoringService(cfg, *sizes, *vocabs)
+    spread(svc.model, 5)
+    state = svc.model.state_dict()
+    svc.score(big[:2])                        # build and warm the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scores, counts = counted(lambda: svc.score(big) + svc.score(small))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    for s, r in zip(scores, big + small):
+        if s.shape != (len(r.cand_items),) or not np.isfinite(s).all() \
+                or s.min() < 0 or s.max() > 1:
+            raise AssertionError(f"{name}: scores not finite in [0, 1], "
+                                 f"one per candidate")
+    check_counts(f"phase 15 (a) {name}, two dispatches", counts,
+                 dict(eval_scorer=2 if name in ZOO_SERVE_K1 else 0,
+                      clsr_scan=0))
+    d_off = None
+    if name in ("din", "sli_rec"):
+        off = ScoringService(cfg.replace(use_pallas_eval_attention="off"),
+                             *sizes, *vocabs)
+        off.model.load_state_dict(state)
+        d_off = max(float(np.abs(a - b).max()) for a, b in
+                    zip(scores, off.score(big) + off.score(small)))
+        del off
+    cpu = ScoringService(cfg, *sizes, *vocabs, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in state.items()})
+    d_cpu = max(float(np.abs(a - b).max()) for a, b in
+                zip(scores[len(big):], cpu.score(small)))
+    del cpu
+    ms = dispatch_ms(svc, big)
+    log(f"phase 15 (a) [{name}]: launches {counts} | |K1 on - off| "
+        f"{d_off if d_off is None else f'{d_off:.3e}'} (tol {ZOO_TOL}), "
+        f"|cuda - cpu| on 8x10 {d_cpu:.3e} (tol {ZOO_TOL}) | 64x100 "
+        f"dispatch median {ms:.3f} ms, {64 * 100 / ms * 1e3:,.0f} "
+        f"candidates/s | peak {peak_mb:.1f} MB | {smi}")
+    if not (d_cpu <= ZOO_TOL and (d_off is None or d_off <= ZOO_TOL)):
+        raise AssertionError(f"phase 15 (a) {name}: served scores disagree")
+    del svc
+    torch.cuda.empty_cache()
+    return dict(launches=counts, k1_onoff_err=d_off, cpu_err=d_cpu,
+                dispatch_ms=ms, cands_per_s=64 * 100 / ms * 1e3,
+                peak_mb=peak_mb)
+
+
+def zoo_train(name, cfg, batches, smi):
+    """Phase 15 (b) for one model: seeded weights; for DIN and SLI-Rec
+    the kernel steps against the plain ones on the first batch
+    (`kernel_check.compare_steps`, phase 8's gates); then dense Adam and
+    lazyadam compact, each as graphed replays against eager steps; last,
+    torch.profiler over one eager lazyadam step."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training import kernel_check
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_train_step
+    cfg = cfg.replace(use_pallas_train_attention="on", batch_size=TRAIN_B,
+                      train_steps_per_call=ZOO_K)
+    model = get_model_class(cfg.model_type)(cfg, USERS, ITEMS, CATES)
+    spread(model, 6)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    out = {}
+    n = ZOO_SCORERS[name]
+    if name in ("din", "sli_rec"):
+        res = kernel_check.compare_steps(
+            cfg.replace(optimizer="lazyadam"), weights,
+            (USERS, ITEMS, CATES), batches[0],
+            eval_batch_from(batches[0], 100, 64, 3))
+        lc = res.pop("launches")
+        log(f"phase 15 (b) [{name}] first batch, kernel steps against plain "
+            f"(lazyadam compact; eval 64 x 100): scores max abs err "
+            f"{res['score_err']:.3e} (tol 1e-4), loss parts max rel err "
+            f"{res['loss_rel_err']:.3e} (tol 1e-4), gradients max err / max "
+            f"abs {res['grad_rel_err']:.3e}, table row gradients "
+            f"{res['table_grad_rel_err']:.3e} (tol 1e-4; zero-by-"
+            f"construction biases max abs err {res['zero_grad_abs_err']:.3e}"
+            f"), BN running stats {res['bn_err']:.3e} (tol 1e-5), K5 "
+            f"bit-identical {res['k5_identical']} | launches {lc} | {smi}")
+        check_counts(f"phase 15 (b) {name} kernel eval", lc["eval/kernel"],
+                     dict(eval_scorer=1, clsr_scan=0))
+        check_counts(f"phase 15 (b) {name} kernel step", lc["train/kernel"],
+                     dict(train_stats0=n, train_stats1=n, eval_scorer=n,
+                          clsr_scan=0, clsr_scan_backward=0, row_scatter=1))
+        for side in ("eval/plain", "train/plain"):
+            check_counts(f"phase 15 (b) {name} {side}", lc[side],
+                         {k: 0 for k in lc[side]})
+        bad = kernel_check.failures(res)
+        if bad or res["k5_identical"] is not True:
+            # the per-tensor numbers, as probe_kernel_gate.py prints them
+            for line in res["bad_grads"]:
+                log(f"  phase 15 (b) [{name}] past the gate: {line}")
+            raise AssertionError(f"phase 15 (b) {name}: the kernel step "
+                                 f"disagrees with the plain one: {bad}")
+        out["first_batch"] = dict(res, launches=lc)
+    k2 = 1 if name == "clsr_fused" else 0
+    for opt in ("adam", "lazyadam"):
+        if name == "clsr_fused" and opt == "adam":
+            continue           # the reference: lazyadam, as phase 10
+        res = graph_against_eager(f"phase 15 (b) {name} {opt}",
+                                  cfg.replace(optimizer=opt),
+                                  (USERS, ITEMS, CATES), batches, smi,
+                                  timed_call=True, weights=weights)
+        torch.cuda.empty_cache()
+        per_step = {k: v // (ZOO_K + 1)
+                    for k, v in res["launches"]["eager"].items()}
+        check_counts(f"phase 15 (b) {name} {opt} step", per_step,
+                     dict(train_stats0=n, train_stats1=n, eval_scorer=n,
+                          clsr_scan=k2, clsr_scan_backward=k2,
+                          row_scatter=int(opt == "lazyadam")))
+        if not np.isfinite(res["loss"]):
+            raise AssertionError(f"phase 15 (b) {name} {opt}: loss "
+                                 f"{res['loss']}")
+        log(f"phase 15 (b) [{name}, {opt}]: launches a step {per_step} | "
+            f"graphed step {res['step_ms']:.3f} ms (CUDA events over a "
+            f"call of {ZOO_K}), {TRAIN_B / res['step_ms'] * 1e3:,.0f} "
+            f"examples/s, peak {res['peak_mb']:.1f} MB | loss "
+            f"{res['loss']:.5f} | {smi}")
+        out[opt] = dict(res, per_step=per_step)
+    # where the graphed step's device time goes: one eager lazyadam step
+    # under torch.profiler (kernels a step, device busy ms, top kernels)
+    lazy = cfg.replace(optimizer="lazyadam")
+    model = get_model_class(cfg.model_type)(lazy, USERS, ITEMS, CATES)
+    model.load_state_dict(weights)
+    out["profile"] = profile_steps(
+        make_train_step(model, lazy), create_train_state(model, lazy),
+        batches[1:2], f"phase 15 {name} lazyadam eager", smi)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_zoo(smi):
+    """Phase 15 (a) and (b): every zoo model served and trained."""
+    rng = np.random.RandomState(15)
+    big = make_requests(rng, 64, 100, USERS, ITEMS, CATES)
+    small = make_requests(rng, 8, 10, USERS, ITEMS, CATES)
+    vocabs = vocab_for(big + small)
+    batches = train_batches(ZOO_K + 1, 15, USERS, ITEMS, CATES)
+    served, trained = {}, {}
+    launches = {"p15_zoo_serve": {}, "p15_zoo_train": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + v
+
+    for name, yaml, kw in ZOO:
+        t0 = time.perf_counter()
+        served[name] = zoo_serve(name, zoo_cfg(yaml, kw), big, small,
+                                 vocabs, smi)
+        add("p15_zoo_serve", served[name]["launches"])
+        served[name]["s"] = time.perf_counter() - t0
+    for name, yaml, kw in ZOO + (ZOO_REFERENCE,):
+        t0 = time.perf_counter()
+        trained[name] = zoo_train(name, zoo_cfg(yaml, kw), batches, smi)
+        for opt in ("adam", "lazyadam"):
+            if opt in trained[name]:
+                add("p15_zoo_train",
+                    trained[name][opt]["launches"]["graph"])
+        trained[name]["s"] = time.perf_counter() - t0
+    ref = trained["clsr_fused"]["lazyadam"]["step_ms"]
+    for name, t in trained.items():
+        log(f"phase 15 (b) graphed step ms at B = {TRAIN_B}: {name} adam "
+            f"{t['adam']['step_ms'] if 'adam' in t else float('nan'):.3f}, "
+            f"lazyadam {t['lazyadam']['step_ms']:.3f} "
+            f"({t['lazyadam']['step_ms'] / ref:.2f}x CLSR fused lazyadam "
+            f"{ref:.3f}) | {smi}")
+    return dict(serve=served, train=trained, launches=launches)
+
+
+def zoo_fits(root, smi):
+    """Phase 15 (c), inside phase 11 on its data: one epoch of the CLI
+    for each of ZOO_FITS, as a user runs it; the epoch examples/s, the
+    test eval s, the valid auc (> 0.5), the counts read around each."""
+    out = {}
+    for model in ZOO_FITS:
+        argv = ["--dataset", "synthetic", "--model", model, "--epochs", "1",
+                "--seed", "7", "--data_path", root]
+        text, wall, launches = run_cli(argv)
+        nums = cli_numbers(text)
+        epoch = nums["epochs"][0]
+        auc = nums["valid"][1]["auc"]
+        log(f"phase 15 (c) [{model} through the CLI]: epoch "
+            f"{epoch['train_s']:.3f} s, {epoch['steps']} steps, "
+            f"{epoch['examples_per_s']:,.1f} examples/s, valid auc {auc} "
+            f"(> 0.5), test eval {nums['test_eval_s'][0]:.3f} s, test "
+            f"{nums['test']} | wall {wall:.3f} s | launches {launches} | "
+            f"{smi}")
+        want_k1 = model == "DIN"
+        if not (auc > 0.5 and (launches["eval_scorer"] > 0) == want_k1
+                and launches["clsr_scan"] == 0):
+            raise AssertionError(f"phase 15 (c) {model}: auc {auc}, "
+                                 f"launches {launches}")
+        out[model] = dict(nums, wall_s=wall, launches=launches)
+    return out
+
+
 def train_and_evaluate(smi):
     """Phase 11: the synthetic set through the CLI (run A), through
     Trainer.fit with every kernel gate on (run B), and the gates."""
@@ -3188,7 +3463,7 @@ def train_and_evaluate(smi):
         trainer_a = eager_a.pop("trainer")
         # few steps: each makes ~12,000 launches for the profiler
         profile_a = {"eager": profile_fit(trainer_a, loaders["train"], smi,
-                                          graphed=False, n=5),
+                                          graphed=False, n=2),
                      "graphed": profile_fit(trainer_a, loaders["train"],
                                             smi, graphed=True, n=8)}
         del trainer_a
@@ -3331,9 +3606,9 @@ def train_and_evaluate(smi):
             f"{smi}")
         mark("K1 on / off, fit shapes, bare test eval")
         profile = {"eager": profile_fit(trainer, loaders["train"], smi,
-                                        graphed=False, n=10),
+                                        graphed=False, n=4),
                    "graphed": profile_fit(trainer, loaders["train"], smi,
-                                          graphed=True, n=16)}
+                                          graphed=True, n=8)}
         del trainer
         mark("run B profiles")
         eager_b = eager_epoch("run B", cfg_b, sizes, loaders, smi)
@@ -3382,6 +3657,8 @@ def train_and_evaluate(smi):
         p14 = mixed_on_p11_data(cfg_b, sizes, loaders,
                                 p13["resident"]["examples_per_s"], smi)
         mark("phase 14 (c) and (d)")
+        p15 = zoo_fits(root, smi)
+        mark("phase 15 (c)")
         return dict(
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
@@ -3400,7 +3677,11 @@ def train_and_evaluate(smi):
             prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
             phase13={k: v for k, v in p13.items() if k != "launches"},
             phase14={k: v for k, v in p14.items() if k != "launches"},
-            launches={"fit_cli": {k: launches_a[k] + launches_t[k]
+            phase15_fits=p15,
+            launches={"p15_zoo_fit": {k: sum(f["launches"][k]
+                                             for f in p15.values())
+                                      for k in launches_a},
+                      "fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
                       "fit_kernels": {k: fit_counts[k] + test_counts[k]
                                       for k in fit_counts},
@@ -3432,6 +3713,7 @@ def main():
     lazy = timed("train lazy", train_lazy, smi)
     sums = timed("segment sums", check_segment_sum, smi)
     mixed = timed("mixed precision", mixed_precision, smi)
+    zoo = timed("model zoo", model_zoo, smi)
     fit = timed("train and evaluate", train_and_evaluate, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
@@ -3443,6 +3725,7 @@ def main():
         "bench_row_update": rows["bench"]["launches"],
         "p14_bf16_train": mixed["train"]["launches"],
         "p14_int8_serve": mixed["serve"]["launches"],
+        **zoo["launches"],
         **fit["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
@@ -3493,6 +3776,8 @@ def main():
                    "train": trained, "row_update": rows,
                    "train_lazy": lazy, "segment_sums": sums,
                    "mixed_precision": mixed,
+                   "model_zoo": {k: v for k, v in zoo.items()
+                                 if k != "launches"},
                    "train_and_evaluate": fit}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -17,6 +17,7 @@ raise NotImplementedError naming their ROADMAP queue 1 item.
 Usage:
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --epochs 2
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --only_test
+    python -m clsr_tpu_torch.cli --dataset synthetic --model DIN --epochs 2
 """
 
 from __future__ import annotations
@@ -173,9 +174,6 @@ def refuse_unported(args) -> None:
         _waits("--attention_block_size", 9, "long context")
     if args.write_histograms or args.write_tfevents:
         _waits("--write_histograms and --write_tfevents", 11, host)
-    if args.sequential_model != "time4lstm":
-        _waits(f"--sequential_model {args.sequential_model}", 8,
-               "model zoo")
     get_model_class(args.model)
 
 

@@ -1,10 +1,10 @@
-"""Typed configuration for the PyTorch port's CLSR model, serving, train
+"""Typed configuration for the PyTorch port's models, serving, train
 step, fit loop, evaluation and CLI.
 
-Counterpart of clsr_tpu/config.py, cut to the fields the CLSR forward,
-`ScoringService`, the train step, `Trainer.fit`, the evaluator and the
-CLI read.  Semantics kept from there
-(and so from the reference's deeprec_utils.py:25-534):
+Counterpart of clsr_tpu/config.py, cut to the fields the ported models
+(CLSR, SLI-Rec, GRU4Rec, A2SVD, DIN, DIEN), `ScoringService`, the train
+step, `Trainer.fit`, the evaluator and the CLI read.  Semantics kept
+from there (and so from the reference's deeprec_utils.py:25-534):
 
   * YAML files are sectioned (data/model/train/info) and flattened,
     section names dropped, last key wins (`flat_config`).
@@ -13,7 +13,8 @@ CLI read.  Semantics kept from there
   * Per-model required keys and type checks (`check_nn_config`,
     `check_type`), for the fields this package keeps.
 
-The port keeps its own copy of configs/clsr.yaml.
+The port keeps its own copies of the ported models' yaml files
+(configs/{clsr,sli_rec,gru4rec,asvd,din,dien}.yaml).
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ def _flatten_yaml(loaded: Dict[str, Any]) -> Dict[str, Any]:
 
 _INT_FIELDS = frozenset({
     "epochs", "show_step", "max_seq_length", "hidden_size",
-    "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
-    "contrastive_length_threshold", "contrastive_recent_k", "batch_size",
-    "train_num_ngs", "min_seq_length", "early_stop",
+    "attention_size", "item_embedding_dim", "cate_embedding_dim",
+    "user_embedding_dim", "contrastive_length_threshold",
+    "contrastive_recent_k", "batch_size", "train_num_ngs", "min_seq_length",
+    "early_stop",
 })
 _FLOAT_FIELDS = frozenset({
     "init_value", "manual_alpha_value", "learning_rate", "embed_l2",
@@ -57,8 +59,8 @@ _LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation",
                           "dropout", "metrics", "pairwise_metrics",
                           "weighted_metrics"})
 
-# Required keys per model family (clsr_tpu/config.py:68-117).  Only CLSR
-# is ported; the registry refuses the other names.
+# Required keys per model family (clsr_tpu/config.py:68-117), for the
+# ported models; the registry refuses the other names.
 _REQUIRED_BY_MODEL: Dict[str, Tuple[str, ...]] = {
     "clsr": (
         "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
@@ -66,12 +68,35 @@ _REQUIRED_BY_MODEL: Dict[str, Tuple[str, ...]] = {
         "cate_vocab", "hidden_size", "att_fcn_layer_sizes",
         "contrastive_length_threshold", "contrastive_recent_k",
     ),
+    "sli_rec": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab", "hidden_size",
+        "att_fcn_layer_sizes",
+    ),
+    "gru4rec": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab", "hidden_size",
+    ),
+    "asvd": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab",
+    ),
+    "din": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab",
+        "att_fcn_layer_sizes",
+    ),
+    "dien": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab", "hidden_size",
+    ),
 }
 
 
 @dataclass(frozen=True)
 class Config:
-    """The hyperparameters the CLSR model, serving and the train step read.
+    """The hyperparameters the ported models, serving and the train step
+    read.
 
     Defaults are those of clsr_tpu/config.py:Config for the same fields.
     """
@@ -96,6 +121,9 @@ class Config:
     cate_embedding_dim: int = 8
     user_embedding_dim: int = 40
     hidden_size: int = 40
+    attention_size: int = 40           # SoftAttention's query (A2SVD,
+                                       # SLI-Rec); must equal its input
+                                       # width, as in JAX
     max_seq_length: int = 50
     min_seq_length: int = 1
     enable_bn: bool = True

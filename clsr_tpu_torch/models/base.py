@@ -51,6 +51,7 @@ from torch import nn
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.ops.attention import TargetAttention
 from clsr_tpu_torch.ops.initializers import get_initializer, new_param
 from clsr_tpu_torch.ops.mlp import FcnNet, dropout
 from clsr_tpu_torch.ops.segment_sum import lookup
@@ -179,6 +180,18 @@ class SequentialModelBase(nn.Module):
         if self.cfg.embedding_dtype == "bfloat16":
             p = nn.Parameter(p.detach().to(torch.bfloat16))
         return p
+
+    def target_attention(self, query_dim: int, key_dim: int
+                         ) -> TargetAttention:
+        """A `TargetAttention` with the config's scorer, kernel gates and
+        compute dtype (the models' `attention_fcn`, CLSR's two)."""
+        cfg = self.cfg
+        return TargetAttention(
+            query_dim, key_dim, cfg.att_fcn_layer_sizes, cfg.activation,
+            self.init, self.generator, self.device, enable_bn=cfg.enable_bn,
+            use_kernel=cfg.use_pallas_eval_attention,
+            use_train_kernel=cfg.use_pallas_train_attention,
+            bn_stats_mask=bn_stats_mask_active(cfg), dtype=self.dtype)
 
     def head_in_dim(self) -> int:
         raise NotImplementedError

@@ -8,7 +8,13 @@ clsr.py:20-455):
   * long-term attention with query = user_long_embedding (G = 1, the
     plain path, clsr.py:152-155);
   * the fused encoder: interest-evolve GRU from user_short, Time4LSTM
-    over the history, and the "causal2" GRU (clsr.py:160-216, 230);
+    over the history, and the "causal2" GRU (clsr.py:160-216, 230); or,
+    with `use_fused_encoders: false` or `sequential_model` gru / lstm,
+    the unfused encoders of JAX :144-169 and :188-192 (ops/rnn.py):
+    `short_term_intention` (a GRU from user_short, under
+    interest_evolve), `time4lstm`, `simple_gru` or `simple_lstm` by
+    sequential_model, and `causal2` (a GRU, under predict_long_short
+    without manual_alpha), each with the compute dtype;
   * short-term attention with query concat(short_term_intention,
     target) over the Time4LSTM outputs (G >= 8 -> kernel K1,
     clsr.py:219-221);
@@ -28,8 +34,8 @@ clsr.py:20-455):
   * under compute_dtype bfloat16 the attentions, the encoder, the fusion
     MLP and the head run in bf16 (JAX clsr.py:105-197, base.py:254).
 
-Only the fused time4lstm encoder is ported; the unfused GRU/LSTM
-encoders (ops/rnn.py) wait for the model zoo slice.
+K2 runs only in the fused encoder; the unfused ones are the plain
+recurrences of ops/rnn.py, as JAX runs them with `lax.scan`.
 """
 
 from __future__ import annotations
@@ -40,11 +46,14 @@ import torch
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
-                                        bn_stats_mask_active, lookup_cast,
-                                        unique_rows_stats)
-from clsr_tpu_torch.ops.attention import TargetAttention
+                                        lookup_cast, unique_rows_stats)
 from clsr_tpu_torch.ops.fused_clsr import FusedCLSREncoder
 from clsr_tpu_torch.ops.mlp import FcnNet
+from clsr_tpu_torch.ops.rnn import GRU, LSTM, Time4LSTM
+
+# sequential_model -> (module name, cell) of the unfused encoder
+_SEQUENTIAL = {"time4lstm": ("time4lstm", Time4LSTM),
+               "gru": ("simple_gru", GRU), "lstm": ("simple_lstm", LSTM)}
 
 
 class CLSRModel(SequentialModelBase):
@@ -52,31 +61,30 @@ class CLSRModel(SequentialModelBase):
     def __init__(self, cfg, n_users: int, n_items: int, n_cates: int,
                  device=None, generator=None):
         super().__init__(cfg, n_users, n_items, n_cates, device, generator)
-        if not (cfg.use_fused_encoders and cfg.sequential_model == "time4lstm"):
-            raise NotImplementedError(
-                "only the fused time4lstm encoder is ported; the unfused "
-                "GRU/LSTM encoders wait for ROADMAP queue 1 item 8, model zoo")
         U, H, T = cfg.user_embedding_dim, cfg.hidden_size, cfg.target_dim
         self.user_long_embedding = self.new_table((n_users, U))
         self.user_short_embedding = self.new_table((n_users, U))
-
-        def attention(query_dim, key_dim):
-            return TargetAttention(
-                query_dim, key_dim, cfg.att_fcn_layer_sizes, cfg.activation,
-                self.init, self.generator, self.device,
-                enable_bn=cfg.enable_bn,
-                use_kernel=cfg.use_pallas_eval_attention,
-                use_train_kernel=cfg.use_pallas_train_attention,
-                bn_stats_mask=bn_stats_mask_active(cfg), dtype=self.dtype)
+        self.fused = (cfg.use_fused_encoders
+                      and cfg.sequential_model == "time4lstm")
+        g, dev, cdt = self.generator, self.device, self.dtype
 
         # creation order follows the flax tree (long, encoder, short, ...)
-        self.long_term_att = attention(U, T)
-        self.fused_encoders = FusedCLSREncoder(
-            T, U, H, self.generator, self.device,
-            interest_evolve=cfg.interest_evolve,
-            predict_long_short=cfg.predict_long_short,
-            use_pallas=cfg.use_pallas_scan, dtype=self.dtype)
-        self.short_term_att = attention(U + T, H)
+        self.long_term_att = self.target_attention(U, T)
+        if self.fused:
+            self.fused_encoders = FusedCLSREncoder(
+                T, U, H, g, dev, interest_evolve=cfg.interest_evolve,
+                predict_long_short=cfg.predict_long_short,
+                use_pallas=cfg.use_pallas_scan, dtype=cdt)
+        else:
+            if cfg.interest_evolve:
+                self.short_term_intention = GRU(T, U, g, dev, cdt)
+            name, cell = _SEQUENTIAL[cfg.sequential_model]
+            self.sequential_name = name
+            self.add_module(name, cell(T, H, g, dev, cdt))
+        self.short_term_att = self.target_attention(U + T, H)
+        if (not self.fused and cfg.predict_long_short
+                and not cfg.manual_alpha):
+            self.causal2 = GRU(T, H, g, dev, cdt)
         if not cfg.manual_alpha:
             fusion_in = ((H if cfg.predict_long_short else 0)
                          + T + T + H + 1)
@@ -122,10 +130,14 @@ class CLSRModel(SequentialModelBase):
             user_long, hist, mask, train_kernel=train_kernel)   # [B, T]
 
         # ---- short term (clsr.py:159-222) -------------------------------
-        h1, rnn_outputs, causal2_state = self.fused_encoders(
-            hist, batch.time_from_first, batch.time_to_now, mask,
-            user_short)
-        short_term_intention = h1 if cfg.interest_evolve else user_short
+        if self.fused:
+            h1, rnn_outputs, causal2_state = self.fused_encoders(
+                hist, batch.time_from_first, batch.time_to_now, mask,
+                user_short)
+            short_term_intention = h1 if cfg.interest_evolve else user_short
+        else:
+            short_term_intention, rnn_outputs, causal2_state = \
+                self.unfused_encoders(batch, hist, user_short)
         short_query = torch.cat(
             [short_term_intention[:, None, :].expand(B, G, -1),
              ctx.target_emb], dim=-1)                           # [B, G, U+T]
@@ -157,6 +169,27 @@ class CLSRModel(SequentialModelBase):
             aux.update(self.train_aux(batch, hist, att_fea_long,
                                       att_fea_short, user_stats))
         return model_output, aux
+
+    def unfused_encoders(self, batch: Batch, hist: torch.Tensor,
+                         user_short: torch.Tensor):
+        """(short_term_intention [B, U], rnn_outputs [B, L, H],
+        causal2_state [B, H] or None) from the separate cells (JAX
+        clsr.py:144-169, 188-192)."""
+        mask = batch.mask
+        if self.cfg.interest_evolve:
+            _, short_term_intention = self.short_term_intention(
+                hist, mask, init_state=user_short)
+        else:
+            short_term_intention = user_short
+        encoder = getattr(self, self.sequential_name)
+        if self.cfg.sequential_model == "time4lstm":
+            rnn_outputs, _ = encoder(hist, batch.time_from_first,
+                                     batch.time_to_now, mask)
+        else:
+            rnn_outputs, _ = encoder(hist, mask)
+        causal2_state = (self.causal2(hist, mask)[1]
+                         if hasattr(self, "causal2") else None)
+        return short_term_intention, rnn_outputs, causal2_state
 
     def train_aux(self, batch: Batch, hist: torch.Tensor,
                   att_fea_long: torch.Tensor, att_fea_short: torch.Tensor,

@@ -27,7 +27,12 @@ With a compute `dtype` (bfloat16) the key projection and the plain
 scorer run in it and the logits are upcast before the masked softmax
 (attention.py:53-56, :174-187); the kernels compute in f32 on inputs
 cast to f32 first, as JAX's do (:91-95, :137-141).
-`SoftAttention` (A2SVD) waits for the model zoo slice.
+`SoftAttention` (clsr_tpu/ops/attention.py:192-207, reference
+`_attention`, base_model.py:595-625; A2SVD and SLI-Rec's long term): a
+learned global query over the projected sequence, a softmax over ALL
+positions (no mask: the reference's quirk, kept), the weighted sequence
+returned.  Its `attention_mat` is [D, D], so the query's
+`attention_size` must equal D, as in JAX.
 """
 
 from __future__ import annotations
@@ -153,3 +158,21 @@ class TargetAttention(nn.Module):
 def _switched_on(flag: str, like: torch.Tensor) -> bool:
     """A kernel flag: 'on', or 'auto' with CUDA tensors."""
     return flag == "on" or (flag == "auto" and like.is_cuda)
+
+
+class SoftAttention(nn.Module):
+    """Global-query soft attention: inputs [B, L, D] -> the weighted
+    sequence [B, L, D]."""
+
+    def __init__(self, input_dim: int, attention_size: int,
+                 init: Initializer, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.attention_mat = new_param((input_dim, input_dim), init,
+                                       generator, device)
+        self.query = new_param((attention_size,), init, generator, device)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        logits = (inputs @ self.attention_mat) @ self.query     # [B, L]
+        weights = torch.softmax(logits, dim=-1)    # no mask: reference quirk
+        return inputs * weights[..., None]

@@ -23,6 +23,17 @@ train scorer, which computed the normalisation itself.  Dense layers are
 (weights.from_flax).  Dropout draws its mask from an explicit
 `torch.Generator`; the masks differ from flax's by design.
 
+`Dice` (JAX :25-36, reference deeprec_utils.py:838-860) is the
+data-adaptive activation: it normalises with the statistics of the
+tensor it is given, over every axis but the last, in train and in eval
+mode alike (the reference has only the train-mode branch and no running
+average), std = sqrt(mean((x - mean)^2 + 1e-9)), normed =
+(x - mean) / (std + 1e-9), out = alpha (1 - p) x + p x with p =
+sigmoid(normed).  So a Dice layer's output for one row depends on the
+other rows of the batch, padding included, in JAX as here.  `FcnNet`
+holds one as `dice_{idx}` for each layer whose activation is "dice", as
+JAX's `activate` creates it under the calling FcnNet (:241-260).
+
 `FcnNet` and `SplitFirstDense` take a compute `dtype` (JAX :173-240):
 with bfloat16 the dense layers cast their input, kernel and bias to it
 and compute there (the parameters stay f32), BN takes its statistics
@@ -68,6 +79,24 @@ def dense(in_dim: int, out_dim: int, init: Initializer,
         layer.weight.copy_(init(kernel, generator).t())
         layer.bias.zero_()
     return layer
+
+
+class Dice(nn.Module):
+    """Dice with its parameter `alpha` [features] (zeros)."""
+
+    EPS = 1e-9
+
+    def __init__(self, features: int, device: torch.device):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes, keepdim=True)
+        std = torch.sqrt((torch.square(x - mean) + self.EPS).mean(
+            axes, keepdim=True))
+        p = torch.sigmoid((x - mean) / (std + self.EPS))
+        return self.alpha * (1.0 - p) * x + p * x
 
 
 class SplitFirstDense(nn.Module):
@@ -184,7 +213,8 @@ class FcnNet(nn.Module):
     config's `dropout` under `user_dropout`) apply in train mode, after
     BN and before the activation, with masks from the generator passed
     to `forward`.  With `masked_bn` its BN layers are `MaskedBatchNorm`,
-    which read the `stats_weight` passed to `forward`.
+    which read the `stats_weight` passed to `forward`.  A "dice"
+    activation is the layer's `dice_{idx}` module.
     """
 
     def __init__(self, in_dim: int, layer_sizes: Sequence[int],
@@ -214,6 +244,8 @@ class FcnNet(nn.Module):
             if enable_bn:
                 bn = MaskedBatchNorm if masked_bn else BatchNorm
                 self.add_module(f"bn{idx}", bn(size, generator, device))
+            if self.activation(idx) == "dice":
+                self.add_module(f"dice_{idx}", Dice(size, device))
             width = size
         self.w_nn_output = dense(width, out_dim, init, generator, device)
 
@@ -238,7 +270,9 @@ class FcnNet(nn.Module):
                 rate = self.dropout_rates[min(idx,
                                               len(self.dropout_rates) - 1)]
                 x = dropout(x, rate, generator)
-            x = activate(x, self.activation(idx))
+            x = (getattr(self, f"dice_{idx}")(x)
+                 if self.activation(idx) == "dice"
+                 else activate(x, self.activation(idx)))
         x = self._dense(self.w_nn_output, x)
         return x if self.dtype is None else x.float()
 
@@ -258,7 +292,8 @@ class FcnNet(nn.Module):
 
 
 def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
-    """Activation dispatch, mirroring base_model.py:314-330."""
+    """Activation dispatch, mirroring base_model.py:314-330; "dice" holds
+    a parameter and is FcnNet's `dice_{idx}` module."""
     if activation == "sigmoid":
         return torch.sigmoid(x)
     if activation == "softmax":
@@ -271,7 +306,4 @@ def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
         return F.elu(x)
     if activation == "identity":
         return x
-    if activation == "dice":
-        raise NotImplementedError(
-            "dice waits for the model zoo slice (ROADMAP queue 1)")
     raise ValueError(f"this activations not defined {activation}")

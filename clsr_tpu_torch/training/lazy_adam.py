@@ -66,7 +66,7 @@ def is_table(name: str) -> bool:
 
 def batch_table_ids(batch: Batch) -> Dict[str, torch.Tensor]:
     """Row ids each known embedding table can be touched by (the JAX
-    package's NCF gmf/mlp tables wait for the model zoo)."""
+    package's NCF gmf/mlp tables wait for ROADMAP queue 1 item 8b)."""
     items = torch.cat([batch.item_hist.reshape(-1), batch.items.reshape(-1)])
     cates = torch.cat([batch.cate_hist.reshape(-1), batch.cates.reshape(-1)])
     return {

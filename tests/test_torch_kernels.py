@@ -41,7 +41,12 @@ rows and a misaligned base in 2-byte units, duplicates, negative and
 dropped ids) bit-equal to its plain version and to index_copy_, a
 lazy step's mixed group (four bf16 tables and four f32 pmn arrays) in
 one launch bit-equal to index_copy_, and the wrappers' refusals of
-other types (K4 stays f32).  TF32 is off on both sides.
+other types (K4 stays f32).  The zoo's scorers (DIN and SLI-Rec at
+their yaml widths, D = Dk = 40): K1 in the eval step at the serving
+buckets (64 x 128, 8 x 16), one launch, within 1e-4 abs of the plain
+scorer; K3a + K3b + K1 in a lazyadam train step at B = 400, G = 5
+through `kernel_check.compare_steps`, one launch each and K5 once.
+TF32 is off on both sides.
 """
 
 import numpy as np
@@ -577,3 +582,71 @@ def test_lazy_train_step_compact_matches_legacy(cuda):
         torch.testing.assert_close(ma[name][:, D:], mb[name], rtol=0,
                                    atol=1e-5)
         assert torch.equal(ma[name][:, :D], ta[name])
+
+
+# ---------------------------------------------------- the zoo's shapes
+# DIN's and SLI-Rec's attention_fcn: query = target (D = 40), keys the
+# history (DIN) or the Time4LSTM outputs (SLI-Rec), Dk = 40, scorer
+# [80, 40]; K1 at the serving buckets, K3a + K3b + K1 at G = 5
+
+
+def _zoo_model(cuda, name, n_items, n_cates, **kw):
+    cfg = load_config(f"{CONFIG_DIR}/{name}.yaml", user_vocab="u",
+                      item_vocab="i", cate_vocab="c", seed=0, **kw)
+    return cfg, get_model_class(name)(cfg, 10, n_items, n_cates)
+
+
+@pytest.mark.parametrize("name", ["din", "sli_rec"])
+@pytest.mark.parametrize("B, G", [(64, 128), (8, 16)])
+def test_zoo_eval_scorer_matches_plain(cuda, name, B, G):
+    """K1 at (D, Dk, H0, H1) = (40, 40, 80, 40) in the zoo's eval step:
+    one launch, scores within 1e-4 abs of the plain scorer's."""
+    from clsr_tpu_torch.training.steps import make_eval_step_fn
+    n_items, n_cates = 5000, 50
+    rng = np.random.RandomState(B)
+    batch = _train_batch(cuda, rng, B, 50, 10, n_items, n_cates)
+    batch.items = torch.from_numpy(rng.randint(1, n_items, (B, G)).astype(
+        np.int32)).to(cuda)
+    batch.cates = torch.from_numpy(rng.randint(1, n_cates, (B, G)).astype(
+        np.int32)).to(cuda)
+    preds = {}
+    for gate in ("on", "off"):
+        cfg, model = _zoo_model(cuda, name, n_items, n_cates,
+                                use_pallas_eval_attention=gate)
+        if gate == "on":
+            state = model.state_dict()
+            fa.fused_eval_attention.launches = 0
+        else:
+            model.load_state_dict(state)
+        preds[gate], _ = make_eval_step_fn(cfg)(model, batch)
+        torch.cuda.synchronize()
+        if gate == "on":
+            assert fa.fused_eval_attention.launches == 1
+    torch.testing.assert_close(preds["on"], preds["off"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["din", "sli_rec"])
+def test_zoo_train_scorer_matches_plain(cuda, name):
+    """K3a + K3b + K1 at (G, D) = (5, 40) in the zoo's train step, B =
+    400, L = 50, lazyadam compact: `kernel_check.compare_steps` within
+    its gates, one launch of each kernel and K5 a step."""
+    from clsr_tpu_torch.training import kernel_check
+    n_items, n_cates = 5000, 50
+    cfg, model = _zoo_model(cuda, name, n_items, n_cates,
+                            use_pallas_train_attention="on",
+                            optimizer="lazyadam")
+    rng = np.random.RandomState(4)
+    train = _train_batch(cuda, rng, 400, 50, 10, n_items, n_cates)
+    test = _train_batch(cuda, rng, 16, 50, 10, n_items, n_cates)
+    test.items = train.items[:16].repeat(1, 20)
+    test.cates = train.cates[:16].repeat(1, 20)
+    res = kernel_check.compare_steps(cfg, model.state_dict(),
+                                     (10, n_items, n_cates), train, test)
+    assert kernel_check.failures(res) == []
+    assert res["k5_identical"] is True
+    counts = res["launches"]["train/kernel"]
+    assert {k: counts[k] for k in ("train_stats0", "train_stats1",
+                                   "eval_scorer", "row_scatter",
+                                   "clsr_scan")} == dict(
+        train_stats0=1, train_stats1=1, eval_scorer=1, row_scatter=1,
+        clsr_scan=0)

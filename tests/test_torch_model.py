@@ -97,12 +97,19 @@ def test_train_mode_and_unported_settings_raise():
     assert get_model_class("clsr")(
         cfg.replace(compute_dtype="bfloat16"), N_USERS, N_ITEMS, N_CATES,
         device="cpu").logit_fcn.dtype == torch.bfloat16
-    for bad in (dict(data_parallel=2), dict(use_fused_encoders=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model_class("clsr")(cfg.replace(**bad), N_USERS, N_ITEMS,
-                                    N_CATES, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model_class("clsr")(cfg.replace(data_parallel=2), N_USERS,
+                                N_ITEMS, N_CATES, device="cpu")
+    # the unfused encoders are ported: the model builds and scores
+    unfused = get_model_class("clsr")(cfg.replace(use_fused_encoders=False),
+                                      N_USERS, N_ITEMS, N_CATES,
+                                      device="cpu")
+    assert not hasattr(unfused, "fused_encoders")
+    b = numpy_batch(np.random.RandomState(2), 3, 9, cfg.max_seq_length)
+    preds, _ = make_eval_step_fn(cfg)(unfused, port_batch(b))
+    assert preds.shape == (3, 9) and torch.isfinite(preds).all()
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model_class("DIN")
+        get_model_class("CASER")
     with pytest.raises(ValueError, match="Unknown model"):
         get_model_class("nope")
 
