@@ -58,7 +58,13 @@ Phases, each fatal on failure:
      forward with and without carries (each as a phase 4 case), the
      backward kernel alone, the weight products, the whole backward, the
      plain backward and the old route (the plain recurrence recomputed
-     under autograd), and both bounds;
+     under autograd), and both bounds; then K2's backward at
+     (B, L) = (400, 50), (500, 50) and (400, 250): each kernel gradient
+     within 1e-5 of its max abs of `scan_backward_reference` in float64 on
+     the same carries (the float32 plain version's own error beside it),
+     the kernel, the weight products and the whole backward a call and
+     on the device by CUDA graph replay, the kernel also with each rows a
+     block R forced, and the byte bounds;
   8. training at the clsr.yaml widths with the Taobao-sized tables:
      seeded numpy batches of B=400, L=50, lengths 1..50, in-batch
      negatives drawn on the card from a seeded torch.Generator (G=5).
@@ -187,7 +193,12 @@ Phases, each fatal on failure:
      timed, K1 and K2 once a bucketed dispatch; K1 and K2 against their
      plain versions on the inputs the eval gives them at every eval Lb
      (1e-4 abs), and the kernel train and eval steps against the plain
-     ones at every train Lb (`training.kernel_check`).  (4) On the
+     ones at every train Lb (`training.kernel_check` with `same_kinks`:
+     the plain step on the kernel step's side of each ReLU, the inputs
+     that changed sign counted and each within 1e-4 of zero on both
+     sides: among the logit head's 250,000 ReLU inputs one may sit
+     within K2's forward's rounding of zero, and its flip moves the
+     gradients by ~1e-3 of their max abs).  (4) On the
      bucket with the most rows, one graphed resident call of 32 steps and
      a replayed tail against 33 eager steps on the same gathered batches:
      every state tensor and loss part bit for bit, the call's launches 32
@@ -509,7 +520,7 @@ def k2_forward_case(shape, args, keep, smi, graph_calls=20, plain_iters=5):
     against `scan_reference` and the carries against
     `scan_forward_reference` (1e-5 abs), a second call bit-identical; ms
     a call (CUDA events), on the device (CUDA graph replay) with the
-    wrapper's rows a block and with each of FORWARD_ROWS forced, the
+    wrapper's rows a block and with each of ROWS forced, the
     plain version's ms, the byte bound, us per dependent step and the
     bound's share of the device time."""
     from clsr_tpu_torch.ops import fused_scan as fs
@@ -526,15 +537,15 @@ def k2_forward_case(shape, args, keep, smi, graph_calls=20, plain_iters=5):
     err = max((x - y).abs().max().item() for x, y in zip(first, want))
     ms = cuda_ms(run)
     device_ms = graph_ms(run, graph_calls)
-    rows = fs.forward_rows_per_block(B, fs._sm_count(args[2].device))
-    pick = fs.forward_rows_per_block
+    rows = fs.rows_per_block(B, fs._sm_count(args[2].device))
+    pick = fs.rows_per_block
     rows_device_ms = {}
     try:
-        for forced in fs.FORWARD_ROWS:
-            fs.forward_rows_per_block = lambda *_, r=forced: r
+        for forced in fs.ROWS:
+            fs.rows_per_block = lambda *_, r=forced: r
             rows_device_ms[forced] = graph_ms(run, graph_calls)
     finally:
-        fs.forward_rows_per_block = pick
+        fs.rows_per_block = pick
     plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
     n_valid = int(args[8].sum().item())
     macs = U * 2 * U + U * U + H * 4 * H + H * 2 * H + H * H
@@ -1036,6 +1047,16 @@ def check_k2_backward(smi):
             and rel_auto <= GRAD_REL):
         raise AssertionError(f"K2's backward disagrees with its plain "
                              f"version or autograd: {rel_plain}, {rel_auto}")
+    del got, plain, dx
+    shapes = {"train": k2_backward_case("train", args, cots, carries, smi)}
+    for shape, B_, L_, seed in (("cli", 500, 50, 32),
+                                ("kuaishou", 400, 250, 34)):
+        a = k2_inputs(B_, L_, seed)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        c = tuple(torch.randn(*shape_, generator=g, device=dev)
+                  for shape_ in ((B_, U), (B_, L_, H), (B_, H)))
+        *_, cy = fs._forward(*a, keep_carries=True)
+        shapes[shape] = k2_backward_case(shape, a, c, cy, smi)
     return dict(max_abs_err=err, grad_rel_plain=rel_plain,
                 grad_rel_autograd=rel_auto, carry_err=carry_err, ms=ms,
                 kernel_ms=kernel_ms, gemm_ms=gemm_ms, plain_ms=plain_ms,
@@ -1043,7 +1064,100 @@ def check_k2_backward(smi):
                 bound_by=bwd_bound[1], fwd_ms=fwd_ms,
                 fwd_carries_ms=fwd_carries_ms, fwd_bound_ms=fwd_bound[0],
                 fwd_bound_by=fwd_bound[1], n_valid=n_valid,
-                forward=fwd[False], forward_carries=fwd[True])
+                forward=fwd[False], forward_carries=fwd[True],
+                shapes=shapes)
+
+
+K2_BWD_F64_REL = 1e-5   # each kernel gradient against float64, of max abs
+
+
+def k2_backward_case(shape, args, cots, carries, smi, graph_calls=20):
+    """K2's backward on `args` from the forward's `carries`: each kernel
+    gradient (those of xg1 .. xc2 and ushort) against
+    `scan_backward_reference` in float64 on the same carries, within
+    K2_BWD_F64_REL of its max abs, the float32 plain version's error
+    beside it (and the weight products' errors, not gated); the kernel
+    alone, the five weight products and the whole backward a call (CUDA
+    events) and on the device (CUDA graph replay), the kernel with each
+    of ROWS forced; the plain backward's ms; the byte bounds of
+    the kernel and of the whole backward."""
+    from clsr_tpu_torch.ops import fused_scan as fs
+    B, L = args[2].shape[:2]
+    U, H = args[9].shape[-1], args[14].shape[-1]
+    f64 = lambda ts: tuple(t.double() for t in ts)
+    want = fs.scan_backward_reference(f64(args), carries.double(),
+                                      *f64(cots))
+    got = fs.scan_backward(args, carries, *cots)
+    plain = fs.scan_backward_reference(args, carries, *cots)
+    torch.cuda.synchronize()
+    rel = lambda a, b: ((a.double() - b).abs().max()
+                        / b.abs().max()).item()
+    kernel_idx = (0, 1, 2, 3, 4, 5, 6, 7, 9)
+    weight_idx = (10, 11, 12, 13, 14)
+    f64_rel = max(rel(got[i], want[i]) for i in kernel_idx)
+    plain_f64_rel = max(rel(plain[i], want[i]) for i in kernel_idx)
+    weights_f64_rel = max(rel(got[i], want[i]) for i in weight_idx)
+    plain_weights_f64_rel = max(rel(plain[i], want[i]) for i in weight_idx)
+    del want, got, plain
+    kernel = lambda: fs._backward_kernel(args, carries, *cots)
+    dx = kernel()
+    gemms = lambda: fs.scan_weight_grads(carries, dx[9], dx[0], dx[1],
+                                         dx[2], dx[6], dx[7])
+    whole = lambda: fs.scan_backward(args, carries, *cots)
+    ms = {name: cuda_ms(fn) for name, fn in
+          (("kernel", kernel), ("gemms", gemms), ("whole", whole))}
+    device_ms = {name: graph_ms(fn, graph_calls) for name, fn in
+                 (("kernel", kernel), ("gemms", gemms), ("whole", whole))}
+    rows = fs.rows_per_block(B, fs._sm_count(args[2].device))
+    pick = fs.rows_per_block
+    rows_device_ms = {}
+    try:
+        for forced in fs.ROWS:
+            fs.rows_per_block = lambda *_, r=forced: r
+            rows_device_ms[forced] = graph_ms(kernel, graph_calls)
+    finally:
+        fs.rows_per_block = pick
+    plain_ms = cuda_ms(lambda: fs.scan_backward_reference(args, carries,
+                                                          *cots),
+                       iters=2, warmup=1)
+    # bytes: the kernel reads the inputs but ushort, the carries and the
+    # cotangents once and writes the 8 input gradients, d ushort and zc
+    # once; the whole backward reads the same and writes the 8 input
+    # gradients, d ushort and the 5 weight gradients once
+    n_read = (sum(a.numel() for a in args) - B * U + carries.numel()
+              + sum(c.numel() for c in cots))
+    n_grads = sum(a.numel() for a in args[:8]) + B * U
+    n_weights = sum(a.numel() for a in args[10:])
+    kernel_bound, _ = bound(4 * (n_read + n_grads + B * L * (U + H)), 0)
+    whole_bound, _ = bound(4 * (n_read + n_grads + n_weights), 0)
+    n_valid = int(args[8].sum().item())
+    us_step = device_ms["kernel"] * 1e3 / L
+    log(f"K2 clsr_scan_backward [{shape}: B={B} L={L} U={U} H={H}, "
+        f"{n_valid}/{B * L} valid steps, R={rows} rows a block]: kernel "
+        f"gradients max err / max abs {f64_rel:.3e} against float64 (tol "
+        f"{K2_BWD_F64_REL}; the float32 plain backward {plain_f64_rel:.3e};"
+        f" weight gradients {weights_f64_rel:.3e}, plain "
+        f"{plain_weights_f64_rel:.3e}) | a call: kernel "
+        f"{ms['kernel']:.4f} ms, weight products {ms['gemms']:.4f} ms, "
+        f"whole {ms['whole']:.4f} ms | on the device by CUDA graph "
+        f"replay: kernel {device_ms['kernel']:.4f} ms ({us_step:.3f} us per"
+        f" dependent step), weight products {device_ms['gemms']:.4f} ms, "
+        f"whole {device_ms['whole']:.4f} ms; kernel device ms by R "
+        + ", ".join(f"{r}: {t:.4f}" for r, t in rows_device_ms.items())
+        + f" | plain {plain_ms:.4f} ms | byte bound: kernel "
+        f"{kernel_bound:.5f} ms ({kernel_bound / device_ms['kernel']:.1%} "
+        f"of its device time), whole {whole_bound:.5f} ms; the floor is "
+        f"the {L} dependent steps | {smi}")
+    if not f64_rel <= K2_BWD_F64_REL:
+        raise AssertionError(f"K2's backward [{shape}] is {f64_rel} of max "
+                             f"abs off the float64 backward")
+    return dict(f64_rel=f64_rel, plain_f64_rel=plain_f64_rel,
+                weights_f64_rel=weights_f64_rel,
+                plain_weights_f64_rel=plain_weights_f64_rel,
+                ms=ms, device_ms=device_ms, rows=rows,
+                rows_device_ms=rows_device_ms, us_per_step=us_step,
+                plain_ms=plain_ms, kernel_bound_ms=kernel_bound,
+                whole_bound_ms=whole_bound, n_valid=n_valid, B=B, L=L)
 
 
 def train_batches(n, seed, n_users, n_items, n_cates):
@@ -2542,7 +2656,10 @@ def buckets_fit_and_eval(cfg_b, sizes, loaders, resident_eps, smi):
         per_lb[Lb] = dict(k1_err=e1, k2_err=e2)
     # and the kernel train and eval steps against the plain ones at each
     # train Lb (kernel_check: scores 1e-4 abs, loss parts 1e-4 rel,
-    # gradients 1e-4 of max abs, BN statistics 1e-5, K5 bit for bit)
+    # gradients 1e-4 of max abs, BN statistics 1e-5, K5 bit for bit), the
+    # plain step on the kernel step's side of each ReLU, whose inputs may
+    # change sign only within 1e-4 of zero (same_kinks: both steps' ReLUs
+    # run in PyTorch here, K1 and K3 being off in run C's train steps)
     train_lb = {}
     tests = first_batches(test, G, cfg_c.batch_size,
                           [f.res.seq_len for f, _ in t.feeds])
@@ -2551,11 +2668,13 @@ def buckets_fit_and_eval(cfg_b, sizes, loaders, resident_eps, smi):
         res_ = kernel_check.compare_steps(
             cfg_c, t.state.model.state_dict(), sizes,
             gathered(feed, cfg_c.batch_size),
-            to_device(tests.get(Lb, next(iter(tests.values()))), "cuda"))
+            to_device(tests.get(Lb, next(iter(tests.values()))), "cuda"),
+            same_kinks=True)
         train_lb[Lb] = dict(
             score_err=res_["score_err"], loss_rel_err=res_["loss_rel_err"],
             grad_rel_err=res_["grad_rel_err"], bn_err=res_["bn_err"],
-            k5_identical=res_["k5_identical"],
+            k5_identical=res_["k5_identical"], relus=res_["relus"],
+            kinks=res_["kinks"], kink_abs=res_["kink_abs"],
             failures=kernel_check.failures(res_),
             launches=res_["launches"]["train/kernel"])
     log(f"K1 and K2 against their plain versions at each eval Lb: "

@@ -16,68 +16,82 @@
 // the backward.  The math is that of pallas_scan.py:69-108, line by line.
 //
 // Backward: replaces the VJP of the TPU kernel's custom_vjp
-// (pallas_scan.py:243, jax.vjp of _scan_reference), in the shape of the
-// JAX package's hand-written backward _bd_scan (clsr_tpu/ops/
-// fused_clsr.py:114-141): from the saved carries it walks the steps in
-// reverse, recomputes each step's forward, and carries the adjoint
-// (dh1, dc, dm, dh2) back.  It writes the cotangents of xg1, xc1, xw, tn,
-// tl, ot, xg2, xc2 and user_short, and each step's r1·h1 | r2·h2 (Zc), from
-// which the caller's five weight products follow.
+// (pallas_scan.py:243 _bwd, jax.vjp of _scan_reference), in the shape of
+// the JAX package's hand-written backward _bd_scan (clsr_tpu/ops/
+// fused_clsr.py:114-159): from the saved carries it walks the steps in
+// reverse and carries the adjoint (dh1, dc, dm, dh2) back.  It writes the
+// cotangents of xg1, xc1, xw, tn, tl, ot, xg2, xc2 and user_short, and each
+// step's r1·h1 | r2·h2 (Zc), from which the caller's five weight products
+// follow (plain large products, as JAX leaves them to XLA).
 //
 // What bounds both on an H100: neither bytes (the backward moves ~1,240
 // floats a row and step, ~99 MB at B = 400, L = 50: 0.03 ms of HBM time)
 // nor operations (~16,000 multiply-adds a row and step forward, twice
 // that backward) but the L dependent steps: each step needs the whole
-// carry of the one before.
+// carry (forward) or adjoint (backward) of the one before.
 //
-// The forward is built for the least time per dependent step.  Its chain
-// is, per step, two dependent K-term products in each GRU (the gates from
-// h, then the candidate from r∘h) and one in the Time4LSTM (its four gates
-// from m), each closed by exact expf/tanhf.  So:
-// - the three cells run in blocks of their own (a grid of 3 x row groups):
-//   they share nothing but the mask, so no cell waits on another's phase,
-//   the Time4LSTM takes one block barrier a step (m double-buffered) and a
-//   GRU two (r∘h, then h), and the grid is three times the row groups;
-// - a block walks R rows (1 or 4; the wrapper picks the fewest that put
-//   every row group on an SM of its own, so B = 400 is one wave of 300
-//   blocks, three an SM at most by the launch bounds; R = 2 was never the
-//   fastest at any B measured) and has 4 lanes per
-//   unit j of its cell: lane q takes the terms k = q, q+4, ... of every
-//   product of unit j, for all R rows.  Each weight sits in a register of
-//   its lane (at most 4·ceil(K/4) a lane) and feeds R independent FMAs;
-//   the carries sit in shared memory as [k][R], so one load gives entry k
-//   of all R rows (a float4 at R = 4), conflict-free across the 4 lanes;
+// Both directions are built for the least time per dependent step:
+// - the three cells run in blocks of their own (a grid of 3 x row
+//   groups): they share nothing but the mask (the backward's cotangents
+//   d_h1f, d_outs and d_h2f each reach one cell), so no cell waits on
+//   another's phase;
+// - a block walks R rows (1 or 4; the wrappers pick the fewest that make
+//   the grid one wave of three blocks an SM, the launch bounds' count, so
+//   B = 400 and 500 run 300 and 375 blocks at once; R = 2 was never the
+//   fastest forward at any B measured) and has 4 lanes per unit j of its
+//   cell: lane q takes the terms k = q, q+4, ... of every product of unit
+//   j, for all R rows.  Each weight sits in a register of its lane and
+//   feeds R independent FMAs; the vectors sit in shared memory as [k][R],
+//   so one load gives entry k of all R rows (a float4 at R = 4),
+//   conflict-free across the 4 lanes;
 // - the widths are template arguments (max(U, H) padded to a multiple of
 //   8, up to 64, with zero weights past the width), so the products
 //   unroll; a product of K terms is K/4 dependent FMAs a lane, then two
 //   __shfl_xor_sync rounds that leave lane q with the sums of its own row
-//   (a reduce-scatter over the R rows), where the cell's nonlinearities
-//   run once a row instead of once a lane;
-// - each step's inputs (gate terms, time gates, the mask of all R rows)
-//   are loaded one step ahead into registers, and the outputs and carries
-//   are stored by the lane that owns the row, so no device-memory access
-//   sits on the chain; a step that all R rows mask is skipped whole (the
-//   carries still written).
-// Not the tensor cores: the per-step products are [R, K] x [K, <= 4K] with
-// R <= 4, so an m16 mma.sync tile would be mostly padding, and the 3xTF32
-// split that the 1e-5 gate needs would add three dependent tensor-core
-// latencies per k-step to the chain.
+//   (a reduce-scatter over the R rows), where the cell's elementwise math
+//   runs once a row instead of once a lane;
+// - each step's inputs are loaded into registers steps ahead, and the
+//   outputs are stored by the lane that owns the row, so no device-memory
+//   access sits on the chain; a step that all R rows mask is skipped whole
+//   (its outputs still written).
+// The forward's chain is, per step, two dependent K-term products in each
+// GRU (the gates from h, then the candidate from r∘h) and one in the
+// Time4LSTM (its four gates from m), each closed by exact expf/tanhf: a
+// GRU takes two block barriers a step, the Time4LSTM one (m
+// double-buffered).
 //
-// The backward keeps the first design of this file: a block walks one row,
-// the five recurrent matrices (3U^2 + 7H^2 floats, 64 KB at U = H = 40) and
-// the carries in shared memory, a step in phases split by __syncthreads
-// with one thread per output of the phase.  It pads the matrices' rows to
-// an odd stride, so a thread per row reading one column (its transposed
-// products dh[k] = Σ_o dga[o]·W[k][o]) hits 32 banks, as a thread per
-// column does.  A masked step (mt == 0) changes no carry and writes zero
-// outputs, so the block skips its arithmetic.
-// (Blocks of two rows sharing the matrices, so that all 400 rows of a
-// B = 400 batch fit the card's resident blocks at once, measured slower
-// on mixed history lengths than one row a block with a few rows left to
-// a second wave.)
+// The backward keeps only the adjoint on the chain.  A GRU's step is the
+// elementwise adjoint of its candidate and update gate, then dz = dca·Wcᵀ
+// (K terms) and the reset gate's adjoint, then dh += [dgr | dgu]·Wgᵀ (2K
+// terms; the dgu half is summed beside dz); the Time4LSTM's is the
+// elementwise adjoint, then dm += d4·W4ᵀ (4H terms as four K-term sums).
+// The transposed matrices sit in registers as the forward's do (lane q of
+// unit j holds row j's terms q, q+4, ...), and no transcendental is left
+// on the chain: step l-1's gates, candidates and LSTM activations, which
+// depend only on carries[:, l-1] and the inputs, are recomputed during
+// step l, beside its adjoint, with the forward's own products and order.
+// Their weights sit in shared memory, each thread's in slots of its own
+// (3K² floats a GRU, 4H² the Time4LSTM), so their reads cost issue slots,
+// not latency on the chain.  The carries enter shared memory two steps
+// ahead (double-buffered by the step's parity), the other inputs reach
+// registers one step ahead.  A GRU takes two block barriers a step, the
+// Time4LSTM one (its adjoints double-buffered).  The walk starts at the
+// last step any of the block's rows holds (the steps after it pass the
+// adjoint through unchanged: their outputs are zeroed up front), and a
+// masked (row, step) inside writes zeros and passes its adjoint through.
+// Every sum runs in a fixed order (no atomics), so a call's bits repeat.
+// Measured on an H100 (chip_smoke.py phase 7), a reverse step takes
+// ~2.9 us at B = 400 and 500 and at L = 250 alike, twice the forward's.
+//
+// Not the tensor cores, in either direction: the per-step products are
+// [R, K] x [K, <= 4K] with R <= 4, so an m16 mma.sync tile would be mostly
+// padding, and the 3xTF32 split that the gates need would add three
+// dependent tensor-core latencies per k-step to the chain.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace {
 
@@ -85,334 +99,10 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// The row stride of a matrix n wide in the backward's shared memory: odd
-// (see above).  The helpers from here to the backward kernel are the
-// backward's; the forward keeps its weights in registers.
-template <bool ODD>
-__host__ __device__ __forceinline__ int stride_(int n) {
-  return ODD ? (n | 1) : n;
-}
-
-template <bool ODD>
-__host__ __device__ __forceinline__ long long weight_floats(int U, int H) {
-  return (long long)U * stride_<ODD>(2 * U) + (long long)U * stride_<ODD>(U) +
-         (long long)H * stride_<ODD>(4 * H) +
-         (long long)H * stride_<ODD>(2 * H) + (long long)H * stride_<ODD>(H);
-}
-
-// the backward's shared memory beside the matrices, in floats
-__host__ __device__ __forceinline__ long long bwd_step_floats(int U, int H) {
-  return 2LL * (U + 3 * H) + 3LL * (2 * U + 6 * H) + 3LL * (U + H);
-}
-
-// threads per row: one per gate output
-__host__ __device__ __forceinline__ int row_threads(int U, int H) {
-  return ((2 * U + 6 * H + 31) / 32) * 32;
-}
-
-// The five recurrent matrices in shared memory, [k][o] at k * s + o.
-struct Weights {
-  float *g1, *c1, *w4, *g2, *c2;
-  int s_g1, s_c1, s_w4, s_g2, s_c2;
-};
-
-__device__ void copy_rows(float* dst, const float* __restrict__ src, int rows,
-                          int cols, int s, int tid, int nt) {
-  if (s == cols) {
-    for (int i = tid; i < rows * cols; i += nt) dst[i] = src[i];
-  } else {
-    for (int i = tid; i < rows * cols; i += nt)
-      dst[(i / cols) * s + i % cols] = src[i];
-  }
-}
-
-template <bool ODD>
-__device__ Weights load_weights(float* sm, const float* __restrict__ whg1,
-                                const float* __restrict__ whc1,
-                                const float* __restrict__ wh4,
-                                const float* __restrict__ whg2,
-                                const float* __restrict__ whc2, int U, int H,
-                                int tid, int nt) {
-  Weights w;
-  w.s_g1 = stride_<ODD>(2 * U);
-  w.s_c1 = stride_<ODD>(U);
-  w.s_w4 = stride_<ODD>(4 * H);
-  w.s_g2 = stride_<ODD>(2 * H);
-  w.s_c2 = stride_<ODD>(H);
-  w.g1 = sm;
-  w.c1 = w.g1 + U * w.s_g1;
-  w.w4 = w.c1 + U * w.s_c1;
-  w.g2 = w.w4 + H * w.s_w4;
-  w.c2 = w.g2 + H * w.s_g2;
-  copy_rows(w.g1, whg1, U, 2 * U, w.s_g1, tid, nt);
-  copy_rows(w.c1, whc1, U, U, w.s_c1, tid, nt);
-  copy_rows(w.w4, wh4, H, 4 * H, w.s_w4, tid, nt);
-  copy_rows(w.g2, whg2, H, 2 * H, w.s_g2, tid, nt);
-  copy_rows(w.c2, whc2, H, H, w.s_c2, tid, nt);
-  return w;
-}
-
-// The input term of gate output o in [0, 2U+6H) at step bl.
-__device__ __forceinline__ float gate_input(int o,
-                                            const float* __restrict__ xg1,
-                                            const float* __restrict__ xw,
-                                            const float* __restrict__ xg2,
-                                            size_t bl, int U, int H) {
-  if (o < 2 * U) return xg1[bl * 2 * U + o];
-  if (o < 2 * U + 4 * H) return xw[bl * 4 * H + o - 2 * U];
-  return xg2[bl * 2 * H + o - 2 * U - 4 * H];
-}
-
-// Gate output o from its input term and the carry (h1 | c | m | h2 at cy):
-// sigmoid(r1, u1) | i, j, f, o raw | sigmoid(r2, u2).
-__device__ __forceinline__ float gate(int o, float acc, const Weights& w,
-                                      const float* cy, int U, int H) {
-  if (o < 2 * U) {
-    for (int k = 0; k < U; ++k) acc = fmaf(cy[k], w.g1[k * w.s_g1 + o], acc);
-    return sigmoidf_(acc);
-  }
-  if (o < 2 * U + 4 * H) {
-    const float* m = cy + U + H;
-    const int oo = o - 2 * U;
-    for (int k = 0; k < H; ++k) acc = fmaf(m[k], w.w4[k * w.s_w4 + oo], acc);
-    return acc;
-  }
-  const float* h2 = cy + U + 2 * H;
-  const int oo = o - 2 * U - 4 * H;
-  for (int k = 0; k < H; ++k) acc = fmaf(h2[k], w.g2[k * w.s_g2 + oo], acc);
-  return sigmoidf_(acc);
-}
-
-// GRU candidate o in [0, U+H) from its input term and zc = r1·h1 | r2·h2.
-__device__ __forceinline__ float candidate(int o, float acc, const Weights& w,
-                                           const float* zc, int U, int H) {
-  if (o < U) {
-    for (int k = 0; k < U; ++k) acc = fmaf(zc[k], w.c1[k * w.s_c1 + o], acc);
-  } else {
-    const int oo = o - U;
-    for (int k = 0; k < H; ++k)
-      acc = fmaf(zc[U + k], w.c2[k * w.s_c2 + oo], acc);
-  }
-  return tanhf(acc);
-}
-
-__device__ __forceinline__ void zero_(float* p, int n, int x, int nt) {
-  for (int i = x; i < n; i += nt) p[i] = 0.f;
-}
-
-// One block walks one row back in time, a thread per gate output.  At
-// most BWD_THREADS threads a block and at least two blocks an SM: that
-// caps the registers at 48 a thread, so that shared memory, not
-// registers, sets how many blocks an SM holds (three at U = H = 40).
-constexpr int BWD_THREADS = 640;
-
-__global__ void __launch_bounds__(BWD_THREADS, 2) clsr_scan_backward_kernel(
-    const float* __restrict__ xg1, const float* __restrict__ xc1,
-    const float* __restrict__ xw, const float* __restrict__ tn,
-    const float* __restrict__ tl, const float* __restrict__ ot,
-    const float* __restrict__ xg2, const float* __restrict__ xc2,
-    const float* __restrict__ mask, const float* __restrict__ whg1,
-    const float* __restrict__ whc1, const float* __restrict__ wh4,
-    const float* __restrict__ whg2, const float* __restrict__ whc2,
-    const float* __restrict__ carries, const float* __restrict__ d_h1f,
-    const float* __restrict__ d_outs, const float* __restrict__ d_h2f,
-    float* __restrict__ dxg1, float* __restrict__ dxc1,
-    float* __restrict__ dxw, float* __restrict__ dtn,
-    float* __restrict__ dtl, float* __restrict__ dot,
-    float* __restrict__ dxg2, float* __restrict__ dxc2,
-    float* __restrict__ dus, float* __restrict__ zc, int L, int U, int H) {
-  extern __shared__ float sm[];
-  const int GW = 2 * U + 6 * H, CW = U + 3 * H, ZW = U + H;
-  const int x = threadIdx.x, T = blockDim.x;
-  const Weights w =
-      load_weights<true>(sm, whg1, whc1, wh4, whg2, whc2, U, H, x, T);
-  float* s_cy = sm + weight_floats<true>(U, H);
-  float* s_adj = s_cy + CW;    // [CW]: dh1 | dc | dm | dh2 after the step
-  float* s_ga = s_adj + CW;    // [GW]: the gates, as the forward's s_ga
-  float* s_zc = s_ga + GW;     // [ZW]: r1*h1 | r2*h2
-  float* s_cand = s_zc + ZW;   // [ZW]: the GRU candidates
-  float* s_dca = s_cand + ZW;  // [ZW]: adjoints of the candidates' pre-acts
-  float* s_dga = s_dca + ZW;   // [GW]: adjoints of the gates' pre-acts
-  float* s_part = s_dga + GW;  // [GW]: partial sums of dga·Wgᵀ
-
-  const int b = blockIdx.x;
-  if (x < CW)
-    s_adj[x] = x < U ? d_h1f[(size_t)b * U + x]
-               : x >= U + 2 * H ? d_h2f[(size_t)b * H + x - U - 2 * H] : 0.f;
-
-  for (int l = L - 1; l >= 0; --l) {
-    const size_t bl = (size_t)b * L + l;
-    const float mt = mask[bl];
-    const bool on = mt != 0.f;  // uniform over the block
-    // phase 1: the step's carry, and every input a thread reads this step,
-    // in one round of loads.  Thread U+j runs GRU2's candidate j and the
-    // Time4LSTM's unit j.
-    float xg = 0.f, xc = 0.f, vtn = 0.f, vtl = 0.f, vot = 0.f, vdo = 0.f;
-    if (on) {
-      if (x < CW) s_cy[x] = carries[bl * CW + x];
-      if (x < GW) xg = gate_input(x, xg1, xw, xg2, bl, U, H);
-      if (x < U) {
-        xc = xc1[bl * U + x];
-      } else if (x < ZW) {
-        const size_t j = bl * H + x - U;
-        xc = xc2[j];
-        vtn = tn[j];
-        vtl = tl[j];
-        vot = ot[j];
-        vdo = d_outs[j];
-      }
-    }
-    __syncthreads();
-
-    // phase A: the gates, and the reset products
-    if (on && x < GW) {
-      const float a = gate(x, xg, w, s_cy, U, H);
-      s_ga[x] = a;
-      if (x < U) {
-        s_zc[x] = a * s_cy[x];
-        zc[bl * ZW + x] = s_zc[x];
-      } else if (x >= 2 * U + 4 * H && x < 2 * U + 5 * H) {
-        const int j = x - 2 * U - 4 * H;
-        s_zc[U + j] = a * s_cy[U + 2 * H + j];
-        zc[bl * ZW + U + j] = s_zc[U + j];
-      }
-    }
-    __syncthreads();
-
-    // phase C: the GRU candidates
-    if (on && x < ZW) s_cand[x] = candidate(x, xc, w, s_zc, U, H);
-    __syncthreads();
-
-    // phase D: the elementwise adjoints; each thread updates its own
-    // entries of the adjoint carry
-    if (on && x < U + 2 * H) {
-      if (x < U || x >= ZW) {  // a GRU: its candidate and update gate
-        const bool g1 = x < U;
-        const int j = g1 ? x : x - ZW;
-        const int hk = g1 ? j : U + 2 * H + j;          // carry entry
-        const int gu = g1 ? U + j : 2 * U + 5 * H + j;  // update gate
-        const int ci = g1 ? j : U + j;                  // candidate
-        const float u = s_ga[gu], h = s_cy[hk], n = s_cand[ci];
-        const float dh = s_adj[hk], dhn = mt * dh;
-        const float dca = dhn * (1.f - u) * (1.f - n * n);
-        const float dgu = dhn * (h - n) * u * (1.f - u);
-        s_dca[ci] = dca;
-        s_dga[gu] = dgu;
-        if (g1) {
-          dxc1[bl * U + j] = dca;
-          dxg1[bl * 2 * U + U + j] = dgu;
-        } else {
-          dxc2[bl * H + j] = dca;
-          dxg2[bl * 2 * H + H + j] = dgu;
-        }
-        s_adj[hk] = (1.f - mt) * dh + u * dhn;
-      } else {  // the Time4LSTM
-        const int j = x - U;
-        const float* mat = s_ga + 2 * U;
-        const float c = s_cy[U + j];
-        const float sf = sigmoidf_(mat[2 * H + j] + 1.f), stl = sigmoidf_(vtl);
-        const float si = sigmoidf_(mat[j]), stn = sigmoidf_(vtn);
-        const float tj = tanhf(mat[H + j]);
-        const float so = sigmoidf_(mat[3 * H + j] + vot);
-        const float tc = tanhf(sf * stl * c + si * stn * tj);
-        const float dcp = s_adj[U + j], dmp = s_adj[U + H + j];
-        const float dmn = mt * (dmp + vdo);
-        const float dcn = mt * dcp + dmn * so * (1.f - tc * tc);
-        const float d4[4] = {dcn * stn * tj * si * (1.f - si),
-                             dcn * si * stn * (1.f - tj * tj),
-                             dcn * stl * c * sf * (1.f - sf),
-                             dmn * tc * so * (1.f - so)};
-        for (int q = 0; q < 4; ++q) {
-          s_dga[2 * U + q * H + j] = d4[q];
-          dxw[bl * 4 * H + q * H + j] = d4[q];
-        }
-        dtn[bl * H + j] = dcn * si * tj * stn * (1.f - stn);
-        dtl[bl * H + j] = dcn * sf * c * stl * (1.f - stl);
-        dot[bl * H + j] = d4[3];
-        s_adj[U + j] = (1.f - mt) * dcp + dcn * sf * stl;
-        s_adj[U + H + j] = (1.f - mt) * dmp;
-      }
-    }
-    __syncthreads();
-
-    // phase E: dZc = dca·Wcᵀ (a thread per row of Wc), then the reset gates
-    if (on && x < ZW) {
-      const bool g1 = x < U;
-      const int j = g1 ? x : x - U;
-      float dz = 0.f;
-      if (g1) {
-        for (int o = 0; o < U; ++o)
-          dz = fmaf(s_dca[o], w.c1[j * w.s_c1 + o], dz);
-      } else {
-        for (int o = 0; o < H; ++o)
-          dz = fmaf(s_dca[U + o], w.c2[j * w.s_c2 + o], dz);
-      }
-      const int hk = g1 ? j : U + 2 * H + j;
-      const int gr = g1 ? j : 2 * U + 4 * H + j;
-      const float r = s_ga[gr];
-      const float dgr = dz * s_cy[hk] * r * (1.f - r);
-      s_dga[gr] = dgr;
-      if (g1) dxg1[bl * 2 * U + j] = dgr;
-      else dxg2[bl * 2 * H + j] = dgr;
-      s_adj[hk] += dz * r;
-    }
-    __syncthreads();
-
-    // phase F: dh_prev += dga·Wgᵀ, in 2U + 6H partial sums of U or H terms:
-    // row k of Whg1 in 2 chunks, of Wh4 in 4, of Whg2 in 2
-    if (on && x < GW) {
-      float acc = 0.f;
-      if (x < 2 * U) {
-        const int k = x % U, c0 = x - k;
-        for (int q = 0; q < U; ++q)
-          acc = fmaf(s_dga[c0 + q], w.g1[k * w.s_g1 + c0 + q], acc);
-      } else if (x < 2 * U + 4 * H) {
-        const int oo = x - 2 * U, k = oo % H, c0 = oo - k;
-        for (int q = 0; q < H; ++q)
-          acc = fmaf(s_dga[2 * U + c0 + q], w.w4[k * w.s_w4 + c0 + q], acc);
-      } else {
-        const int oo = x - 2 * U - 4 * H, k = oo % H, c0 = oo - k;
-        for (int q = 0; q < H; ++q)
-          acc = fmaf(s_dga[2 * U + 4 * H + c0 + q], w.g2[k * w.s_g2 + c0 + q],
-                     acc);
-      }
-      s_part[x] = acc;
-    }
-    __syncthreads();
-
-    // phase G: the partial sums into the adjoint carry (read from the next
-    // step's phase D on, after two barriers)
-    if (on && x < U + 2 * H) {
-      if (x < U) {
-        s_adj[x] += s_part[x] + s_part[U + x];
-      } else if (x < ZW) {
-        const float* p = s_part + 2 * U + x - U;
-        s_adj[x + H] += (p[0] + p[H]) + (p[2 * H] + p[3 * H]);
-      } else {
-        const float* p = s_part + 2 * U + 4 * H + x - ZW;
-        s_adj[x + H] += p[0] + p[H];
-      }
-    }
-    if (!on) {  // a masked step: nothing flows through it
-      zero_(dxg1 + bl * 2 * U, 2 * U, x, T);
-      zero_(dxc1 + bl * U, U, x, T);
-      zero_(dxw + bl * 4 * H, 4 * H, x, T);
-      zero_(dtn + bl * H, H, x, T);
-      zero_(dtl + bl * H, H, x, T);
-      zero_(dot + bl * H, H, x, T);
-      zero_(dxg2 + bl * 2 * H, 2 * H, x, T);
-      zero_(dxc2 + bl * H, H, x, T);
-      zero_(zc + bl * ZW, ZW, x, T);
-    }
-  }
-  __syncthreads();
-  if (x < U) dus[(size_t)b * U + x] = s_adj[x];
-}
-
 // ---- the forward ----
 
 constexpr int kLanes = 4;        // lanes per unit, each a quarter of the terms
-constexpr int kMaxWidth = 64;    // the widest U or H the forward takes
+constexpr int kMaxWidth = 64;    // the widest U or H the kernels take
 constexpr int kBlocksPerSM = 3;  // resident blocks an SM, by the launch bounds
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -705,13 +395,473 @@ int forward_rows(const ScanArgs& a, int rows, cudaStream_t stream) {
   }
 }
 
-}  // namespace
+// ---- the backward ----
 
-// Shared memory the backward needs, in bytes.
-extern "C" long long clsr_scan_backward_smem_bytes(int U, int H) {
-  return (weight_floats<true>(U, H) + bwd_step_floats(U, H)) *
-         (long long)sizeof(float);
+struct BwdArgs {
+  const float *xg1, *xc1, *xw, *tn, *tl, *ot, *xg2, *xc2, *mask;
+  const float *whg1, *whc1, *wh4, *whg2, *whc2;
+  const float *carries, *d_h1f, *d_outs, *d_h2f;
+  float *dxg1, *dxc1, *dxw, *dtn, *dtl, *dot, *dxg2, *dxc2, *dus, *zc;
+  int B, L, U, H;
+};
+
+// The mask of the block's R rows at step l (0 past the batch or before
+// step 0), kept raw until the step that tests it, as the forward keeps it.
+template <int R>
+__device__ __forceinline__ void step_mask(const BwdArgs& a, int row0, int l,
+                                          float (&mk)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    mk[r] = l >= 0 && row0 + r < a.B ? a.mask[(size_t)(row0 + r) * a.L + l]
+                                     : 0.f;
 }
+
+// The last step at which any of the block's R rows is valid, -1 if none.
+template <int R>
+__device__ int last_valid_step(const BwdArgs& a, int row0) {
+  __shared__ int s_last[32];
+  int last = -1;
+  for (int l = threadIdx.x; l < a.L; l += blockDim.x)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (row0 + r < a.B && a.mask[(size_t)(row0 + r) * a.L + l] != 0.f)
+        last = l;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, o));
+  if (threadIdx.x % 32 == 0) s_last[threadIdx.x / 32] = last;
+  __syncthreads();
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) last = max(last, s_last[w]);
+  return last;
+}
+
+// Zero columns off .. off+w of steps top .. L-1 of the block's rows in a
+// [B, L, W] output, with all the block's threads.
+template <int R>
+__device__ void zero_tail(float* __restrict__ p, const BwdArgs& a, int row0,
+                          int top, int W, int off, int w) {
+  const int n = (a.L - top) * w;
+  for (int r = 0; r < R && row0 + r < a.B; ++r)
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      p[((size_t)(row0 + r) * a.L + top + i / w) * W + off + i % w] = 0.f;
+}
+
+template <int R, int G>
+__device__ __forceinline__ void zero_acc(float (&acc)[R][G]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[r][g] = 0.f;
+}
+
+// acc[r] += lane q's terms of one transposed product for R rows: the
+// vector s ([k][R]) at k = q + 4i times w[i], the weights in registers.
+template <int KQ, int R>
+__device__ __forceinline__ void add_dot(const float* s, int q,
+                                        const float (&w)[KQ],
+                                        float (&acc)[R][1]) {
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    float v[R];
+    load_rows<R>(s, i * kLanes + q, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = fmaf(v[r], w[i], acc[r][0]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void load_vec(const float* p, float (&w)[G]) {
+  if constexpr (G == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+  } else if constexpr (G == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    w[0] = t.x, w[1] = t.y;
+  } else {
+    w[0] = p[0];
+  }
+}
+
+// partial_dots with the weights in this thread's slots of shared memory:
+// w[g][i] at sw[i·T·G + g], T the block's threads (the recompute).
+template <int KQ, int R, int G>
+__device__ __forceinline__ void shared_dots(const float* s, int q,
+                                            const float* sw,
+                                            float (&acc)[R][G]) {
+  constexpr int T = kLanes * kLanes * KQ;
+  zero_acc<R, G>(acc);
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    float v[R], w[G];
+    load_rows<R>(s, i * kLanes + q, v);
+    load_vec<G>(sw + i * T * G, w);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[r][g] = fmaf(v[r], w[g], acc[r][g]);
+  }
+}
+
+// The backward of a GRU over K units (see gru_cell): from step top down
+// to 0, with the adjoint dh of the lane's (row, unit) in a register,
+// starting from dhf.  Writes dxg, dxc, columns zoff .. zoff+K of zc and,
+// if dh0 is not null, the adjoint of h0.  Shared memory: the forward's
+// weights in each thread's slots (3·KP² floats), then s_h (two [KP][R]:
+// the carries of steps being recomputed, by parity), s_z (r∘h of the
+// step recomputed), s_dca, s_dgu, s_dgr (the step's adjoints).
+template <int KP, int R>
+__device__ void gru_cell_bwd(const BwdArgs& a, const float* __restrict__ xg,
+                             const float* __restrict__ xc,
+                             const float* __restrict__ wg,
+                             const float* __restrict__ wc,
+                             const float* __restrict__ dhf,
+                             float* __restrict__ dxg,
+                             float* __restrict__ dxc,
+                             float* __restrict__ dh0, int K, int off,
+                             int zoff, float* sm, int row0, int top) {
+  constexpr int KQ = KP / kLanes, T = kLanes * KP, S = KP * R;
+  const int t = threadIdx.x, j = t / kLanes, q = t % kLanes;
+  const int own = owned_row<R>(q), b = row0 + own, me = j * R + own;
+  const bool st = stores<R>(q), live = j < K && b < a.B;
+  const int L = a.L, CW = a.U + 3 * a.H, ZW = a.U + a.H;
+  float* s_wg = sm;                  // [KQ][T][2]: Wg[k][j], Wg[k][K+j]
+  float* s_wc = s_wg + 2 * KQ * T;   // [KQ][T]: Wc[k][j]
+  float* s_h = s_wc + KQ * T;
+  float* s_z = s_h + 2 * S;
+  float* s_dca = s_z + S;
+  float* s_dgu = s_dca + S;
+  float* s_dgr = s_dgu + S;
+  // the transposed matrices: row j, terms o = q + 4i
+  float wct[KQ], wgt[2][KQ];
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    const int k = i * kLanes + q;
+    const bool in = j < K && k < K;
+    wct[i] = in ? wc[j * K + k] : 0.f;
+    wgt[0][i] = in ? wg[j * 2 * K + k] : 0.f;
+    wgt[1][i] = in ? wg[j * 2 * K + K + k] : 0.f;
+    s_wg[(i * T + t) * 2] = in ? wg[k * 2 * K + j] : 0.f;
+    s_wg[(i * T + t) * 2 + 1] = in ? wg[k * 2 * K + K + j] : 0.f;
+    s_wc[i * T + t] = in ? wc[k * K + j] : 0.f;
+  }
+  zero_tail<R>(dxg, a, row0, top, 2 * K, 0, 2 * K);
+  zero_tail<R>(dxc, a, row0, top, K, 0, K);
+  zero_tail<R>(a.zc, a, row0, top, ZW, zoff, K);
+  // step s's gate and candidate terms and mask (needed from step s+1 on)
+  // and its carry h (stored during step s+2)
+  auto load_terms = [&](int s, float& xr_, float& xu_, float& xn_,
+                        float (&mk_)[R]) {
+    step_mask<R>(a, row0, s, mk_);
+    xr_ = xu_ = xn_ = 0.f;
+    if (live && s >= 0) {
+      const size_t bl = (size_t)b * L + s;
+      xr_ = xg[bl * 2 * K + j];
+      xu_ = xg[bl * 2 * K + K + j];
+      xn_ = xc[bl * K + j];
+    }
+  };
+  auto load_h = [&](int s) {
+    return live && s >= 0 ? a.carries[((size_t)b * L + s) * CW + off + j]
+                          : 0.f;
+  };
+  float xr1, xu1, xn1, mk1[R];
+  load_terms(top - 1, xr1, xu1, xn1, mk1);
+  float h2 = load_h(top - 2);
+  if (st) s_h[((top - 1) & 1) * S + me] = load_h(top - 1);
+  float dh = live && dhf != nullptr ? dhf[(size_t)b * K + j] : 0.f;
+  // step l's gates, candidate, carry and mask, recomputed during step l+1
+  float r = 0.f, u = 0.f, n = 0.f, h = 0.f, mt = 0.f;
+  bool act = false;
+  __syncthreads();
+
+  for (int l = top; l >= 0; --l) {
+    float xr2, xu2, xn2, mk2[R];
+    load_terms(l - 2, xr2, xu2, xn2, mk2);
+    const float h3 = load_h(l - 3);
+    const bool rec = any_valid<R>(mk1);  // step l-1 to recompute
+    const float mt1 = pick<R>(mk1, own);
+    const size_t bl = (size_t)b * L + l;
+    const bool out = st && live && l < top;  // this lane writes step l
+    if (!act && !rec) {  // no valid row at step l nor at l-1
+      if (out) {
+        dxg[bl * 2 * K + j] = 0.f;
+        dxg[bl * 2 * K + K + j] = 0.f;
+        dxc[bl * K + j] = 0.f;
+      }
+      if (st && live && l >= 1) a.zc[(bl - 1) * ZW + zoff + j] = 0.f;
+      if (st) s_h[((l - 2) & 1) * S + me] = h2;
+      __syncthreads();
+    } else {
+      // The adjoint and the recompute run in one basic block a phase (in
+      // branches of their own they measured the same).  A step without a
+      // valid row (act false) runs as masked rows do: mt = 0, zero
+      // outputs, dh passed through.
+      // 1: step l's candidate and update-gate adjoints; step l-1's gate
+      // products
+      const bool on = mt != 0.f;
+      const float dhn = mt * dh;
+      const float dca = dhn * (1.f - u) * (1.f - n * n);
+      const float dgu = dhn * (h - n) * u * (1.f - u);
+      if (st) {
+        s_dca[me] = dca;
+        s_dgu[me] = dgu;
+      }
+      if (out) {
+        dxc[bl * K + j] = on ? dca : 0.f;
+        dxg[bl * 2 * K + K + j] = on ? dgu : 0.f;
+      }
+      float gacc[R][2];
+      shared_dots<KQ, R, 2>(s_h + ((l - 1) & 1) * S, q, s_wg + 2 * t, gacc);
+      __syncthreads();
+      // 2: dz = dca·Wcᵀ and the reset gate's adjoint, the dgu half of
+      // dh's product; step l-1's gates and r∘h
+      float zacc[R][1], hacc[R][1], dz[1], g[2];
+      zero_acc<R, 1>(zacc);
+      zero_acc<R, 1>(hacc);
+      add_dot<KQ, R>(s_dca, q, wct, zacc);
+      add_dot<KQ, R>(s_dgu, q, wgt[1], hacc);
+      reduce_lanes<R, 1>(zacc, q, dz);
+      reduce_lanes<R, 2>(gacc, q, g);
+      const float dgr = dz[0] * h * r * (1.f - r);
+      if (st) s_dgr[me] = dgr;
+      if (out) dxg[bl * 2 * K + j] = on ? dgr : 0.f;
+      dh = (1.f - mt) * dh + u * dhn + dz[0] * r;
+      r = sigmoidf_(g[0] + xr1);
+      u = sigmoidf_(g[1] + xu1);
+      h = s_h[((l - 1) & 1) * S + me];
+      const float z = r * h;
+      if (st) s_z[me] = z;
+      if (st && live && l >= 1)
+        a.zc[(bl - 1) * ZW + zoff + j] = mt1 != 0.f ? z : 0.f;
+      if (st) s_h[((l - 2) & 1) * S + me] = h2;
+      __syncthreads();
+      // 3: the dgr half of dh's product; step l-1's candidate
+      float red[1], cacc[R][1], c[1];
+      add_dot<KQ, R>(s_dgr, q, wgt[0], hacc);
+      shared_dots<KQ, R, 1>(s_z, q, s_wc + t, cacc);
+      reduce_lanes<R, 1>(hacc, q, red);
+      reduce_lanes<R, 1>(cacc, q, c);
+      dh += red[0];
+      n = tanhf(c[0] + xn1);
+    }
+    act = rec, mt = mt1;
+    xr1 = xr2, xu1 = xu2, xn1 = xn2, h2 = h3;
+#pragma unroll
+    for (int r = 0; r < R; ++r) mk1[r] = mk2[r];
+  }
+  if (dh0 != nullptr && st && live) dh0[(size_t)b * K + j] = dh;
+}
+
+// The Time4LSTM's backward over H units (see lstm_cell), the adjoints dc
+// and dm of the lane's (row, unit) in registers, starting from zero, and
+// d_outs added to dm at each step.  Writes dxw, dtn, dtl and dot.  Shared
+// memory: the forward's weights in each thread's slots (4·KP² floats),
+// then s_m (two [KP][R]: the carries m of steps being recomputed, by
+// parity) and two [4][KP][R] (the gates' adjoints, by parity).
+template <int KP, int R>
+__device__ void lstm_cell_bwd(const BwdArgs& a, float* sm, int row0,
+                              int top) {
+  constexpr int KQ = KP / kLanes, T = kLanes * KP, S = KP * R;
+  const int t = threadIdx.x, j = t / kLanes, q = t % kLanes;
+  const int own = owned_row<R>(q), b = row0 + own, me = j * R + own;
+  const int H = a.H, L = a.L, CW = a.U + 3 * H;
+  const bool st = stores<R>(q), live = j < H && b < a.B;
+  float* s_w4 = sm;                 // [KQ][T][4]: W4[k][g·H + j]
+  float* s_m = s_w4 + 4 * KQ * T;
+  float* s_d4 = s_m + 2 * S;
+  float w4t[4][KQ];
+#pragma unroll
+  for (int i = 0; i < KQ; ++i) {
+    const int k = i * kLanes + q;
+    const bool in = j < H && k < H;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      w4t[g][i] = in ? a.wh4[j * 4 * H + g * H + k] : 0.f;
+      s_w4[(i * T + t) * 4 + g] = in ? a.wh4[k * 4 * H + g * H + j] : 0.f;
+    }
+  }
+  zero_tail<R>(a.dxw, a, row0, top, 4 * H, 0, 4 * H);
+  zero_tail<R>(a.dtn, a, row0, top, H, 0, H);
+  zero_tail<R>(a.dtl, a, row0, top, H, 0, H);
+  zero_tail<R>(a.dot, a, row0, top, H, 0, H);
+  // step s's terms (needed from step s+1 on): the four gate terms, tn,
+  // tl, ot, the carry c, d_outs and the mask; and its carry m (stored
+  // during step s+2)
+  struct Terms {
+    float x[4], tn, tl, ot, c, dout, mk[R];
+  };
+  auto load_terms = [&](int s, Terms& v) {
+    step_mask<R>(a, row0, s, v.mk);
+    v.x[0] = v.x[1] = v.x[2] = v.x[3] = 0.f;
+    v.tn = v.tl = v.ot = v.c = v.dout = 0.f;
+    if (live && s >= 0) {
+      const size_t bl = (size_t)b * L + s;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v.x[g] = a.xw[bl * 4 * H + g * H + j];
+      v.tn = a.tn[bl * H + j];
+      v.tl = a.tl[bl * H + j];
+      v.ot = a.ot[bl * H + j];
+      v.c = a.carries[bl * CW + a.U + j];
+      v.dout = a.d_outs[bl * H + j];
+    }
+  };
+  auto load_m = [&](int s) {
+    return live && s >= 0
+               ? a.carries[((size_t)b * L + s) * CW + a.U + H + j]
+               : 0.f;
+  };
+  Terms in1;
+  load_terms(top - 1, in1);
+  float m2 = load_m(top - 2);
+  if (st) s_m[((top - 1) & 1) * S + me] = load_m(top - 1);
+  float dc = 0.f, dm = 0.f;
+  // step l's activations, carry c, d_outs and mask, recomputed during
+  // step l+1
+  float si = 0.f, stn = 0.f, tj = 0.f, sf = 0.f, stl = 0.f, so = 0.f;
+  float tc = 0.f, c = 0.f, dout = 0.f, mt = 0.f;
+  bool act = false;
+  __syncthreads();
+
+  for (int l = top; l >= 0; --l) {
+    Terms in2;
+    load_terms(l - 2, in2);
+    const float m3 = load_m(l - 3);
+    const bool rec = any_valid<R>(in1.mk);  // step l-1 to recompute
+    const size_t bl = (size_t)b * L + l;
+    const bool out = st && live && l < top;  // this lane writes step l
+    float* d4s = s_d4 + (l & 1) * 4 * S;
+    if (!act && !rec) {  // no valid row at step l nor at l-1
+      if (out) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) a.dxw[bl * 4 * H + g * H + j] = 0.f;
+        a.dtn[bl * H + j] = 0.f;
+        a.dtl[bl * H + j] = 0.f;
+        a.dot[bl * H + j] = 0.f;
+      }
+      // the one barrier a step the double buffers rest on: without it a
+      // warp could write d4s[l & 1] while another still reads it for
+      // step l+2 (the condition is the block's, so every thread waits)
+      __syncthreads();
+    } else {
+      // as in gru_cell_bwd: one basic block a phase, and a step without a
+      // valid row runs as masked rows do
+      // A: step l's adjoints of the gates, the time gates and c
+      const bool on = mt != 0.f;
+      const float dmn = mt * (dm + dout);
+      const float dcn = mt * dc + dmn * so * (1.f - tc * tc);
+      const float d4[4] = {dcn * stn * tj * si * (1.f - si),
+                           dcn * si * stn * (1.f - tj * tj),
+                           dcn * stl * c * sf * (1.f - sf),
+                           dmn * tc * so * (1.f - so)};
+      if (st) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) d4s[g * S + me] = d4[g];
+      }
+      if (out) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          a.dxw[bl * 4 * H + g * H + j] = on ? d4[g] : 0.f;
+        a.dtn[bl * H + j] = on ? dcn * si * tj * stn * (1.f - stn) : 0.f;
+        a.dtl[bl * H + j] = on ? dcn * sf * c * stl * (1.f - stl) : 0.f;
+        a.dot[bl * H + j] = on ? d4[3] : 0.f;
+      }
+      dc = (1.f - mt) * dc + dcn * sf * stl;
+      dm = (1.f - mt) * dm;
+      __syncthreads();
+      // B: dm += d4·W4ᵀ, four K-term sums; step l-1's gates and
+      // activations
+      float acc[4][R][1], sum[R][1], red[1], gacc[R][4], g4[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        zero_acc<R, 1>(acc[g]);
+        add_dot<KQ, R>(d4s + g * S, q, w4t[g], acc[g]);
+      }
+      shared_dots<KQ, R, 4>(s_m + ((l - 1) & 1) * S, q, s_w4 + 4 * t, gacc);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        sum[r][0] = (acc[0][r][0] + acc[1][r][0]) +
+                    (acc[2][r][0] + acc[3][r][0]);
+      reduce_lanes<R, 1>(sum, q, red);
+      reduce_lanes<R, 4>(gacc, q, g4);
+      dm += red[0];
+      const float gi = g4[0] + in1.x[0], gj = g4[1] + in1.x[1];
+      const float gf = g4[2] + in1.x[2], go = (g4[3] + in1.x[3]) + in1.ot;
+      sf = sigmoidf_(gf + 1.f);
+      stl = sigmoidf_(in1.tl);
+      si = sigmoidf_(gi);
+      stn = sigmoidf_(in1.tn);
+      tj = tanhf(gj);
+      so = sigmoidf_(go);
+      c = in1.c;
+      tc = tanhf(sf * stl * c + si * stn * tj);
+    }
+    dout = in1.dout, mt = pick<R>(in1.mk, own);
+    if (st) s_m[((l - 2) & 1) * S + me] = m2;
+    act = rec, m2 = m3;
+    in1 = in2;
+  }
+}
+
+// Floats of dynamic shared memory a backward block takes: the Time4LSTM's
+// layout, the larger of the cells'.
+template <int KP, int R>
+constexpr size_t backward_smem_floats() {
+  return 4 * KP * KP + 10 * KP * R;
+}
+
+// Block 3·i + cell walks rows R·i .. R·i+R-1 of one cell back in time, as
+// clsr_scan_kernel walks them forward.
+template <int KP, int R>
+__global__ void __launch_bounds__(kLanes * KP, kBlocksPerSM)
+    clsr_scan_backward_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int cell = blockIdx.x % 3, row0 = (blockIdx.x / 3) * R;
+  const int top = last_valid_step<R>(a, row0) + 1;
+  if (cell == 0)
+    gru_cell_bwd<KP, R>(a, a.xg1, a.xc1, a.whg1, a.whc1, a.d_h1f, a.dxg1,
+                        a.dxc1, a.dus, a.U, 0, 0, smem, row0, top);
+  else if (cell == 1)
+    lstm_cell_bwd<KP, R>(a, smem, row0, top);
+  else
+    gru_cell_bwd<KP, R>(a, a.xg2, a.xc2, a.whg2, a.whc2, a.d_h2f, a.dxg2,
+                        a.dxc2, nullptr, a.H, a.U + 2 * a.H, a.U, smem, row0,
+                        top);
+}
+
+template <int KP, int R>
+int launch_backward(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = backward_smem_floats<KP, R>() * sizeof(float);
+  if constexpr (smem > 48 * 1024) {
+    // past 48 KB a kernel must be let use more, once on each device
+    static std::atomic<unsigned long long> raised{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(raised.load() & bit)) {
+      err = cudaFuncSetAttribute(clsr_scan_backward_kernel<KP, R>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      raised.fetch_or(bit);
+    }
+  }
+  const int groups = (a.B + R - 1) / R;
+  clsr_scan_backward_kernel<KP, R>
+      <<<3 * groups, kLanes * KP, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int KP>
+int backward_rows(const BwdArgs& a, int rows, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_backward<KP, 1>(a, stream);
+    case 4: return launch_backward<KP, 4>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // The forward over `rows` rows a block (1 or 4); every U and H from 1
 // to kMaxWidth.  The arguments before `rows` are those of the first
@@ -742,6 +892,9 @@ extern "C" int clsr_scan_forward(
   }
 }
 
+// The backward over `rows` rows a block (1 or 4), the same widths as the
+// forward.  The arguments before `rows` are those of the first backward
+// kernel, in the same order.
 extern "C" int clsr_scan_backward(
     const float* xg1, const float* xc1, const float* xw, const float* tn,
     const float* tl, const float* ot, const float* xg2, const float* xc2,
@@ -750,17 +903,23 @@ extern "C" int clsr_scan_backward(
     const float* carries, const float* d_h1f, const float* d_outs,
     const float* d_h2f, float* dxg1, float* dxc1, float* dxw, float* dtn,
     float* dtl, float* dot, float* dxg2, float* dxc2, float* dus, float* zc,
-    int B, int L, int U, int H, void* stream) {
-  const int T = row_threads(U, H);
-  if (T > BWD_THREADS) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)clsr_scan_backward_smem_bytes(U, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      clsr_scan_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  clsr_scan_backward_kernel<<<B, T, smem, static_cast<cudaStream_t>(stream)>>>(
-      xg1, xc1, xw, tn, tl, ot, xg2, xc2, mask, whg1, whc1, wh4, whg2, whc2,
-      carries, d_h1f, d_outs, d_h2f, dxg1, dxc1, dxw, dtn, dtl, dot, dxg2,
-      dxc2, dus, zc, L, U, H);
-  return (int)cudaGetLastError();
+    int B, int L, int U, int H, int rows, void* stream) {
+  if (B < 0 || L < 1 || U < 1 || H < 1 || U > kMaxWidth || H > kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const BwdArgs a{xg1,  xc1,  xw,   tn,   tl,   ot,    xg2,    xc2,  mask,
+                  whg1, whc1, wh4,  whg2, whc2, carries, d_h1f, d_outs,
+                  d_h2f, dxg1, dxc1, dxw, dtn,  dtl,   dot,   dxg2, dxc2,
+                  dus,  zc,   B,    L,    U,    H};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch ((max(U, H) + 7) / 8 * 8) {
+    case 8: return backward_rows<8>(a, rows, s);
+    case 16: return backward_rows<16>(a, rows, s);
+    case 24: return backward_rows<24>(a, rows, s);
+    case 32: return backward_rows<32>(a, rows, s);
+    case 40: return backward_rows<40>(a, rows, s);
+    case 48: return backward_rows<48>(a, rows, s);
+    case 56: return backward_rows<56>(a, rows, s);
+    default: return backward_rows<64>(a, rows, s);
+  }
 }

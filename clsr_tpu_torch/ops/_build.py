@@ -31,8 +31,6 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# shared memory a block may use on an H100 (bytes)
-MAX_SMEM = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -49,8 +47,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
     },
     "clsr_scan": {
         "clsr_scan_forward": ((_P,) * 19 + (_I,) * 5 + (_P,), _I),
-        "clsr_scan_backward": ((_P,) * 28 + (_I,) * 4 + (_P,), _I),
-        "clsr_scan_backward_smem_bytes": ((_I, _I), ctypes.c_longlong),
+        "clsr_scan_backward": ((_P,) * 28 + (_I,) * 5 + (_P,), _I),
     },
     "train_stats": {
         "clsr_train_stats0": ((_P,) * 8 + (_I,) * 5 + (_P,), _I),

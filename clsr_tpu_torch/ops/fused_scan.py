@@ -187,30 +187,32 @@ def _shapes(B, L, U, H):
             (U, U), (H, 4 * H), (H, 2 * H), (H, H)]
 
 
-# The forward kernel's limits (csrc/clsr_scan.cu: kMaxWidth, the rows a
-# block may walk, kBlocksPerSM): every U and H up to FORWARD_MAX_WIDTH;
-# its launch bounds keep FORWARD_BLOCKS_PER_SM blocks resident on an SM.
+# The kernels' limits (csrc/clsr_scan.cu: kMaxWidth, the rows a block
+# may walk, kBlocksPerSM), the same in both directions: every U and H up
+# to FORWARD_MAX_WIDTH; the launch bounds keep BLOCKS_PER_SM blocks
+# resident on an SM.
 FORWARD_MAX_WIDTH = 64
-FORWARD_ROWS = (1, 4)
-FORWARD_BLOCKS_PER_SM = 3
+ROWS = (1, 4)
+BLOCKS_PER_SM = 3
 
 
 def check_forward_widths(U, H):
-    """Raise ValueError unless the forward kernel takes widths U and H."""
+    """Raise ValueError unless the kernels (forward and backward) take
+    widths U and H."""
     if not (1 <= U <= FORWARD_MAX_WIDTH and 1 <= H <= FORWARD_MAX_WIDTH):
         raise ValueError(f"the recurrence kernel takes U and H from 1 to "
                          f"{FORWARD_MAX_WIDTH}, got U={U}, H={H}")
 
 
-def forward_rows_per_block(B, n_sm):
-    """Rows each block of the forward walks: the fewest of FORWARD_ROWS
-    that leave at most one row group per SM, so that the grid of
+def rows_per_block(B, n_sm):
+    """Rows each block of either kernel walks: the fewest of ROWS that
+    leave at most one row group per SM, so that the grid of
     3 x ceil(B / R) blocks (one per cell and group) is one wave; the most
     where none does."""
-    for rows in FORWARD_ROWS:
+    for rows in ROWS:
         if -(-B // rows) <= n_sm:
             return rows
-    return FORWARD_ROWS[-1]
+    return ROWS[-1]
 
 
 _sm_counts = {}
@@ -223,20 +225,13 @@ def _sm_count(device):
     return _sm_counts[device]
 
 
-def _dims(args, backward):
-    """(B, L, U, H), and the library once the kernel is known to fit."""
+def _dims(args):
+    """(B, L, U, H), and the library once the kernels take the widths."""
     B, L, _ = args[2].shape
     U, H = args[9].shape[-1], args[14].shape[-1]
     _build.check_args(_ARG_NAMES, args, _shapes(B, L, U, H), args[2].device)
-    if not backward:
-        check_forward_widths(U, H)
-    lib = _build.load("clsr_scan")
-    # the backward: a thread per gate output, at most 640 (its launch bound)
-    if backward and (2 * U + 6 * H > 640 or lib.clsr_scan_backward_smem_bytes(
-            U, H) > _build.MAX_SMEM):
-        raise ValueError(f"the recurrence's backward kernel does not fit "
-                         f"U={U}, H={H} in one block")
-    return (B, L, U, H), lib
+    check_forward_widths(U, H)
+    return (B, L, U, H), _build.load("clsr_scan")
 
 
 def _forward(*args, keep_carries=False):
@@ -249,7 +244,7 @@ def _forward(*args, keep_carries=False):
         return (*scan_reference(*args), None)
     if xw.device.type != "cuda":
         raise ValueError(f"no kernel for device {xw.device}")
-    (B, L, U, H), lib = _dims(args, backward=False)
+    (B, L, U, H), lib = _dims(args)
     new = lambda *s: torch.empty(*s, device=xw.device, dtype=torch.float32)
     outs, h1f, h2f = new(B, L, H), new(B, U), new(B, H)
     carries = new(B, L, U + 3 * H) if keep_carries else None
@@ -260,7 +255,7 @@ def _forward(*args, keep_carries=False):
         rc = lib.clsr_scan_forward(
             *(t.data_ptr() for t in args), outs.data_ptr(), h1f.data_ptr(),
             h2f.data_ptr(), None if carries is None else carries.data_ptr(),
-            B, L, U, H, forward_rows_per_block(B, _sm_count(xw.device)),
+            B, L, U, H, rows_per_block(B, _sm_count(xw.device)),
             stream)
     _build.check(rc, "clsr_scan")
     fused_scan.launches += 1
@@ -270,7 +265,7 @@ def _forward(*args, keep_carries=False):
 def _backward_kernel(inputs, carries, d_h1f, d_outs, d_h2f):
     """The backward kernel alone -> the gradients of xg1 .. xc2 and of
     ushort, and zc [B, L, U+H] (each step's r1∘h1 | r2∘h2)."""
-    (B, L, U, H), lib = _dims(inputs, backward=True)
+    (B, L, U, H), lib = _dims(inputs)
     dev = inputs[2].device
     _build.check_args(("carries", "d_h1f", "d_outs", "d_h2f"),
                       (carries, d_h1f, d_outs, d_h2f),
@@ -284,7 +279,8 @@ def _backward_kernel(inputs, carries, d_h1f, d_outs, d_h2f):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.clsr_scan_backward(
-            *(t.data_ptr() for t in ins + tuple(grads)), B, L, U, H, stream)
+            *(t.data_ptr() for t in ins + tuple(grads)), B, L, U, H,
+            rows_per_block(B, _sm_count(dev)), stream)
     _build.check(rc, "clsr_scan_backward")
     scan_backward.launches += 1
     return grads

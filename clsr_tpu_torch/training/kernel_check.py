@@ -25,14 +25,27 @@ side, where the two f32 sums round to neighbours: that step (2^-7 of
 the value at most) is allowed beside the gate.  On CPU
 tensors both sides run the plain versions (the scorer through its
 recompute Function on the kernel side) and no launch is counted.
+
+With `same_kinks` the plain train step takes the kernel step's side of
+every ReLU (`ReluSides`): a ReLU input that one float32 step of the
+kernels' rounding moves across zero flips its unit's whole gradient
+contribution, about 1/rows of a gradient's max abs, far past the 1e-4
+gate, although both steps are right.  The gradients are then held at
+1e-4 where both steps compute the same function, and each ReLU input
+that changed sign may differ between the steps by KINK_ABS at most (the
+eval scores' gate), so both sides lie that close to zero: a kernel that
+moves a ReLU input further fails there.  Both steps must run their ReLUs in PyTorch (no K1 or K3 in the
+train step), in the same order.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
@@ -46,6 +59,7 @@ from clsr_tpu_torch.training.steps import make_eval_step_fn, make_train_step
 SCORE_TOL, LOSS_REL, GRAD_REL, ZERO_GRAD_ABS, BN_TOL = (
     1e-4, 1e-4, 1e-4, 1e-6, 1e-5)
 BF16_GAP = 2.0 ** -7   # the largest gap between bf16 neighbours, relative
+KINK_ABS = SCORE_TOL   # |x_kernel - x_plain| of a ReLU input that flipped
 LOSS_FIELDS = ("loss", "data_loss", "regular_loss", "contrastive_loss",
                "discrepancy_loss")
 
@@ -116,6 +130,51 @@ def _max_rel(got: Mapping[str, torch.Tensor],
     return rel, zero_abs, bad
 
 
+class ReluSides(TorchFunctionMode):
+    """Each ReLU called in PyTorch while the mode is on, in call order:
+    keeps a copy of its input.  With `masks` (the inputs' signs of
+    another run, x > 0), the i-th ReLU passes its input where the i-th
+    mask is set and 0 elsewhere: the other run's side of every kink,
+    with the gradient of that side."""
+    RELUS = (torch.relu, F.relu, torch.Tensor.relu)
+
+    def __init__(self, masks: Optional[List[torch.Tensor]] = None):
+        super().__init__()
+        self.masks, self.inputs = masks, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.RELUS:
+            return func(*args, **kwargs)
+        if kwargs.get("inplace") or len(args) > 1:
+            raise ValueError("ReluSides takes no in-place ReLU")
+        x = args[0]
+        self.inputs.append(x.detach().clone())
+        if self.masks is None:
+            return func(*args, **kwargs)
+        if len(self.inputs) > len(self.masks):
+            raise AssertionError("more ReLUs than the recorded run's")
+        return torch.where(self.masks[len(self.inputs) - 1], x, 0.0)
+
+
+def kinks(got: List[torch.Tensor],
+          want: List[torch.Tensor]) -> Tuple[int, float]:
+    """(how many ReLU inputs changed sign between two runs' inputs, the
+    largest |x_got - x_want| among them: both sides' distance from zero
+    summed); the runs must have called the same ReLUs."""
+    if [x.shape for x in got] != [x.shape for x in want]:
+        raise AssertionError(
+            f"the two steps ran other ReLUs: {[tuple(x.shape) for x in got]}"
+            f" against {[tuple(x.shape) for x in want]}")
+    n, far = 0, 0.0
+    for a, b in zip(got, want):
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            n += int(flip.sum().item())
+            far = max(far, (a - b).abs()[flip].max().item())
+    return n, far
+
+
 @contextlib.contextmanager
 def _patched(obj, name, value):
     before = getattr(obj, name)
@@ -128,11 +187,14 @@ def _patched(obj, name, value):
 
 def compare_steps(cfg: Config, weights: Mapping[str, torch.Tensor],
                   sizes: Tuple[int, int, int], train_batch: Batch,
-                  test_batch: Batch, seed: int = 11) -> dict:
+                  test_batch: Batch, seed: int = 11,
+                  same_kinks: bool = False) -> dict:
     """The eval and train steps of cfg's kernel gates against the plain
     ones, from `weights` (a model state_dict) on the given batches, which
     lie on the device to run on.  Returns the errors, each side's
-    launches and K5's bit-for-bit result (None without a K5 group)."""
+    launches and K5's bit-for-bit result (None without a K5 group); with
+    `same_kinks`, the plain train step on the kernel step's side of each
+    ReLU, and the ReLU inputs that changed sign (`kinks`, `kink_abs`)."""
     device = train_batch.items.device
     cfgs = {"kernel": cfg, "plain": plain_config(cfg)}
     models = {}
@@ -157,7 +219,7 @@ def compare_steps(cfg: Config, weights: Mapping[str, torch.Tensor],
         k5_same.append(all(torch.equal(t, w) for (t, _, _), (w, _, _)
                            in zip(entries, want)))
 
-    parts, grads, buffers = {}, {}, {}
+    parts, grads, buffers, relus = {}, {}, {}, {}
     for run, c in cfgs.items():
         def taking_grads(self, model, state, gws, *rest):
             table_grads[run] = {k: g.clone() for k, g in gws.items()}
@@ -168,8 +230,12 @@ def compare_steps(cfg: Config, weights: Mapping[str, torch.Tensor],
         gen = torch.Generator(device=device).manual_seed(seed)
         group = (k5_checked if run == "kernel"
                  else ru.scatter_rows_group_reference)
+        relus[run] = (contextlib.nullcontext() if not same_kinks
+                      else ReluSides() if run == "kernel"
+                      else ReluSides([x > 0 for x in relus["kernel"].inputs]))
         with _patched(lazy_adam, "scatter_rows_group", group), \
-                _patched(lazy_adam.LazyAdam, "compact_update", taking_grads):
+                _patched(lazy_adam.LazyAdam, "compact_update",
+                         taking_grads), relus[run]:
             (_, parts[run]), launches[f"train/{run}"] = counted(
                 lambda: step(state, train_batch, gen))
         grads[run] = {n: p.grad.clone() for n, p in
@@ -189,6 +255,8 @@ def compare_steps(cfg: Config, weights: Mapping[str, torch.Tensor],
                                if table_grads else (None, None, []))
     bn_err = max((buffers["kernel"][n] - b).abs().max().item()
                  for n, b in buffers["plain"].items())
+    n_kinks, kink_abs = (kinks(relus["kernel"].inputs, relus["plain"].inputs)
+                         if same_kinks else (None, None))
     return dict(
         score_err=(scores["kernel"] - scores["plain"]).abs().max().item(),
         loss_rel_err=loss_rel, grad_rel_err=grad_rel,
@@ -196,7 +264,8 @@ def compare_steps(cfg: Config, weights: Mapping[str, torch.Tensor],
         bad_grads=bad + [f"table {n}" for n in table_bad], bn_err=bn_err,
         k5_identical=all(k5_same) if k5_same else None,
         k5_groups=len(k5_same), launches=launches,
-        loss=pk.loss.item())
+        loss=pk.loss.item(), kinks=n_kinks, kink_abs=kink_abs,
+        relus=len(relus["kernel"].inputs) if same_kinks else None)
 
 
 def failures(res: dict) -> List[str]:
@@ -213,5 +282,8 @@ def failures(res: dict) -> List[str]:
         out.append(f"BN running stats {res['bn_err']:.3e} > {BN_TOL}")
     if res["k5_identical"] is False:
         out.append("K5 differs from its plain version")
+    if res.get("kink_abs") is not None and not res["kink_abs"] <= KINK_ABS:
+        out.append(f"{res['kinks']} ReLU inputs changed sign, up to "
+                   f"{res['kink_abs']:.3e} apart > {KINK_ABS}")
     return out
 

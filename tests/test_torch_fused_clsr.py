@@ -79,26 +79,31 @@ def test_scan_reference_matches_jax_kernel_on_masks_with_holes(kind):
     np.testing.assert_array_equal(carries[b, t + 1], carries[b, t])
 
 
-@pytest.mark.parametrize("B", [0, 1, 8, 64, 132, 133, 264, 265, 400, 528,
-                               1000])
+@pytest.mark.parametrize("B", [0, 1, 8, 64, 132, 133, 264, 265, 400, 500,
+                               528, 529, 1000])
 @pytest.mark.parametrize("n_sm", [132, 114, 8])
 def test_forward_rows_per_block_covers_every_row_in_one_wave(B, n_sm):
-    """The forward's row groups cover each row once; the fewest rows a
-    block that leave one group per SM, so B = 400 on 132 SMs (4 rows a
-    block, 300 blocks) is one wave of the kernel's resident blocks."""
-    rows = fs.forward_rows_per_block(B, n_sm)
-    assert rows in fs.FORWARD_ROWS
+    """The row groups of either kernel cover each row once; the fewest
+    rows a block that leave one group per SM, so both train batches on
+    132 SMs (B = 400 and 500: 4 rows a block, 300 and 375 blocks) are one
+    wave of the kernels' resident blocks; the most rows where no choice
+    fits (B = 529)."""
+    rows = fs.rows_per_block(B, n_sm)
+    assert rows in fs.ROWS
     groups = -(-B // rows)
     covered = [g * rows + r for g in range(groups) for r in range(rows)
                if g * rows + r < B]
     assert covered == list(range(B))
-    if -(-B // fs.FORWARD_ROWS[-1]) <= n_sm:
-        assert 3 * groups <= fs.FORWARD_BLOCKS_PER_SM * n_sm
-    assert all(-(-B // r) > n_sm for r in fs.FORWARD_ROWS if r < rows)
+    one_wave = 3 * groups <= fs.BLOCKS_PER_SM * n_sm
+    assert one_wave == (-(-B // fs.ROWS[-1]) <= n_sm)
+    assert all(-(-B // r) > n_sm for r in fs.ROWS if r < rows)
+    if n_sm == 132:
+        assert rows == (1 if B <= 132 else 4)
+        assert one_wave == (B <= 528)
     if (B, n_sm) == (400, 132):
-        assert rows == 4 and 3 * groups == 300
-    if (B, n_sm) == (64, 132):
-        assert rows == 1
+        assert 3 * groups == 300
+    if (B, n_sm) == (500, 132):
+        assert 3 * groups == 375
 
 
 @pytest.mark.parametrize("U, H, ok", [(1, 1, True), (16, 40, True),

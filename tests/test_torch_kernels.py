@@ -15,11 +15,15 @@ K2's forward over its tiling (B 0, 1, 8, 64, 133, 400; L 1, 50, 250;
 0 and masks with holes), with and without carries, to 1e-5 abs, one
 launch a call, a second call bit-identical, widths past 64 refused;
 K2's backward kernel (with its
-five weight products) at B=6, L=9, U=10, H=12 and at B=400, L=50,
-U=H=40, rows of lengths L, 3, 1 and 0 among them: the forward's carries
-to 1e-5 abs, every gradient within 1e-4 of its max abs of the plain
-backward and of autograd of the plain recurrence, one launch each way
-through autograd, a float64 tensor refused; K3a/K3b's batch means and
+five weight products) over its tiling (B 1, 3, 5, 6, 133, 400, 500;
+L 1, 9, 50, 250; (U, H) (40, 40), (10, 12), (24, 40), (64, 64); prefix
+masks with a row masked throughout, and masks with holes), each rows a
+block forced: the forward's carries to 1e-5 abs, every gradient within
+1e-4 of its max abs of the plain backward and of autograd of the plain
+recurrence, one launch a call, five calls bit-identical (masks with
+holes; two-step gaps at one row a block), widths past 64 refused
+before a launch, one launch each way through autograd, a
+float64 tensor refused; K3a/K3b's batch means and
 variances to 1e-4 relative or 1e-6 abs (summation order) over their
 row tiling (D 40 and 80; G 1, 5, 8, 13; L 1, 15, 16, 17, 50, 250; B 1, 3,
 400; K3b with c0 > 0), bit-identical on a second call, one launch each;
@@ -189,26 +193,111 @@ def _close_to_max_abs(got, want, rel=1e-4):
         assert (a - b).abs().max().item() <= rel * b.abs().max().item(), i
 
 
-@pytest.mark.parametrize("B, L, U, H", [(6, 9, 10, 12), (400, 50, 40, 40)])
-def test_scan_backward_kernel_matches_plain(cuda, B, L, U, H):
+def _with_holes(dev, args, seed=2):
+    """args with a mask that is not a prefix: row 0 masked throughout and
+    random holes in the others."""
+    B, L = args[8].shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    holes = (torch.rand(B, L, generator=g, device=dev) > 0.4).float()
+    holes[:1] = 0
+    return args[:8] + (holes,) + args[9:]
+
+
+# K2's backward over its tiling: B 1, 3 and 5 (one row a block), 133 (four
+# rows a block, a ragged last group), 400 and 500 (the train batches, one
+# wave of four rows a block); U != H at widths that are not a multiple of
+# 8, and the widest 64; L from one step to the Kuaishou length; "prefix"
+# masks hold lengths L, 3, 1 and 0 in the first rows (row 3 masked
+# throughout), "holes" masks are not prefixes
+SCAN_BACKWARD_TILING = [
+    (6, 9, 10, 12, "prefix"), (400, 50, 40, 40, "prefix"),
+    (1, 50, 40, 40, "prefix"), (3, 50, 40, 40, "holes"),
+    (5, 50, 40, 40, "prefix"), (133, 50, 40, 40, "holes"),
+    (500, 50, 40, 40, "prefix"), (400, 50, 40, 40, "holes"),
+    (64, 50, 10, 12, "holes"), (133, 50, 24, 40, "prefix"),
+    (8, 50, 64, 64, "prefix"), (133, 50, 64, 64, "holes"),
+    (5, 1, 40, 40, "prefix"), (400, 250, 40, 40, "prefix"),
+]
+
+
+@pytest.mark.parametrize("B, L, U, H, mask", SCAN_BACKWARD_TILING)
+def test_scan_backward_kernel_matches_plain(cuda, monkeypatch, B, L, U, H,
+                                            mask):
     """The forward's carries equal the plain ones; the backward kernel
-    (plus the five weight products) against the plain backward on the
-    same carries and against autograd of `scan_reference`, one launch."""
+    (plus the five weight products), with the rows a block the wrapper
+    picks and with each of ROWS forced, against the plain
+    backward on the same carries and against autograd of
+    `scan_reference`, one launch a call."""
     args, cots = _scan_args(cuda, B, L, U, H, seed=5)
+    if mask == "holes":
+        args = _with_holes(cuda, args)
     *_, carries = fs._forward(*args, keep_carries=True)
     *_, want_carries = fs.scan_forward_reference(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(carries, want_carries, rtol=0, atol=1e-5)
-    before = fs.scan_backward.launches
-    got = fs.scan_backward(args, want_carries, *cots)
-    torch.cuda.synchronize()
-    assert fs.scan_backward.launches == before + 1
-    _close_to_max_abs(got, fs.scan_backward_reference(args, want_carries,
-                                                      *cots))
+    plain = fs.scan_backward_reference(args, want_carries, *cots)
     t = [a.detach().requires_grad_(i != 8) for i, a in enumerate(args)]
-    want = torch.autograd.grad(fs.scan_reference(*t),
+    auto = torch.autograd.grad(fs.scan_reference(*t),
                                [x for i, x in enumerate(t) if i != 8], cots)
-    _close_to_max_abs([g for i, g in enumerate(got) if i != 8], want)
+    for forced in (None, *fs.ROWS):
+        if forced is not None:
+            monkeypatch.setattr(fs, "rows_per_block",
+                                lambda *_, r=forced: r)
+        before = fs.scan_backward.launches
+        got = fs.scan_backward(args, want_carries, *cots)
+        torch.cuda.synchronize()
+        assert fs.scan_backward.launches == before + 1
+        _close_to_max_abs(got, plain)
+        _close_to_max_abs([g for i, g in enumerate(got) if i != 8], auto)
+
+
+def _with_gaps(dev, args):
+    """args with every row's mask two valid steps, two masked, and so on
+    (shifted by the row): a block of one row skips the step between its
+    two masked ones, where its double-buffered shared memory still needs
+    that step's barrier."""
+    B, L = args[8].shape
+    steps = torch.arange(L, device=dev)[None]
+    rows = torch.arange(B, device=dev)[:, None]
+    gaps = ((steps + rows) % 4 % 3 == 0).float()
+    return args[:8] + (gaps,) + args[9:]
+
+
+@pytest.mark.parametrize("mask, rows", [("holes", None), ("gaps", 1)])
+def test_scan_backward_kernel_is_bit_reproducible(cuda, monkeypatch, mask,
+                                                  rows):
+    """Five calls on the same inputs give the same bits from the kernel
+    (fixed summation order, no atomics, no race) and each is within 1e-4
+    of max abs of the plain backward, at the train shape: with holes in
+    the mask at the rows a block the wrapper picks, and with two-step
+    gaps at one row a block."""
+    args, cots = _scan_args(cuda, 400, 50, 40, 40, seed=7)
+    args = (_with_holes(cuda, args) if mask == "holes"
+            else _with_gaps(cuda, args))
+    if rows is not None:
+        monkeypatch.setattr(fs, "rows_per_block", lambda *_: rows)
+    *_, carries = fs._forward(*args, keep_carries=True)
+    plain = fs.scan_backward_reference(args, carries, *cots)
+    first = None
+    for _ in range(5):
+        got = fs.scan_backward(args, carries, *cots)
+        torch.cuda.synchronize()
+        _close_to_max_abs(got, plain)
+        first = first or got
+        for i in (0, 1, 2, 3, 4, 5, 6, 7, 9):
+            assert torch.equal(got[i], first[i]), i
+
+
+@pytest.mark.parametrize("U, H", [(65, 40), (40, 65)])
+def test_scan_backward_refuses_widths_past_its_limit(cuda, U, H):
+    """A width past 64 raises ValueError naming the limit before any
+    launch: the launch counter does not move."""
+    args, cots = _scan_args(cuda, 4, 3, U, H, seed=3)
+    carries = torch.zeros(4, 3, U + 3 * H, device=cuda)
+    before = fs.scan_backward.launches
+    with pytest.raises(ValueError, match=str(fs.FORWARD_MAX_WIDTH)):
+        fs.scan_backward(args, carries, *cots)
+    assert fs.scan_backward.launches == before
 
 
 def test_fused_scan_function_runs_both_kernels(cuda):

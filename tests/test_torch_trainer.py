@@ -37,6 +37,7 @@ narrow widths of tests/test_torch_common.py:
 """
 
 import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -48,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import clsr_tpu.training.steps as jax_steps
 from clsr_tpu.data.loader import SequenceLoader as JaxLoader
@@ -64,6 +66,7 @@ from clsr_tpu_torch.data.prefetch import to_device
 from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
 from clsr_tpu_torch.data.vocab import load_vocab
 from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.ops import fused_scan as fs
 from clsr_tpu_torch.serving import ScoreRequest, ScoringService
 from clsr_tpu_torch.training import kernel_check
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
@@ -303,6 +306,78 @@ def test_kernel_check_holds_the_plain_steps_to_themselves(data, opt):
     assert res["k5_identical"] is (True if opt != "adam" else None)
     assert (res["table_grad_rel_err"] is None) == (opt != "lazy_compact")
     assert np.isfinite(res["loss"])
+
+
+def test_relu_sides_takes_the_recorded_side_of_each_kink():
+    """ReluSides sees torch.relu, F.relu, Tensor.relu and nn.ReLU; a run
+    under another run's masks takes that run's side of each kink, with
+    its gradient; `kinks` counts the inputs that changed sign and how
+    far apart they lie, and `failures` refuses a flip past KINK_ABS."""
+    w = torch.tensor([2.0, 3.0, 5.0])
+
+    def run(x, mode):
+        x = x.clone().requires_grad_(True)
+        with mode:
+            y = (torch.relu(x) + F.relu(x) + x.relu()
+                 + torch.nn.ReLU()(x)) @ w
+        y.backward()
+        return x.grad
+
+    near = torch.tensor([1e-7, -2.0, 3.0])
+    rec = kernel_check.ReluSides()
+    want = run(near, rec)
+    assert len(rec.inputs) == 4
+    torch.testing.assert_close(want, 4 * torch.tensor([2.0, 0.0, 5.0]))
+    for moved, n_kinks, far in ((-1e-7, 4, 2e-7), (-0.5, 4, 0.5)):
+        x = torch.tensor([moved, -2.0, 3.0])
+        other = kernel_check.ReluSides([t > 0 for t in rec.inputs])
+        assert torch.equal(run(x, other), want)
+        n, gap = kernel_check.kinks(rec.inputs, other.inputs)
+        assert n == n_kinks and gap == pytest.approx(far, rel=1e-6)
+        res = dict(score_err=0.0, loss_rel_err=0.0, bad_grads=[],
+                   bn_err=0.0, k5_identical=None, kinks=n, kink_abs=gap)
+        assert bool(kernel_check.failures(res)) == (far > 1e-4)
+    assert not torch.equal(run(x, contextlib.nullcontext()), want)
+    with pytest.raises(AssertionError, match="other ReLUs"):
+        kernel_check.kinks(rec.inputs, rec.inputs[:3])
+
+
+@pytest.mark.parametrize("fault", ["none", "backward", "forward"])
+def test_kernel_check_same_kinks_fails_a_faulty_step(data, monkeypatch,
+                                                     fault):
+    """compare_steps with same_kinks on CPU tensors (both sides plain,
+    the kernel side through fused_scan): every gate holds and no ReLU
+    input changes sign; a backward with the Time4LSTM's input gradient
+    1% off still fails the gradients' gate; a forward with its outputs
+    moved by 1e-2 fails the kink gate."""
+    _, pv, port, _ = data
+    t = _port_trainer(pv, use_pallas_scan=True,
+                      use_pallas_train_attention="off")
+    train = to_device(next(port["train"].train_batches(
+        64, np.random.RandomState(0))), "cpu")
+    test = to_device(next(port["test"].eval_batches(
+        group_size=TEST_NGS + 1, batch_groups=6)), "cpu")
+    if fault == "backward":
+        bwd = fs.scan_backward
+        monkeypatch.setattr(fs, "scan_backward", lambda *a: (
+            lambda g: g[:2] + (g[2] * 1.01,) + g[3:])(bwd(*a)))
+    if fault == "forward":
+        fwd = fs._forward
+        monkeypatch.setattr(fs, "_forward", lambda *a, **kw: (
+            lambda o: (o[0], o[1] + 1e-2 * a[8][..., None], o[2], o[3]))(
+                fwd(*a, **kw)))
+    res = kernel_check.compare_steps(t.cfg, t.state.model.state_dict(),
+                                     _sizes(pv), train, test,
+                                     same_kinks=True)
+    bad = kernel_check.failures(res)
+    assert res["relus"] > 0
+    if fault == "none":
+        assert bad == [] and res["kinks"] == 0
+    elif fault == "backward":
+        assert res["bad_grads"] and res["kinks"] == 0
+    else:
+        assert res["kink_abs"] > kernel_check.KINK_ABS
+        assert any("ReLU" in b for b in bad)
 
 
 def test_checkpoint_refuses_another_optimizer(data, tmp_path):
