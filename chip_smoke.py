@@ -131,7 +131,8 @@ Phases, each fatal on failure:
      `table_grad`;
  11. train and evaluate end to end: the port's `write_synthetic_dataset`
      (5,000 users, 50,000 items, 1,000 categories, seed 0; valid 1 + 4,
-     test 1 + 99) in a temporary directory; each split parsed by the C++
+     test 1 + 99, cut to its first 1,000 groups but in phase 13) in a
+     temporary directory; each split parsed by the C++
      parser and by the Python loop, both timed, ids, offsets and labels
      equal and the time features within 1e-6 abs.  Run A drives
      `clsr_tpu_torch.cli.main` as a user does (the CLI's defaults: batch
@@ -144,7 +145,8 @@ Phases, each fatal on failure:
      (every key; it adds mean_alpha, as the JAX CLI does), and
      `ScoringService.load_latest` on run A's model_dir must score 64 test
      groups as the eval step does, within 1e-6.  Then run A's config with
-     K = 1 (eager single steps) for one epoch in the same run, and
+     K = 1 (eager single steps) for one epoch of the train set's first
+     20 batches in the same run, and
      torch.profiler over 2 streamed eager steps and one streamed graphed
      call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
      share, kernels on the device and host launch calls a step).  Run B: the same config
@@ -247,12 +249,12 @@ Phases, each fatal on failure:
      SLI-Rec the kernel steps against the plain ones on the first batch
      (`kernel_check.compare_steps`, lazyadam compact, phase 8's gates;
      past them the per-tensor numbers are printed and the phase stops);
-     then dense Adam and lazyadam compact, each as one call of 32
+     then dense Adam and lazyadam compact, each as one call of 16
      graphed steps (the first the eager warm-up) and a replayed tail
-     against 33 eager steps, every state tensor and loss part bit for
+     against 17 eager steps, every state tensor and loss part bit for
      bit, the launches a step K3a = K3b = K1 = 1 (DIN, SLI-Rec), 2
      (CLSR), 0 (the rest), K2 0, K5 1 a lazyadam step; one more call of
-     32 replays timed by CUDA events (ms a step, examples/s, peak
+     16 replays timed by CUDA events (ms a step, examples/s, peak
      memory), beside CLSR's fused lazyadam step (phase 10's
      configuration) in the same run; torch.profiler over one eager
      lazyadam step of each (kernels a step, device busy ms, the kernels
@@ -260,15 +262,39 @@ Phases, each fatal on failure:
      on its data: (c) one epoch of `clsr_tpu_torch.cli` with --model DIN
      and --model DIEN (the CLI's defaults): epoch examples/s, test eval
      s, valid auc above 0.5, K1 in DIN's evals only, K2 never.
+ 16. the rest of the zoo (Caser, NCF, NextItNet at their yaml widths;
+     NextItNet trains per position) with phase 5's Taobao-sized tables,
+     seeded weights as in phase 15.  After phase 15: (a) each served as
+     in 15 (a): 64 x 100 and 8 x 10, scores finite in [0, 1], one per
+     candidate, card = CPU port on the 8 x 10 to 1e-4, K1 = K2 = 0, the
+     median 64 x 100 dispatch ms and candidates/s; (b) each trained at
+     B = 400, L = 50, lengths 1..50, G = 5 with dense Adam and with
+     lazyadam (Caser compact; NCF and per-position NextItNet on the
+     legacy path): one call of 32 graphed steps and a replayed tail
+     against 33 eager steps, every state tensor and loss part bit for
+     bit, K5 once a lazyadam step and no other kernel; one more call of
+     32 replays timed (ms a step, examples/s, peak memory) beside phase
+     15's CLSR fused lazyadam step; torch.profiler over one eager step;
+     then LGN with dense Adam on the interaction graph of a seeded
+     history of 1..50 items and a target for each of the 987,995 users
+     (E, the host build s), the same graphed gate, its step ms and peak
+     memory against the card's 80 GB (its timed call 8 replays).
+     Inside phase 11, after phase 15 (c): (c) the CLI with --model
+     NEXTITNET for three epochs (its first two score at chance on this
+     set, as JAX's do) and --model LGN for one (the CLI builds LGN's
+     graph from the train file): epoch examples/s, test eval s, the
+     restored epoch's valid auc above 0.5, no kernel launched.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
 resident run B epoch, and `fit_buckets`, run C's epoch and bucketed test
 eval, and the phase-14 paths `p14_bf16_train` (the timed bf16 calls),
 `p14_int8_serve`, `p14_bf16_fit` and `p14_optimizers` (the graphed
-calls), and the phase-15 paths `p15_zoo_serve` (the served dispatches),
+calls), the phase-15 paths `p15_zoo_serve` (the served dispatches),
 `p15_zoo_train` (the graphed calls) and `p15_zoo_fit` (the CLI epochs
-and their evals)), the card's name and power limit, and the final status line.
+and their evals), and phase 16's `p16_zoo_serve`, `p16_zoo_train` and
+`p16_zoo_fit` likewise), the card's name and power limit, and the final
+status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
@@ -1971,6 +1997,13 @@ def check_segment_sum(smi):
 # Taobao-shaped deployment, the CLI's defaults (batch 500, L = 50, valid
 # 1 + 4, test 1 + 99), the clsr.yaml widths
 P11_DATA = dict(n_users=5_000, n_items=50_000, n_cates=1_000, seed=0)
+# the test split cut to its first 1,000 groups of 1 + 99 (of 5,000) for
+# every test eval but phase 13's: its bucketed eval keeps all 5,000, the
+# count at which 'auto' picks three eval buckets (each but the top needs
+# 1,024 groups)
+P11_TEST_GROUPS = 1_000
+# run A's eager epoch (K = 1) over the train set's first 20 batches
+P11_EAGER_ROWS = 10_000
 P11_ARGV = ["--dataset", "synthetic", "--model", "CLSR", "--epochs", "2",
             "--seed", "7"]
 P11_PROFILE_K = 8              # steps a graphed call while profiling
@@ -1982,6 +2015,7 @@ EPOCH_RE = re.compile(
     r"([\d.]+) examples/s\), eval time ([\d.]+)s$", re.M)
 VALID_RE = re.compile(r"^eval valid at epoch (\d+): (.*)$", re.M)
 TEST_RE = re.compile(r"^test eval time ([\d.]+)s$", re.M)
+BEST_RE = re.compile(r"^best epoch: (\d+)$", re.M)
 PARSE_RE = re.compile(r"^parse (\w+): (\d+) lines in ([\d.]+)s$", re.M)
 
 
@@ -2057,6 +2091,18 @@ def head(ds, n):
         hist_items=ds.hist_items[:end], hist_cates=ds.hist_cates[:end],
         time_diff=ds.time_diff[:end], time_from_first=ds.time_from_first[:end],
         time_to_now=ds.time_to_now[:end])
+
+
+def keep_groups(path, groups, size):
+    """Cut the TSV at `path` to its first `groups` groups of `size`
+    lines (a group: a line and its negatives)."""
+    with open(path) as f:
+        lines = list(itertools.islice(f, groups * size))
+    if len(lines) != groups * size:
+        raise AssertionError(f"{path}: {len(lines)} lines, fewer than "
+                             f"{groups} groups of {size}")
+    with open(path, "w") as f:
+        f.writelines(lines)
 
 
 def parse_both(paths, vocabs):
@@ -2183,7 +2229,7 @@ def differing(a, b):
 
 
 def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
-                        weights=None):
+                        weights=None, model_kw=None, timed_steps=None):
     """Phase 12: from one state and one generator seed, one call of the
     graphed K-step train step (its first step the eager warm-up, the
     other K - 1 replays) and a tail step (a replay) against K + 1 eager
@@ -2191,9 +2237,10 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
     tensor and every loss part bit for bit, deterministic algorithms off;
     the launch counts of the call are K times the eager step's.
     `loader` gives the batches (or is a list of K + 1 device batches);
-    `weights`, a state_dict, replaces both models' seeded init.  With
-    `timed_call`, one more call of K replays on the same batches is
-    timed: examples/s by the host clock to a sync, ms a step by CUDA
+    `weights`, a state_dict, replaces both models' seeded init, and
+    `model_kw` goes to their constructor (LGN's graph).  With
+    `timed_call`, one more call of K replays on the same batches (or
+    `timed_steps` replays, one a step) is timed: examples/s by the host clock to a sync, ms a step by CUDA
     events, and the call's peak device memory."""
     from clsr_tpu_torch.data.prefetch import to_device
     from clsr_tpu_torch.models.registry import get_model_class
@@ -2217,7 +2264,8 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
     rows = lambda p: torch.stack([getattr(p, f) for f in LOSS_FIELDS], -1)
     runs, counts = {}, {}
     for run in ("eager", "graph"):
-        model = get_model_class(cfg.model_type)(cfg, *sizes)
+        model = get_model_class(cfg.model_type)(cfg, *sizes,
+                                                **(model_kw or {}))
         if weights is not None:
             model.load_state_dict(weights)
         state = create_train_state(model, cfg)
@@ -2254,18 +2302,24 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
                loss=float(losses[-1, 0]))
     if timed_call:
         del runs, te, tg, step, parts    # the eager model's memory
+        n = timed_steps or K
         stack = stack_batches(batches[:K])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
         start.record()
-        multi(state, stack, gen)
+        if n == K:
+            multi(state, stack, gen)
+        else:                          # n replays, one a step
+            for b in batches[:n]:
+                multi.step(state, b, gen)
         end.record()
         torch.cuda.synchronize()
-        out["examples_per_s"] = K * cfg.batch_size / (
+        out["examples_per_s"] = n * cfg.batch_size / (
             time.perf_counter() - t0)
-        out["step_ms"] = start.elapsed_time(end) / K
+        out["step_ms"] = start.elapsed_time(end) / n
+        out["timed_steps"] = n
         out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
     return out
 
@@ -3254,6 +3308,8 @@ ZOO = (("gru4rec", "gru4rec", {}), ("a2svd", "asvd", {}),
        ("clsr_gru", "clsr", dict(sequential_model="gru")))
 ZOO_REFERENCE = ("clsr_fused", "clsr", dict(use_pallas_scan=True))
 ZOO_K = 32                     # graphed steps a call, as phase 12
+P15_K = 16                     # phase 15's: its depth cut to keep the
+                               # script in its time limit
 ZOO_TOL = 1e-4                 # K1 on / off and card / CPU scores
 # K1 launches a serving dispatch and, per train step with
 # use_pallas_train_attention 'on', K3a = K3b = K1: the scorers of each
@@ -3261,7 +3317,7 @@ ZOO_TOL = 1e-4                 # K1 on / off and card / CPU scores
 ZOO_SCORERS = {"gru4rec": 0, "a2svd": 0, "din": 1, "dien": 0, "sli_rec": 1,
                "clsr_time4lstm": 2, "clsr_gru": 2, "clsr_fused": 2}
 ZOO_SERVE_K1 = {"din", "sli_rec", "clsr_time4lstm", "clsr_gru"}
-ZOO_FITS = ("DIN", "DIEN")     # (c): the CLI on phase 11's data
+ZOO_FITS = (("DIN", 1), ("DIEN", 1))   # (c): the CLI on phase 11's data
 
 
 def zoo_cfg(yaml, kw):
@@ -3271,10 +3327,11 @@ def zoo_cfg(yaml, kw):
                        seed=0, **kw)
 
 
-def zoo_serve(name, cfg, big, small, vocabs, smi):
-    """Phase 15 (a) for one model: 64 x 100 and 8 x 10 requests through
-    ScoringService, the counts read around them; K1 on against off; the
-    card against the CPU port on the 8 x 10; the dispatch latency."""
+def zoo_serve(name, cfg, big, small, vocabs, smi, phase="15"):
+    """Phase 15 (a) (and 16 (a)) for one model: 64 x 100 and 8 x 10
+    requests through ScoringService, the counts read around them; K1 on
+    against off; the card against the CPU port on the 8 x 10; the
+    dispatch latency."""
     from clsr_tpu_torch.serving import ScoringService
     from clsr_tpu_torch.training.kernel_check import counted
     sizes = (USERS, ITEMS, CATES)
@@ -3289,9 +3346,9 @@ def zoo_serve(name, cfg, big, small, vocabs, smi):
     for s, r in zip(scores, big + small):
         if s.shape != (len(r.cand_items),) or not np.isfinite(s).all() \
                 or s.min() < 0 or s.max() > 1:
-            raise AssertionError(f"{name}: scores not finite in [0, 1], "
+            raise AssertionError(f"phase {phase} (a) {name}: scores not finite in [0, 1], "
                                  f"one per candidate")
-    check_counts(f"phase 15 (a) {name}, two dispatches", counts,
+    check_counts(f"phase {phase} (a) {name}, two dispatches", counts,
                  dict(eval_scorer=2 if name in ZOO_SERVE_K1 else 0,
                       clsr_scan=0))
     d_off = None
@@ -3308,13 +3365,14 @@ def zoo_serve(name, cfg, big, small, vocabs, smi):
                 zip(scores[len(big):], cpu.score(small)))
     del cpu
     ms = dispatch_ms(svc, big)
-    log(f"phase 15 (a) [{name}]: launches {counts} | |K1 on - off| "
+    log(f"phase {phase} (a) [{name}]: launches {counts} | |K1 on - off| "
         f"{d_off if d_off is None else f'{d_off:.3e}'} (tol {ZOO_TOL}), "
         f"|cuda - cpu| on 8x10 {d_cpu:.3e} (tol {ZOO_TOL}) | 64x100 "
         f"dispatch median {ms:.3f} ms, {64 * 100 / ms * 1e3:,.0f} "
         f"candidates/s | peak {peak_mb:.1f} MB | {smi}")
     if not (d_cpu <= ZOO_TOL and (d_off is None or d_off <= ZOO_TOL)):
-        raise AssertionError(f"phase 15 (a) {name}: served scores disagree")
+        raise AssertionError(f"phase {phase} (a) {name}: served scores "
+                             f"disagree")
     del svc
     torch.cuda.empty_cache()
     return dict(launches=counts, k1_onoff_err=d_off, cpu_err=d_cpu,
@@ -3322,24 +3380,30 @@ def zoo_serve(name, cfg, big, small, vocabs, smi):
                 peak_mb=peak_mb)
 
 
-def zoo_train(name, cfg, batches, smi):
-    """Phase 15 (b) for one model: seeded weights; for DIN and SLI-Rec
-    the kernel steps against the plain ones on the first batch
-    (`kernel_check.compare_steps`, phase 8's gates); then dense Adam and
-    lazyadam compact, each as graphed replays against eager steps; last,
-    torch.profiler over one eager lazyadam step."""
+def zoo_train(name, cfg, batches, smi, phase="15", opts=("adam", "lazyadam"),
+              model_kw=None, timed_steps=None, K=ZOO_K):
+    """Phase 15 (b) (and 16 (b)) for one model: seeded weights; for DIN
+    and SLI-Rec the kernel steps against the plain ones on the first
+    batch (`kernel_check.compare_steps`, phase 8's gates); then each
+    optimizer of `opts` (dense Adam, lazyadam) as graphed replays against
+    eager steps; last, torch.profiler over one eager step of the last.
+    `model_kw` goes to the model's constructor (LGN's graph);
+    `timed_steps` cuts the timed call's replays; K graphed steps a
+    call (batches holds K + 1)."""
     from clsr_tpu_torch.models.registry import get_model_class
     from clsr_tpu_torch.training import kernel_check
     from clsr_tpu_torch.training.state import create_train_state
     from clsr_tpu_torch.training.steps import make_train_step
     cfg = cfg.replace(use_pallas_train_attention="on", batch_size=TRAIN_B,
-                      train_steps_per_call=ZOO_K)
-    model = get_model_class(cfg.model_type)(cfg, USERS, ITEMS, CATES)
+                      train_steps_per_call=K)
+    model_kw = model_kw or {}
+    model = get_model_class(cfg.model_type)(cfg, USERS, ITEMS, CATES,
+                                            **model_kw)
     spread(model, 6)
     weights = {k: v.clone() for k, v in model.state_dict().items()}
     del model
     out = {}
-    n = ZOO_SCORERS[name]
+    n = ZOO_SCORERS.get(name, 0)
     if name in ("din", "sli_rec"):
         res = kernel_check.compare_steps(
             cfg.replace(optimizer="lazyadam"), weights,
@@ -3372,37 +3436,42 @@ def zoo_train(name, cfg, batches, smi):
                                  f"disagrees with the plain one: {bad}")
         out["first_batch"] = dict(res, launches=lc)
     k2 = 1 if name == "clsr_fused" else 0
-    for opt in ("adam", "lazyadam"):
+    for opt in opts:
         if name == "clsr_fused" and opt == "adam":
             continue           # the reference: lazyadam, as phase 10
-        res = graph_against_eager(f"phase 15 (b) {name} {opt}",
+        res = graph_against_eager(f"phase {phase} (b) {name} {opt}",
                                   cfg.replace(optimizer=opt),
                                   (USERS, ITEMS, CATES), batches, smi,
-                                  timed_call=True, weights=weights)
+                                  timed_call=True, weights=weights,
+                                  model_kw=model_kw,
+                                  timed_steps=timed_steps)
         torch.cuda.empty_cache()
-        per_step = {k: v // (ZOO_K + 1)
+        per_step = {k: v // (K + 1)
                     for k, v in res["launches"]["eager"].items()}
-        check_counts(f"phase 15 (b) {name} {opt} step", per_step,
+        check_counts(f"phase {phase} (b) {name} {opt} step", per_step,
                      dict(train_stats0=n, train_stats1=n, eval_scorer=n,
                           clsr_scan=k2, clsr_scan_backward=k2,
                           row_scatter=int(opt == "lazyadam")))
         if not np.isfinite(res["loss"]):
-            raise AssertionError(f"phase 15 (b) {name} {opt}: loss "
+            raise AssertionError(f"phase {phase} (b) {name} {opt}: loss "
                                  f"{res['loss']}")
-        log(f"phase 15 (b) [{name}, {opt}]: launches a step {per_step} | "
-            f"graphed step {res['step_ms']:.3f} ms (CUDA events over a "
-            f"call of {ZOO_K}), {TRAIN_B / res['step_ms'] * 1e3:,.0f} "
+        log(f"phase {phase} (b) [{name}, {opt}]: launches a step {per_step} | "
+            f"graphed step {res['step_ms']:.3f} ms (CUDA events over "
+            f"{res['timed_steps']} replays), "
+            f"{TRAIN_B / res['step_ms'] * 1e3:,.0f} "
             f"examples/s, peak {res['peak_mb']:.1f} MB | loss "
             f"{res['loss']:.5f} | {smi}")
         out[opt] = dict(res, per_step=per_step)
-    # where the graphed step's device time goes: one eager lazyadam step
-    # under torch.profiler (kernels a step, device busy ms, top kernels)
-    lazy = cfg.replace(optimizer="lazyadam")
-    model = get_model_class(cfg.model_type)(lazy, USERS, ITEMS, CATES)
+    # where the graphed step's device time goes: one eager step (of the
+    # last optimizer) under torch.profiler (kernels a step, device busy
+    # ms, top kernels)
+    last = cfg.replace(optimizer=opts[-1])
+    model = get_model_class(cfg.model_type)(last, USERS, ITEMS, CATES,
+                                            **model_kw)
     model.load_state_dict(weights)
     out["profile"] = profile_steps(
-        make_train_step(model, lazy), create_train_state(model, lazy),
-        batches[1:2], f"phase 15 {name} lazyadam eager", smi)
+        make_train_step(model, last), create_train_state(model, last),
+        batches[1:2], f"phase {phase} {name} {opts[-1]} eager", smi)
     del model
     torch.cuda.empty_cache()
     return out
@@ -3414,7 +3483,7 @@ def model_zoo(smi):
     big = make_requests(rng, 64, 100, USERS, ITEMS, CATES)
     small = make_requests(rng, 8, 10, USERS, ITEMS, CATES)
     vocabs = vocab_for(big + small)
-    batches = train_batches(ZOO_K + 1, 15, USERS, ITEMS, CATES)
+    batches = train_batches(P15_K + 1, 15, USERS, ITEMS, CATES)
     served, trained = {}, {}
     launches = {"p15_zoo_serve": {}, "p15_zoo_train": {}}
 
@@ -3430,7 +3499,8 @@ def model_zoo(smi):
         served[name]["s"] = time.perf_counter() - t0
     for name, yaml, kw in ZOO + (ZOO_REFERENCE,):
         t0 = time.perf_counter()
-        trained[name] = zoo_train(name, zoo_cfg(yaml, kw), batches, smi)
+        trained[name] = zoo_train(name, zoo_cfg(yaml, kw), batches, smi,
+                                  K=P15_K)
         for opt in ("adam", "lazyadam"):
             if opt in trained[name]:
                 add("p15_zoo_train",
@@ -3446,31 +3516,132 @@ def model_zoo(smi):
     return dict(serve=served, train=trained, launches=launches)
 
 
-def zoo_fits(root, smi):
-    """Phase 15 (c), inside phase 11 on its data: one epoch of the CLI
-    for each of ZOO_FITS, as a user runs it; the epoch examples/s, the
-    test eval s, the valid auc (> 0.5), the counts read around each."""
+def zoo_fits(root, smi, models=ZOO_FITS, phase="15"):
+    """Phase 15 (c) (and 16 (c)), inside phase 11 on its data: the CLI
+    for each (model, epochs) of `models`, as a user runs it; the first
+    epoch's examples/s, the test eval s, the valid auc of the epoch the
+    CLI restores (> 0.5), the counts read around each: K1 in DIN's evals
+    only, no other kernel (the yaml files' optimizer is adam, so no
+    K5)."""
     out = {}
-    for model in ZOO_FITS:
-        argv = ["--dataset", "synthetic", "--model", model, "--epochs", "1",
-                "--seed", "7", "--data_path", root]
+    for model, epochs in models:
+        argv = ["--dataset", "synthetic", "--model", model, "--epochs",
+                str(epochs), "--seed", "7", "--data_path", root]
         text, wall, launches = run_cli(argv)
         nums = cli_numbers(text)
         epoch = nums["epochs"][0]
-        auc = nums["valid"][1]["auc"]
-        log(f"phase 15 (c) [{model} through the CLI]: epoch "
-            f"{epoch['train_s']:.3f} s, {epoch['steps']} steps, "
-            f"{epoch['examples_per_s']:,.1f} examples/s, valid auc {auc} "
-            f"(> 0.5), test eval {nums['test_eval_s'][0]:.3f} s, test "
+        best = int(BEST_RE.findall(text)[-1])
+        auc = nums["valid"][best]["auc"]
+        log(f"phase {phase} (c) [{model} through the CLI, {epochs} "
+            f"epoch(s)]: epoch 1 {epoch['train_s']:.3f} s, "
+            f"{epoch['steps']} steps, {epoch['examples_per_s']:,.1f} "
+            f"examples/s, valid auc by epoch "
+            f"{[nums['valid'][e]['auc'] for e in sorted(nums['valid'])]}, "
+            f"restored epoch {best}: {auc} (> 0.5), test eval "
+            f"{nums['test_eval_s'][0]:.3f} s, test "
             f"{nums['test']} | wall {wall:.3f} s | launches {launches} | "
             f"{smi}")
         want_k1 = model == "DIN"
+        others = {k: n for k, n in launches.items() if k != "eval_scorer"}
         if not (auc > 0.5 and (launches["eval_scorer"] > 0) == want_k1
-                and launches["clsr_scan"] == 0):
-            raise AssertionError(f"phase 15 (c) {model}: auc {auc}, "
+                and not any(others.values())):
+            raise AssertionError(f"phase {phase} (c) {model}: auc {auc}, "
                                  f"launches {launches}")
-        out[model] = dict(nums, wall_s=wall, launches=launches)
+        out[model] = dict(nums, wall_s=wall, launches=launches,
+                          best_epoch=best)
     return out
+
+
+# ------------------------------------------------------------- phase 16
+# the rest of the zoo at its yaml widths with phase 5's Taobao-sized
+# tables (NextItNet trains per position, the yaml default); LGN with
+# dense Adam on a graph of every user's seeded history
+ZOO_REST = (("caser", "caser", {}), ("ncf", "ncf", {}),
+            ("nextitnet", "nextitnet", {}))
+# (c): the CLI on phase 11's data, epochs a model: per-position
+# NextItNet scores at chance for its first two epochs there, in JAX too
+# (its unmasked padded positions teach the padding id first; PERF.md
+# §6), so it runs three
+ZOO_REST_FITS = (("NEXTITNET", 3), ("LGN", 1))
+CARD_MB = 80e3                         # the H100's device memory, MB
+LGN_TIMED_STEPS = 8                    # LGN's timed replays (~0.3 s each)
+
+
+def lgn_graph(seed):
+    """LGN's interaction graph at the Taobao node count: every real user
+    (ids 1..USERS - 1) a seeded history of 1..TRAIN_L items and a target,
+    each item's cate 1 + item % (CATES - 1); (graph, host build s)."""
+    from clsr_tpu_torch.data.graph import build_graph_from_arrays
+    rng = np.random.RandomState(seed)
+    users = np.arange(1, USERS, dtype=np.int64)
+    lens = rng.randint(1, TRAIN_L + 1, len(users)) + 1
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    items = rng.randint(1, ITEMS, offsets[-1]).astype(np.int64)
+    cates = 1 + items % (CATES - 1)
+    t0 = time.perf_counter()
+    graph = build_graph_from_arrays(users, offsets, items, cates, USERS,
+                                    ITEMS)
+    return graph, time.perf_counter() - t0
+
+
+def zoo_rest(smi, ref_step_ms):
+    """Phase 16 (a) and (b): Caser, NCF and NextItNet served and trained
+    as phase 15 serves and trains the zoo, and LGN trained with dense
+    Adam on its Taobao-sized graph; each graphed step beside CLSR's fused
+    lazyadam step of phase 15 (`ref_step_ms`, the same run)."""
+    rng = np.random.RandomState(16)
+    big = make_requests(rng, 64, 100, USERS, ITEMS, CATES)
+    small = make_requests(rng, 8, 10, USERS, ITEMS, CATES)
+    vocabs = vocab_for(big + small)
+    batches = train_batches(ZOO_K + 1, 16, USERS, ITEMS, CATES)
+    served, trained = {}, {}
+    launches = {"p16_zoo_serve": {}, "p16_zoo_train": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            launches[path][k] = launches[path].get(k, 0) + v
+
+    for name, yaml, kw in ZOO_REST:
+        t0 = time.perf_counter()
+        served[name] = zoo_serve(name, zoo_cfg(yaml, kw), big, small,
+                                 vocabs, smi, phase="16")
+        add("p16_zoo_serve", served[name]["launches"])
+        served[name]["s"] = time.perf_counter() - t0
+    for name, yaml, kw in ZOO_REST:
+        t0 = time.perf_counter()
+        trained[name] = zoo_train(name, zoo_cfg(yaml, kw), batches, smi,
+                                  phase="16")
+        for opt in ("adam", "lazyadam"):
+            add("p16_zoo_train", trained[name][opt]["launches"]["graph"])
+        trained[name]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph, build_s = lgn_graph(16)
+    n_edges = len(graph.src)
+    log(f"phase 16 (b) [lgn]: graph of {USERS - 1:,} users' histories "
+        f"(1..{TRAIN_L} items + a target): E = {n_edges:,} edges over "
+        f"{graph.n_nodes:,} nodes, host build {build_s:.3f} s")
+    lgn = zoo_train("lgn", zoo_cfg("lgn", {}), batches, smi, phase="16",
+                    opts=("adam",), model_kw={"graph": graph},
+                    timed_steps=LGN_TIMED_STEPS)
+    del graph
+    add("p16_zoo_train", lgn["adam"]["launches"]["graph"])
+    lgn.update(edges=n_edges, graph_build_s=build_s,
+               s=time.perf_counter() - t0)
+    trained["lgn"] = lgn
+    log(f"phase 16 (b) [lgn, adam]: E = {n_edges:,}, host build "
+        f"{build_s:.3f} s, graphed step {lgn['adam']['step_ms']:.3f} ms, "
+        f"peak {lgn['adam']['peak_mb']:,.1f} MB of the card's "
+        f"{CARD_MB:,.0f} | {smi}")
+    for name, t in trained.items():
+        lazy = (f"{t['lazyadam']['step_ms']:.3f} "
+                f"({t['lazyadam']['step_ms'] / ref_step_ms:.2f}x)"
+                if "lazyadam" in t else "refused (LGN)")
+        log(f"phase 16 (b) graphed step ms at B = {TRAIN_B}: {name} adam "
+            f"{t['adam']['step_ms']:.3f} "
+            f"({t['adam']['step_ms'] / ref_step_ms:.2f}x), lazyadam {lazy}; "
+            f"CLSR fused lazyadam {ref_step_ms:.3f} | {smi}")
+    return dict(serve=served, train=trained, launches=launches,
+                ref_step_ms=ref_step_ms)
 
 
 def train_and_evaluate(smi):
@@ -3478,6 +3649,7 @@ def train_and_evaluate(smi):
     Trainer.fit with every kernel gate on (run B), and the gates."""
     from clsr_tpu_torch import cli
     from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.parser import parse_file
     from clsr_tpu_torch.data.prefetch import to_device
     from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
     from clsr_tpu_torch.data.vocab import load_vocab
@@ -3508,6 +3680,8 @@ def train_and_evaluate(smi):
                   for n in ("user", "item", "category")]
         sizes = tuple(map(len, vocabs))
         log(f"phase 11: synthetic set {P11_DATA} written in {write_s:.3f} s")
+        full_test = parse_file(paths["test"], *vocabs)
+        keep_groups(paths["test"], P11_TEST_GROUPS, 100)
         parsed, parse = parse_both(paths, vocabs)
 
         # ---- run A: the CLI as a user runs it ---------------------------
@@ -3577,7 +3751,10 @@ def train_and_evaluate(smi):
         # ---- run A's steps eager, in the same run: the epoch before the
         # graph, the idle shares eager and graphed, then phase 12 ----------
         mark("run A --only_test and load_latest")
-        eager_a = eager_epoch("run A", cfg_a, sizes, loaders, smi)
+        eager_a = eager_epoch("run A", cfg_a, sizes, dict(
+            loaders, train=SequenceLoader(head(parsed["train"],
+                                               P11_EAGER_ROWS),
+                                          cfg_a.max_seq_length)), smi)
         mark("run A eager epoch")
         trainer_a = eager_a.pop("trainer")
         # few steps: each makes ~12,000 launches for the profiler
@@ -3771,13 +3948,18 @@ def train_and_evaluate(smi):
         ea, eb = fits["prefetch 2"][2], fits["prefetch 0"][2]
         mark("fits from one seed")
         del fits
-        p13 = resident_and_buckets(cfg_b, sizes, loaders, smi)
+        p13 = resident_and_buckets(cfg_b, sizes, dict(
+            loaders, test=SequenceLoader(full_test, cfg_a.max_seq_length)),
+            smi)
+        del full_test
         mark("phase 13")
         p14 = mixed_on_p11_data(cfg_b, sizes, loaders,
                                 p13["resident"]["examples_per_s"], smi)
         mark("phase 14 (c) and (d)")
         p15 = zoo_fits(root, smi)
         mark("phase 15 (c)")
+        p16 = zoo_fits(root, smi, ZOO_REST_FITS, "16")
+        mark("phase 16 (c)")
         return dict(
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
@@ -3796,9 +3978,12 @@ def train_and_evaluate(smi):
             prefetch=dict(bit_identical=bit_same, on=ea, off=eb),
             phase13={k: v for k, v in p13.items() if k != "launches"},
             phase14={k: v for k, v in p14.items() if k != "launches"},
-            phase15_fits=p15,
+            phase15_fits=p15, phase16_fits=p16,
             launches={"p15_zoo_fit": {k: sum(f["launches"][k]
                                              for f in p15.values())
+                                      for k in launches_a},
+                      "p16_zoo_fit": {k: sum(f["launches"][k]
+                                             for f in p16.values())
                                       for k in launches_a},
                       "fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
@@ -3833,6 +4018,8 @@ def main():
     sums = timed("segment sums", check_segment_sum, smi)
     mixed = timed("mixed precision", mixed_precision, smi)
     zoo = timed("model zoo", model_zoo, smi)
+    rest = timed("model zoo rest", zoo_rest, smi,
+                 zoo["train"]["clsr_fused"]["lazyadam"]["step_ms"])
     fit = timed("train and evaluate", train_and_evaluate, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
@@ -3844,7 +4031,7 @@ def main():
         "bench_row_update": rows["bench"]["launches"],
         "p14_bf16_train": mixed["train"]["launches"],
         "p14_int8_serve": mixed["serve"]["launches"],
-        **zoo["launches"],
+        **zoo["launches"], **rest["launches"],
         **fit["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
@@ -3897,6 +4084,8 @@ def main():
                    "mixed_precision": mixed,
                    "model_zoo": {k: v for k, v in zoo.items()
                                  if k != "launches"},
+                   "model_zoo_rest": {k: v for k, v in rest.items()
+                                      if k != "launches"},
                    "train_and_evaluate": fit}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))

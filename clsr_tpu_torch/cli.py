@@ -18,6 +18,10 @@ Usage:
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --epochs 2
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --only_test
     python -m clsr_tpu_torch.cli --dataset synthetic --model DIN --epochs 2
+    python -m clsr_tpu_torch.cli --dataset synthetic --model LGN --epochs 2
+
+Every model of the registry runs; for LGN the CLI builds the interaction
+graph from the train file (data/graph.py).
 """
 
 from __future__ import annotations
@@ -255,6 +259,7 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     refuse_unported(args)
 
+    from clsr_tpu_torch.data.graph import build_interaction_graph
     from clsr_tpu_torch.data.loader import SequenceLoader
     from clsr_tpu_torch.data.parser import parse_file
     from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
@@ -296,8 +301,15 @@ def main(argv=None) -> int:
         print(f"parse {name}: {len(ds)} lines in "
               f"{time.perf_counter() - t0:.3f}s", flush=True)
 
+    kw = {}
+    if cfg.model_type == "lgn":
+        # the interaction graph of the train file (JAX cli.py:343-347)
+        t0 = time.perf_counter()
+        kw["graph"] = build_interaction_graph(files["train"], uv, iv, cv)
+        print(f"graph: {len(kw['graph'].src)} edges in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
     model = get_model_class(cfg.model_type)(cfg, len(uv), len(iv), len(cv),
-                                            device=device)
+                                            device=device, **kw)
     trainer = Trainer(model, cfg)
 
     def test_eval(**kw):

@@ -2,8 +2,9 @@
 step, fit loop, evaluation and CLI.
 
 Counterpart of clsr_tpu/config.py, cut to the fields the ported models
-(CLSR, SLI-Rec, GRU4Rec, A2SVD, DIN, DIEN), `ScoringService`, the train
-step, `Trainer.fit`, the evaluator and the CLI read.  Semantics kept
+(all ten of the JAX registry: CLSR, SLI-Rec, GRU4Rec, Caser, A2SVD,
+DIN, DIEN, NCF, NextItNet, LGN), `ScoringService`, the train step,
+`Trainer.fit`, the evaluator and the CLI read.  Semantics kept
 from there (and so from the reference's deeprec_utils.py:25-534):
 
   * YAML files are sectioned (data/model/train/info) and flattened,
@@ -13,8 +14,8 @@ from there (and so from the reference's deeprec_utils.py:25-534):
   * Per-model required keys and type checks (`check_nn_config`,
     `check_type`), for the fields this package keeps.
 
-The port keeps its own copies of the ported models' yaml files
-(configs/{clsr,sli_rec,gru4rec,asvd,din,dien}.yaml).
+The port keeps its own copies of the models' yaml files
+(configs/{clsr,sli_rec,gru4rec,caser,asvd,din,dien,ncf,nextitnet,lgn}.yaml).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ _INT_FIELDS = frozenset({
     "attention_size", "item_embedding_dim", "cate_embedding_dim",
     "user_embedding_dim", "contrastive_length_threshold",
     "contrastive_recent_k", "batch_size", "train_num_ngs", "min_seq_length",
-    "early_stop",
+    "early_stop", "kernel_size", "L", "T", "n_v", "n_h",
 })
 _FLOAT_FIELDS = frozenset({
     "init_value", "manual_alpha_value", "learning_rate", "embed_l2",
@@ -57,10 +58,10 @@ _STR_FIELDS = frozenset({
 })
 _LIST_FIELDS = frozenset({"layer_sizes", "att_fcn_layer_sizes", "activation",
                           "dropout", "metrics", "pairwise_metrics",
-                          "weighted_metrics"})
+                          "weighted_metrics", "dilations",
+                          "ncf_layer_sizes"})
 
-# Required keys per model family (clsr_tpu/config.py:68-117), for the
-# ported models; the registry refuses the other names.
+# Required keys per model family (clsr_tpu/config.py:68-117).
 _REQUIRED_BY_MODEL: Dict[str, Tuple[str, ...]] = {
     "clsr": (
         "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
@@ -89,6 +90,26 @@ _REQUIRED_BY_MODEL: Dict[str, Tuple[str, ...]] = {
     "dien": (
         "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
         "method", "user_vocab", "item_vocab", "cate_vocab", "hidden_size",
+    ),
+    "caser": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab", "L", "T", "n_v",
+        "n_h",
+    ),
+    "ncf": (
+        "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
+        "max_seq_length", "loss", "method", "user_vocab", "item_vocab",
+        "cate_vocab",
+    ),
+    "nextitnet": (
+        "item_embedding_dim", "cate_embedding_dim", "max_seq_length", "loss",
+        "method", "user_vocab", "item_vocab", "cate_vocab", "dilations",
+        "kernel_size",
+    ),
+    "lgn": (
+        "item_embedding_dim", "cate_embedding_dim", "user_embedding_dim",
+        "max_seq_length", "loss", "method", "user_vocab", "item_vocab",
+        "cate_vocab",
     ),
 }
 
@@ -143,6 +164,24 @@ class Config:
     attn_loss_weight: float = 0.001
     use_attn_loss: bool = False   # opt-in supervised fusion loss
                                   # mse(alpha, attn_labels)
+
+    # Caser: horizontal filters of heights 1..L, n_h each; the vertical
+    # conv's n_v filters span the whole history (T is read by nothing)
+    L: int = 3
+    T: int = 1
+    n_v: int = 128
+    n_h: int = 128
+    # NextItNet: one residual block a dilation
+    dilations: Tuple[int, ...] = (1, 2, 4, 1, 2, 4)
+    kernel_size: int = 3
+    nextitnet_per_position: bool = True  # train every history position
+                                         # as an instance ([B, G, L]
+                                         # targets, training/
+                                         # negative_sampling.py)
+    # NCF: the MLP tower's widths
+    ncf_layer_sizes: Tuple[int, ...] = (80, 40)
+    # LGN: graph convolution rounds
+    n_layers: int = 2
 
     # --- train ------------------------------------------------------------
     init_method: str = "tnormal"
@@ -329,6 +368,21 @@ class Config:
                 f"{self.autosave_every_calls}")
         if self.autosave_every_calls > 0 and not self.model_dir:
             raise ValueError("autosave_every_calls > 0 requires model_dir")
+        if model == "lgn" and self.optimizer == "lazyadam":
+            # the graph convolution gives every table row a gradient; lazy
+            # row updates would drop most of them (clsr_tpu/config.py:
+            # 545-549)
+            raise ValueError("lazyadam is not valid for lgn (dense table "
+                             "gradients from the graph convolution)")
+        if model == "caser" and self.length_buckets != "off":
+            # the vertical conv's kernel is [D, max_seq_length, n_v]: a
+            # bucket's shorter history does not fit it (the JAX package
+            # fails there too, a flax ScopeParamShapeError at the first
+            # bucketed step)
+            raise ValueError(
+                "caser needs every history max_seq_length long (its "
+                "vertical conv spans the whole history); set "
+                "length_buckets: off")
         if model == "clsr" and self.hidden_size != self.target_dim:
             # the alpha fusion adds att_fea_long (item+cate wide) to
             # att_fea_short (hidden wide), clsr.py:265

@@ -16,15 +16,20 @@ SequentialBaseModel, sequential_base_model.py:18-461):
     `attn_labels` (sequential_iterator.py:619,682).
 
 Subclasses implement `seq_graph(ctx, batch, generator, train_kernel,
-compact)` -> (model_output [B, G, D], aux).  Lookups are dense, so a
-table's gradient is dense, as `jax.grad` over the full table is; in
-train mode they go through `ops.segment_sum.lookup` (`embed`), whose
-gradient sums a repeated row in sorted order, the same bits on every
-call (`F.embedding`'s backward on the card does not), and eval keeps
-`F.embedding`.  Under the compact row engine (training/compact_rows.py,
-`compact` = {table name: CompactRows}, JAX models/base.py:177-190) the
-lookups are the gathered rows' sites and the lazy L2 comes from them: no
-table `Parameter` is read.
+compact)` -> (model_output [B, G, D], aux); a model with a head of its
+own overrides `head` (NCF), and LGN overrides `forward`.  Per-position
+targets ([B, G, L] items and cates, NextItNet's training) give
+[B, G, L, D] model outputs and [B, G, L] logits, and no attn_labels.
+
+Lookups are dense, so a table's gradient is dense, as `jax.grad` over
+the full table is; in train mode they go through
+`ops.segment_sum.lookup` (`embed`), whose gradient sums a repeated row
+in sorted order, the same bits on every call (`F.embedding`'s backward
+on the card does not), and eval keeps `F.embedding`.  Under the compact
+row engine (training/compact_rows.py, `compact` = {table name:
+CompactRows}, JAX models/base.py:177-190) the lookups are the gathered
+rows' sites and the lazy L2 comes from them: no table `Parameter` is
+read.
 
 Precision (JAX :51-97): under `embedding_dtype: bfloat16` the tables are
 bf16 (drawn in f32 from the generator, then rounded), and every lookup
@@ -118,6 +123,18 @@ def unique_rows_stats(table_a: torch.Tensor, table_b: torch.Tensor,
     diff = ra - rb
     return ((ra * ra * fa).sum(), (rb * rb * fa).sum(),
             (diff * diff * fa).sum(), first.sum() * table_a.shape[1])
+
+
+def supervised_attn_labels(batch: Batch) -> Optional[torch.Tensor]:
+    """The supervised-attention label [B, G]: the fraction of the history
+    sharing the target's category (sequential_iterator.py:619,682); None
+    for per-position targets ([B, G, L] cates), as JAX skips it
+    (clsr_tpu/models/base.py:235)."""
+    if batch.cates.dim() != 2:
+        return None
+    denom = batch.mask.sum(-1).clamp_min(1.0)
+    same_cate = batch.cate_hist[:, None, :] == batch.cates[:, :, None]
+    return (same_cate * batch.mask[:, None, :]).sum(-1) / denom[:, None]
 
 
 @dataclasses.dataclass
@@ -265,11 +282,7 @@ class SequentialModelBase(nn.Module):
                 embed_sumsq = (
                     unique_rows_sumsq(self.item_embedding, involved_items)
                     + unique_rows_sumsq(self.cate_embedding, involved_cates))
-            # fraction of the history sharing the target's category
-            denom = batch.mask.sum(-1).clamp_min(1.0)
-            same_cate = batch.cate_hist[:, None, :] == batch.cates[:, :, None]
-            attn_labels = ((same_cate * batch.mask[:, None, :]).sum(-1)
-                           / denom[:, None])
+            attn_labels = supervised_attn_labels(batch)
         ctx = EmbedContext(
             item_hist_emb=self.dropout(item_hist_emb, generator),
             cate_hist_emb=self.dropout(cate_hist_emb, generator),
@@ -277,12 +290,19 @@ class SequentialModelBase(nn.Module):
         )
         model_output, aux = self.seq_graph(ctx, batch, generator,
                                            train_kernel, compact)
-        logits = self.logit_fcn(model_output,
-                                generator=generator)[..., 0]    # [B, G]
+        logits = self.head(model_output, generator)   # [B, G] ([B, G, L])
         if self.training:
-            aux = dict(aux, attn_labels=attn_labels,
-                       embed_sumsq=aux.get("embed_sumsq", 0.0) + embed_sumsq)
+            aux = dict(aux, embed_sumsq=aux.get("embed_sumsq", 0.0)
+                       + embed_sumsq)
+            if attn_labels is not None:
+                aux["attn_labels"] = attn_labels
         return logits, aux
+
+    def head(self, model_output: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The logits from the model output: the shared `logit_fcn`
+        (sequential_base_model.py:72); NCF overrides."""
+        return self.logit_fcn(model_output, generator=generator)[..., 0]
 
     def seq_graph(self, ctx: EmbedContext, batch: Batch,
                   generator: Optional[torch.Generator],

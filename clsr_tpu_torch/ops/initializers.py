@@ -65,14 +65,27 @@ def tf1_glorot_uniform(t: torch.Tensor,
     return torch.nn.init.uniform_(t, -lim, lim, generator=generator)
 
 
+# flax's nn.Conv / nn.Dense default kernel initializer
+lecun_normal = _variance_scaling(1.0, "fan_in", "truncated_normal")
+
+
+def truncated_normal(stddev: float) -> Initializer:
+    """jax.nn.initializers.truncated_normal(stddev) as an Initializer."""
+    return lambda t, g: truncated_normal_(t, stddev, g)
+
+
+def normal(stddev: float) -> Initializer:
+    """jax.nn.initializers.normal(stddev): N(0, stddev), not truncated."""
+    return lambda t, g: torch.nn.init.normal_(t, 0.0, stddev, generator=g)
+
+
 def get_initializer(init_method: str, init_value: float) -> Initializer:
     """Map config init_method to an in-place initializer."""
     if init_method == "uniform":
         return lambda t, g: torch.nn.init.uniform_(
             t, -init_value, init_value, generator=g)
     if init_method == "normal":
-        return lambda t, g: torch.nn.init.normal_(t, 0.0, init_value,
-                                                  generator=g)
+        return normal(init_value)
     if init_method == "xavier_normal":
         return _variance_scaling(1.0, "fan_avg", "truncated_normal")
     if init_method == "xavier_uniform":
@@ -82,7 +95,7 @@ def get_initializer(init_method: str, init_value: float) -> Initializer:
     if init_method == "he_uniform":
         return _variance_scaling(2.0, "fan_in", "uniform")
     # 'tnormal' and anything unknown, as the reference falls back
-    return lambda t, g: truncated_normal_(t, init_value, g)
+    return truncated_normal(init_value)
 
 
 def new_param(shape, init: Initializer, generator: torch.Generator,

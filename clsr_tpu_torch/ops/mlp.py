@@ -71,13 +71,17 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
 
 
 def dense(in_dim: int, out_dim: int, init: Initializer,
-          generator: torch.Generator, device: torch.device) -> nn.Linear:
-    """nn.Linear whose [in, out] kernel is drawn like flax's Dense."""
-    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim, device=device)
+          generator: torch.Generator, device: torch.device,
+          bias: bool = True) -> nn.Linear:
+    """nn.Linear whose [in, out] kernel is drawn like flax's Dense (with a
+    zero bias, or none: flax's use_bias=False)."""
+    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias,
+                               device=device)
     kernel = torch.empty(in_dim, out_dim, device=device)
     with torch.no_grad():
         layer.weight.copy_(init(kernel, generator).t())
-        layer.bias.zero_()
+        if bias:
+            layer.bias.zero_()
     return layer
 
 

@@ -23,7 +23,9 @@ sequential_base_model.py:326-347):
     `lookup_rows`), and K1 runs as before.  The service honours the
     config's compute_dtype and embedding_dtype as training does.
 
-A device mesh waits for ROADMAP queue 1 item 10 (parallel) and raises.
+Every model of the registry serves but LGN, which raises, as the JAX
+service cannot build it (it holds no interaction graph).  A device mesh
+waits for ROADMAP queue 1 item 10 (parallel) and raises.
 """
 
 from __future__ import annotations
@@ -103,6 +105,15 @@ class ScoringService:
                  cand_buckets: Sequence[int] = (16, 128, 512),
                  int8_tables: bool = False,
                  device=None):
+        if cfg.model_type.lower() == "lgn":
+            # JAX's service builds the model without the interaction
+            # graph LGN scores through (clsr_tpu/serving.py:79), so it
+            # cannot serve LGN either
+            raise ValueError(
+                "ScoringService does not serve LGN: its scores come from "
+                "the graph convolution over the train set's interaction "
+                "graph, which a service does not hold; score LGN with the "
+                "eval step (training/steps.py make_eval_step_fn)")
         self.cfg = cfg
         self.int8_tables = int8_tables
         self.device = resolve_device(device)

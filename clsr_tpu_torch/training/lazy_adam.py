@@ -65,8 +65,8 @@ def is_table(name: str) -> bool:
 
 
 def batch_table_ids(batch: Batch) -> Dict[str, torch.Tensor]:
-    """Row ids each known embedding table can be touched by (the JAX
-    package's NCF gmf/mlp tables wait for ROADMAP queue 1 item 8b)."""
+    """Row ids each known embedding table can be touched by (JAX
+    :43-58)."""
     items = torch.cat([batch.item_hist.reshape(-1), batch.items.reshape(-1)])
     cates = torch.cat([batch.cate_hist.reshape(-1), batch.cates.reshape(-1)])
     return {
@@ -75,6 +75,10 @@ def batch_table_ids(batch: Batch) -> Dict[str, torch.Tensor]:
         "user_embedding": batch.users,
         "user_long_embedding": batch.users,
         "user_short_embedding": batch.users,
+        "user_gmf_embedding": batch.users,
+        "user_mlp_embedding": batch.users,
+        "item_gmf_embedding": batch.items.reshape(-1),
+        "item_mlp_embedding": batch.items.reshape(-1),
     }
 
 
@@ -100,9 +104,18 @@ def is_pmn(param: torch.Tensor, mn: torch.Tensor) -> bool:
 
 def fused_tables_enabled(cfg: Config, model: nn.Module) -> bool:
     """The pmn layout applies exactly when the compact row engine runs:
-    lazyadam, compact_rows != off, every table site-mapped."""
+    lazyadam, compact_rows != off, not NextItNet's per-position training
+    (JAX :107-109), every table site-mapped."""
     return (cfg.optimizer == "lazyadam" and cfg.compact_rows != "off"
+            and not per_position(cfg)
             and supported_tables(model) is not None)
+
+
+def per_position(cfg: Config) -> bool:
+    """NextItNet's per-position training (cfg.nextitnet_per_position):
+    [B, G, L] targets, and the legacy lazy path (JAX steps.py:52-55)."""
+    return (cfg.model_type.lower() == "nextitnet"
+            and cfg.nextitnet_per_position)
 
 
 def _split(model: nn.Module):

@@ -5,7 +5,8 @@ Counterpart of clsr_tpu/training/losses.py:41-200:
 
   * data — grouped softmax over the 1 + num_ngs candidates, the mean
     over valid rows of -log p(positive) (base_model.py:215-235), or a
-    pointwise loss (:191-214);
+    pointwise loss (:191-214); per-position targets group each
+    (row, position);
   * regular — L2/L1: the lazy embedding L2 over the unique rows the
     batch touched (aux["embed_sumsq"]) plus every parameter whose name
     does not end in `_embedding` (tf.nn.l2_loss = sum(x^2)/2);
@@ -58,7 +59,15 @@ def layer_param_sums(model: nn.Module
 
 def data_loss_fn(cfg: Config, logits: torch.Tensor, labels: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
-    """logits/labels [B, G], valid [B]."""
+    """logits/labels [B, G], valid [B]; per-position logits/labels
+    [B, G, L] (NextItNet's training) are grouped by (row, position) into
+    [B L, G] with valid repeated L times (base_model.py:218-228, JAX
+    :74-78)."""
+    if logits.dim() == 3:
+        B, G, L = logits.shape
+        logits = logits.movedim(2, 1).reshape(B * L, G)
+        labels = labels.movedim(2, 1).reshape(B * L, G)
+        valid = valid.repeat_interleave(L)
     n_valid = valid.sum().clamp_min(1.0)
     if cfg.loss == "softmax":
         logp = F.log_softmax(logits, dim=-1)

@@ -1,6 +1,6 @@
 """On-device in-batch negative sampling.
 
-Counterpart of clsr_tpu/training/negative_sampling.py:31-50, 98-110,
+Counterpart of clsr_tpu/training/negative_sampling.py:31-110,
 which replaces the reference's host-side rejection loop
 (sequential_iterator.py:396-412): for each positive row, `num_ngs`
 negatives are drawn uniformly from the batch's positive rows (so the
@@ -10,6 +10,9 @@ rounds.  A collision that survives every round keeps its draw.  Draws
 come from [0, n_valid): padding rows sit in a suffix.  The numbers come
 from an explicit `torch.Generator` on the batch's device; they differ
 from JAX's by design, so parity tests inject negatives.
+
+`expand_nextitnet` (JAX :53-94, nextitnet_iterator.py:100-215) builds
+NextItNet's per-position targets the same way, drawing per position.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Tuple
 import torch
 
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.models.nextitnet import right_align
 
 
 def _draw(generator: torch.Generator, shape, n_valid: torch.Tensor,
@@ -60,5 +64,37 @@ def expand_with_negatives(generator: torch.Generator, batch: Batch,
     labels = torch.zeros(items.shape, dtype=torch.float32,
                          device=items.device)
     labels[:, 0] = 1.0
+    return dataclasses.replace(batch, items=items, cates=cates,
+                               labels=labels)
+
+
+def expand_nextitnet(generator: torch.Generator, batch: Batch,
+                     num_ngs: int, rounds: int = 8) -> Batch:
+    """Per-position targets [B, 1 + num_ngs, L] for NextItNet training.
+
+    With the history right-aligned, the positive at position t is the
+    next history event, and the line's target at the last position; the
+    negatives of each position are drawn from the batch's line-level
+    positives, a draw equal to the position's positive drawn again.
+    Labels are 1 in the positive copy and 0 in the others, padded
+    positions included (the reference does not mask them either)."""
+    B, L = batch.item_hist.shape
+    hist_r = right_align(batch.item_hist[..., None], batch.mask)[..., 0]
+    cate_r = right_align(batch.cate_hist[..., None], batch.mask)[..., 0]
+    pos_items = torch.cat([hist_r[:, 1:], batch.items[:, :1]], dim=1)
+    pos_cates = torch.cat([cate_r[:, 1:], batch.cates[:, :1]], dim=1)
+    line_items, line_cates = batch.items[:, 0], batch.cates[:, 0]
+    n_valid = batch.valid.to(torch.int64).sum().clamp_min(1)
+    shape = (B, num_ngs, L)
+    idx = _draw(generator, shape, n_valid, line_items.device)
+    for _ in range(1, rounds):
+        collide = line_items[idx] == pos_items[:, None, :]
+        fresh = _draw(generator, shape, n_valid, line_items.device)
+        idx = torch.where(collide, fresh, idx)
+    items = torch.cat([pos_items[:, None, :], line_items[idx]], dim=1)
+    cates = torch.cat([pos_cates[:, None, :], line_cates[idx]], dim=1)
+    labels = torch.zeros(items.shape, dtype=torch.float32,
+                         device=items.device)
+    labels[:, 0, :] = 1.0
     return dataclasses.replace(batch, items=items, cates=cates,
                                labels=labels)

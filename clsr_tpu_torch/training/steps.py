@@ -18,6 +18,12 @@ optimizer:
     dense table gradients, then the lazy update at the batch's ids, two
     scatter-sets per table.
 
+NextItNet's per-position training (cfg.nextitnet_per_position, JAX
+:52-55, :170-173) draws [B, G, L] targets (`expand_nextitnet`) in place
+of [B, G] ones and takes the legacy lazy path under lazyadam, as JAX
+turns the compact one off (lazy_adam.py:107-109); the captured and the
+resident steps run it unchanged.
+
 All scatter-sets of a lazy step go out in one K5 launch.
 
 The port runs the step on the model's device and updates the state in
@@ -72,9 +78,12 @@ from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
                                                   supported_tables)
 from clsr_tpu_torch.training.lazy_adam import (LazyAdam, LazyAdamState,
-                                               batch_table_ids, is_pmn)
+                                               batch_table_ids,
+                                               fused_tables_enabled, is_pmn,
+                                               per_position)
 from clsr_tpu_torch.training.losses import LossParts, total_loss
-from clsr_tpu_torch.training.negative_sampling import expand_with_negatives
+from clsr_tpu_torch.training.negative_sampling import (expand_nextitnet,
+                                                       expand_with_negatives)
 from clsr_tpu_torch.training.optimizer import clip_by_norm_each
 from clsr_tpu_torch.training.state import TrainState
 
@@ -94,9 +103,10 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
     check_not_quantized(model)
     num_ngs = cfg.train_num_ngs
     lazy = LazyAdam(cfg) if cfg.optimizer == "lazyadam" else None
+    expand = (expand_nextitnet if per_position(cfg)
+              else expand_with_negatives)
     table_names = (supported_tables(model)
-                   if lazy is not None and cfg.compact_rows != "off"
-                   else None)
+                   if fused_tables_enabled(cfg, model) else None)
 
     def forward_backward(batch, generator, compact=None):
         with record_function("train_step.forward"):
@@ -135,7 +145,7 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
              ) -> LossParts:
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
-                batch = expand_with_negatives(generator, batch, num_ngs)
+                batch = expand(generator, batch, num_ngs)
         model.train()
         if table_names is not None:
             parts = compact_step(state, batch, generator)

@@ -739,3 +739,113 @@ def test_zoo_train_scorer_matches_plain(cuda, name):
                                    "clsr_scan")} == dict(
         train_stats0=1, train_stats1=1, eval_scorer=1, row_scatter=1,
         clsr_scan=0)
+
+
+# ------------------------------------------------- the rest of the zoo
+# Caser's and NextItNet's convs (ops/conv.py: GEMMs and fixed-order slice
+# sums) and LGN's graph propagation (ops/graph_conv.py: fixed-order
+# segment sums both ways) must give the same bits on every step, with
+# deterministic algorithms off, as the graphed = eager gate needs
+
+
+def _state_bits(state):
+    """Every tensor of a train state: the model's, the lazy rows and
+    count, and the dense optimizer's."""
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        out.update({f"moments/{k}": v for k, v in opt.moments.items()})
+        out["count"] = opt.count
+        opt = opt.dense_opt
+    for i, st in enumerate(opt.state_dict()["state"].values()):
+        out.update({f"opt/{i}/{k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _steps_twice(cuda, build, batches, want_k5):
+    """Two runs of len(batches) train steps from one built state and one
+    generator seed: (state tensors, losses) of each."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    runs = []
+    for _ in range(2):
+        cfg, model = build()
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, cfg)
+        gen = torch.Generator(cuda).manual_seed(3)
+        ru.scatter_rows.launches = 0
+        losses = torch.stack([step(state, b, gen)[1].loss for b in batches])
+        torch.cuda.synchronize()
+        assert ru.scatter_rows.launches == want_k5 * len(batches)
+        runs.append((_state_bits(state), losses))
+    (a, la), (b, lb) = runs
+    assert a.keys() == b.keys()
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    assert differ == [] and torch.equal(la, lb), differ
+    assert torch.isfinite(la).all()
+
+
+@pytest.mark.parametrize("name", ["caser", "nextitnet"])
+@pytest.mark.parametrize("opt", ["adam", "lazyadam"])
+def test_zoo_rest_steps_are_bit_reproducible(cuda, name, opt):
+    """Two Caser / NextItNet (per position, dropout 0.3 in the head) train
+    steps at their yaml widths, B = 400, L = 50, G = 5, from one state,
+    twice: every state tensor and loss bit-identical; K5 once a lazyadam
+    step (Caser compact, NextItNet legacy)."""
+    n_items, n_cates = 5000, 50
+    rng = np.random.RandomState(5)
+    batches = [_train_batch(cuda, rng, 400, 50, 10, n_items, n_cates)
+               for _ in range(2)]
+    _steps_twice(cuda, lambda: _zoo_model(cuda, name, n_items, n_cates,
+                                          optimizer=opt),
+                 batches, int(opt == "lazyadam"))
+
+
+def _hub_graph(n_users, n_items, hub, hub_users, seed=6):
+    """A graph of seeded histories (1..50 items and a target) in which
+    item `hub` sits in the first `hub_users` users' histories."""
+    from clsr_tpu_torch.data.graph import build_graph_from_arrays
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, 51, n_users) + 1
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    items = rng.randint(1, n_items, offsets[-1])
+    items[offsets[:hub_users]] = hub
+    return build_graph_from_arrays(np.arange(n_users), offsets, items,
+                                   1 + items % 49, n_users, n_items)
+
+
+def test_lgn_step_is_bit_reproducible(cuda):
+    """One LGN train step (lgn.yaml, dense Adam, B = 400) twice from one
+    state on a graph with a node of degree > 1,000: every state tensor
+    bit-identical.  The propagation and its gradient within 1e-5 of
+    their max abs of a float64 sum over the same edges."""
+    from clsr_tpu_torch.ops.graph_conv import propagate
+    n_users, n_items, n_cates = 2000, 3000, 50
+    graph = _hub_graph(n_users, n_items, 7, 1500)
+    degree = np.bincount(graph.src, minlength=graph.n_nodes)
+    assert degree.max() > 1000
+    cfg = load_config(f"{CONFIG_DIR}/lgn.yaml", user_vocab="u",
+                      item_vocab="i", cate_vocab="c", seed=0)
+    build = lambda: (cfg, get_model_class("lgn")(cfg, n_users, n_items,
+                                                 n_cates, graph=graph))
+    rng = np.random.RandomState(8)
+    _steps_twice(cuda, build,
+                 [_train_batch(cuda, rng, 400, 50, n_users, n_items,
+                               n_cates)], 0)
+    _, model = build()
+    g = torch.Generator(cuda).manual_seed(1)
+    ego = torch.randn(graph.n_nodes, 40, generator=g, device=cuda)
+    cot = torch.randn(graph.n_nodes, 40, generator=g, device=cuda)
+    x = ego.clone().requires_grad_()
+    out = propagate(x, model.edges)
+    out.backward(cot)
+    src, dst = (torch.from_numpy(a.astype(np.int64)).to(cuda)
+                for a in (graph.src, graph.dst))
+    w = torch.from_numpy(graph.weight).to(cuda).double()[:, None]
+    want = torch.zeros_like(ego, dtype=torch.float64).index_add_(
+        0, src, w * ego.double()[dst])
+    want_g = torch.zeros_like(want).index_add_(0, dst, w * cot.double()[src])
+    for got, ref in ((out, want), (x.grad, want_g)):
+        err = (got.double() - ref).abs().max() / ref.abs().max()
+        assert err <= 1e-5, err

@@ -505,10 +505,11 @@ UNPORTED = {
 
 
 # ROADMAP items ported since their flags were refused: those flags now
-# parse and reach the Config, and those settings fit (item 8 is the
-# first half of the model zoo; its second half, 8b, is still refused)
-PORTED_ITEMS = {3, 5, 6, 8}
-PORTED_FIELDS = {"resident_on": ("resident_data", "on"),
+# parse and reach the Config, and those settings fit (items 8 and 8b
+# are the two halves of the model zoo)
+PORTED_ITEMS = {3, 5, 6, 8, "8b"}
+PORTED_FIELDS = {"model": ("model_type", "caser"),
+                 "resident_on": ("resident_data", "on"),
                  "length_buckets": ("length_buckets", "auto"),
                  "resident_round_rows": ("resident_round_rows", 1024),
                  "compute_bf16": ("compute_dtype", "bfloat16"),

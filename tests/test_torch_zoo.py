@@ -30,7 +30,7 @@ the same numpy batches on both sides, f32 on the CPU:
     of tests/test_torch_trainer.py;
   * `from_flax` / `to_flax` round-trip every model's tree; the port's
     yaml copies equal JAX's and load to the same values; the registry
-    refuses the models of ROADMAP queue 1 item 8b.
+    resolves every name (item 8b's four since its port).
 The JAX programs compile once per model (module fixtures).
 """
 
@@ -422,6 +422,10 @@ def test_registry_names_and_refusals():
                       ("DIEN", "DIENModel"), ("sli_rec", "SLIRecModel"),
                       ("SLIREC", "SLIRecModel"), ("CLSR", "CLSRModel")):
         assert get_model_class(name).__name__ == cls
-    for name in ("CASER", "ncf", "NextItNet", "lgn"):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            get_model_class(name)
+    # item 8b's four resolve (tests/test_torch_zoo_rest.py); every name of
+    # the JAX registry does, and an unknown one raises
+    for name, cls in (("CASER", "CaserModel"), ("ncf", "NCFModel"),
+                      ("NextItNet", "NextItNetModel"), ("lgn", "LGNModel")):
+        assert get_model_class(name).__name__ == cls
+    with pytest.raises(ValueError, match="Unknown model"):
+        get_model_class("nope")
