@@ -175,8 +175,9 @@ Phases, each fatal on failure:
      warm-up, 31 replays of the captured step) and a replayed tail step
      against 33 eager single steps on the same batches: every weight, BN
      buffer, Adam and lazy tensor and every loss part bit-identical,
-     deterministic algorithms off; the call's launch counts 32 times the
-     eager step's.
+     the generator's state equal (what an autosave keeps; so too in
+     phases 14-17's graphed checks), deterministic algorithms off;
+     the call's launch counts 32 times the eager step's.
  13. (inside phase 11, on its data) device-resident data and length
      buckets.  (1) Run B's configuration resident and streamed, and a
      dense-Adam pair, one graphed epoch each from one seed: every model,
@@ -249,12 +250,12 @@ Phases, each fatal on failure:
      SLI-Rec the kernel steps against the plain ones on the first batch
      (`kernel_check.compare_steps`, lazyadam compact, phase 8's gates;
      past them the per-tensor numbers are printed and the phase stops);
-     then dense Adam and lazyadam compact, each as one call of 16
+     then dense Adam and lazyadam compact, each as one call of 8
      graphed steps (the first the eager warm-up) and a replayed tail
-     against 17 eager steps, every state tensor and loss part bit for
+     against 9 eager steps, every state tensor and loss part bit for
      bit, the launches a step K3a = K3b = K1 = 1 (DIN, SLI-Rec), 2
      (CLSR), 0 (the rest), K2 0, K5 1 a lazyadam step; one more call of
-     16 replays timed by CUDA events (ms a step, examples/s, peak
+     8 replays timed by CUDA events (ms a step, examples/s, peak
      memory), beside CLSR's fused lazyadam step (phase 10's
      configuration) in the same run; torch.profiler over one eager
      lazyadam step of each (kernels a step, device busy ms, the kernels
@@ -270,10 +271,10 @@ Phases, each fatal on failure:
      median 64 x 100 dispatch ms and candidates/s; (b) each trained at
      B = 400, L = 50, lengths 1..50, G = 5 with dense Adam and with
      lazyadam (Caser compact; NCF and per-position NextItNet on the
-     legacy path): one call of 32 graphed steps and a replayed tail
-     against 33 eager steps, every state tensor and loss part bit for
+     legacy path): one call of 16 graphed steps and a replayed tail
+     against 17 eager steps, every state tensor and loss part bit for
      bit, K5 once a lazyadam step and no other kernel; one more call of
-     32 replays timed (ms a step, examples/s, peak memory) beside phase
+     16 replays timed (ms a step, examples/s, peak memory) beside phase
      15's CLSR fused lazyadam step; torch.profiler over one eager step;
      then LGN with dense Adam on the interaction graph of a seeded
      history of 1..50 items and a target for each of the 987,995 users
@@ -284,6 +285,34 @@ Phases, each fatal on failure:
      set, as JAX's do) and --model LGN for one (the CLI builds LGN's
      graph from the train file): epoch examples/s, test eval s, the
      restored epoch's valid auc above 0.5, no kernel launched.
+ 17. long-context attention and the host remainder.  After phase 16:
+     (a) clsr.yaml's widths with enable_bn False and
+     attention_block_size 256 (both attentions blockwise,
+     `ops/long_context.py`), phase 5's Taobao-sized tables, B = 400,
+     G = 5, L = 1,000 with lengths 1..1,000, lazyadam, K2 on: the
+     blocked attention against the port's unblocked TargetAttention (BN
+     off, the same parameters) at the short-term shape, output within
+     1e-5 and every gradient within 1e-4 of its max abs, both timed;
+     K2's forward (with the carries) and backward at (400, 1,000)
+     against their plain versions, each plain version run once, the
+     kernels by graph replay; one call of 16 graphed steps and a
+     replayed tail against 17 eager steps, every state tensor, loss
+     part and the generator's state bit for bit, K2, its backward and
+     K5 once a step and K1, K3a, K3b never; the graphed step ms;
+     torch.profiler over one eager step; 64 x 100 and 8 x 10 requests
+     with histories of 1..1,000 served (K2 once a dispatch, card = CPU
+     on the 8 x 10 to 1e-4, the 64 x 100 dispatch ms); one eager step's
+     peak memory and ms, blocked and unblocked, at L = 1,000 and 4,000.
+     Inside phase 11, right after run B's epoch and test eval: (b) run
+     B's configuration with an autosave every call, killed after call
+     2, then resumed by a fresh trainer: every state tensor, the valid
+     and the test metrics bit-identical to run B's; (c) both fits write
+     histograms and TensorBoard events at show_step 32: the histogram
+     step on the card against the CPU on the resumed weights and probe
+     batch (the tables' counts equal; the card's activations bucketed
+     on both sides equal; from each side's own forward no more values
+     in another bucket than lie within 1e-3 of a bucket edge), and the
+     event files read back by `utils/summaries.py` `read_events`.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -293,8 +322,9 @@ eval, and the phase-14 paths `p14_bf16_train` (the timed bf16 calls),
 calls), the phase-15 paths `p15_zoo_serve` (the served dispatches),
 `p15_zoo_train` (the graphed calls) and `p15_zoo_fit` (the CLI epochs
 and their evals), and phase 16's `p16_zoo_serve`, `p16_zoo_train` and
-`p16_zoo_fit` likewise), the card's name and power limit, and the final
-status line.
+`p16_zoo_fit` likewise, and phase 17's `p17_long_train` (the graphed
+call), `p17_long_serve` and `p17_resume_fit` (the resumed fit)), the
+card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
 """
@@ -618,12 +648,14 @@ def check_k2(smi):
                 **{k: v for k, v in out.items() if k != "serve"})
 
 
-def make_requests(rng, n_req, n_cands, n_users, n_items, n_cates):
+def make_requests(rng, n_req, n_cands, n_users, n_items, n_cates,
+                  max_hist=80):
     from clsr_tpu_torch.serving import ScoreRequest
     reqs = []
     t0 = 1_512_000_000.0                  # Dec 2017, inside UserBehavior
     for _ in range(n_req):
-        n = int(rng.randint(1, 81))       # some histories longer than L
+        # history lengths 1..max_hist; some longer than L at L = 50
+        n = int(rng.randint(1, max_hist + 1))
         hist = rng.randint(1, n_items, n)
         cands = rng.randint(1, n_items, n_cands)
         reqs.append(ScoreRequest(
@@ -1186,11 +1218,12 @@ def k2_backward_case(shape, args, cots, carries, smi, graph_calls=20):
                 whole_bound_ms=whole_bound, n_valid=n_valid, B=B, L=L)
 
 
-def train_batches(n, seed, n_users, n_items, n_cates):
-    """Seeded numpy positives-only batches (G = 1) on the card."""
+def train_batches(n, seed, n_users, n_items, n_cates, L=TRAIN_L):
+    """Seeded numpy positives-only batches (G = 1) on the card, history
+    lengths 1..L."""
     from clsr_tpu_torch.data.batch import Batch
     rng = np.random.RandomState(seed)
-    B, L = TRAIN_B, TRAIN_L
+    B = TRAIN_B
     out = []
     for _ in range(n):
         lengths = rng.randint(1, L + 1, B)
@@ -2241,7 +2274,9 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
     `model_kw` goes to their constructor (LGN's graph).  With
     `timed_call`, one more call of K replays on the same batches (or
     `timed_steps` replays, one a step) is timed: examples/s by the host clock to a sync, ms a step by CUDA
-    events, and the call's peak device memory."""
+    events, and the call's peak device memory.  The generator's state
+    after the graphed call and tail must equal its state after the eager
+    steps (what an autosave keeps)."""
     from clsr_tpu_torch.data.prefetch import to_device
     from clsr_tpu_torch.models.registry import get_model_class
     from clsr_tpu_torch.training.kernel_check import counted
@@ -2262,7 +2297,7 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
     if len(batches) != K + 1:
         raise AssertionError("the loader gave too few batches")
     rows = lambda p: torch.stack([getattr(p, f) for f in LOSS_FIELDS], -1)
-    runs, counts = {}, {}
+    runs, counts, gen_states = {}, {}, {}
     for run in ("eager", "graph"):
         model = get_model_class(cfg.model_type)(cfg, *sizes,
                                                 **(model_kw or {}))
@@ -2282,6 +2317,7 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
             _, tail = multi.step(state, batches[K], gen)
             losses = torch.cat([rows(stacked), rows(tail)[None]])
         runs[run] = (state_tensors(state), losses)
+        gen_states[run] = gen.get_state()
     (te, le), (tg, lg) = runs["eager"], runs["graph"]
     bad = differing(te, tg)
     same_losses = torch.equal(le, lg)
@@ -2293,11 +2329,16 @@ def graph_against_eager(what, cfg, sizes, loader, smi, timed_call=False,
         f"{same_losses} | launches eager {counts['eager']}, graphed call "
         f"{counts['graph']} (want K x the eager step's: {want}) | capture {multi.capture_stats['capture_s']:.3f} s, graph pool "
         f"{multi.capture_stats['pool_bytes'] / 1e6:.1f} MB | {smi}")
-    if bad or not same_losses or counts["graph"] != want:
+    same_gen = torch.equal(gen_states["eager"], gen_states["graph"])
+    log(f"phase 12 [{what}]: the generator's state after the graphed "
+        f"call and tail equals its state after the eager steps: "
+        f"{same_gen}")
+    if bad or not same_losses or counts["graph"] != want or not same_gen:
         raise AssertionError(f"phase 12 [{what}]: the graphed steps differ "
                              f"from the eager ones")
     out = dict(steps=K + 1, tensors=len(te), differ=bad,
                losses_identical=same_losses, launches=counts,
+               generator_identical=same_gen,
                capture=multi.capture_stats,
                loss=float(losses[-1, 0]))
     if timed_call:
@@ -3308,8 +3349,9 @@ ZOO = (("gru4rec", "gru4rec", {}), ("a2svd", "asvd", {}),
        ("clsr_gru", "clsr", dict(sequential_model="gru")))
 ZOO_REFERENCE = ("clsr_fused", "clsr", dict(use_pallas_scan=True))
 ZOO_K = 32                     # graphed steps a call, as phase 12
-P15_K = 16                     # phase 15's: its depth cut to keep the
+P15_K = 8                      # phase 15's: its depth cut to keep the
                                # script in its time limit
+P16_K = 16                     # phase 16's, likewise
 ZOO_TOL = 1e-4                 # K1 on / off and card / CPU scores
 # K1 launches a serving dispatch and, per train step with
 # use_pallas_train_attention 'on', K3a = K3b = K1: the scorers of each
@@ -3593,7 +3635,7 @@ def zoo_rest(smi, ref_step_ms):
     big = make_requests(rng, 64, 100, USERS, ITEMS, CATES)
     small = make_requests(rng, 8, 10, USERS, ITEMS, CATES)
     vocabs = vocab_for(big + small)
-    batches = train_batches(ZOO_K + 1, 16, USERS, ITEMS, CATES)
+    batches = train_batches(P16_K + 1, 16, USERS, ITEMS, CATES)
     served, trained = {}, {}
     launches = {"p16_zoo_serve": {}, "p16_zoo_train": {}}
 
@@ -3610,7 +3652,7 @@ def zoo_rest(smi, ref_step_ms):
     for name, yaml, kw in ZOO_REST:
         t0 = time.perf_counter()
         trained[name] = zoo_train(name, zoo_cfg(yaml, kw), batches, smi,
-                                  phase="16")
+                                  phase="16", K=P16_K)
         for opt in ("adam", "lazyadam"):
             add("p16_zoo_train", trained[name][opt]["launches"]["graph"])
         trained[name]["s"] = time.perf_counter() - t0
@@ -3622,7 +3664,7 @@ def zoo_rest(smi, ref_step_ms):
         f"{graph.n_nodes:,} nodes, host build {build_s:.3f} s")
     lgn = zoo_train("lgn", zoo_cfg("lgn", {}), batches, smi, phase="16",
                     opts=("adam",), model_kw={"graph": graph},
-                    timed_steps=LGN_TIMED_STEPS)
+                    timed_steps=LGN_TIMED_STEPS, K=P16_K)
     del graph
     add("p16_zoo_train", lgn["adam"]["launches"]["graph"])
     lgn.update(edges=n_edges, graph_build_s=build_s,
@@ -3642,6 +3684,509 @@ def zoo_rest(smi, ref_step_ms):
             f"CLSR fused lazyadam {ref_step_ms:.3f} | {smi}")
     return dict(serve=served, train=trained, launches=launches,
                 ref_step_ms=ref_step_ms)
+
+
+# ------------------------------------------------------------- phase 17
+# long-context blockwise attention, kill and resume, histograms and events
+P17_L = 1_000                  # long histories, lengths 1..1,000
+P17_LONG_L = 4_000             # the reference's longest bench length at
+                               # B = 512 (scripts/bench_long_context.py:49)
+P17_BLOCK = 256
+P17_K = 16                     # graphed steps a call, against as many eager
+P17_ATT_REL = 1e-5             # blocked / unblocked output, of its max abs
+P17_AUTOSAVE, P17_KILL = 1, 2  # (b): autosave every call, killed after
+                               # call 2 of run B's 23 (step 64 of 147):
+                               # the resumed fit starts with graphed
+                               # calls and writes histograms at 96, 128
+P17_HIST_EDGE = 1e-3           # (c): bucket units about an edge where the
+                               # card's and the CPU's rounding may part
+
+
+def p17_cfg(**kw):
+    """clsr.yaml's widths, BN off, blockwise attention, L = 1,000, K2 and
+    the train scorer gates on (K1 and K3 must not run), lazyadam."""
+    return zoo_cfg("clsr", {}).replace(**{**dict(
+        enable_bn=False, attention_block_size=P17_BLOCK,
+        max_seq_length=P17_L, use_pallas_scan=True,
+        use_pallas_train_attention="on", optimizer="lazyadam",
+        batch_size=TRAIN_B, train_steps_per_call=P17_K), **kw})
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def p17_attention(smi):
+    """Phase 17 (a): the blocked attention against the port's unblocked
+    TargetAttention (BN off, the same parameters) at the short-term
+    scorer's shape, B = 400, G = 5, L = 1,000 with lengths 1..1,000 (no
+    row fully masked): the output within P17_ATT_REL and every gradient
+    (query, keys, each parameter; the output bias's, zero up to
+    rounding, of its layer's weight gradient) within GRAD_REL of its
+    max abs; no
+    kernel launched; forward + backward ms of each."""
+    from clsr_tpu_torch.ops.attention import TargetAttention
+    from clsr_tpu_torch.ops.initializers import get_initializer
+    from clsr_tpu_torch.ops.long_context import LongTargetAttention
+    from clsr_tpu_torch.training.kernel_check import counted
+    dev = torch.device("cuda")
+    B, G, L = TRAIN_B, 5, P17_L
+    g = torch.Generator(device=dev).manual_seed(170)
+    init = get_initializer("tnormal", 0.3)
+    full = TargetAttention(H0, DK, (H0, H1), ("relu", "relu"), init, g,
+                           dev, use_kernel="off", use_train_kernel="off")
+    long = LongTargetAttention(H0, DK, (H0, H1), init, g, dev,
+                               block_size=P17_BLOCK)
+    fcn = full.att_fcn
+    full_params = lambda: [full.attention_mat, fcn.w_nn_layer0.kernel,
+                           fcn.w_nn_layer0.bias, fcn.w_nn_layer1.weight,
+                           fcn.w_nn_layer1.bias, fcn.w_nn_output.weight,
+                           fcn.w_nn_output.bias]
+    flax_layout = (False, False, False, True, False, True, False)
+    with torch.no_grad():
+        for dst, src, t in zip([long.attention_mat] + [
+                x for kb in long.layers() for x in kb], full_params(),
+                flax_layout):
+            dst.copy_(src.t() if t else src)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev) * 0.5
+    query, keys, cot = r(B, G, H0), r(B, L, DK), r(B, G, DK)
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+
+    def run(mod, params, layout):
+        q = query.clone().requires_grad_()
+        k = keys.clone().requires_grad_()
+        for p in mod.parameters():
+            p.grad = None
+        out = mod(q, k, mask)
+        (out * cot).sum().backward()
+        return out.detach(), [q.grad, k.grad] + [
+            p.grad.t() if t else p.grad for p, t in zip(params(), layout)]
+
+    long_params = lambda: [long.attention_mat] + [
+        x for kb in long.layers() for x in kb]
+    long_layout = (False,) * len(flax_layout)
+    (want, want_g), c_full = counted(lambda: run(full, full_params,
+                                                 flax_layout))
+    (got, got_g), c_long = counted(lambda: run(long, long_params,
+                                               long_layout))
+    out_err = rel_err(got, want)
+    # the output bias's gradient is zero up to rounding (the softmax
+    # over L does not see a shift): held to GRAD_REL of its layer's
+    # weight gradient, as training/kernel_check.py holds such biases
+    grad_err = max(rel_err(a, b) for a, b in zip(got_g[:-1], want_g[:-1]))
+    zero_err = ((got_g[-1] - want_g[-1]).abs().max()
+                / want_g[-2].abs().max()).item()
+    grad_err = max(grad_err, zero_err)
+    ms = {name: cuda_ms(lambda a=a: run(*a), iters=3, warmup=1)
+          for name, a in (("blocked", (long, long_params, long_layout)),
+                          ("unblocked", (full, full_params, flax_layout)))}
+    log(f"phase 17 (a) attention [B={B} G={G} L={L} Dq={H0} Dk={DK}, "
+        f"block {P17_BLOCK}, lengths 1..{L}]: blocked against unblocked "
+        f"output max err / max abs {out_err:.3e} (tol {P17_ATT_REL}), "
+        f"gradients {grad_err:.3e} (tol {GRAD_REL}) | forward + backward "
+        f"{ms['blocked']:.3f} ms blocked, {ms['unblocked']:.3f} ms "
+        f"unblocked | launches {c_long} / {c_full} | {smi}")
+    if not (out_err <= P17_ATT_REL and grad_err <= GRAD_REL
+            and not any(c_long.values()) and not any(c_full.values())):
+        raise AssertionError("phase 17 (a): the blocked attention "
+                             "disagrees with the unblocked one")
+    return dict(out_err=out_err, grad_err=grad_err, ms=ms)
+
+
+def p17_k2(smi):
+    """Phase 17 (a): K2's forward (with the carries) and backward at
+    (B, L) = (400, 1,000) against their plain versions, each plain
+    version run once: the forward's outputs and carries within K2_TOL
+    abs, each backward gradient within GRAD_REL of its max abs; the
+    kernels on the device by CUDA graph replay, the plain ms, the byte
+    bounds."""
+    from clsr_tpu_torch.ops import fused_scan as fs
+    dev = torch.device("cuda")
+    B, L, U, H = TRAIN_B, P17_L, 40, 40
+    args = k2_inputs(B, L, 171)
+    g = torch.Generator(device=dev).manual_seed(172)
+    cots = tuple(torch.randn(*shape, generator=g, device=dev)
+                 for shape in ((B, U), (B, L, H), (B, H)))
+
+    def once(fn):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    want, plain_fwd_ms = once(lambda: fs.scan_forward_reference(*args))
+    got = fs._forward(*args, keep_carries=True)
+    fwd_err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    carries = got[-1]
+    del want
+    fwd_ms = graph_ms(lambda: fs._forward(*args, keep_carries=True), 3)
+    plain, plain_bwd_ms = once(lambda: fs.scan_backward_reference(
+        args, carries, *cots))
+    bwd = fs.scan_backward(args, carries, *cots)
+    idx = [i for i in range(15) if i != 8]
+    bwd_err = max(rel_err(bwd[i], plain[i]) for i in idx)
+    del plain, bwd
+    kernel_ms = graph_ms(lambda: fs._backward_kernel(args, carries, *cots), 3)
+    whole_ms = graph_ms(lambda: fs.scan_backward(args, carries, *cots), 3)
+    n_in = sum(a.numel() for a in args)
+    fwd_bound, _ = bound(4 * (n_in + B * L * H + B * U + B * H
+                              + carries.numel()), 0)
+    n_read = n_in - B * U + carries.numel() + sum(c.numel() for c in cots)
+    n_grads = sum(a.numel() for a in args[:8]) + B * U
+    n_weights = sum(a.numel() for a in args[10:])
+    whole_bound, _ = bound(4 * (n_read + n_grads + n_weights), 0)
+    log(f"phase 17 (a) K2 [B={B} L={L} U=H={U}]: forward with carries max "
+        f"abs err {fwd_err:.3e} (tol {K2_TOL}), {fwd_ms:.4f} ms on the "
+        f"device ({fwd_ms * 1e3 / L:.3f} us per dependent step), plain "
+        f"{plain_fwd_ms:.3f} ms, byte bound {fwd_bound:.5f} ms | backward "
+        f"gradients max err / max abs {bwd_err:.3e} against the plain "
+        f"backward (tol {GRAD_REL}), kernel {kernel_ms:.4f} ms, whole "
+        f"{whole_ms:.4f} ms on the device, plain {plain_bwd_ms:.3f} ms, "
+        f"byte bound {whole_bound:.5f} ms | {smi}")
+    if not (fwd_err <= K2_TOL and bwd_err <= GRAD_REL):
+        raise AssertionError("phase 17 (a): K2 at L = 1,000 disagrees "
+                             "with its plain version")
+    return dict(fwd_err=fwd_err, fwd_device_ms=fwd_ms,
+                plain_fwd_ms=plain_fwd_ms, fwd_bound_ms=fwd_bound,
+                bwd_rel_err=bwd_err, bwd_kernel_device_ms=kernel_ms,
+                bwd_whole_device_ms=whole_ms, plain_bwd_ms=plain_bwd_ms,
+                bwd_bound_ms=whole_bound, B=B, L=L)
+
+
+def p17_serve(cfg, weights, smi):
+    """Phase 17 (a): 64 x 100 and 8 x 10 requests with histories of
+    1..1,000 through ScoringService: scores finite in [0, 1], one per
+    candidate, K2 once a dispatch, K1 never; the card against the CPU
+    port on the 8 x 10 (SERVE_TOL); the median 64 x 100 dispatch."""
+    from clsr_tpu_torch.serving import ScoringService
+    from clsr_tpu_torch.training.kernel_check import counted
+    rng = np.random.RandomState(17)
+    big = make_requests(rng, 64, 100, USERS, ITEMS, CATES, max_hist=P17_L)
+    small = make_requests(rng, 8, 10, USERS, ITEMS, CATES, max_hist=P17_L)
+    vocabs = vocab_for(big + small)
+    svc = ScoringService(cfg, USERS, ITEMS, CATES, *vocabs)
+    svc.model.load_state_dict(weights)
+    svc.score(big[:2])
+    scores, counts = counted(lambda: svc.score(big) + svc.score(small))
+    for sc, req in zip(scores, big + small):
+        if sc.shape != (len(req.cand_items),) or not np.isfinite(sc).all() \
+                or sc.min() < 0 or sc.max() > 1:
+            raise AssertionError("phase 17 (a) serving: scores not finite "
+                                 "in [0, 1], one per candidate")
+    check_counts("phase 17 (a) serving, two dispatches", counts,
+                 dict(clsr_scan=2, eval_scorer=0))
+    cpu = ScoringService(cfg, USERS, ITEMS, CATES, *vocabs, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    cpu_err = max(float(np.abs(a - b).max()) for a, b in
+                  zip(scores[len(big):], cpu.score(small)))
+    del cpu
+    ms = dispatch_ms(svc, big)
+    log(f"phase 17 (a) serving at L = {P17_L}: launches {counts} | |cuda - "
+        f"cpu| on 8x10 {cpu_err:.3e} (tol {SERVE_TOL}) | 64x100 dispatch "
+        f"median {ms:.3f} ms, {64 * 100 / ms * 1e3:,.0f} candidates/s | "
+        f"{smi}")
+    if not cpu_err <= SERVE_TOL:
+        raise AssertionError("phase 17 (a) serving: the card and the CPU "
+                             "disagree")
+    del svc
+    torch.cuda.empty_cache()
+    return dict(launches=counts, cpu_err=cpu_err, dispatch_ms=ms,
+                cands_per_s=64 * 100 / ms * 1e3)
+
+
+def p17_memory(smi):
+    """Phase 17 (a): one eager lazyadam step (after a warm-up step) with
+    the attention blocked and unblocked at L = 1,000 and 4,000: the
+    step's peak device memory, above what the state keeps, and its ms
+    (CUDA events)."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_train_step
+    out = {}
+    for L in (P17_L, P17_LONG_L):
+        batches = train_batches(2, 18, USERS, ITEMS, CATES, L=L)
+        for block in (P17_BLOCK, 0):
+            cfg = p17_cfg(attention_block_size=block, max_seq_length=L)
+            model = get_model_class("clsr")(cfg, USERS, ITEMS, CATES)
+            spread(model, 18)
+            state = create_train_state(model, cfg)
+            step = make_train_step(model, cfg)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            step(state, batches[0], gen)
+            torch.cuda.synchronize()
+            kept = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            _, parts = step(state, batches[1], gen)
+            end.record()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            key = f"L{L}/{'blocked' if block else 'unblocked'}"
+            out[key] = dict(peak_mb=peak / 1e6,
+                            step_mb=(peak - kept) / 1e6,
+                            step_ms=start.elapsed_time(end),
+                            loss=float(parts.loss))
+            if not np.isfinite(out[key]["loss"]):
+                raise AssertionError(f"phase 17 (a) {key}: loss "
+                                     f"{out[key]['loss']}")
+            del model, state, step, parts
+            torch.cuda.empty_cache()
+        del batches
+    log("phase 17 (a) an eager lazyadam step, peak device memory (above "
+        "the kept state) and ms: " + ", ".join(
+            f"{k} {v['peak_mb']:,.0f} MB ({v['step_mb']:,.0f}) "
+            f"{v['step_ms']:.1f} ms" for k, v in out.items()) + f" | {smi}")
+    return out
+
+
+def long_context(smi):
+    """Phase 17 (a): blockwise long-context attention at full width."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_train_step
+    att = p17_attention(smi)
+    torch.cuda.empty_cache()
+    k2 = p17_k2(smi)
+    torch.cuda.empty_cache()
+    cfg = p17_cfg()
+    model = get_model_class("clsr")(cfg, USERS, ITEMS, CATES)
+    spread(model, 17)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    batches = train_batches(P17_K + 1, 17, USERS, ITEMS, CATES, L=P17_L)
+    res = graph_against_eager("phase 17 (a) long context", cfg,
+                              (USERS, ITEMS, CATES), batches, smi,
+                              timed_call=True, weights=weights)
+    del batches
+    torch.cuda.empty_cache()
+    per_step = {k: v // (P17_K + 1)
+                for k, v in res["launches"]["eager"].items()}
+    check_counts("phase 17 (a) long-context step", per_step, dict(
+        clsr_scan=1, clsr_scan_backward=1, row_scatter=1, eval_scorer=0,
+        train_stats0=0, train_stats1=0))
+    if not np.isfinite(res["loss"]):
+        raise AssertionError(f"phase 17 (a): loss {res['loss']}")
+    log(f"phase 17 (a) graphed lazyadam step at B = {TRAIN_B}, L = "
+        f"{P17_L}: {res['step_ms']:.3f} ms (CUDA events over "
+        f"{res['timed_steps']} replays), {TRAIN_B / res['step_ms'] * 1e3:,.0f}"
+        f" examples/s, peak {res['peak_mb']:.1f} MB | launches a step "
+        f"{per_step} | {smi}")
+    # where the step's device time goes: one eager step under
+    # torch.profiler (kernels a step, busy ms, the top kernels)
+    model = get_model_class("clsr")(cfg, USERS, ITEMS, CATES)
+    model.load_state_dict(weights)
+    profile = profile_steps(
+        make_train_step(model, cfg), create_train_state(model, cfg),
+        train_batches(1, 19, USERS, ITEMS, CATES, L=P17_L),
+        "phase 17 long context lazyadam eager", smi)
+    del model
+    torch.cuda.empty_cache()
+    served = p17_serve(cfg, weights, smi)
+    del weights
+    memory = p17_memory(smi)
+    return dict(attention=att, k2=k2, train=dict(res, per_step=per_step),
+                serve=served, memory=memory, profile=profile,
+                launches={"p17_long_train": res["launches"]["graph"],
+                          "p17_long_serve": served["launches"]})
+
+
+class Killed(Exception):
+    """Phase 17 (b)'s kill, raised right after an autosave."""
+
+
+def p17_histograms(resumed, cfg, sizes, smi):
+    """Phase 17 (c): the histogram step on the resumed weights and its
+    probe batch, on the card and on the CPU: the tables' counts equal;
+    each activation's counts equal when both sides bucket the card's
+    values; from each side's own forward, lo and hi within 1e-4 abs and
+    no more values in another bucket than lie within P17_HIST_EDGE of a
+    bucket edge."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.steps import (HISTOGRAM_AUX_TAGS,
+                                               device_histogram,
+                                               make_histogram_step)
+    nbins = 64
+    probe = resumed._hist_probe
+    on_card = resumed._hist_step(resumed.state.model, probe)
+    cpu_model = get_model_class("clsr")(cfg, *sizes, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               resumed.state.model.state_dict().items()})
+    on_cpu = make_histogram_step(nbins)(cpu_model, probe.to("cpu"))
+
+    def activations(model, batch):
+        model.eval()
+        with torch.inference_mode():
+            logits, aux = model(batch)
+        return dict({"logit": logits}, **{tag: aux[key] for key, tag in
+                                         HISTOGRAM_AUX_TAGS if key in aux})
+
+    card_x = activations(resumed.state.model, probe)
+    cpu_x = activations(cpu_model, probe.to("cpu"))
+    out, bad = {}, []
+    for tag, (counts, lo, hi, nonfinite) in on_card.items():
+        c_counts, c_lo, c_hi, c_nonfinite = on_cpu[tag]
+        counts, lo, hi = counts.cpu(), float(lo), float(hi)
+        moved = int((counts - c_counts).abs().sum()) // 2
+        rec = dict(moved=moved, lo=lo, hi=hi, cpu_lo=float(c_lo),
+                   cpu_hi=float(c_hi), n=int(counts.sum()))
+        if tag in card_x:
+            same = [t.cpu() for t in device_histogram(card_x[tag], nbins)]
+            rebucket = [t for t in device_histogram(card_x[tag].cpu(),
+                                                    nbins)]
+            rec["same_values_equal"] = all(torch.equal(a, b) for a, b in
+                                           zip(same, rebucket))
+            x = cpu_x[tag].float().reshape(-1)
+            pos = (x - c_lo) / max(float(c_hi - c_lo), 1e-12) * nbins
+            dist = (pos - pos.round()).abs()
+            interior = (pos.round() > 0) & (pos.round() < nbins)
+            rec["near_edge"] = int(((dist < P17_HIST_EDGE) & interior).sum())
+            ok = (rec["same_values_equal"] and moved <= rec["near_edge"]
+                  and abs(lo - float(c_lo)) <= 1e-4
+                  and abs(hi - float(c_hi)) <= 1e-4)
+        else:                  # the tables' rows: the same values
+            ok = (torch.equal(counts, c_counts) and lo == float(c_lo)
+                  and hi == float(c_hi))
+        if not ok or int(nonfinite) != int(c_nonfinite):
+            bad.append(tag)
+        out[tag] = rec
+    log(f"phase 17 (c) histograms, card against CPU on the resumed weights "
+        f"and the probe batch ({probe.users.shape[0]} rows): tags "
+        f"{sorted(out)} | activations: values in another bucket "
+        + ", ".join(f"{t} {r['moved']} (<= {r['near_edge']} within "
+                    f"{P17_HIST_EDGE} of an edge)"
+                    for t, r in out.items() if "near_edge" in r)
+        + "; the card's values bucketed on both sides equal: "
+        + str(all(r.get("same_values_equal", True) for r in out.values()))
+        + f" | tables' counts equal: "
+        + str(all(t not in bad for t in out if t.endswith("_output")))
+        + f" | {smi}")
+    if bad:
+        raise AssertionError(f"phase 17 (c): card and CPU histograms "
+                             f"disagree: {bad}")
+    return out
+
+
+def p17_events(summary_dir, kill_step, smi):
+    """Phase 17 (c): the event files of the killed and the resumed fit,
+    read back by the port's reader (CRCs checked): the resumed fit's
+    loss scalars and its histograms at each show_step after the kill,
+    each a [64, 3] tensor whose counts sum to the probe's values."""
+    import glob
+    from clsr_tpu_torch.utils import summaries
+    files = sorted(glob.glob(os.path.join(summary_dir,
+                                          "events.out.tfevents.*")))
+    read = [summaries.read_events(f) for f in files]
+    hist_steps, scalar_tags, n_hist = set(), set(), 0
+    for events in read:
+        if events[0].get("file_version") != "brain.Event:2":
+            raise AssertionError("phase 17 (c): an event file without its "
+                                 "version record")
+        for e in events[1:]:
+            for v in e["values"]:
+                if v["plugin"] == "histograms":
+                    t = v["tensor"]
+                    if t.shape != (64, 3) or not np.isfinite(t).all():
+                        raise AssertionError(f"phase 17 (c): histogram "
+                                             f"{v['tag']} {t.shape}")
+                    hist_steps.add(e["step"])
+                    n_hist += 1
+                else:
+                    scalar_tags.add(v["tag"])
+    after = {s for s in hist_steps if s > kill_step}
+    log(f"phase 17 (c) event files: {len(files)} (killed and resumed "
+        f"fit), {sum(len(r) for r in read)} records read back, "
+        f"{n_hist} histograms at steps {sorted(hist_steps)}, scalar tags "
+        f"{sorted(scalar_tags)} | {smi}")
+    if not (len(files) == 2 and after and "loss" in scalar_tags
+            and "valid/wauc" in scalar_tags):
+        raise AssertionError("phase 17 (c): the event files lack the "
+                             "fit's summaries")
+    return dict(files=len(files), records=sum(len(r) for r in read),
+                histograms=n_hist, steps=sorted(hist_steps))
+
+
+def resume_and_histograms(cfg_b, sizes, loaders, trainer_b, res_b, root,
+                          smi):
+    """Phase 17 (b) and (c), inside phase 11 after run B's epoch and test
+    eval, on its data: run B's configuration (streamed, K = 32 graphed,
+    every kernel) with an autosave every P17_AUTOSAVE calls is killed
+    right after call P17_KILL; a fresh trainer resumes from the
+    autosave: every model and optimizer tensor, the valid and the test
+    metrics bit-identical to run B's.  Both fits write histograms and
+    TensorBoard events at show_step 32, which changes no number."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.evaluator import run_weighted_eval
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.trainer import Trainer
+    cfg = cfg_b.replace(autosave_every_calls=P17_AUTOSAVE, show_step=32,
+                        model_dir=os.path.join(root, "model_17b"),
+                        summaries_dir=os.path.join(root, "summary_17b"),
+                        write_histograms=True, write_tfevents=True)
+    killed = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                     log=lambda *_: None)
+    save, seen = killed._autosave_stream, []
+
+    def kill(*args, **kw):
+        save(*args, **kw)
+        seen.append(args[1])
+        if args[1] == P17_KILL:
+            raise Killed
+
+    killed._autosave_stream = kill
+    t0 = time.perf_counter()
+    try:
+        killed.fit(loaders["train"], loaders["valid"])
+        raise AssertionError("phase 17 (b): the fit ran to its end")
+    except Killed:
+        killed_s = time.perf_counter() - t0
+    kill_step = killed.state.step
+    killed.summary.close()
+    del killed
+    torch.cuda.empty_cache()
+    lines = []
+    resumed = Trainer(get_model_class("clsr")(cfg, *sizes), cfg,
+                      log=lines.append)
+    t0 = time.perf_counter()
+    _, counts = counted(lambda: resumed.fit(loaders["train"],
+                                            loaders["valid"], resume=True))
+    resumed_s = time.perf_counter() - t0
+    resumed.summary.close()
+    bad = differing(state_tensors(trainer_b.state),
+                    state_tensors(resumed.state))
+    res = run_weighted_eval(resumed.eval_step, resumed.state.model,
+                            loaders["test"], cfg, cfg.test_num_ngs)
+    same_valid = resumed.eval_history == trainer_b.eval_history
+    at = [line for line in lines if line.startswith("resuming at")]
+    steps = resumed.epoch_stats[0]["steps"]
+    check_counts("phase 17 (b) resumed fit", counts,
+                 dict(row_scatter=steps, clsr_scan_backward=steps))
+    log(f"phase 17 (b) kill and resume (run B's config, autosave every "
+        f"{P17_AUTOSAVE} calls, killed after call {P17_KILL} = step "
+        f"{kill_step}, autosaves {seen}): killed fit {killed_s:.3f} s, "
+        f"resumed fit {resumed_s:.3f} s ({steps} steps, {at}) | against "
+        f"run B: {len(state_tensors(trainer_b.state))} state tensors, "
+        f"differ {bad[:5]}, valid metrics equal {same_valid}, test metrics "
+        f"equal {res == res_b} | launches {counts} | {smi}")
+    if (bad or not same_valid or res != res_b
+            or seen != list(range(P17_AUTOSAVE, P17_KILL + 1,
+                                  P17_AUTOSAVE))
+            or not at or f"call {P17_KILL} " not in at[0]):
+        raise AssertionError("phase 17 (b): the resumed fit is not run B's")
+    hists = p17_histograms(resumed, cfg, sizes, smi)
+    events = p17_events(cfg.summaries_dir, kill_step, smi)
+    del resumed
+    torch.cuda.empty_cache()
+    return dict(killed_s=killed_s, resumed_s=resumed_s, kill_step=kill_step,
+                resumed_steps=steps, launches=counts, histograms=hists,
+                events=events)
 
 
 def train_and_evaluate(smi):
@@ -3825,6 +4370,9 @@ def train_and_evaluate(smi):
             raise AssertionError(f"run B losses {losses}")
 
         mark("run B test eval")
+        p17 = resume_and_histograms(cfg_b, sizes, loaders, trainer, res_on,
+                                    root, smi)
+        mark("phase 17 (b) and (c)")
         # ---- K1 on against K1 off on the same weights: every prediction --
         cfg_off = cfg_b.replace(use_pallas_eval_attention="off")
         model_off = get_model_class("clsr")(cfg_off, *sizes)
@@ -3979,12 +4527,14 @@ def train_and_evaluate(smi):
             phase13={k: v for k, v in p13.items() if k != "launches"},
             phase14={k: v for k, v in p14.items() if k != "launches"},
             phase15_fits=p15, phase16_fits=p16,
+            phase17={k: v for k, v in p17.items() if k != "launches"},
             launches={"p15_zoo_fit": {k: sum(f["launches"][k]
                                              for f in p15.values())
                                       for k in launches_a},
                       "p16_zoo_fit": {k: sum(f["launches"][k]
                                              for f in p16.values())
                                       for k in launches_a},
+                      "p17_resume_fit": p17["launches"],
                       "fit_cli": {k: launches_a[k] + launches_t[k]
                                   for k in launches_a},
                       "fit_kernels": {k: fit_counts[k] + test_counts[k]
@@ -4021,6 +4571,7 @@ def main():
     rest = timed("model zoo rest", zoo_rest, smi,
                  zoo["train"]["clsr_fused"]["lazyadam"]["step_ms"])
     fit = timed("train and evaluate", train_and_evaluate, smi)
+    long = timed("long context", long_context, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -4032,7 +4583,7 @@ def main():
         "p14_bf16_train": mixed["train"]["launches"],
         "p14_int8_serve": mixed["serve"]["launches"],
         **zoo["launches"], **rest["launches"],
-        **fit["launches"]}
+        **fit["launches"], **long["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -4086,7 +4637,9 @@ def main():
                                  if k != "launches"},
                    "model_zoo_rest": {k: v for k, v in rest.items()
                                       if k != "launches"},
-                   "train_and_evaluate": fit}, f,
+                   "train_and_evaluate": fit,
+                   "long_context": {k: v for k, v in long.items()
+                                    if k != "launches"}}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

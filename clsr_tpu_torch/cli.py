@@ -11,8 +11,13 @@ optionally the prediction file.  One flag more: `--device` (default
 cuda; without a card that raises, `--device cpu` runs on the CPU).
 
 Flags whose path is not ported parse as in the JAX package and then
-raise NotImplementedError naming their ROADMAP queue 1 item.
-`--data_format auto` reads the TSVs (the packed format is item 11).
+raise NotImplementedError naming their ROADMAP queue 1 item: the ETL
+and the packed format (item 11b), a device mesh (item 10).
+`--data_format auto` reads the TSVs.  Kill and resume
+(`--autosave_every_calls N`, `--resume`), `--write_histograms`,
+`--write_tfevents` and `--attention_block_size` run as in JAX; with
+`--attention_block_size` the config must set `enable_bn: False`, which
+clsr.yaml does not, so there, as in the JAX CLI, the config refuses it.
 
 Usage:
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --epochs 2
@@ -81,7 +86,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--raw_data", default=None,
                    help="raw interaction CSV for on-demand preprocessing "
-                        "(ROADMAP queue 1 item 11)")
+                        "(ROADMAP queue 1 item 11b)")
     p.add_argument("--no_history_expanding", dest="is_history_expanding",
                    action="store_false",
                    help="one line per user instead of expanding prefixes "
@@ -110,8 +115,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_steps_per_call", type=int, default=None,
                    help="K train steps a host call (on the card, replays "
                         "of one captured step)")
-    p.add_argument("--autosave_every_calls", type=int, default=0)
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--autosave_every_calls", type=int, default=0,
+                   help="every N train calls persist the full run state "
+                        "to <model_dir>/autosave for an exact mid-epoch "
+                        "resume")
+    p.add_argument("--resume", action="store_true",
+                   help="resume a killed run from <model_dir>/autosave "
+                        "(bit-identical continuation)")
     p.add_argument("--length_buckets", default=None,
                    help="length-aware batching on the resident path: "
                         "off | auto | comma edges (data/resident.py)")
@@ -133,9 +143,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["auto", "on", "off"],
                    help="K1 in eval at G >= 8 (auto = on for CUDA "
                         "tensors)")
-    p.add_argument("--attention_block_size", type=int, default=None)
-    p.add_argument("--write_histograms", action="store_true")
-    p.add_argument("--write_tfevents", action="store_true")
+    p.add_argument("--attention_block_size", type=int, default=None,
+                   help="> 0: blockwise long-context target attention "
+                        "(needs enable_bn: False)")
+    p.add_argument("--write_histograms", action="store_true",
+                   help="activation and embedding histograms computed on "
+                        "the device at the show_step cadence (JSONL, and "
+                        "TensorBoard with --write_tfevents)")
+    p.add_argument("--write_tfevents", action="store_true",
+                   help="TensorBoard event files beside scalars.jsonl")
     p.add_argument("--etl_processes", type=int, default=1)
     p.add_argument("--etl_native", action="store_true")
     p.add_argument("--etl_format", default="tsv", choices=["tsv", "packed"])
@@ -147,7 +163,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _waits(what: str, item: int, name: str):
+def _waits(what: str, item, name: str):
     raise NotImplementedError(
         f"{what} waits for ROADMAP queue 1 item {item} ({name})")
 
@@ -157,14 +173,14 @@ def refuse_unported(args) -> None:
     naming its ROADMAP queue 1 item."""
     from clsr_tpu_torch.models.registry import get_model_class
 
-    host = "host remainder"
+    etl = "ETL and data formats"
     if args.raw_data:
-        _waits("--raw_data (the ETL)", 11, host)
+        _waits("--raw_data (the ETL)", "11b", etl)
     if args.data_format == "packed":
-        _waits("--data_format packed", 11, host)
+        _waits("--data_format packed", "11b", etl)
     if (args.etl_processes != 1 or args.etl_native
             or args.etl_format != "tsv"):
-        _waits("the --etl_* flags", 11, host)
+        _waits("the --etl_* flags", "11b", etl)
     if (args.data_parallel > 1 or args.model_parallel > 1
             or (args.mesh_flat_batch, args.mesh_update_routing,
                 args.mesh_owner_capacity, args.mesh_owner_overflow,
@@ -172,12 +188,6 @@ def refuse_unported(args) -> None:
             != ("auto", "broadcast", 4.0, "fallback", "auto")):
         _waits("a device mesh (--data_parallel, --model_parallel, "
                "--mesh_*)", 10, "parallel")
-    if args.resume or args.autosave_every_calls > 0:
-        _waits("--resume and --autosave_every_calls", 11, host)
-    if args.attention_block_size and args.attention_block_size > 0:
-        _waits("--attention_block_size", 9, "long context")
-    if args.write_histograms or args.write_tfevents:
-        _waits("--write_histograms and --write_tfevents", 11, host)
     get_model_class(args.model)
 
 
@@ -280,7 +290,7 @@ def main(argv=None) -> int:
         if args.dataset != "synthetic":
             raise SystemExit(
                 f"{files['train']} missing; preprocessing a raw file "
-                f"(--raw_data) waits for ROADMAP queue 1 item 11")
+                f"(--raw_data) waits for ROADMAP queue 1 item 11b")
         os.makedirs(data_dir, exist_ok=True)
         write_synthetic_dataset(data_dir, valid_num_ngs=args.val_num_ngs,
                                 test_num_ngs=args.test_num_ngs)
@@ -327,7 +337,7 @@ def main(argv=None) -> int:
         return 0
 
     trainer.fit(loaders["train"], loaders["valid"],
-                valid_num_ngs=cfg.valid_num_ngs)
+                valid_num_ngs=cfg.valid_num_ngs, resume=args.resume)
     if trainer.best_epoch and cfg.model_dir:
         try:
             trainer.load_latest(cfg.model_dir)

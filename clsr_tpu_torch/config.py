@@ -209,8 +209,8 @@ class Config:
     save_model: bool = True
     model_dir: Optional[str] = None
     summaries_dir: Optional[str] = None
-    write_tfevents: bool = False        # raise: ROADMAP queue 1 item 11
-    write_histograms: bool = False      # raise: ROADMAP queue 1 item 11
+    write_tfevents: bool = False        # TensorBoard event files
+    write_histograms: bool = False      # device histograms, show_step
     metrics: Tuple[str, ...] = ("auc", "logloss")
     pairwise_metrics: Tuple[str, ...] = ("mean_mrr", "ndcg@2;4;6",
                                          "hit@2;4;6", "group_auc")
@@ -237,7 +237,9 @@ class Config:
     # replayed K times (training/steps.py MultiTrainStep,
     # ResidentMultiStep); the same math as K single steps
     train_steps_per_call: int = 32
-    autosave_every_calls: int = 0   # > 0 raises: ROADMAP queue 1 item 11
+    autosave_every_calls: int = 0   # > 0: the run state to
+                                    # <model_dir>/autosave every N calls
+                                    # (fit(resume=True) continues it)
     prefetch_batches: int = 2       # host->device batches in flight
     resident_data: str = "auto"     # 'auto' | 'on' | 'off': upload the
                                     # padded train set to the device once
@@ -319,7 +321,7 @@ class Config:
         if self.attention_block_size > 0 and self.enable_bn:
             raise ValueError(
                 "attention_block_size requires enable_bn: False (the "
-                "blockwise scorer is BN-free)")
+                "blockwise scorer is BN-free, ops/long_context.py)")
         if self.embedding_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"embedding_dtype must be float32 or bfloat16, got "
@@ -360,7 +362,7 @@ class Config:
         if self.length_buckets != "off" and self.autosave_every_calls > 0:
             raise ValueError(
                 "autosave_every_calls (mid-epoch resume) is not supported "
-                "with length_buckets: the run state stores a single "
+                "with length_buckets — the run state stores a single "
                 "epoch permutation")
         if self.autosave_every_calls < 0:
             raise ValueError(

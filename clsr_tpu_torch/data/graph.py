@@ -18,7 +18,7 @@ sorted by (src, dst), each source's edges one run, as the graph
 convolution reads them (ops/graph_conv.py `GraphEdges`, which sorts them
 by dst once on the device for the backward).  Node ids:
 users 0..U-1, items U..U+I-1.  The packed-dataset builder
-(clsr_tpu/data/packed.py:512) waits for ROADMAP queue 1 item 11.
+(clsr_tpu/data/packed.py:512) waits for ROADMAP queue 1 item 11b.
 """
 
 from __future__ import annotations

@@ -1,25 +1,72 @@
 """Synthetic datasets in the reference's file format.
 
-Counterpart of clsr_tpu/data/synthetic.py:55-150, 242-323: train/valid/
-test TSVs and vocab pickles shaped like the reference ETL's output
+Counterpart of clsr_tpu/data/synthetic.py: train/valid/test TSVs and
+vocab pickles shaped like the reference ETL's output
 (sequential_reviews.py:27-74): expanding-history train lines (label 1
 only; the negatives are drawn in-batch at train time) and offline
 popularity-sampled negatives for valid/test (1 positive followed by
 `num_ngs` negative lines, each with the positive's user and history and
 the negative item's own category, sequential_reviews.py:147-199).  For
 the same arguments the files are byte-identical to the JAX package's: the
-same RandomState draws in the same order, the same text.  The on-device
-batch generator and the drift generator wait for ROADMAP queue 1 item 11.
+same RandomState draws in the same order, the same text.  That holds for
+the drift generator too (`make_drift_events`, `write_drift_dataset`,
+:152-241), which plants diverging long- and short-term interests.
+
+`device_batch` (:24-52) draws a random Batch on the device from a
+`torch.Generator`: JAX's shapes, dtypes, ranges and prefix masks, not
+its numbers (jax.random's stream is not torch's).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, List
 
 import numpy as np
+import torch
 
+from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.vocab import Vocab
+from clsr_tpu_torch.utils.device import resolve_device
+
+
+def device_batch(generator: torch.Generator, batch_rows: int, seq_len: int,
+                 n_items: int, n_cates: int, n_users: int, G: int = 1,
+                 device=None) -> Batch:
+    """A random Batch on `device` (None: the card), drawn from
+    `generator` (on that device): lengths in [1, L] with a prefix mask,
+    users in [0, n_users), candidate and history ids in [1, n) (the
+    history zero past its length), column 0 the positive, time features
+    in [0, 1) on valid positions, every row valid.  As in JAX,
+    time_to_now equals time_diff (JAX draws both from one key)."""
+    dev = resolve_device(device)
+    B, L = batch_rows, seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=generator,
+                             device=dev, dtype=i32)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=generator, device=dev,
+                          dtype=f32)
+
+    lengths = ri(1, L + 1, (B,))
+    mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None]).to(f32)
+    labels = torch.zeros((B, G), dtype=f32, device=dev)
+    labels[:, 0] = 1.0
+    users = ri(0, n_users, (B,))
+    items, cates = ri(1, n_items, (B, G)), ri(1, n_cates, (B, G))
+    item_hist = (ri(1, n_items, (B, L)) * mask).to(i32)
+    cate_hist = (ri(1, n_cates, (B, L)) * mask).to(i32)
+    time_diff = uniform((B, L)) * mask
+    time_from_first = uniform((B, L)) * mask
+    return Batch(users=users, items=items, cates=cates, labels=labels,
+                 item_hist=item_hist, cate_hist=cate_hist, mask=mask,
+                 time_diff=time_diff, time_from_first=time_from_first,
+                 time_to_now=time_diff.clone(),
+                 valid=torch.ones((B,), dtype=f32, device=dev))
 
 
 def write_synthetic_dataset_fast(out_dir: str, n_users: int = 5_000,
@@ -109,6 +156,78 @@ def make_synthetic_events(n_users: int = 50, n_items: int = 200,
         times = np.sort(t0 + rng.randint(0, 9 * 24 * 3600, size=n_ev))
         events[u] = (items, times)
     return events, item2cate
+
+
+def make_drift_events(n_users: int, n_items: int, n_cates: int,
+                      min_events: int = 20, max_events: int = 40,
+                      burst_len: int = 5, seed: int = 0,
+                      alpha_low: float = 0.25, alpha_high: float = 0.75,
+                      alpha_bimodal: bool = False):
+    """Event streams with planted long- and short-term interests (JAX
+    :152-219).  Each user has two stable long-term categories and a
+    burst category, drawn from the others and redrawn every `burst_len`
+    events; an event comes from the long-term ones with probability
+    alpha_u (uniform in [alpha_low, alpha_high], or with alpha_bimodal
+    one of the two by a coin flip), else from the burst.  Each category
+    owns a contiguous block of items, Zipf-like inside it.
+
+    Returns (events {u: (items, times)}, item2cate [n_items + 1] indexed
+    by item id, alpha {u: alpha_u})."""
+    rng = np.random.RandomState(seed)
+    items_per_cate = n_items // n_cates
+    item2cate = np.zeros(n_items + 1, dtype=np.int64)
+    item2cate[1:] = np.repeat(np.arange(1, n_cates + 1), items_per_cate)[
+        :n_items]
+    within_pop = 1.0 / np.arange(1, items_per_cate + 1) ** 0.8
+    within_pop /= within_pop.sum()
+
+    def draw_item(cate):
+        offset = (cate - 1) * items_per_cate
+        return 1 + offset + rng.choice(items_per_cate, p=within_pop)
+
+    events, alphas = {}, {}
+    t0 = 1_500_000_000
+    for u in range(1, n_users + 1):
+        long_prefs = rng.choice(n_cates, size=2, replace=False) + 1
+        others = np.setdiff1d(np.arange(1, n_cates + 1), long_prefs)
+        if alpha_bimodal:
+            alpha_u = alpha_high if rng.rand() < 0.5 else alpha_low
+        else:
+            alpha_u = alpha_low + (alpha_high - alpha_low) * rng.rand()
+        n_ev = rng.randint(min_events, max_events + 1)
+        burst = others[rng.randint(len(others))]
+        items = np.empty(n_ev, dtype=np.int64)
+        for e in range(n_ev):
+            if e % burst_len == 0:
+                burst = others[rng.randint(len(others))]
+            if rng.rand() < alpha_u:
+                cate = long_prefs[rng.randint(2)]
+            else:
+                cate = burst
+            items[e] = draw_item(cate)
+        times = np.sort(t0 + rng.randint(0, 9 * 24 * 3600, size=n_ev))
+        events[u] = (items, times)
+        alphas[u] = alpha_u
+    return events, item2cate, alphas
+
+
+def write_drift_dataset(out_dir: str, n_users: int = 1000,
+                        n_items: int = 600, n_cates: int = 30,
+                        valid_num_ngs: int = 4, test_num_ngs: int = 49,
+                        seed: int = 0, **gen_kw) -> Dict[str, str]:
+    """`write_synthetic_dataset` over `make_drift_events`, plus
+    alphas.json, the planted alpha_u by user (JAX :222-241)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.RandomState(seed + 1)
+    events, item2cate, alphas = make_drift_events(
+        n_users, n_items, n_cates, seed=seed, **gen_kw)
+    paths = _emit_dataset(out_dir, events, item2cate[1:], n_users, n_items,
+                          n_cates, valid_num_ngs, test_num_ngs, rng)
+    alpha_path = os.path.join(out_dir, "alphas.json")
+    with open(alpha_path, "w") as f:
+        json.dump({str(u): a for u, a in alphas.items()}, f)
+    paths["alphas"] = alpha_path
+    return paths
 
 
 def write_synthetic_dataset(out_dir: str, n_users: int = 50,

@@ -158,10 +158,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "a device mesh (data_parallel*model_parallel > 1) waits for "
             "ROADMAP queue 1 item 10 (parallel)")
-    if cfg.attention_block_size > 0:
-        raise NotImplementedError(
-            "blockwise long-context attention waits for ROADMAP queue 1 "
-            "item 9 (long context)")
 
 
 class SequentialModelBase(nn.Module):
@@ -296,6 +292,10 @@ class SequentialModelBase(nn.Module):
                        + embed_sumsq)
             if attn_labels is not None:
                 aux["attn_labels"] = attn_labels
+        else:
+            # the pre-head concat the histogram probe reads as
+            # 'model_output' (JAX :226-233, eval mode only)
+            aux = dict(aux, model_output=model_output)
         return logits, aux
 
     def head(self, model_output: torch.Tensor,

@@ -32,7 +32,11 @@ clsr.py:20-455):
   * under the compact row engine, the user rows and those sums from the
     gathered rows (`site("rows")`, `pair_stats`), no table read;
   * under compute_dtype bfloat16 the attentions, the encoder, the fusion
-    MLP and the head run in bf16 (JAX clsr.py:105-197, base.py:254).
+    MLP and the head run in bf16 (JAX clsr.py:105-197, base.py:254);
+  * with `attention_block_size` > 0 both attentions are
+    `LongTargetAttention` (ops/long_context.py, JAX clsr.py:100-113,
+    :175): the BN-free relu scorer over key blocks with an online
+    softmax, for long histories; K1 and K3 do not run there.
 
 K2 runs only in the fused encoder; the unfused ones are the plain
 recurrences of ops/rnn.py, as JAX runs them with `lax.scan`.
@@ -48,6 +52,7 @@ from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.base import (EmbedContext, SequentialModelBase,
                                         lookup_cast, unique_rows_stats)
 from clsr_tpu_torch.ops.fused_clsr import FusedCLSREncoder
+from clsr_tpu_torch.ops.long_context import LongTargetAttention
 from clsr_tpu_torch.ops.mlp import FcnNet
 from clsr_tpu_torch.ops.rnn import GRU, LSTM, Time4LSTM
 
@@ -69,7 +74,7 @@ class CLSRModel(SequentialModelBase):
         g, dev, cdt = self.generator, self.device, self.dtype
 
         # creation order follows the flax tree (long, encoder, short, ...)
-        self.long_term_att = self.target_attention(U, T)
+        self.long_term_att = self.attention(U, T)
         if self.fused:
             self.fused_encoders = FusedCLSREncoder(
                 T, U, H, g, dev, interest_evolve=cfg.interest_evolve,
@@ -81,7 +86,7 @@ class CLSRModel(SequentialModelBase):
             name, cell = _SEQUENTIAL[cfg.sequential_model]
             self.sequential_name = name
             self.add_module(name, cell(T, H, g, dev, cdt))
-        self.short_term_att = self.target_attention(U + T, H)
+        self.short_term_att = self.attention(U + T, H)
         if (not self.fused and cfg.predict_long_short
                 and not cfg.manual_alpha):
             self.causal2 = GRU(T, H, g, dev, cdt)
@@ -93,6 +98,18 @@ class CLSRModel(SequentialModelBase):
                 self.init, self.generator, self.device,
                 enable_bn=cfg.enable_bn, out_dim=1, dtype=self.dtype)
         self.build_head()
+
+    def attention(self, query_dim: int, key_dim: int):
+        """A target attention of CLSR's: blockwise under
+        attention_block_size > 0 (always relu, no BN, as JAX's), else
+        the config's `TargetAttention`."""
+        cfg = self.cfg
+        if cfg.attention_block_size > 0:
+            return LongTargetAttention(
+                query_dim, key_dim, cfg.att_fcn_layer_sizes, self.init,
+                self.generator, self.device,
+                block_size=cfg.attention_block_size, dtype=self.dtype)
+        return self.target_attention(query_dim, key_dim)
 
     def head_in_dim(self) -> int:
         return self.cfg.hidden_size + self.cfg.target_dim
@@ -164,7 +181,9 @@ class CLSRModel(SequentialModelBase):
                                    device=hist.device)
 
         model_output = torch.cat([user_embed, ctx.target_emb], dim=-1)
-        aux: Dict[str, Any] = {"alpha": alpha_out}
+        aux: Dict[str, Any] = {"alpha": alpha_out,
+                               "att_fea_long": att_fea_long,
+                               "att_fea_short": att_fea_short}
         if self.training:
             aux.update(self.train_aux(batch, hist, att_fea_long,
                                       att_fea_short, user_stats))

@@ -17,9 +17,17 @@ Orbax is not available to the port, so a checkpoint directory (the same
 
 A lazyadam state is restored whole: the table Parameters and the pmn
 rows both come from the file, so under the compact engine the tables
-equal pmn[:, :D] after a load as after every step.  Run state for a
-mid-epoch resume (`save_run_state` / `load_run_state`) waits for ROADMAP
-queue 1 item 11.
+equal pmn[:, :D] after a load as after every step.
+
+Run state for an exact mid-epoch resume (JAX :109-167): `save_run_state`
+/ `load_run_state` keep `<dir>/run_state.npz` with JAX's fields: the
+epoch, the calls done, the step, the host RandomState's MT19937 state
+(keys, position, has_gauss, gauss) as JAX saves it, the epoch's padded
+permutation and call layout (n_use, n_calls, n_tail; n_calls = -1 at an
+epoch boundary), the loss sums, the best metric and epoch, and the mode
+('resident' or 'stream').  Where JAX keeps its PRNG key, the port keeps
+the fit's `torch.Generator` state (`rng`, uint8: a CUDA generator's seed
+and offset, or the CPU generator's whole state) at the call boundary.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from clsr_tpu_torch.training.lazy_adam import LazyAdamState
@@ -136,3 +145,59 @@ def latest_epoch_dir(model_dir: str) -> str:
         raise IOError(f"Failed to find any matching files for {model_dir}")
     return os.path.join(model_dir,
                         max(epochs, key=lambda d: int(d.split("_")[1])))
+
+
+RUN_NAME = "run_state.npz"
+
+
+def save_run_state(path: str, *, epoch: int, calls_done: int, step: int,
+                   generator: torch.Generator,
+                   np_rng: np.random.RandomState, perm: np.ndarray,
+                   n_use: int, n_calls: int, n_tail: int, total: float,
+                   data_total: float, best_metric: float, best_epoch: int,
+                   mode: str = "resident") -> None:
+    """Persist the epoch loop's position at a call boundary.
+
+    mode 'resident': `np_rng` has drawn this epoch's permutation, which
+    is saved as it is.  mode 'stream': the loaders draw their
+    permutation inside the epoch's iterator, so `np_rng` holds the
+    epoch-start state, and a resume rebuilds the iterator and skips
+    `calls_done` items on the host; perm, n_use and n_tail are unused."""
+    os.makedirs(path, exist_ok=True)
+    mt = np_rng.get_state()      # ('MT19937', keys[624], pos, has_g, g)
+    tmp = os.path.join(path, f"{RUN_NAME}.{os.getpid()}.tmp.npz")
+    np.savez(
+        tmp,
+        epoch=np.int64(epoch), calls_done=np.int64(calls_done),
+        step=np.int64(step), rng=generator.get_state().numpy(),
+        perm=np.asarray(perm), n_use=np.int64(n_use),
+        n_calls=np.int64(n_calls), n_tail=np.int64(n_tail),
+        total=np.float32(total), data_total=np.float32(data_total),
+        best_metric=np.float64(best_metric),
+        best_epoch=np.int64(best_epoch),
+        mt_keys=mt[1], mt_pos=np.int64(mt[2]),
+        mt_has_gauss=np.int64(mt[3]), mt_gauss=np.float64(mt[4]),
+        mode=np.bytes_(mode.encode()))
+    os.replace(tmp, os.path.join(path, RUN_NAME))
+
+
+def load_run_state(path: str) -> Optional[Dict[str, Any]]:
+    """The run state under `path`, or None: the fields of
+    `save_run_state`, with `np_rng` a RandomState in the saved state and
+    `rng` the generator state as a uint8 tensor."""
+    p = os.path.join(path, RUN_NAME)
+    if not os.path.exists(p):
+        return None
+    with np.load(p) as z:
+        np_rng = np.random.RandomState(0)
+        np_rng.set_state(("MT19937", z["mt_keys"], int(z["mt_pos"]),
+                          int(z["mt_has_gauss"]), float(z["mt_gauss"])))
+        return dict(
+            epoch=int(z["epoch"]), calls_done=int(z["calls_done"]),
+            step=int(z["step"]), rng=torch.from_numpy(z["rng"].copy()),
+            np_rng=np_rng, perm=z["perm"], n_use=int(z["n_use"]),
+            n_calls=int(z["n_calls"]), n_tail=int(z["n_tail"]),
+            total=float(z["total"]), data_total=float(z["data_total"]),
+            best_metric=float(z["best_metric"]),
+            best_epoch=int(z["best_epoch"]),
+            mode=bytes(z["mode"]).decode())

@@ -57,6 +57,12 @@ forward-only train-mode passes.
 The eval step (:331-364): BN running statistics, no dropout
 (base_model.py:366-392); preds = sigmoid(logit) for classification
 (base_model.py:89-109).
+
+The histogram step (`make_histogram_step`, :398-442, with
+`device_histogram`, :372-395): the eval-mode forward on a probe batch,
+and for each tensor the reference streams to tf.summary.histogram a
+64-bucket histogram computed on the device, so only the counts and the
+range cross to the host.
 """
 
 from __future__ import annotations
@@ -523,5 +529,62 @@ def make_eval_step_fn(cfg: Config) -> Callable[
             if alpha is None:
                 alpha = torch.zeros_like(preds)
         return preds, alpha
+
+    return step
+
+
+# (aux key, tag): the reference's tag names (clsr.py:111-276); the
+# logits stream under 'logit' (JAX steps.py:415-422)
+HISTOGRAM_AUX_TAGS = (("alpha", "alpha"), ("att_fea_long", "att_fea_long"),
+                      ("att_fea_short", "att_fea2"),
+                      ("model_output", "model_output"))
+
+
+def device_histogram(x: torch.Tensor, nbins: int) -> Tuple[torch.Tensor, ...]:
+    """(counts [nbins] int32, lo, hi, n_nonfinite) of `x` on its device
+    (JAX `_device_histogram`): the buckets span the finite values' [lo,
+    hi] (an all-non-finite tensor gets [0, 0]), a value's bucket is
+    int((x - lo) / max(hi - lo, 1e-12) * nbins) clipped to the last
+    bucket, in f32, and the non-finite values are counted apart.  The
+    integer sums are exact in any order."""
+    x = x.float().reshape(-1)
+    finite = torch.isfinite(x)
+    inf = torch.tensor(float("inf"), device=x.device)
+    lo = torch.where(finite, x, inf).min()
+    hi = torch.where(finite, x, -inf).max()
+    zero = torch.zeros((), device=x.device)
+    lo = torch.where(torch.isfinite(lo), lo, zero)
+    hi = torch.where(torch.isfinite(hi), hi, zero)
+    span = torch.clamp_min(hi - lo, 1e-12)
+    idx = ((torch.where(finite, x, lo) - lo) / span * nbins).to(
+        torch.int32).clamp(0, nbins - 1)
+    counts = torch.zeros(nbins, dtype=torch.int32, device=x.device)
+    counts.index_add_(0, idx, finite.to(torch.int32))
+    return counts, lo, hi, (~finite).sum().to(torch.int32)
+
+
+def make_histogram_step(nbins: int = 64) -> Callable[
+        [torch.nn.Module, Batch], Dict[str, Tuple[torch.Tensor, ...]]]:
+    """The activation-histogram step (JAX :398-442), like the eval step
+    a function of (model, batch) -> {tag: (counts, lo, hi,
+    n_nonfinite)}, from the eval-mode forward (running BN statistics, no
+    dropout) on `batch`: the logits, the aux tensors of
+    HISTOGRAM_AUX_TAGS the model returns, and for each table the batch
+    touches (`batch_table_ids`) its gathered rows as `<table>_output`."""
+
+    def step(model: torch.nn.Module, batch: Batch):
+        model.eval()
+        with torch.inference_mode():
+            logits, aux = model(batch)
+            hists = {"logit": device_histogram(logits, nbins)}
+            for key, tag in HISTOGRAM_AUX_TAGS:
+                if key in aux:
+                    hists[tag] = device_histogram(aux[key], nbins)
+            ids = batch_table_ids(batch)
+            for name, table in model.named_parameters():
+                if name in ids and table.dim() == 2:
+                    rows = table[ids[name].reshape(-1).long()]
+                    hists[f"{name}_output"] = device_histogram(rows, nbins)
+        return hists
 
     return step

@@ -2,7 +2,8 @@
 
 Counterpart of clsr_tpu/training/trainer.py (`__init__`, `fit`, `save`,
 `load`, `load_latest`, `_use_resident`, `_resident_epoch`,
-`_bucketed_epoch`; :33-404, 449-676, 683-732) on one device; it mirrors
+`_bucketed_epoch`, `_maybe_histograms`, `_autosave_stream`, `_autosave`;
+:33-447, 449-676, 683-732) on one device; it mirrors
 the reference's SequentialBaseModel.fit
 (sequential_base_model.py:111-202): a reshuffled train pass each epoch
 (`np.random.RandomState(cfg.seed)`), weighted eval on the valid file,
@@ -47,15 +48,36 @@ How the port runs what the JAX package runs:
     boundaries and once at the end of an epoch.  The JAX streaming path
     reads `float(parts.loss)` every step, which here would make the host
     wait for the device every step; the logged numbers are the same.
-  * A mesh (item 10), mid-epoch autosave and resume, histograms and
-    TensorBoard files (item 11) raise.  The torch generator is drawn by
-    the steps (and the bucketed refresh) alone, so the resident and the
-    streamed path draw the same numbers.
+  * Kill and resume (cfg.autosave_every_calls, `fit(resume=True)`,
+    JAX :281-302, :415-447, :491-521): every N calls, and at each epoch
+    boundary, the state goes to `<model_dir>/autosave/state` and the run
+    state beside it (training/checkpoint.py `save_run_state`): the
+    fit's generator state where JAX keeps its key, the RandomState, and
+    on the resident path the epoch's permutation and layout.  A resumed
+    fit loads both and runs the remaining calls: the resident path from
+    the saved permutation, the streamed path by rebuilding the epoch's
+    iterator from the epoch-start RandomState and skipping the calls
+    done on the host.  The calls after it draw from the restored
+    generator, so the fit ends with the uninterrupted fit's bits (the
+    first step after the load is a graph's eager warm-up, which equals
+    a replay bit for bit).  The resumed epoch's steps, examples and mean
+    loss count the calls run after the resume.  A finished fit removes
+    the autosave.
+    Refused as in JAX: a resume whose mode (resident or streamed) is
+    not the autosave's, and under length_buckets.
+  * Histograms (cfg.write_histograms with summaries_dir, JAX :405-413):
+    at each show_step boundary the histogram step (training/steps.py
+    `make_histogram_step`) runs on a fixed probe batch, the first train
+    batch of RandomState(0), and the counts go to the summary writer.
+  * A mesh (item 10) raises.  The torch generator is drawn by the steps
+    (and the bucketed refresh) alone, so the resident and the streamed
+    path draw the same numbers.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -64,7 +86,7 @@ import torch
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.loader import SequenceLoader
-from clsr_tpu_torch.data.prefetch import device_batches
+from clsr_tpu_torch.data.prefetch import device_batches, to_device
 from clsr_tpu_torch.data.resident import (EpochFeed, build_resident,
                                           build_resident_buckets,
                                           epoch_permutation, pad_view_rows,
@@ -75,6 +97,7 @@ from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import (make_eval_step_fn,
+                                           make_histogram_step,
                                            make_multi_train_step,
                                            make_resident_bn_refresh,
                                            make_resident_multi_step,
@@ -90,14 +113,6 @@ def check_trainable(cfg: Config) -> None:
         raise NotImplementedError(
             "a device mesh (data_parallel * model_parallel > 1) waits for "
             "ROADMAP queue 1 item 10 (parallel)")
-    if cfg.autosave_every_calls > 0:
-        raise NotImplementedError(
-            "autosave_every_calls (mid-epoch run state) waits for ROADMAP "
-            "queue 1 item 11 (host remainder)")
-    if cfg.write_histograms:
-        raise NotImplementedError(
-            "write_histograms waits for ROADMAP queue 1 item 11 (host "
-            "remainder)")
 
 
 class Trainer:
@@ -132,6 +147,9 @@ class Trainer:
         self.resident_step = None
         self._bn_refresh = None
         self._resident_src = None       # the loader the feeds hold
+        self._hist_step = None          # the histogram step, its probe
+        self._hist_probe = None
+        self._best_metric = 0.0
 
     def _use_resident(self, train_loader: SequenceLoader) -> bool:
         """resident_data: 'on', or 'auto' when the upload fits
@@ -178,27 +196,35 @@ class Trainer:
                               if K > 1 else
                               make_resident_step(self.model, cfg))
 
-    def _resident_calls(self, np_rng: np.random.RandomState):
+    def _resident_calls(self, np_rng: np.random.RandomState,
+                        saved: Optional[dict] = None):
         """The epoch's resident calls in order, as (feed, row offset,
-        steps), and its examples: each feed's permutation drawn from
-        np_rng in feed order, then (buckets) the slots' order (JAX
-        :245-250, :321-340)."""
+        steps, rows), and the layout an autosave keeps (perm, n_use,
+        n_calls, n_tail) of the one unbucketed feed: each feed's
+        permutation drawn from np_rng in feed order, then (buckets) the
+        slots' order (JAX :245-250, :321-340); or a resumed epoch's
+        saved layout, drawing nothing."""
         cfg = self.cfg
         B, K = cfg.batch_size, cfg.train_steps_per_call
-        slots, n_examples = [], 0
+        slots, layout = [], None
         for feed, elig in self.feeds:
-            perm, n_use, n_calls, n_tail = epoch_permutation(
-                elig, np_rng, B, K, cfg.drop_remainder_min)
+            if saved is not None:
+                layout = (saved["perm"], saved["n_use"], saved["n_calls"],
+                          saved["n_tail"])
+            else:
+                layout = epoch_permutation(elig, np_rng, B, K,
+                                           cfg.drop_remainder_min)
+            perm, n_use, n_calls, n_tail = layout
             if n_use:       # a drop can leave a bucket without batches
                 feed.set_epoch(perm, n_use)
-            n_examples += n_use
-            slots += [(feed, c * K * B, K) for c in range(n_calls)]
-            slots += [(feed, (n_calls * K + t) * B, 1)
-                      for t in range(n_tail)]
+            offsets = ([(c * K * B, K) for c in range(n_calls)]
+                       + [((n_calls * K + t) * B, 1) for t in range(n_tail)])
+            slots += [(feed, off, k, max(0, min(k * B, n_use - off)))
+                      for off, k in offsets]
         if self.bucketed:
             order = np_rng.permutation(len(slots)) if slots else []
             slots = [slots[i] for i in order]
-        return slots, n_examples
+        return slots, layout
 
     def _refresh_bn(self, np_rng: np.random.RandomState,
                     generator: torch.Generator) -> float:
@@ -228,9 +254,6 @@ class Trainer:
             np_rng: Optional[np.random.RandomState] = None,
             resume: bool = False) -> "Trainer":
         cfg = self.cfg
-        if resume:
-            raise NotImplementedError(
-                "resume waits for ROADMAP queue 1 item 11 (host remainder)")
         if valid_num_ngs is None:
             valid_num_ngs = cfg.valid_num_ngs
         if cfg.need_sample and cfg.train_num_ngs < 1:
@@ -246,6 +269,17 @@ class Trainer:
         generator.manual_seed(cfg.seed if cfg.seed is not None
                               else int(time.time()))
 
+        if cfg.write_histograms and not cfg.summaries_dir:
+            self.log("WARNING: write_histograms is set but summaries_dir "
+                     "is empty — no histograms will be written")
+        if (cfg.write_histograms and cfg.summaries_dir
+                and self._hist_step is None):
+            self._hist_step = make_histogram_step()
+            # a fixed probe batch keeps the distributions comparable
+            # across steps (JAX :476-484)
+            self._hist_probe = to_device(next(train_loader.train_batches(
+                cfg.batch_size, np.random.RandomState(0))), self.device)
+
         B, K = cfg.batch_size, cfg.train_steps_per_call
         multi = self.multi_step
         single = self.train_step if multi is None else multi.step
@@ -256,11 +290,22 @@ class Trainer:
         best_metric = 0.0
         self.best_epoch = 0
         step = 0
-        for epoch in range(1, cfg.epochs + 1):
+        start_epoch = 1
+        saved = self._resume_info(resident) if resume else None
+        if saved is not None:
+            np_rng = saved["np_rng"]
+            generator.set_state(saved["rng"])
+            best_metric = saved["best_metric"]
+            self.best_epoch = saved["best_epoch"]
+            step = saved["step"]
+            start_epoch = saved["epoch"]
+        self._best_metric = best_metric
+        for epoch in range(start_epoch, cfg.epochs + 1):
             t0 = time.time()
             n_steps, n_examples = 0, 0
             epoch_loss = None
             refresh_s = None
+            first = saved if epoch == start_epoch else None
 
             def counted(batches):
                 nonlocal n_examples
@@ -281,10 +326,18 @@ class Trainer:
                              f"data_loss: {data_avg:.4f}")
                     self.summary.scalars(step, {"loss": loss_avg,
                                                 "data_loss": data_avg})
+                    self._maybe_histograms(step)
 
+            autosave_every = cfg.autosave_every_calls
             if resident:
-                calls, n_examples = self._resident_calls(np_rng)
-                for feed, offset, k in calls:
+                layout_saved = (first if first is not None
+                                and first["n_calls"] >= 0 else None)
+                calls, layout = self._resident_calls(np_rng, layout_saved)
+                calls_done = (layout_saved["calls_done"]
+                              if layout_saved is not None else 0)
+                for i in range(calls_done, len(calls)):
+                    feed, offset, k, rows = calls[i]
+                    n_examples += rows
                     if K > 1:
                         self.state, parts = self.resident_step(
                             self.state, feed, offset, generator, k)
@@ -293,15 +346,26 @@ class Trainer:
                         self.state, parts = self.resident_step(
                             self.state, feed, offset, generator)
                         emit(1, parts.loss, parts.data_loss)
+                    if autosave_every and (i + 1) % autosave_every == 0:
+                        self._autosave(epoch, i + 1, step, generator,
+                                       np_rng, layout, epoch_loss)
                 if self.bucketed:
                     refresh_s = self._refresh_bn(np_rng, generator)
             else:
+                # the loaders draw the permutation inside the iterator,
+                # so an autosave keeps the epoch-start RandomState and a
+                # resume skips the calls done on the host (JAX :556-578)
+                np_mt0 = np_rng.get_state()
+                calls_done = (first["calls_done"] if first is not None
+                              and first["mode"] == "stream" else 0)
                 if multi is not None:
                     items = train_loader.train_batches_stacked(
                         B, K, np_rng, min_seq_length=cfg.min_seq_length)
                 else:
                     items = train_loader.train_batches(
                         B, np_rng, min_seq_length=cfg.min_seq_length)
+                for _ in range(calls_done):     # no device work
+                    next(items, None)
                 for item in device_batches(counted(items), self.device,
                                            cfg.prefetch_batches):
                     if item.users.ndim == 2:    # [K, B, ...] stacked
@@ -312,6 +376,10 @@ class Trainer:
                         self.state, parts = single(self.state, item,
                                                    generator)
                         emit(1, parts.loss, parts.data_loss)
+                    calls_done += 1
+                    if autosave_every and calls_done % autosave_every == 0:
+                        self._autosave_stream(epoch, calls_done, step,
+                                              generator, np_mt0, epoch_loss)
             mean_loss = (epoch_loss.item() / n_steps if n_steps
                          else float("nan"))
             train_time = time.time() - t0
@@ -338,6 +406,7 @@ class Trainer:
             progress = False
             if valid_res[cfg.eval_metric] > best_metric:
                 best_metric = valid_res[cfg.eval_metric]
+                self._best_metric = best_metric
                 self.best_epoch = epoch
                 progress = True
             elif (cfg.early_stop > 0
@@ -348,8 +417,97 @@ class Trainer:
             if cfg.save_model and cfg.model_dir and progress:
                 self.save(os.path.join(cfg.model_dir, f"epoch_{epoch}"))
 
+            if autosave_every and epoch < cfg.epochs:
+                # the epoch boundary: the next epoch starts from the
+                # restored RandomState (a kill in the eval or early in
+                # the next epoch resumes here; n_calls = -1)
+                if resident:
+                    self._autosave(epoch + 1, 0, step, generator, np_rng,
+                                   (np.zeros(0, np.int32), 0, -1, -1), None)
+                else:
+                    self._autosave_stream(epoch + 1, 0, step, generator,
+                                          np_rng.get_state(), None)
+
+        if cfg.autosave_every_calls and cfg.model_dir:
+            # a finished fit is not resumed into
+            shutil.rmtree(self._autosave_dir(), ignore_errors=True)
         self.log(f"best epoch: {self.best_epoch}")
         return self
+
+    def _resume_info(self, resident: bool) -> Optional[dict]:
+        """Load `<model_dir>/autosave` for fit(resume=True): the run
+        state, with the state restored from it, or None (a fresh start)
+        when there is none; the refusals are JAX's (:491-521)."""
+        cfg = self.cfg
+        if not cfg.model_dir:
+            raise ValueError("resume requires model_dir")
+        info = checkpoint.load_run_state(self._autosave_dir())
+        if info is None:
+            self.log("resume requested but no autosave found — "
+                     "starting fresh")
+            return None
+        stream_saved = info["mode"] == "stream"
+        if stream_saved and resident:
+            raise ValueError(
+                "the autosave was written by the STREAMING path "
+                "but this run resolves to resident data — pass "
+                "resident_data=off to resume it")
+        if not stream_saved and not resident:
+            raise ValueError(
+                "the autosave was written by the RESIDENT path "
+                "but this run streams — pass resident_data="
+                "auto/on to resume it")
+        if cfg.length_buckets != "off":
+            raise ValueError(
+                "mid-epoch resume is not supported with "
+                "length_buckets (the autosaved run state stores "
+                "a single epoch permutation)")
+        self.load(os.path.join(self._autosave_dir(), "state"))
+        self.log(f"resuming at epoch {info['epoch']}, call "
+                 f"{info['calls_done']} (step {info['step']})")
+        return info
+
+    def _autosave_dir(self) -> str:
+        return os.path.join(self.cfg.model_dir, "autosave")
+
+    def _autosave(self, epoch, calls_done, step, generator, np_rng, layout,
+                  total) -> None:
+        """The resident path's autosave (JAX :431-447): the state, the
+        RandomState after this epoch's draws, and the epoch's layout."""
+        perm, n_use, n_calls, n_tail = layout
+        self.save(os.path.join(self._autosave_dir(), "state"))
+        checkpoint.save_run_state(
+            self._autosave_dir(), epoch=epoch, calls_done=calls_done,
+            step=step, generator=generator, np_rng=np_rng,
+            perm=np.asarray(perm), n_use=n_use, n_calls=n_calls,
+            n_tail=n_tail, total=0.0 if total is None else total.item(),
+            data_total=0.0, best_metric=self._best_metric,
+            best_epoch=self.best_epoch)
+
+    def _autosave_stream(self, epoch, calls_done, step, generator, np_mt0,
+                         total) -> None:
+        """The streamed path's autosave (JAX :415-429): the state and the
+        epoch-start RandomState `np_mt0`."""
+        self.save(os.path.join(self._autosave_dir(), "state"))
+        start = np.random.RandomState(0)
+        start.set_state(np_mt0)
+        checkpoint.save_run_state(
+            self._autosave_dir(), epoch=epoch, calls_done=calls_done,
+            step=step, generator=generator, np_rng=start,
+            perm=np.zeros(0, np.int32), n_use=0, n_calls=-1, n_tail=0,
+            total=0.0 if total is None else total.item(), data_total=0.0,
+            best_metric=self._best_metric, best_epoch=self.best_epoch,
+            mode="stream")
+
+    def _maybe_histograms(self, step: int) -> None:
+        """The activation histograms on the probe batch (JAX :405-413):
+        the counts come off the device, the buckets' edges from lo, hi."""
+        if self._hist_step is None:
+            return
+        hists = self._hist_step(self.state.model, self._hist_probe)
+        self.summary.histograms(step, {
+            tag: tuple(t.cpu().numpy() for t in parts)
+            for tag, parts in hists.items()})
 
     def save(self, path: str) -> None:
         checkpoint.save_state(os.path.abspath(path), self.state)

@@ -6,7 +6,18 @@ every file nvcc reads: the source and the headers it includes by quotes
 on the CPU: nothing is compiled.
 """
 
+import os
+
+import torch
+
 from clsr_tpu_torch.ops import _build
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def _csrc(tmp_path, monkeypatch):

@@ -5,7 +5,8 @@ JAX model's variables (perturbed away from their inits so that biases,
 BN affines and running statistics all matter), and numpy batches that
 both sides read.  The tests here hold the port to its import rule: no
 JAX, flax, optax, orbax or clsr_tpu module, by a subprocess import and by
-a scan of the sources.
+a scan of the sources; nor TensorFlow or tensorboard, whose event files
+the port writes itself.
 """
 
 import ast
@@ -25,6 +26,14 @@ from clsr_tpu.data.batch import Batch as JaxBatch
 from clsr_tpu.models.registry import get_model_class as jax_model_class
 from clsr_tpu_torch.config import load_config as port_load_config
 from clsr_tpu_torch.data.batch import Batch as PortBatch
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -117,9 +126,10 @@ def jax_clsr(jcfg, seed=0, B=2, G=8):
                                     n_items=N_ITEMS, n_cates=N_CATES)
     sample = jax_batch(numpy_batch(np.random.RandomState(seed), B, G,
                                    jcfg.max_seq_length))
-    variables = model.init({"params": jax.random.PRNGKey(seed),
-                            "dropout": jax.random.PRNGKey(seed + 1)},
-                           sample, train=True)
+    # jitted: the same values as an op-by-op init, a third of the time
+    variables = jax.jit(model.init, static_argnames="train")(
+        {"params": jax.random.PRNGKey(seed),
+         "dropout": jax.random.PRNGKey(seed + 1)}, sample, train=True)
     rng = np.random.RandomState(seed + 7)
     params = perturb(variables["params"], rng)
     stats = perturb(variables.get("batch_stats", {}), rng)
@@ -138,7 +148,8 @@ def to_np(t) -> np.ndarray:
 
 
 # ----------------------------------------------------------- import rules
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clsr_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clsr_tpu",
+              "tensorflow", "tensorboard")
 
 
 def _forbidden(module: str) -> bool:
@@ -156,6 +167,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "import clsr_tpu_torch.cli, clsr_tpu_torch.native\n"
             "import clsr_tpu_torch.training.trainer\n"
             "import clsr_tpu_torch.data.synthetic\n"
+            "import clsr_tpu_torch.utils.summaries\n"
+            "import clsr_tpu_torch.utils.profiling\n"
+            "import clsr_tpu_torch.ops.long_context\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))\n")

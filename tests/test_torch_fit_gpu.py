@@ -49,6 +49,7 @@ On the 200-user synthetic set at the clsr.yaml widths, batch 100:
     running statistics 1e-5, K5 bit-identical to its plain version.
 """
 
+import os
 import dataclasses
 
 import numpy as np
@@ -76,6 +77,14 @@ from clsr_tpu_torch.training.steps import (LOSS_FIELDS, make_eval_step_fn,
                                            make_multi_train_step,
                                            make_train_step, stack_batches)
 from clsr_tpu_torch.training.trainer import Trainer
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 pytestmark = pytest.mark.gpu
 TEST_NGS = 19

@@ -21,6 +21,7 @@ test 1 + 9 groups):
   * the JSONL summary writer, and the refusals of the unported writers.
 """
 
+import os
 import dataclasses
 import filecmp
 import gc
@@ -45,11 +46,20 @@ from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.loader import PaddedView, SequenceLoader
 from clsr_tpu_torch.data.parser import ParsedDataset, parse_file
 from clsr_tpu_torch.data.prefetch import prefetch_to_device
+from clsr_tpu_torch.utils import summaries
 from clsr_tpu_torch.data.synthetic import (write_synthetic_dataset,
                                            write_synthetic_dataset_fast)
 from clsr_tpu_torch.data.vocab import load_vocab
 from clsr_tpu_torch.ops import _build
 from clsr_tpu_torch.utils.summaries import SummaryWriter
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 SPLITS = ("train", "valid", "test")
 INT_FIELDS = ("labels", "users", "items", "cates", "times", "offsets",
@@ -281,8 +291,25 @@ def test_summary_writer(tmp_path):
     SummaryWriter(None).scalars(1, {"loss": 1.0})      # no dir: a no-op
 
 
-def test_unported_summary_writers_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SummaryWriter(str(tmp_path), write_tfevents=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SummaryWriter(str(tmp_path)).histograms(1, {})
+def test_summary_writers_write_tfevents_and_histograms(tmp_path):
+    """Ported: an event file beside the JSONL, histogram records in both
+    (against JAX's, tests/test_torch_summaries.py); without a log
+    directory nothing is written."""
+    w = SummaryWriter(str(tmp_path), write_tfevents=True)
+    w.scalars(2, {"loss": 0.5})
+    w.histograms(2, {"h": (np.array([3, 0, 1], np.int32), -1.0, np.inf,
+                           2)})
+    w.close()
+    (path,) = tmp_path.glob("events.out.tfevents.*")
+    events = summaries.read_events(str(path))
+    assert events[0]["file_version"] == "brain.Event:2"
+    assert [v["tag"] for e in events[1:] for v in e["values"]] == ["loss",
+                                                                   "h"]
+    # hi = inf is clamped to 0 (strict JSON): the edges split [-1, 0]
+    np.testing.assert_allclose(events[2]["values"][0]["tensor"], [
+        [-1.0, -2 / 3, 3.0], [-2 / 3, -1 / 3, 0.0], [-1 / 3, 0.0, 1.0]],
+        rtol=0, atol=1e-15)
+    rec = json.loads(open(tmp_path / "scalars.jsonl").readlines()[-1])
+    assert rec == {"step": 2, "hist": "h", "lo": -1.0, "hi": 0.0,
+                   "counts": [3, 0, 1], "nonfinite": 2}
+    SummaryWriter(None).histograms(1, {"h": (np.zeros(2), 0.0, 1.0)})

@@ -53,6 +53,7 @@ through `kernel_check.compare_steps`, one launch each and K5 once.
 TF32 is off on both sides.
 """
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -70,6 +71,14 @@ from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.serving import ScoreRequest, ScoringService
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import make_train_step
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 pytestmark = pytest.mark.gpu
 

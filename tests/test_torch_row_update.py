@@ -17,12 +17,21 @@ types, or of another type, are refused (K4 takes f32 only).  No launch
 is counted on the CPU.
 """
 
+import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from clsr_tpu_torch.ops import row_update as ru
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 N, W = 37, 6
 

@@ -14,6 +14,7 @@
   * a second backward gives the same bits.
 """
 
+import os
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +26,14 @@ from clsr_tpu_torch.ops.segment_sum import (INT32_MAX, lookup, run_lengths,
                                             segment_sum,
                                             segment_sum_reference,
                                             sorted_runs)
+
+# Six xdist workers, each with torch's default intra-op pool (a thread a
+# core), oversubscribe the cores several times over; under xdist a
+# worker keeps one thread.  Run alone (or on the card) torch keeps its
+# default.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 
 # (name, run lengths, D)
 SUM_CASES = [

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 import clsr_tpu.training.steps as jax_steps
+from clsr_tpu import cli as jax_cli
 from clsr_tpu.data.loader import SequenceLoader as JaxLoader
 from clsr_tpu.data.parser import parse_file as jax_parse_file
 from clsr_tpu.data.vocab import load_vocab as jax_load_vocab
@@ -72,6 +73,7 @@ from clsr_tpu_torch.training import kernel_check
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.lazy_adam import LazyAdamState, is_pmn
 from clsr_tpu_torch.training.trainer import Trainer
+from clsr_tpu_torch.utils import summaries
 
 from test_torch_common import (REPO, perturb, port_cfg, small_jax_cfg,
                                to_np)
@@ -439,9 +441,31 @@ def _printed_dict(out):
 
 
 def test_cli_end_to_end_then_only_test(tmp_path, capsys):
+    """Also the host remainder's flags on the same run: --resume with no
+    autosave starts fresh, --autosave_every_calls leaves no autosave
+    behind a finished fit, --write_histograms and --write_tfevents
+    write JSONL histogram records and an event file that the port's
+    reader reads back (TensorFlow reads them in
+    tests/test_torch_summaries.py), and change no number."""
     assert cli.main(_cli_args(tmp_path, "--device", "cpu",
-                              "--write_prediction_to_file")) == 0
+                              "--write_prediction_to_file", "--resume",
+                              "--autosave_every_calls", "3",
+                              "--write_histograms",
+                              "--write_tfevents")) == 0
     out = capsys.readouterr().out
+    assert "no autosave found" in out
+    assert not (tmp_path / "model" / "synthetic-clsr" / "autosave").exists()
+    summary = tmp_path / "summary" / "synthetic-clsr"
+    hists = [json.loads(line) for line in open(summary / "scalars.jsonl")
+             if '"hist"' in line]
+    assert hists and {h["step"] for h in hists} == {5 * i for i in range(
+        1, len(hists) // len({h["hist"] for h in hists}) + 1)}
+    assert {h["hist"] for h in hists} >= {"logit", "alpha", "att_fea2",
+                                          "item_embedding_output"}
+    (events_file,) = (summary).glob("events.out.tfevents.*")
+    events = summaries.read_events(str(events_file))
+    tags = {v["tag"] for e in events for v in e.get("values", [])}
+    assert tags >= {"loss", "data_loss", "valid/wauc", "logit"}
     res = _printed_dict(out)
     for key in ("auc", "logloss", "mean_mrr", "ndcg@2", "hit@6", "wauc"):
         assert 0.0 <= res[key] <= 1.0 or key == "logloss", key
@@ -478,11 +502,11 @@ def test_cli_module_runs_and_refuses_without_a_card(tmp_path):
 
 
 UNPORTED = {
-    "raw_data": (["--raw_data", "x.csv"], 11),
-    "packed": (["--data_format", "packed"], 11),
-    "etl_processes": (["--etl_processes", "4"], 11),
-    "etl_native": (["--etl_native"], 11),
-    "etl_format": (["--etl_format", "packed"], 11),
+    "raw_data": (["--raw_data", "x.csv"], "11b"),
+    "packed": (["--data_format", "packed"], "11b"),
+    "etl_processes": (["--etl_processes", "4"], "11b"),
+    "etl_native": (["--etl_native"], "11b"),
+    "etl_format": (["--etl_format", "packed"], "11b"),
     "data_parallel": (["--data_parallel", "2"], 10),
     "model_parallel": (["--model_parallel", "2"], 10),
     "mesh_routing": (["--mesh_update_routing", "owner"], 10),
@@ -505,10 +529,19 @@ UNPORTED = {
 
 
 # ROADMAP items ported since their flags were refused: those flags now
-# parse and reach the Config, and those settings fit (items 8 and 8b
-# are the two halves of the model zoo)
-PORTED_ITEMS = {3, 5, 6, 8, "8b"}
+# parse and reach the Config (--resume reaches fit: the parsed args), and
+# those settings fit (items 8 and 8b are the two halves of the model
+# zoo; item 11's ETL and data formats stay, as item 11b).  Under
+# --attention_block_size the config refuses clsr.yaml's enable_bn, as
+# the JAX CLI's does (REFUSED_BY_CONFIG).
+PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, 11}
+REFUSED_BY_CONFIG = {"attention_block": "requires enable_bn: False"}
 PORTED_FIELDS = {"model": ("model_type", "caser"),
+                 "attention_block": ("attention_block_size", 64),
+                 "resume": ("resume", True),
+                 "autosave": ("autosave_every_calls", 5),
+                 "histograms": ("write_histograms", True),
+                 "tfevents": ("write_tfevents", True),
                  "resident_on": ("resident_data", "on"),
                  "length_buckets": ("length_buckets", "auto"),
                  "resident_round_rows": ("resident_round_rows", 1024),
@@ -526,7 +559,20 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
     if item in PORTED_ITEMS:
         cli.refuse_unported(parsed)
         field, value = PORTED_FIELDS[name]
-        assert getattr(cli.make_config(parsed), field) == value
+        if name in REFUSED_BY_CONFIG:
+            jax_args = jax_cli.build_arg_parser().parse_args(
+                _cli_args(tmp_path, *flags))
+            with pytest.raises(ValueError) as want:
+                jax_cli.make_config(jax_args)
+            with pytest.raises(ValueError) as got:
+                cli.make_config(parsed)
+            assert str(got.value) == str(want.value)
+            assert REFUSED_BY_CONFIG[name] in str(got.value)
+            assert getattr(parsed, field) == value
+            return
+        cfg = cli.make_config(parsed)
+        assert getattr(cfg if hasattr(cfg, field) else parsed,
+                       field) == value
         return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}\\b"):
@@ -536,13 +582,15 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(resident_data="on"), 5), (dict(data_parallel=2), 10),
-    (dict(autosave_every_calls=2, model_dir="m"), 11),
-    (dict(write_histograms=True), 11)])
-def test_trainer_refuses_unported_settings(data, kw, item):
+    (dict(autosave_every_calls=2, model_dir="<tmp>"), 11),
+    (dict(write_histograms=True, summaries_dir="<tmp>"), 11)])
+def test_trainer_refuses_unported_settings(data, tmp_path, kw, item):
     _, pv, port, _ = data
     model = _port_trainer(pv).model
+    kw = {k: str(tmp_path) if v == "<tmp>" else v for k, v in kw.items()}
     if item in PORTED_ITEMS:        # it fits, on the resident path
-        t = Trainer(model, model.cfg.replace(epochs=1, **kw),
+        t = Trainer(model, model.cfg.replace(**{"epochs": 1,
+                                                "resident_data": "on", **kw}),
                     log=lambda *a: None)
         t.fit(port["train"], port["valid"])
         assert t.feeds is not None and t.epoch_stats[0]["steps"] > 0
@@ -552,6 +600,8 @@ def test_trainer_refuses_unported_settings(data, kw, item):
 
 
 def test_fit_resume_raises(data):
+    """Resume is ported (tests/test_torch_resume.py); without model_dir
+    it raises as JAX's does."""
     _, pv, port, _ = data
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="resume requires model_dir"):
         _port_trainer(pv).fit(port["train"], port["valid"], resume=True)
