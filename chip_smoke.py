@@ -4,8 +4,9 @@
 
 Phases, each fatal on failure:
   1. card check: CUDA present, `nvidia-smi` name and power limit, TF32 off;
-  2. build every CUDA kernel from csrc/ and the C++ TSV parser from
-     native/ (nvcc and g++, one per source, all at once) and print the
+  2. build every CUDA kernel from csrc/ and the C++ host library from
+     native/ (the TSV parser, the ETL's expanding-history writer and CSV
+     reader; nvcc and g++, one per source, all at once) and print the
      build seconds and ptxas' register/spill lines;
   3. K1 (fused eval scorer) against its plain PyTorch version at the
      two serving buckets B=64 x G=128 and B=8 x G=16, L=50, D=80, Dk=40,
@@ -313,6 +314,32 @@ Phases, each fatal on failure:
      on both sides equal; from each side's own forward no more values
      in another bucket than lie within 1e-3 of a bucket edge), and the
      event files read back by `utils/summaries.py` `read_events`.
+ 18. the ETL and the packed format, from a raw log to a fit.  After
+     phase 17: (a) a seeded raw log in the public UserBehavior.csv
+     schema (uid,iid,category,behavior,ts), 6,000,000 rows (a depth cut
+     of the public file's 100,150,807) of ~59,000 users at its ~101 rows
+     a user, Zipf-like item popularity over 4,162,024 item ids of 9,439
+     categories (0.5% of items show a second category), each user's 1-5
+     favoured categories taking 80% of their rows, pv 89.5% and cart /
+     fav / buy, times over 2017-11-25 .. 12-03 with 0.1% outside;
+     (b) `data/etl.py` `data_preprocessing` four times from it (seed 18,
+     valid 1 + 4, test 1 + 99): packed, then the TSVs by the Python
+     engine, by C++ (`engine="native"`) and by 4 worker processes; each
+     stage's seconds (read, filters, instances, split, expand or pack,
+     vocab, negatives); the three vocabs equal across the four runs, the
+     three train TSVs byte-identical, the packed train view equal to the
+     parsed train TSV's field for field; the TSVs' MB against
+     packed.npz's, the TSV parse s against the pack's load + views s,
+     the process's peak RSS; (c) run B's configuration (K2 and its
+     backward, K3a/K3b, K1, lazyadam with K5, K = 32 graphed) at B =
+     400: 3 graphed calls fed from the packed loader and from the TSV
+     loader, every state tensor bit for bit; then one epoch and the
+     1 + 99 test eval from the pack, the counts read around each (as run
+     B's), the valid and test metrics (test auc above 0.5) and
+     examples/s; (d) `clsr_tpu_torch.cli` as a user runs it from the
+     raw log with --etl_format packed (the defaults, one epoch), then
+     --only_test on its directory: no new ETL, the same test dict, the
+     valid auc above 0.5.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -322,8 +349,10 @@ eval, and the phase-14 paths `p14_bf16_train` (the timed bf16 calls),
 calls), the phase-15 paths `p15_zoo_serve` (the served dispatches),
 `p15_zoo_train` (the graphed calls) and `p15_zoo_fit` (the CLI epochs
 and their evals), and phase 16's `p16_zoo_serve`, `p16_zoo_train` and
-`p16_zoo_fit` likewise, and phase 17's `p17_long_train` (the graphed
-call), `p17_long_serve` and `p17_resume_fit` (the resumed fit)), the
+`p16_zoo_fit` likewise, phase 17's `p17_long_train` (the graphed
+call), `p17_long_serve` and `p17_resume_fit` (the resumed fit), and
+phase 18's `p18_etl_fit` (the epoch and test eval from the pack) and
+`p18_cli` (the CLI run from the raw log and its --only_test)), the
 card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
@@ -331,17 +360,20 @@ chiprun_out/chip_smoke.json.
 
 import ast
 import contextlib
+import filecmp
 import io
 import itertools
 import json
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from datetime import datetime
 
 import numpy as np
 import torch
@@ -4544,6 +4576,392 @@ def train_and_evaluate(smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- phase 18
+# the ETL from a raw Taobao-format log (UserBehavior.csv's schema), the
+# packed format, a fit on the ETL's output and the CLI from the raw log
+# a tenth of UserBehavior.csv's 100,150,807 rows took phase 18 164 s on
+# the card, over its 120 s: depth cut to 6,000,000 (~60,000 users)
+P18_ROWS = 6_000_000
+P18_EVENTS_A_USER = 101        # the public file's rows a user
+P18_ITEMS, P18_CATES = 4_162_024, 9_439   # the public file's counts
+P18_ID_RANGES = (1_018_011, 5_163_070, 5_162_429)   # uid, iid, category
+P18_BEHAVIOURS = (("pv", 0.895), ("cart", 0.055), ("fav", 0.029),
+                  ("buy", 0.021))
+P18_ZIPF = (1.3, 100.0)        # item popularity (rank + r0)^-a
+P18_INTEREST = 0.8             # events in a user's 1-5 favoured categories
+P18_SECOND_CATE = 0.005        # items that also show a second category
+P18_OUTSIDE = 0.001            # rows outside 2017-11-25 .. 12-03
+P18_SEED = 18
+P18_B = 400                    # (c): clsr.yaml's train batch
+P18_CALLS = 3                  # (c): graphed calls from each loader
+P18_ETL_RUNS = (("packed", dict(output_format="packed")),
+                ("python", {}), ("native", dict(engine="native")),
+                ("processes", dict(processes=4)))
+P18_VIEW_FIELDS = ("users", "items", "cates", "labels", "lengths",
+                   "item_hist", "cate_hist", "mask", "time_diff",
+                   "time_from_first", "time_to_now")
+ETL_RE = re.compile(r"^etl packed: ([\d.]+)s \((.*)\)$", re.M)
+
+
+def _digits(v, width):
+    """[n, width] ASCII digits of non-negative ints, right-aligned, the
+    leading zeros as 0 bytes (dropped when the rows are joined)."""
+    out = np.zeros((len(v), width), np.uint8)
+    for d in range(width):
+        p = 10 ** (width - 1 - d)
+        out[:, d] = np.where((v >= p) | (d == width - 1), v // p % 10 + 48,
+                             0)
+    return out
+
+
+def csv_bytes(cols):
+    """One CSV line a row of `cols` (int arrays, or (codes, strings))."""
+    parts = []
+    for c in cols:
+        if isinstance(c, tuple):
+            codes, strings = c
+            table = np.zeros((len(strings), max(map(len, strings))),
+                             np.uint8)
+            for i, s in enumerate(strings):
+                table[i, :len(s)] = np.frombuffer(s.encode(), np.uint8)
+            parts.append(table[codes])
+        else:
+            parts.append(_digits(c, len(str(int(c.max())))))
+        parts.append(np.full((len(parts[-1]), 1), ord(","), np.uint8))
+    parts[-1][:] = ord("\n")
+    mat = np.concatenate(parts, axis=1)
+    return mat[mat != 0].tobytes()
+
+
+def _sorted_search(cum, x):
+    """np.searchsorted(cum, x), the queries taken in order (a cached
+    walk of cum instead of random probes)."""
+    o = np.argsort(x)
+    out = np.empty(len(x), np.int64)
+    out[o] = np.searchsorted(cum, x[o])
+    return out
+
+
+def write_user_behavior(path, n_rows, seed, chunk=1_000_000):
+    """A seeded raw log in the public UserBehavior.csv schema
+    (uid,iid,category,behavior,ts; no header): ~101 rows a user; items
+    of Zipf-like popularity over 4,162,024 ids, each of one of 9,439
+    categories (0.5% of items show a second one on half their rows);
+    each user's 1-5 favoured categories take 80% of their rows (the
+    item by popularity within the category), the rest by global
+    popularity; pv 89.5%, cart, fav, buy; times uniform over 2017-11-25
+    .. 12-03 (local time, as the ETL's clamp), 0.1% of rows outside."""
+    rng = np.random.RandomState(seed)
+    n_users = max(1, round(n_rows / P18_EVENTS_A_USER))
+    uid_max, iid_max, cid_max = P18_ID_RANGES
+    uids = np.sort(rng.choice(uid_max, n_users, replace=False) + 1)
+    item_ids = rng.choice(iid_max, P18_ITEMS, replace=False) + 1  # by rank
+    cate_ids = rng.choice(cid_max, P18_CATES, replace=False) + 1
+    wc = 1.0 / np.arange(1, P18_CATES + 1)
+    cat_of = rng.choice(P18_CATES, P18_ITEMS, p=wc / wc.sum())
+    a, r0 = P18_ZIPF
+    w = (np.arange(P18_ITEMS) + r0) ** -a
+    order = np.lexsort((np.arange(P18_ITEMS), cat_of))  # (category, rank)
+    cum = np.cumsum(w[order])
+    base = np.concatenate([[0.0], cum])
+    start = np.searchsorted(cat_of[order], np.arange(P18_CATES))
+    end = np.append(start[1:], P18_ITEMS)
+    mass = base[end] - base[start]
+    gcum = np.cumsum(w)
+    gcum /= gcum[-1]
+    second = rng.uniform(size=P18_ITEMS) < P18_SECOND_CATE
+    n_fav = rng.randint(1, 6, n_users)
+    fav = rng.choice(P18_CATES, (n_users, 5), p=mass / mass.sum())
+    lo = int(datetime(2017, 11, 25).timestamp())
+    hi = int(datetime(2017, 12, 3, 23, 59, 59).timestamp())
+    beh_cum = np.cumsum([p for _, p in P18_BEHAVIOURS])
+    names = [b for b, _ in P18_BEHAVIOURS]
+    with open(path, "wb") as f:
+        for c0 in range(0, n_rows, chunk):
+            n = min(chunk, n_rows - c0)
+            u = rng.randint(n_users, size=n)
+            c = fav[u, (rng.uniform(size=n) * n_fav[u]).astype(np.int64)]
+            x = base[start[c]] + rng.uniform(size=n) * mass[c]
+            in_cat = order[np.minimum(_sorted_search(cum, x), end[c] - 1)]
+            glob = np.minimum(_sorted_search(gcum, rng.uniform(size=n)),
+                              P18_ITEMS - 1)
+            item = np.where(rng.uniform(size=n) < P18_INTEREST, in_cat,
+                            glob)
+            cat = cat_of[item]
+            flip = second[item] & (rng.uniform(size=n) < 0.5)
+            cat[flip] = (cat[flip] + 1 + rng.randint(
+                P18_CATES - 1, size=int(flip.sum()))) % P18_CATES
+            ts = rng.randint(lo, hi + 1, n)
+            out = rng.uniform(size=n) < P18_OUTSIDE
+            ts[out] += np.where(rng.uniform(size=int(out.sum())) < 0.5,
+                                -3 * 86400, 2 * 86400)
+            beh = np.searchsorted(beh_cum, rng.uniform(size=n) * beh_cum[-1])
+            f.write(csv_bytes([uids[u], item_ids[item], cate_ids[cat],
+                               (beh, names), ts]))
+    return n_users
+
+
+def _mb(*paths):
+    return sum(os.path.getsize(p) for p in paths) / 1e6
+
+
+def _peak_rss_mb():
+    """Peak resident memory of this process so far, MB (the ETL's worker
+    processes are not in it)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def p18_etl(raw, root, smi):
+    """(b) The ETL four times from the raw log: packed, then the TSVs by
+    the Python engine, by C++ and by 4 worker processes; the vocabs of
+    every run equal, the three train TSVs byte-identical, the packed
+    train view equal to the parsed train TSV's, field for field.
+    Returns (packed loaders, the TSV train loader, vocab sizes, the
+    numbers)."""
+    from clsr_tpu_torch.data import etl, packed
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.parser import parse_file, time_range_for_unit
+    from clsr_tpu_torch.data.vocab import load_vocab
+
+    runs, files = {}, {}
+    for name, kw in P18_ETL_RUNS:
+        d = os.path.join(root, name)
+        f = {s: os.path.join(d, f"{s}_data") for s in ("train", "valid",
+                                                        "test")}
+        f.update({v: os.path.join(d, f"{v}_vocab.pkl")
+                  for v in ("user", "item", "category")})
+        t0 = time.perf_counter()
+        stages = etl.data_preprocessing(
+            raw, f["train"], f["valid"], f["test"], f["user"], f["item"],
+            f["category"], valid_num_ngs=4, test_num_ngs=99,
+            dataset="taobao", seed=P18_SEED, **kw)
+        wall = time.perf_counter() - t0
+        vocabs = [load_vocab(f[v]) for v in ("user", "item", "category")]
+        runs[name] = dict(wall_s=wall, stages=stages,
+                          vocab_sizes=list(map(len, vocabs)),
+                          peak_rss_mb=_peak_rss_mb())
+        files[name] = (f, [list(v.mapping.items()) for v in vocabs])
+        log(f"phase 18 (b) etl {name}: {wall:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()) + f") | vocabs "
+            f"{runs[name]['vocab_sizes']} | the process's peak RSS so far "
+            f"{runs[name]['peak_rss_mb']:,.0f} MB")
+    same_vocabs = all(m == files["packed"][1] for _, m in files.values())
+    train = {n: files[n][0]["train"] for n in ("python", "native",
+                                               "processes")}
+    same_train = all(filecmp.cmp(train["python"], p, shallow=False)
+                     for p in train.values())
+    log(f"phase 18 (b): vocabs equal across the four runs: {same_vocabs}; "
+        f"train_data byte-identical across the three TSV engines: "
+        f"{same_train} ({_mb(train['python']):,.1f} MB)")
+    if not (same_vocabs and same_train):
+        raise AssertionError("phase 18 (b): the ETL runs disagree")
+    for n in ("native", "processes"):
+        shutil.rmtree(os.path.join(root, n))
+
+    f, _ = files["python"]
+    vocabs = [load_vocab(f[v]) for v in ("user", "item", "category")]
+    parsed, parse_s = {}, {}
+    for s in ("train", "valid", "test"):
+        t0 = time.perf_counter()
+        parsed[s] = parse_file(f[s], *vocabs)
+        parse_s[s] = time.perf_counter() - t0
+    tr = time_range_for_unit("s")
+    pack_path = os.path.join(root, "packed", packed.PACKED_FILENAME)
+    t0 = time.perf_counter()
+    pack = packed.load_packed(pack_path)
+    load_s = time.perf_counter() - t0
+    loaders, view_s = {}, {}
+    for s in ("train", "valid", "test"):
+        t0 = time.perf_counter()
+        loaders[s] = packed.make_loader(pack, s, TRAIN_L, tr)
+        view_s[s] = time.perf_counter() - t0
+    tsv_train = SequenceLoader(parsed["train"], TRAIN_L)
+    ref, got = tsv_train.view, loaders["train"].view
+    differ = [k for k in P18_VIEW_FIELDS
+              if not (getattr(got, k).dtype == getattr(ref, k).dtype
+                      and np.array_equal(getattr(got, k), getattr(ref, k)))]
+    n_lines = {s: len(parsed[s]) for s in parsed}
+    sizes = dict(tsv_mb=_mb(*(f[s] for s in ("train", "valid", "test"))),
+                 packed_mb=_mb(pack_path))
+    del parsed
+    log(f"phase 18 (b): the TSVs {sizes['tsv_mb']:,.1f} MB ({n_lines} "
+        f"lines) against packed.npz {sizes['packed_mb']:,.1f} MB "
+        f"({pack.n_events:,} events, lines {[len(s) for s in pack.splits.values()]}); "
+        f"parse (C++) {sum(parse_s.values()):.3f} s "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in parse_s.items())}) "
+        f"against load {load_s:.3f} s + views "
+        f"{sum(view_s.values()):.3f} s; the packed train view equals the "
+        f"parsed train TSV's in every field: {not differ} "
+        f"(differ: {differ}) | {smi}")
+    if differ:
+        raise AssertionError(f"phase 18 (b): the packed train view "
+                             f"differs in {differ}")
+    return loaders, tsv_train, tuple(map(len, vocabs)), dict(
+        runs=runs, lines=n_lines, parse_s=parse_s, load_s=load_s,
+        view_s=view_s, **sizes, events=int(pack.n_events))
+
+
+def p18_fit(loaders, tsv_train, sizes, root, smi):
+    """(c) Run B's configuration (K2 and its backward, K3a/K3b, K1,
+    lazyadam with K5, graphed K = 32) at B = 400: P18_CALLS graphed calls
+    fed from the packed loader and from the TSV loader, every state
+    tensor bit for bit; then one epoch and the 1 + 99 test eval from
+    the pack, counted."""
+    from clsr_tpu_torch import cli
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.evaluator import run_weighted_eval
+    from clsr_tpu_torch.training.kernel_check import counted
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_multi_train_step
+    from clsr_tpu_torch.training.trainer import Trainer
+
+    cfg = cli.make_config(cli.build_arg_parser().parse_args(
+        ["--dataset", "taobao", "--model", "CLSR", "--data_path", root,
+         "--seed", "7"])).replace(
+        use_pallas_scan=True, use_pallas_train_attention="on",
+        optimizer="lazyadam", epochs=1, resident_data="off",
+        batch_size=P18_B, model_dir=None, summaries_dir=None)
+    K = cfg.train_steps_per_call
+    states, gate_counts = {}, {}
+    for name, loader in (("packed", loaders["train"]), ("tsv", tsv_train)):
+        model = get_model_class("clsr")(cfg, *sizes)
+        state = create_train_state(model, cfg)
+        multi = make_multi_train_step(model, cfg, K)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        stacks = itertools.islice(
+            (b for b in loader.train_batches_stacked(
+                cfg.batch_size, K, np.random.RandomState(3))
+             if b.users.ndim == 2), P18_CALLS)
+
+        def calls():
+            n = 0
+            for b in stacks:
+                multi(state, to_device(b, "cuda"), gen)
+                n += 1
+            return n
+        n_calls, gate_counts[name] = counted(calls)
+        if n_calls != P18_CALLS:
+            raise AssertionError(f"phase 18 (c): {n_calls} calls from the "
+                                 f"{name} loader")
+        states[name] = state_tensors(state)
+        del model, state, multi
+    bad = differing(states["packed"], states["tsv"])
+    log(f"phase 18 (c): {P18_CALLS} graphed calls of K = {K} steps (B = "
+        f"{cfg.batch_size}) from the packed loader against the TSV loader: "
+        f"{len(states['tsv'])} state tensors, bit-identical "
+        f"{len(states['tsv']) - len(bad)} (differ: {bad[:5]}) | launches "
+        f"{gate_counts['packed']}")
+    if bad:
+        raise AssertionError("phase 18 (c): the packed and TSV fits differ")
+    del states
+
+    trainer = Trainer(get_model_class("clsr")(cfg, *sizes), cfg)
+    _, fit_counts = counted(lambda: trainer.fit(loaders["train"],
+                                                loaders["valid"]))
+    stats = trainer.epoch_stats[0]
+    steps = stats["steps"]
+    n_valid = -(-loaders["valid"].view.n_rows // 5
+                // max(1, cfg.batch_size // 5))
+    check_counts("phase 18 (c) epoch", fit_counts, dict(
+        row_scatter=steps, clsr_scan_backward=steps,
+        train_stats0=2 * steps, train_stats1=2 * steps,
+        eval_scorer=2 * steps, clsr_scan=steps + n_valid, row_sweep=0))
+    t0 = time.perf_counter()
+    res, test_counts = counted(lambda: run_weighted_eval(
+        trainer.eval_step, trainer.state.model, loaders["test"], cfg,
+        cfg.test_num_ngs))
+    test_s = time.perf_counter() - t0
+    groups = loaders["test"].view.n_rows // 100
+    n_test = -(-groups // max(1, cfg.batch_size // 100))
+    check_counts("phase 18 (c) test eval", test_counts,
+                 dict(eval_scorer=n_test, clsr_scan=n_test))
+    valid = trainer.eval_history[-1][1] if trainer.eval_history else {}
+    ex_s = stats["examples"] / stats["train_s"]
+    log(f"phase 18 (c): one epoch from the pack, {steps} steps, "
+        f"{stats['train_s']:.3f} s, {ex_s:,.1f} examples/s, mean loss "
+        f"{stats['mean_loss']:.5f}, valid {valid} | test eval of {groups:,} "
+        f"groups of 1 + 99 in {test_s:.3f} s: {res} | launches epoch "
+        f"{fit_counts}, test {test_counts} | {smi}")
+    if not (np.isfinite(stats["mean_loss"]) and res["auc"] > 0.5
+            and all(np.isfinite(v) for v in res.values())):
+        raise AssertionError(f"phase 18 (c): loss {stats['mean_loss']}, "
+                             f"test {res}")
+    return dict(gate_calls=P18_CALLS, K=K, gate_launches=gate_counts,
+                epoch=stats, valid=valid, test=res, test_eval_s=test_s,
+                test_groups=groups, examples_per_s=ex_s,
+                launches={k: fit_counts[k] + test_counts[k]
+                          for k in fit_counts})
+
+
+def p18_cli(raw, root, smi):
+    """(d) The CLI as a user runs it from the raw log (the defaults:
+    B = 500, test 1 + 99, resident, K = 32), --etl_format packed, one
+    epoch; then --only_test on the same directory, which must read the
+    pack (no new ETL) and print the same test dict."""
+    argv = ["--dataset", "taobao", "--model", "CLSR", "--epochs", "1",
+            "--data_path", os.path.join(root, "cli")]
+    text, wall, launches = run_cli(argv + ["--raw_data", raw,
+                                           "--etl_format", "packed"])
+    run = cli_numbers(text)
+    m = ETL_RE.search(text)
+    etl_s = float(m[1]) if m else None
+    text_t, wall_t, launches_t = run_cli(argv + ["--only_test"])
+    only = cli_numbers(text_t)["test"]
+    same = {k: only.get(k) for k in run["test"]} == run["test"]
+    e = run["epochs"][0] if run["epochs"] else {}
+    last = run["valid"][max(run["valid"])] if run["valid"] else {}
+    log(f"phase 18 (d) the CLI from the raw log: wall {wall:.3f} s, etl "
+        f"{etl_s} s ({m[2] if m else '-'}), epoch {e.get('train_s')} s, "
+        f"{e.get('examples_per_s')} examples/s, valid {last}, test eval "
+        f"{run['test_eval_s']} s, test {run['test']} | launches "
+        f"{launches} | {smi}")
+    log(f"phase 18 (d) --only_test: wall {wall_t:.3f} s, no new ETL: "
+        f"{'etl packed' not in text_t}, the same test dict: {same} | "
+        f"launches {launches_t}")
+    if not (same and "etl packed" not in text_t and len(run["epochs"]) == 1
+            and last.get("auc", 0) > 0.5 and launches["eval_scorer"] > 0):
+        raise AssertionError(f"phase 18 (d): the CLI failed its gates: "
+                             f"valid {run['valid']}, only_test {only}")
+    return dict(run=run, wall_s=wall, etl_s=etl_s, only_test=only,
+                only_test_wall_s=wall_t,
+                launches={k: launches[k] + launches_t[k] for k in launches})
+
+
+def etl_phase(smi):
+    """Phase 18: a seeded raw log through the ETL, a fit and the CLI."""
+    root = tempfile.mkdtemp(prefix="clsr_phase18_")
+    try:
+        raw = os.path.join(root, "UserBehavior.csv")
+        t0 = time.perf_counter()
+        n_users = write_user_behavior(raw, P18_ROWS, P18_SEED)
+        write_s = time.perf_counter() - t0
+        log(f"phase 18 (a): {P18_ROWS:,} rows of {n_users:,} users "
+            f"({_mb(raw):,.1f} MB) written in {write_s:.3f} s")
+        t0 = time.perf_counter()
+        loaders, tsv_train, sizes, b = p18_etl(raw, root, smi)
+        b_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = p18_fit(loaders, tsv_train, sizes, root, smi)
+        del loaders, tsv_train
+        c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = p18_cli(raw, root, smi)
+        d_s = time.perf_counter() - t0
+        rows_s = P18_ROWS / b["runs"]["packed"]["wall_s"]
+        log(f"phase 18: (a) {write_s:.1f} s, (b) {b_s:.1f} s, (c) "
+            f"{c_s:.1f} s, (d) {d_s:.1f} s; raw rows to packed.npz "
+            f"{rows_s:,.0f} rows/s")
+        return dict(rows=P18_ROWS, users=n_users, raw_mb=_mb(raw),
+                    write_s=write_s, etl=b, fit=c, cli=d,
+                    phase_s=dict(a=write_s, b=b_s, c=c_s, d=d_s),
+                    rows_per_s_to_packed=rows_s,
+                    launches={"p18_etl_fit": c.pop("launches"),
+                              "p18_cli": d.pop("launches")})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     smi = card_check()
     sys.path.insert(0, ROOT)
@@ -4572,6 +4990,7 @@ def main():
                  zoo["train"]["clsr_fused"]["lazyadam"]["step_ms"])
     fit = timed("train and evaluate", train_and_evaluate, smi)
     long = timed("long context", long_context, smi)
+    etl18 = timed("etl", etl_phase, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -4583,7 +5002,7 @@ def main():
         "p14_bf16_train": mixed["train"]["launches"],
         "p14_int8_serve": mixed["serve"]["launches"],
         **zoo["launches"], **rest["launches"],
-        **fit["launches"], **long["launches"]}
+        **fit["launches"], **long["launches"], **etl18["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -4639,7 +5058,9 @@ def main():
                                       if k != "launches"},
                    "train_and_evaluate": fit,
                    "long_context": {k: v for k, v in long.items()
-                                    if k != "launches"}}, f,
+                                    if k != "launches"},
+                   "etl": {k: v for k, v in etl18.items()
+                           if k != "launches"}}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

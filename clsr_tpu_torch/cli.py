@@ -10,10 +10,15 @@ settings (taobao: max_seq 50, time unit 's', ndcg@2;4;6 + hit; kuaishou:
 optionally the prediction file.  One flag more: `--device` (default
 cuda; without a card that raises, `--device cpu` runs on the CPU).
 
-Flags whose path is not ported parse as in the JAX package and then
-raise NotImplementedError naming their ROADMAP queue 1 item: the ETL
-and the packed format (item 11b), a device mesh (item 10).
-`--data_format auto` reads the TSVs.  Kill and resume
+A raw log (`--raw_data`, Taobao's UserBehavior.csv or a Kuaishou log)
+goes through the ETL (data/etl.py) when the data directory holds
+neither TSVs nor a pack: `--etl_format tsv` writes the expanding-history
+TSVs (`--etl_native` in C++, `--etl_processes N` in worker processes),
+`--etl_format packed` writes `packed.npz` (data/packed.py).
+`--data_format auto` trains on `packed.npz` when it is there (and no
+`--shuffle_history_seed` asks for the TSVs).  The mesh flags parse as in
+the JAX package and then raise NotImplementedError naming ROADMAP queue
+1 item 10.  Kill and resume
 (`--autosave_every_calls N`, `--resume`), `--write_histograms`,
 `--write_tfevents` and `--attention_block_size` run as in JAX; with
 `--attention_block_size` the config must set `enable_bn: False`, which
@@ -24,9 +29,11 @@ Usage:
     python -m clsr_tpu_torch.cli --dataset synthetic --model CLSR --only_test
     python -m clsr_tpu_torch.cli --dataset synthetic --model DIN --epochs 2
     python -m clsr_tpu_torch.cli --dataset synthetic --model LGN --epochs 2
+    python -m clsr_tpu_torch.cli --dataset taobao --model CLSR \
+        --raw_data UserBehavior.csv --etl_format packed --epochs 1
 
 Every model of the registry runs; for LGN the CLI builds the interaction
-graph from the train file (data/graph.py).
+graph from the train file or the pack (data/graph.py).
 """
 
 from __future__ import annotations
@@ -85,8 +92,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--show_step", type=int, default=500)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--raw_data", default=None,
-                   help="raw interaction CSV for on-demand preprocessing "
-                        "(ROADMAP queue 1 item 11b)")
+                   help="raw interaction CSV for on-demand preprocessing")
     p.add_argument("--no_history_expanding", dest="is_history_expanding",
                    action="store_false",
                    help="one line per user instead of expanding prefixes "
@@ -152,11 +158,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "TensorBoard with --write_tfevents)")
     p.add_argument("--write_tfevents", action="store_true",
                    help="TensorBoard event files beside scalars.jsonl")
-    p.add_argument("--etl_processes", type=int, default=1)
-    p.add_argument("--etl_native", action="store_true")
-    p.add_argument("--etl_format", default="tsv", choices=["tsv", "packed"])
+    p.add_argument("--etl_processes", type=int, default=1,
+                   help="worker processes of the expanding-history lines")
+    p.add_argument("--etl_native", action="store_true",
+                   help="the expanding-history lines in C++ (integer ids; "
+                        "text ids run the Python engine)")
+    p.add_argument("--etl_format", default="tsv", choices=["tsv", "packed"],
+                   help="ETL output: the expanding-history TSVs or the "
+                        "O(events) packed.npz (data/packed.py)")
     p.add_argument("--data_format", default="auto",
-                   choices=["auto", "tsv", "packed"])
+                   choices=["auto", "tsv", "packed"],
+                   help="training input: auto = packed.npz when present "
+                        "(unless --shuffle_history_seed needs the TSVs)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (the default) raises without "
                         "a card, cpu runs on the host")
@@ -173,14 +186,6 @@ def refuse_unported(args) -> None:
     naming its ROADMAP queue 1 item."""
     from clsr_tpu_torch.models.registry import get_model_class
 
-    etl = "ETL and data formats"
-    if args.raw_data:
-        _waits("--raw_data (the ETL)", "11b", etl)
-    if args.data_format == "packed":
-        _waits("--data_format packed", "11b", etl)
-    if (args.etl_processes != 1 or args.etl_native
-            or args.etl_format != "tsv"):
-        _waits("the --etl_* flags", "11b", etl)
     if (args.data_parallel > 1 or args.model_parallel > 1
             or (args.mesh_flat_batch, args.mesh_update_routing,
                 args.mesh_owner_capacity, args.mesh_owner_overflow,
@@ -269,9 +274,13 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     refuse_unported(args)
 
+    from clsr_tpu_torch.data.etl import data_preprocessing
     from clsr_tpu_torch.data.graph import build_interaction_graph
     from clsr_tpu_torch.data.loader import SequenceLoader
-    from clsr_tpu_torch.data.parser import parse_file
+    from clsr_tpu_torch.data.packed import (PACKED_FILENAME,
+                                            build_interaction_graph_packed,
+                                            load_packed, make_loader)
+    from clsr_tpu_torch.data.parser import parse_file, time_range_for_unit
     from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
     from clsr_tpu_torch.data.vocab import load_vocab
     from clsr_tpu_torch.models.registry import get_model_class
@@ -286,36 +295,91 @@ def main(argv=None) -> int:
     data_dir = os.path.join(args.data_path, args.dataset)
     files = {name: os.path.join(data_dir, f"{name}_data")
              for name in ("train", "valid", "test")}
-    if not os.path.exists(files["train"]):
-        if args.dataset != "synthetic":
-            raise SystemExit(
-                f"{files['train']} missing; preprocessing a raw file "
-                f"(--raw_data) waits for ROADMAP queue 1 item 11b")
+    packed_file = os.path.join(data_dir, PACKED_FILENAME)
+    if not os.path.exists(files["train"]) and not os.path.exists(
+            packed_file):
         os.makedirs(data_dir, exist_ok=True)
-        write_synthetic_dataset(data_dir, valid_num_ngs=args.val_num_ngs,
-                                test_num_ngs=args.test_num_ngs)
-        os.replace(os.path.join(data_dir, "cate_vocab.pkl"),
-                   os.path.join(data_dir, "category_vocab.pkl"))
+        if args.dataset == "synthetic":
+            write_synthetic_dataset(data_dir,
+                                    valid_num_ngs=args.val_num_ngs,
+                                    test_num_ngs=args.test_num_ngs)
+            os.replace(os.path.join(data_dir, "cate_vocab.pkl"),
+                       os.path.join(data_dir, "category_vocab.pkl"))
+        elif args.raw_data:
+            t0 = time.perf_counter()
+            stages = data_preprocessing(
+                args.raw_data, files["train"], files["valid"],
+                files["test"], cfg.user_vocab, cfg.item_vocab,
+                cfg.cate_vocab, sample_rate=args.sample_rate,
+                valid_num_ngs=args.val_num_ngs,
+                test_num_ngs=args.test_num_ngs, dataset=args.dataset,
+                is_history_expanding=args.is_history_expanding,
+                seed=args.seed, processes=args.etl_processes,
+                engine="native" if args.etl_native else "python",
+                output_format=args.etl_format)
+            print(f"etl {args.etl_format}: "
+                  f"{time.perf_counter() - t0:.3f}s (" + ", ".join(
+                      f"{k} {v:.3f}s" for k, v in stages.items()) + ")",
+                  flush=True)
+        else:
+            raise SystemExit(
+                f"{files['train']} missing; pass --raw_data to preprocess")
+
+    use_packed = args.data_format == "packed" or (
+        args.data_format == "auto" and os.path.exists(packed_file)
+        and args.shuffle_history_seed is None)
+    if use_packed and not os.path.exists(packed_file):
+        raise SystemExit(f"{packed_file} missing; rerun the ETL with "
+                         f"--etl_format packed")
+    if use_packed and args.shuffle_history_seed is not None:
+        raise SystemExit("--shuffle_history_seed needs the TSV path "
+                         "(--data_format tsv)")
 
     uv = load_vocab(cfg.user_vocab)
     iv = load_vocab(cfg.item_vocab)
     cv = load_vocab(cfg.cate_vocab)
     loaders = {}
-    for name, path in files.items():
+    if use_packed:
         t0 = time.perf_counter()
-        ds = parse_file(path, uv, iv, cv, time_unit=cfg.time_unit,
-                        recent_k=args.counterfactual_recent_k,
-                        shuffle_seed=args.shuffle_history_seed)
-        loaders[name] = SequenceLoader(ds, cfg.max_seq_length,
-                                       min_batch_rows=cfg.drop_remainder_min)
-        print(f"parse {name}: {len(ds)} lines in "
+        pack = load_packed(packed_file)
+        print(f"load {PACKED_FILENAME}: {pack.n_events} events in "
               f"{time.perf_counter() - t0:.3f}s", flush=True)
+        for name, ngs in (("train", 0), ("valid", cfg.valid_num_ngs),
+                          ("test", cfg.test_num_ngs)):
+            stored = pack.splits[name].num_ngs
+            if ngs and stored != ngs:
+                raise SystemExit(
+                    f"packed {name} split has {stored} negatives per line "
+                    f"but the run asks for {ngs}; regenerate the pack")
+            t0 = time.perf_counter()
+            loaders[name] = make_loader(
+                pack, name, cfg.max_seq_length,
+                time_range_for_unit(cfg.time_unit),
+                recent_k=args.counterfactual_recent_k,
+                min_batch_rows=cfg.drop_remainder_min)
+            print(f"view {name}: {loaders[name].view.n_rows} lines in "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+    else:
+        for name, path in files.items():
+            t0 = time.perf_counter()
+            ds = parse_file(path, uv, iv, cv, time_unit=cfg.time_unit,
+                            recent_k=args.counterfactual_recent_k,
+                            shuffle_seed=args.shuffle_history_seed)
+            loaders[name] = SequenceLoader(
+                ds, cfg.max_seq_length,
+                min_batch_rows=cfg.drop_remainder_min)
+            print(f"parse {name}: {len(ds)} lines in "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
 
     kw = {}
     if cfg.model_type == "lgn":
-        # the interaction graph of the train file (JAX cli.py:343-347)
+        # the interaction graph of the train file or the pack (JAX
+        # cli.py:343-347)
         t0 = time.perf_counter()
-        kw["graph"] = build_interaction_graph(files["train"], uv, iv, cv)
+        kw["graph"] = (
+            build_interaction_graph_packed(pack, len(uv), len(iv))
+            if use_packed else
+            build_interaction_graph(files["train"], uv, iv, cv))
         print(f"graph: {len(kw['graph'].src)} edges in "
               f"{time.perf_counter() - t0:.3f}s", flush=True)
     model = get_model_class(cfg.model_type)(cfg, len(uv), len(iv), len(cv),

@@ -17,8 +17,9 @@ Python sets take minutes at Taobao's node count), and the edges come
 sorted by (src, dst), each source's edges one run, as the graph
 convolution reads them (ops/graph_conv.py `GraphEdges`, which sorts them
 by dst once on the device for the backward).  Node ids:
-users 0..U-1, items U..U+I-1.  The packed-dataset builder
-(clsr_tpu/data/packed.py:512) waits for ROADMAP queue 1 item 11b.
+users 0..U-1, items U..U+I-1.  The packed format's builder
+(data/packed.py `build_interaction_graph_packed`) calls
+`build_graph_from_arrays` on each user's last train line.
 """
 
 from __future__ import annotations

@@ -22,6 +22,10 @@ gathers the whole epoch once, in a thread pool, into one of two buffer
 sets that alternate across epochs (`_epoch_gather`, :119-172), and
 yields [K, B, ...] views of whole batches, then the [B] tail batches.
 
+A loader reads a `PaddedView` of a parsed TSV, or the packed format's
+`PackedView` (data/packed.py), whose eval splits present the (1 +
+num_ngs)-row layout through strided adapters: the same batches.
+
 Batches stay on the host: `Batch` objects whose fields are numpy arrays.
 `data.prefetch.prefetch_to_device` (or `data.prefetch.to_device`) turns
 them into tensors on the device.  The resident path
@@ -96,11 +100,15 @@ class SequenceLoader:
     """Batch iterator factory over a ParsedDataset."""
 
     def __init__(self, ds: ParsedDataset, max_seq_length: int,
-                 min_batch_rows: int = 5):
+                 min_batch_rows: int = 5, view=None):
+        """`view` stands in for the PaddedView of `ds` (JAX :93-101): the
+        packed format's `PackedView` (data/packed.py `make_loader`),
+        built without a ParsedDataset; `ds` then only gives len()."""
         self.ds = ds
         self.max_seq_length = max_seq_length
         self.min_batch_rows = min_batch_rows
-        self.view = PaddedView(ds, max_seq_length)
+        self.view = view if view is not None else PaddedView(
+            ds, max_seq_length)
         self._stacked_bufs: list = [None, None]
         self._buf_flip = 0
 

@@ -5,8 +5,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 alone (no PyTorch headers) into `_build/<name>-<hash>.so`, the hash
 covering the source, the headers it includes by quotes (`csrc/*.cuh`)
 and the flags, so an edited source or header builds anew and an
-unchanged one is reused.  The host libraries (`HOST_SOURCES`: the TSV
-parser `native/fastparse.cpp`) take the same path with `g++`.  The first
+unchanged one is reused.  The host libraries (`HOST_SOURCES`:
+`native/fastparse.cpp`, the TSV parser, the ETL's expanding-history
+writer and its CSV reader) take the same path with `g++`.  The first
 call of a library builds it; `build()` starts every missing build at
 once (one compiler per source) and raises with the compiler's output if
 one fails.  Pointers go in as `c_void_p`, with PyTorch's current stream
@@ -68,6 +69,16 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "clsr_result_total": ((_P,), _I64),
         "clsr_result_fill": ((_P,) * 12, None),
         "clsr_result_free": ((_P,), None),
+        "clsr_expand_lines": ((_P,) * 6 + (_I64, _P, _I64, ctypes.c_uint64)
+                              + (ctypes.c_char_p,) * 3, _I64),
+        "clsr_csv_read": ((ctypes.c_char_p, ctypes.c_char_p, _I64, _I64),
+                          _P),
+        "clsr_csv_info": ((_P, _P), None),
+        "clsr_csv_fill_ints": ((_P, _I64, _P), None),
+        "clsr_csv_fill_codes": ((_P, _I64, _P), None),
+        "clsr_csv_strings_bytes": ((_P, _I64), _I64),
+        "clsr_csv_fill_strings": ((_P, _I64, _P), None),
+        "clsr_csv_free": ((_P,), None),
     },
 }
 KERNELS = tuple(n for n in _SIGNATURES if n not in HOST_SOURCES)

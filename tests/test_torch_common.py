@@ -6,7 +6,8 @@ BN affines and running statistics all matter), and numpy batches that
 both sides read.  The tests here hold the port to its import rule: no
 JAX, flax, optax, orbax or clsr_tpu module, by a subprocess import and by
 a scan of the sources; nor TensorFlow or tensorboard, whose event files
-the port writes itself.
+the port writes itself; nor pandas, which the card's machine lacks (the
+port's ETL is numpy and its own C++).
 """
 
 import ast
@@ -149,7 +150,7 @@ def to_np(t) -> np.ndarray:
 
 # ----------------------------------------------------------- import rules
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clsr_tpu",
-              "tensorflow", "tensorboard")
+              "tensorflow", "tensorboard", "pandas")
 
 
 def _forbidden(module: str) -> bool:
@@ -167,6 +168,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "import clsr_tpu_torch.cli, clsr_tpu_torch.native\n"
             "import clsr_tpu_torch.training.trainer\n"
             "import clsr_tpu_torch.data.synthetic\n"
+            "import clsr_tpu_torch.data.etl, clsr_tpu_torch.data.packed\n"
+            "import clsr_tpu_torch.data.ffm\n"
             "import clsr_tpu_torch.utils.summaries\n"
             "import clsr_tpu_torch.utils.profiling\n"
             "import clsr_tpu_torch.ops.long_context\n"

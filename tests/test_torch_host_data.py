@@ -18,7 +18,10 @@ test 1 + 9 groups):
     error raised in the producer reaches the consumer, and an abandoned
     consumer releases its producer (the counterpart of
     tests/test_cli_and_io.py:100);
-  * the JSONL summary writer, and the refusals of the unported writers.
+  * the JSONL summary writer, and the event-file and histogram writers.
+
+The ETL from raw logs and the packed format are held against JAX's in
+tests/test_torch_etl.py and tests/test_torch_packed.py.
 """
 
 import os

@@ -529,14 +529,20 @@ UNPORTED = {
 
 
 # ROADMAP items ported since their flags were refused: those flags now
-# parse and reach the Config (--resume reaches fit: the parsed args), and
-# those settings fit (items 8 and 8b are the two halves of the model
-# zoo; item 11's ETL and data formats stay, as item 11b).  Under
+# parse and reach the Config (--resume and item 11b's ETL and data-format
+# flags reach main: the parsed args), and those settings fit (items 8 and
+# 8b are the two halves of the model zoo; 11 and 11b the host remainder,
+# 11b the ETL and the packed format).  Under
 # --attention_block_size the config refuses clsr.yaml's enable_bn, as
 # the JAX CLI's does (REFUSED_BY_CONFIG).
-PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, 11}
+PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, 11, "11b"}
 REFUSED_BY_CONFIG = {"attention_block": "requires enable_bn: False"}
 PORTED_FIELDS = {"model": ("model_type", "caser"),
+                 "raw_data": ("raw_data", "x.csv"),
+                 "packed": ("data_format", "packed"),
+                 "etl_processes": ("etl_processes", 4),
+                 "etl_native": ("etl_native", True),
+                 "etl_format": ("etl_format", "packed"),
                  "attention_block": ("attention_block_size", 64),
                  "resume": ("resume", True),
                  "autosave": ("autosave_every_calls", 5),
