@@ -316,8 +316,8 @@ Phases, each fatal on failure:
      event files read back by `utils/summaries.py` `read_events`.
  18. the ETL and the packed format, from a raw log to a fit.  After
      phase 17: (a) a seeded raw log in the public UserBehavior.csv
-     schema (uid,iid,category,behavior,ts), 6,000,000 rows (a depth cut
-     of the public file's 100,150,807) of ~59,000 users at its ~101 rows
+     schema (uid,iid,category,behavior,ts), 5,000,000 rows (a depth cut
+     of the public file's 100,150,807) of ~50,000 users at its ~101 rows
      a user, Zipf-like item popularity over 4,162,024 item ids of 9,439
      categories (0.5% of items show a second category), each user's 1-5
      favoured categories taking 80% of their rows, pv 89.5% and cart /
@@ -340,6 +340,24 @@ Phases, each fatal on failure:
      raw log with --etl_format packed (the defaults, one epoch), then
      --only_test on its directory: no new ETL, the same test dict, the
      valid auc above 0.5.
+ 19. the (data, model) mesh.  After phase 18: the one-rank port on the
+     card first (clsr.yaml, Taobao-count tables, seeded spread weights,
+     B = 400, every kernel gate), then a 4-rank gloo world at (2, 2) on
+     the one card (`parallel.distributed.run_local_world`; gloo stages
+     each collective through host memory: a transport, not NCCL), each
+     rank: (a) lazyadam compact, flat batch (100 rows a rank), 8 eager
+     steps, the launch counts zeroed before and read after: K1, K2, K2
+     bwd, K3a, K3b and K5 above 0 on every rank; the loss parts within
+     1e-4 relative of one rank's, every parameter, BN statistic and
+     touched table row within 1e-4 (the zero-by-construction biases and
+     the BN means they shift within Adam's sign-flip bound, 2.1 lr a
+     step), run twice, bit for bit; (b) dense Adam, mesh_flat_batch off
+     (200 rows a rank), 4 steps, the same gates but K5; (c) the mesh
+     `ScoringService` on 64 x 100 requests within 1e-5 of the
+     one-device scores; (d) a lazyadam checkpoint at phase 11's table
+     counts (10,000 users, 50,000 items, 1,001 cates: the checkpoint
+     stays small) saved on the mesh, loaded on one device, its eval
+     within 1e-5 of the mesh's.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -352,7 +370,9 @@ and their evals), and phase 16's `p16_zoo_serve`, `p16_zoo_train` and
 `p16_zoo_fit` likewise, phase 17's `p17_long_train` (the graphed
 call), `p17_long_serve` and `p17_resume_fit` (the resumed fit), and
 phase 18's `p18_etl_fit` (the epoch and test eval from the pack) and
-`p18_cli` (the CLI run from the raw log and its --only_test)), the
+`p18_cli` (the CLI run from the raw log and its --only_test), and
+phase 19's `p19_mesh_train` (run (a)'s first 8 steps, summed over the
+4 ranks)), the
 card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
@@ -2741,10 +2761,11 @@ def buckets_fit_and_eval(cfg_b, sizes, loaders, resident_eps, smi):
         preds = valid_preds(kept).cpu().numpy()
         runs[run] = dict(res=res, s=secs, launches=c, pads=pads,
                          preds=preds[np.argsort(order, kind="stable")])
-    # the dispatches and one copy back without the host's metrics, in
-    # turns (the first eval of a run pays its shapes' first calls)
+    # the dispatches and one copy back without the host's metrics, once
+    # each (a depth cut, to make room for phase 19): the timed evals above
+    # paid their shapes' first calls
     bare = {"buckets": [], "no buckets": []}
-    for run in ("buckets", "no buckets", "no buckets", "buckets"):
+    for run in ("no buckets", "buckets"):
         cfg = cfg_c.replace(metrics=(), pairwise_metrics=(),
                             weighted_metrics=(),
                             length_buckets=("off" if run == "no buckets"
@@ -4580,8 +4601,10 @@ def train_and_evaluate(smi):
 # the ETL from a raw Taobao-format log (UserBehavior.csv's schema), the
 # packed format, a fit on the ETL's output and the CLI from the raw log
 # a tenth of UserBehavior.csv's 100,150,807 rows took phase 18 164 s on
-# the card, over its 120 s: depth cut to 6,000,000 (~60,000 users)
-P18_ROWS = 6_000_000
+# the card, over its 120 s: depth cut to 6,000,000 (~60,000 users), then
+# to 5,000,000 (~50,000 users; (c)'s 3 graphed calls of 32 x 400 need
+# ~38,400 train lines, 4,000,000 keep ~35,000) to make room for phase 19
+P18_ROWS = 5_000_000
 P18_EVENTS_A_USER = 101        # the public file's rows a user
 P18_ITEMS, P18_CATES = 4_162_024, 9_439   # the public file's counts
 P18_ID_RANGES = (1_018_011, 5_163_070, 5_162_429)   # uid, iid, category
@@ -4962,6 +4985,441 @@ def etl_phase(smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- phase 19
+# the (data, model) mesh: a 4-rank gloo world on the one card
+P19_MESH = dict(data_parallel=2, model_parallel=2)
+P19_STEPS_A, P19_STEPS_B = 8, 4
+P19_SEED = 19
+P19_REQ = (64, 100)            # (c): requests x candidates
+P19_LOSS_REL = 1e-4            # mesh / one-rank: each loss part, and
+#                                each optimizer moment after step 1
+#                                (norm-relative), relative
+P19_PARAM_ABS = 1e-4           # an element of a parameter, BN statistic
+#                                or touched table row is "off" past this
+P19_FLIP_SHARE = 1e-3          # at most this share of elements off, and
+#                                none past Adam's step bound: 2.1 lr after
+#                                step 1, 2.1 lr a step after the last (an
+#                                element whose gradient is rounding noise
+#                                moves +-lr a step either way: the
+#                                zero-by-construction biases, and the BN
+#                                means they shift, always)
+P19_SCORE_ABS = 1e-5           # (c) and (d): scores and predictions
+# (d)'s tables: phase 11's counts, so the checkpoint stays small
+P19_CKPT_SIZES = (10_000, 50_000, 1_001)
+P19_TIMEOUT_S = 900.0
+
+
+def p19_cfg(**kw):
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    return load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
+                       user_vocab="u", item_vocab="i", cate_vocab="c",
+                       seed=0, batch_size=TRAIN_B,
+                       use_pallas_train_attention="on", use_pallas_scan=True,
+                       **kw)
+
+
+def p19_model(cfg, sizes):
+    """clsr.yaml's model from the config's seed, spread as phase 5's; the
+    same bits in every process on the card."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    model = get_model_class("clsr")(cfg, *sizes)
+    spread(model, P19_SEED)
+    return model
+
+
+def p19_touched(batches):
+    """{table: sorted unique logical ids} that the positives touch (the
+    in-batch negatives are drawn from them)."""
+    from clsr_tpu_torch.training.lazy_adam import batch_table_ids
+    out = {}
+    for b in batches:
+        for name, ids in batch_table_ids(b).items():
+            out.setdefault(name, []).append(ids.reshape(-1).cpu().numpy())
+    return {k: np.unique(np.concatenate(v)) for k, v in out.items()}
+
+
+def p19_snapshot(state, touched, mesh=None):
+    """The train state as numpy: every tensor of the model but the
+    tables, each table's rows at the touched ids (on a mesh, the rank's
+    owned ones, with their ids), and the optimizer's moments likewise:
+    dense Adam's exp_avg / exp_avg_sq ('opt.exp_avg.<name>'), and the
+    lazy moments' m and v lanes ('opt.m.<name>', 'opt.v.<name>'; the
+    pmn layout's p lane is the table itself)."""
+    from clsr_tpu_torch.parallel.embedding import owned_rows
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    model = state.model
+    sharded = {n for n, p in model.named_parameters()
+               if getattr(p, "mesh_rows", None) is not None}
+
+    def host(t):                        # a copy, never a view
+        return t.detach().float().cpu().numpy().copy()
+
+    def rows(name, t):
+        ids = torch.from_numpy(touched[name.rpartition(".")[2]]).to(t.device)
+        loc = ids
+        if mesh is not None and name in sharded:
+            loc, ok = owned_rows(ids, mesh, t.shape[0])
+            ids, loc = ids[ok], loc[ok]
+        return ids.cpu().numpy(), host(t[loc.long()])
+
+    out = {}
+    for name, t in model.state_dict().items():
+        out[name] = rows(name, t) if name.endswith("_embedding") else host(t)
+    adam = state.optimizer
+    if isinstance(adam, LazyAdamState):
+        params = dict(model.named_parameters())
+        for name, mv in adam.moments.items():
+            d = params[name].shape[1]
+            mv = mv[:, -2 * d:]             # (m, v) of (p, m, v) or (m, v)
+            out[f"opt.m.{name}"] = rows(name, mv[:, :d])
+            out[f"opt.v.{name}"] = rows(name, mv[:, d:])
+        adam = adam.dense_opt
+    for name, p in model.named_parameters():
+        for key, t in adam.state.get(p, {}).items():
+            if key in ("exp_avg", "exp_avg_sq"):
+                out[f"opt.{key}.{name}"] = (
+                    rows(name, t) if name.endswith("_embedding")
+                    else host(t))
+    return out
+
+
+def p19_start(cfg, sizes, mesh=None):
+    """p19_model, placed on the mesh, and a copy of its start."""
+    from clsr_tpu_torch.parallel.mesh import place_model
+    model = p19_model(cfg, sizes)
+    if mesh is not None:
+        place_model(model, mesh)
+    return model, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def p19_train(model, start, cfg, batches, mesh=None, touched=None):
+    """len(batches) train steps of cfg from `start` (p19_start's):
+    (loss parts [n, 5], the state, the launches of the steps, ms a step
+    after the first, and with `touched` the state's p19_snapshot after
+    the first step)."""
+    from clsr_tpu_torch.ops import launches
+    from clsr_tpu_torch.parallel.mesh import shard_batch
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import LOSS_FIELDS, make_train_step
+    model.load_state_dict(start)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(P19_SEED)
+    local = [shard_batch(b, mesh) if mesh is not None else b
+             for b in batches]
+    torch.cuda.synchronize()
+    launches.add(launches.snapshot(), -1)          # every count to 0
+    rows, t1, first = [], None, None
+    for i, b in enumerate(local):
+        state, parts = step(state, b, gen)
+        rows.append([float(getattr(parts, f)) for f in LOSS_FIELDS])
+        if i == 0:
+            if touched is not None:
+                first = p19_snapshot(state, touched, mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / max(len(local) - 1, 1)
+    counts = {n: k for n, k in launches.snapshot().items() if k}
+    return np.array(rows), state, counts, ms, first
+
+
+def p19_eval_batch(sizes, seed, B=64, G=100, L=TRAIN_L):
+    """A seeded eval batch of G candidates a row on the card."""
+    b = train_batches(1, seed, *sizes, L=L)[0]
+    rng = np.random.RandomState(seed + 1)
+    items = torch.from_numpy(rng.randint(1, sizes[1], (TRAIN_B, G))
+                             .astype(np.int32)).cuda()
+    cates = torch.from_numpy(rng.randint(1, sizes[2], (TRAIN_B, G))
+                             .astype(np.int32)).cuda()
+    from clsr_tpu_torch.data.batch import Batch
+    fields = {f: getattr(b, f)[:B] for f in Batch.__dataclass_fields__}
+    fields.update(items=items[:B], cates=cates[:B],
+                  labels=torch.zeros(B, G, device="cuda"))
+    return Batch(**fields)
+
+
+def p19_gloo_cuda(device):
+    """Which collectives this torch build's gloo takes on CUDA tensors
+    directly (the port stages gloo's through host memory itself, so it
+    does not depend on them): {name: True or the error's first line}."""
+    import torch.distributed as dist
+    x = torch.ones(4, device=device)
+    n = dist.get_world_size()
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(n)], x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // n, device=device), x)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as e:          # noqa: BLE001 — recorded
+            out[name] = str(e).splitlines()[0][:120]
+        dist.barrier()
+    return out
+
+
+def p19_rank(rank, device, spec):
+    """One rank of phase 19's world: (a) twice, (b), (c), (d)."""
+    from clsr_tpu_torch import serving
+    from clsr_tpu_torch.parallel.mesh import (make_mesh,
+                                              make_sharded_eval_step)
+    from clsr_tpu_torch.training import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sizes = (USERS, ITEMS, CATES)
+    batches = train_batches(P19_STEPS_A, P19_SEED, *sizes)
+    touched = p19_touched(batches)
+    out = {"gloo_cuda": (p19_gloo_cuda(device) if spec["backend"] == "gloo"
+                         else None)}
+    t0 = time.perf_counter()
+    model, start = p19_start(p19_cfg(**P19_MESH), sizes,
+                             make_mesh(p19_cfg(**P19_MESH)))
+    out["start_s"] = time.perf_counter() - t0
+    for run, kw, n in (("a", dict(optimizer="lazyadam"), P19_STEPS_A),
+                       ("b", dict(optimizer="adam", mesh_flat_batch="off"),
+                        P19_STEPS_B)):
+        cfg = p19_cfg(**kw, **P19_MESH)
+        mesh = make_mesh(cfg)
+        t0 = time.perf_counter()
+        losses, state, counts, ms, step1 = p19_train(
+            model, start, cfg, batches[:n], mesh, touched)
+        out[run] = dict(losses=losses, launches=counts, ms=ms,
+                        flat=mesh.flat, step1=step1,
+                        state=p19_snapshot(state, touched, mesh))
+        del state
+        again, state, _, ms2, _ = p19_train(model, start, cfg, batches[:n],
+                                            mesh)
+        snap = p19_snapshot(state, touched, mesh)
+        first = out[run]["state"]
+        out[run]["ms_again"] = ms2
+        out[run]["bit_identical"] = bool(
+            np.array_equal(again, losses) and all(
+                np.array_equal(*(np.asarray(x[k][-1] if isinstance(
+                    x[k], tuple) else x[k]) for x in (snap, first)))
+                for k in snap))
+        out[run]["s"] = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+    del model, start
+    torch.cuda.empty_cache()
+    # (c) the mesh service against the one-device scores
+    cfg = p19_cfg(**P19_MESH)
+    svc = serving.ScoringService(cfg, *sizes, *spec["vocabs"])
+    t0 = time.perf_counter()
+    scores = svc.score(spec["requests"])
+    out["c"] = dict(scores=scores, s=time.perf_counter() - t0,
+                    n_batch=svc.mesh.n_batch)
+    t0 = time.perf_counter()
+    del svc
+    torch.cuda.empty_cache()
+    # (d) a mesh checkpoint (lazyadam, 2 steps) and its eval
+    cfg = p19_cfg(optimizer="lazyadam", **P19_MESH)
+    mesh = make_mesh(cfg)
+    dsizes = P19_CKPT_SIZES
+    _, state, _, _, _ = p19_train(*p19_start(cfg, dsizes, mesh), cfg,
+                               train_batches(2, P19_SEED + 1, *dsizes), mesh)
+    checkpoint.save_state(spec["ckpt"], state, mesh)
+    preds, _ = make_sharded_eval_step(cfg, mesh)(
+        state.model, p19_eval_batch(dsizes, P19_SEED + 2))
+    out["d"] = dict(preds=preds.cpu().numpy(), s=time.perf_counter() - t0)
+    return out
+
+
+def p19_compare(got, want, bound):
+    """The snapshot's model against the one-rank one: by kind (dense
+    parameters and BN statistics, the zero-by-construction ones, table
+    rows) the max abs difference, the elements off by more than
+    P19_PARAM_ABS and the elements compared; and the kinds past the
+    gates: any element past `bound`, or more than P19_FLIP_SHARE of a
+    kind's elements off (the flip kind excepted)."""
+    errs = {kind: [0.0, 0, 0] for kind in ("param", "flip", "table")}
+
+    def add(kind, d):
+        e = errs[kind]
+        e[0] = max(e[0], float(d.max()) if d.size else 0.0)
+        e[1] += int((d > P19_PARAM_ABS).sum())
+        e[2] += int(d.size)
+
+    for k, w in want.items():
+        if k.startswith("opt."):
+            continue
+        g = got[k]
+        if isinstance(w, tuple):       # (ids, rows): the owned subset
+            ids, rows = g
+            add("table", np.abs(rows - w[1][np.searchsorted(w[0], ids)]))
+            continue
+        add("flip" if zero_by_construction(k) or re.search(
+            r"bn\d+\.mean$", k) else "param", np.abs(g - w))
+    bad = [kind for kind, (mx, off, n) in errs.items()
+           if mx > bound or (kind != "flip" and off > P19_FLIP_SHARE * n)]
+    return errs, bad
+
+
+def p19_moments(got, want):
+    """The optimizer moments of the snapshot against the one-rank ones:
+    the largest relative error ||got - want|| / ||want|| of a moment
+    tensor (a table's: its rank's owned touched rows), and its name.
+    The zero-by-construction biases' moments (rounding noise) are left
+    out."""
+    worst = (0.0, None)
+    for k, w in want.items():
+        if not k.startswith("opt.") or zero_by_construction(k):
+            continue
+        g = got[k]
+        if isinstance(w, tuple):
+            ids, g = g
+            w = w[1][np.searchsorted(w[0], ids)]
+        rel = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+        worst = max(worst, (rel, k), key=lambda x: x[0])
+    return worst
+
+
+def mesh_phase(smi, backend="gloo"):
+    """Phase 19: the (data, model) mesh on the card, a 4-rank gloo world
+    at (2, 2) against the one-rank port from the same seed.  With
+    backend "nccl" the ranks take a card each (on a host of 4 cards:
+    `python3 -c "import chip_smoke as c; s = c.card_check();
+    c.build_kernels(); c.mesh_phase(s, 'nccl')"`)."""
+    from clsr_tpu_torch import serving
+    from clsr_tpu_torch.parallel.distributed import run_local_world
+    from clsr_tpu_torch.training import checkpoint
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import make_eval_step_fn
+    sizes = (USERS, ITEMS, CATES)
+    batches = train_batches(P19_STEPS_A, P19_SEED, *sizes)
+    touched = p19_touched(batches)
+    ref = {}
+    t0 = time.perf_counter()
+    model, start = p19_start(p19_cfg(), sizes)
+    for run, kw, n in (("a", dict(optimizer="lazyadam"), P19_STEPS_A),
+                       ("b", dict(optimizer="adam"), P19_STEPS_B)):
+        losses, state, counts, ms, step1 = p19_train(
+            model, start, p19_cfg(**kw), batches[:n], touched=touched)
+        ref[run] = dict(losses=losses, ms=ms, launches=counts, step1=step1,
+                        state=p19_snapshot(state, touched))
+        del state
+        torch.cuda.empty_cache()
+    del model, start
+    rng = np.random.RandomState(P19_SEED)
+    reqs = make_requests(rng, *P19_REQ, *sizes)
+    vocabs = vocab_for(reqs)
+    svc = serving.ScoringService(p19_cfg(), *sizes, *vocabs)
+    want_scores = svc.score(reqs)
+    del svc, batches
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="clsr_phase19_")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_local_world(
+            p19_rank, 4, backend, "cuda",
+            (dict(requests=reqs, vocabs=vocabs, backend=backend,
+                  ckpt=os.path.join(root, "epoch_1")),), P19_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        # (d) the mesh checkpoint on one device
+        dcfg = p19_cfg(optimizer="lazyadam")
+        model = p19_model(dcfg, P19_CKPT_SIZES)
+        checkpoint.load_state(os.path.join(root, "epoch_1"),
+                              create_train_state(model, dcfg))
+        want_preds, _ = make_eval_step_fn(dcfg)(
+            model, p19_eval_batch(P19_CKPT_SIZES, P19_SEED + 2))
+        want_preds = want_preds.cpu().numpy()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lr = p19_cfg().learning_rate
+    out = dict(backend=backend, ref_s=ref_s, world_s=world_s, ranks={},
+               gloo_cuda=ranks[0]["gloo_cuda"])
+    log(f"phase 19 ({backend}): gloo on CUDA tensors in this build: "
+        f"{ranks[0]['gloo_cuda']}")
+    kernels = ("eval_scorer", "clsr_scan", "clsr_scan_backward",
+               "train_stats0", "train_stats1", "row_scatter")
+    failed = []
+    for r, res in enumerate(ranks):
+        row = {}
+        for run, n in (("a", P19_STEPS_A), ("b", P19_STEPS_B)):
+            got, want = res[run], ref[run]
+            rel = float(np.max(np.abs(got["losses"] - want["losses"])
+                               / np.maximum(np.abs(want["losses"]), 1e-12)))
+            # after step 1 (one start, so only rounding differs): each
+            # element within Adam's step, 2.1 lr, and the moments (linear
+            # and quadratic in the gradient, so a gradient counted twice
+            # shows) within the loss tolerance; after the last step the
+            # elements within 2.1 lr a step
+            errs1, bad1 = p19_compare(got["step1"], want["step1"], 2.1 * lr)
+            mom1 = p19_moments(got["step1"], want["step1"])
+            errs, bad = p19_compare(got["state"], want["state"],
+                                    2.1 * lr * n)
+            mom = p19_moments(got["state"], want["state"])
+            bad = [f"{b} after step {n}" for b in bad] + [
+                f"{b} after step 1" for b in bad1]
+            if mom1[0] > P19_LOSS_REL:
+                bad.append(f"moment {mom1[1]} after step 1, rel err "
+                           f"{mom1[0]:.3g}")
+            need = kernels if run == "a" else kernels[:-1]
+            missing = [k for k in need if not got["launches"].get(k)]
+            if rel > P19_LOSS_REL:
+                bad.append("losses")
+            if not got["bit_identical"]:
+                bad.append("two mesh runs from one seed differ")
+            if missing:
+                bad.append(f"kernels {missing} never launched")
+            failed += [f"({run}), rank {r}: {b}" for b in bad]
+            row[run] = dict(loss_rel_err=rel, errs=errs, errs_step1=errs1,
+                            moment_rel_err_step1=mom1,
+                            moment_rel_err=mom, ms=got["ms"],
+                            ms_again=got["ms_again"], flat=got["flat"],
+                            launches=got["launches"], s=got["s"])
+        c_err = max(float(np.abs(g - w).max())
+                    for g, w in zip(res["c"]["scores"], want_scores))
+        d_err = float(np.abs(res["d"]["preds"] - want_preds).max())
+        if c_err > P19_SCORE_ABS or d_err > P19_SCORE_ABS:
+            failed.append(f"rank {r}: served scores {c_err:.3g}, "
+                          f"checkpoint eval {d_err:.3g} from one device's")
+        row.update(c=dict(max_abs_err=c_err, s=res["c"]["s"],
+                          n_batch=res["c"]["n_batch"]),
+                   d=dict(max_abs_err=d_err, s=res["d"]["s"]),
+                   start_s=res["start_s"])
+        out["ranks"][r] = row
+        log(f"phase 19 rank {r}: (a) lazyadam compact, flat "
+            f"{row['a']['flat']}: loss rel err {row['a']['loss_rel_err']:.3g}"
+            f", [max abs, off, of] step 1 {row['a']['errs_step1']}, last "
+            f"{row['a']['errs']}, moments' worst rel err step 1 "
+            f"{row['a']['moment_rel_err_step1']}, last "
+            f"{row['a']['moment_rel_err']}, {row['a']['ms']:.1f} "
+            f"ms a step, launches {row['a']['launches']}; (b) dense adam, "
+            f"flat {row['b']['flat']}: loss rel err "
+            f"{row['b']['loss_rel_err']:.3g}, step 1 {row['b']['errs_step1']}"
+            f", last {row['b']['errs']}, moments step 1 "
+            f"{row['b']['moment_rel_err_step1']}, last "
+            f"{row['b']['moment_rel_err']}, "
+            f"{row['b']['ms']:.1f} ms a step; (c) {P19_REQ[0]} x "
+            f"{P19_REQ[1]} served, max abs err {c_err:.3g}; (d) checkpoint "
+            f"eval max abs err {d_err:.3g}; s: start {row['start_s']:.1f}, "
+            f"(a) {row['a']['s']:.1f}, (b) {row['b']['s']:.1f}, (c) "
+            f"{row['c']['s']:.1f}, (d) {row['d']['s']:.1f}")
+    log(f"phase 19: one rank (a) {ref['a']['ms']:.1f} ms a step, (b) "
+        f"{ref['b']['ms']:.1f} ms a step; the world {world_s:.1f} s ("
+        + ("gloo through host memory on one card: a transport, not NCCL)"
+           if backend == "gloo" else "nccl, a card a rank)"))
+    out["one_rank"] = {run: dict(ms=v["ms"], launches=v["launches"],
+                                 losses=v["losses"].tolist())
+                       for run, v in ref.items()}
+    if failed:
+        raise AssertionError("phase 19: " + "; ".join(failed))
+    out["launches"] = {"p19_mesh_train": {
+        k: sum(res["a"]["launches"].get(k, 0) for res in ranks)
+        for k in kernels}}
+    return out
+
+
 def main():
     smi = card_check()
     sys.path.insert(0, ROOT)
@@ -4991,6 +5449,7 @@ def main():
     fit = timed("train and evaluate", train_and_evaluate, smi)
     long = timed("long context", long_context, smi)
     etl18 = timed("etl", etl_phase, smi)
+    mesh19 = timed("mesh", mesh_phase, smi)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -5002,7 +5461,8 @@ def main():
         "p14_bf16_train": mixed["train"]["launches"],
         "p14_int8_serve": mixed["serve"]["launches"],
         **zoo["launches"], **rest["launches"],
-        **fit["launches"], **long["launches"], **etl18["launches"]}
+        **fit["launches"], **long["launches"], **etl18["launches"],
+        **mesh19["launches"]}
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -5060,7 +5520,9 @@ def main():
                    "long_context": {k: v for k, v in long.items()
                                     if k != "launches"},
                    "etl": {k: v for k, v in etl18.items()
-                           if k != "launches"}}, f,
+                           if k != "launches"},
+                   "mesh": {k: v for k, v in mesh19.items()
+                            if k != "launches"}}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

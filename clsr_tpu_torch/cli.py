@@ -16,9 +16,20 @@ neither TSVs nor a pack: `--etl_format tsv` writes the expanding-history
 TSVs (`--etl_native` in C++, `--etl_processes N` in worker processes),
 `--etl_format packed` writes `packed.npz` (data/packed.py).
 `--data_format auto` trains on `packed.npz` when it is there (and no
-`--shuffle_history_seed` asks for the TSVs).  The mesh flags parse as in
-the JAX package and then raise NotImplementedError naming ROADMAP queue
-1 item 10.  Kill and resume
+`--shuffle_history_seed` asks for the TSVs).
+
+A (data, model) mesh (`--data_parallel D --model_parallel M`, with
+`--mesh_flat_batch`, `--mesh_row_layout` and a `--dist_backend` nccl or
+gloo, which must be given: parallel/mesh.py) runs one process a rank:
+under torchrun each process joins from torchrun's environment (rank 0
+prepares the data, the others wait), else the CLI prepares the data and
+spawns D*M local ranks (`parallel.distributed.run_local_world`; gloo
+may put every rank on one card or the CPU, nccl needs a GPU a rank).
+Every rank runs the same fit and eval on its share; rank 0 prints and
+writes.  The owner-routed merge (`--mesh_update_routing owner` and its
+capacity and overflow flags) and, on a mesh, resident data, length
+buckets, autosave and resume, histograms and every model but CLSR raise
+NotImplementedError naming ROADMAP queue 1 item 10b.  Kill and resume
 (`--autosave_every_calls N`, `--resume`), `--write_histograms`,
 `--write_tfevents` and `--attention_block_size` run as in JAX; with
 `--attention_block_size` the config must set `enable_bn: False`, which
@@ -114,6 +125,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=("fallback", "drop"))
     p.add_argument("--mesh_row_layout", default="auto",
                    choices=("auto", "interleaved", "contiguous"))
+    p.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                   help="the mesh's torch.distributed backend (required "
+                        "when data_parallel * model_parallel > 1)")
     p.add_argument("--optimizer", default=None,
                    help="override the YAML optimizer (adam, lazyadam, "
                         "adadelta, adagrad, sgd, gd, pgd, rmsprop, ftrl, "
@@ -181,18 +195,35 @@ def _waits(what: str, item, name: str):
         f"{what} waits for ROADMAP queue 1 item {item} ({name})")
 
 
+def _mesh_size(args) -> int:
+    return args.data_parallel * args.model_parallel
+
+
 def refuse_unported(args) -> None:
     """Raise for every parsed flag whose path the port does not run yet,
     naming its ROADMAP queue 1 item."""
     from clsr_tpu_torch.models.registry import get_model_class
 
-    if (args.data_parallel > 1 or args.model_parallel > 1
-            or (args.mesh_flat_batch, args.mesh_update_routing,
-                args.mesh_owner_capacity, args.mesh_owner_overflow,
-                args.mesh_row_layout)
-            != ("auto", "broadcast", 4.0, "fallback", "auto")):
-        _waits("a device mesh (--data_parallel, --model_parallel, "
-               "--mesh_*)", 10, "parallel")
+    if ((args.mesh_update_routing, args.mesh_owner_capacity,
+         args.mesh_owner_overflow) != ("broadcast", 4.0, "fallback")):
+        _waits("the owner-routed mesh merge (--mesh_update_routing owner, "
+               "--mesh_owner_capacity, --mesh_owner_overflow)", "10b",
+               "parallel")
+    if _mesh_size(args) > 1:
+        on_mesh = [flag for flag, set_ in (
+            ("--resident_data on", args.resident_data == "on"),
+            ("--length_buckets", args.length_buckets not in (None, "off")),
+            ("--autosave_every_calls", bool(args.autosave_every_calls)),
+            ("--resume", args.resume),
+            ("--write_histograms", args.write_histograms),
+            (f"--model {args.model}", args.model.lower() != "clsr"))
+            if set_]
+        if on_mesh:
+            _waits(f"on a device mesh, {', '.join(on_mesh)}", "10b",
+                   "parallel")
+        if args.dist_backend is None:
+            raise ValueError("a mesh (data_parallel * model_parallel > 1) "
+                             "needs --dist_backend nccl or gloo")
     get_model_class(args.model)
 
 
@@ -253,6 +284,8 @@ def make_config(args):
         summaries_dir=os.path.join(args.data_path, "summary", name),
         data_parallel=args.data_parallel,
         model_parallel=args.model_parallel,
+        mesh_flat_batch=args.mesh_flat_batch,
+        mesh_row_layout=args.mesh_row_layout,
         resident_data=args.resident_data,
         autosave_every_calls=args.autosave_every_calls,
         write_histograms=args.write_histograms,
@@ -274,23 +307,54 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     refuse_unported(args)
 
-    from clsr_tpu_torch.data.etl import data_preprocessing
-    from clsr_tpu_torch.data.graph import build_interaction_graph
-    from clsr_tpu_torch.data.loader import SequenceLoader
-    from clsr_tpu_torch.data.packed import (PACKED_FILENAME,
-                                            build_interaction_graph_packed,
-                                            load_packed, make_loader)
-    from clsr_tpu_torch.data.parser import parse_file, time_range_for_unit
-    from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
-    from clsr_tpu_torch.data.vocab import load_vocab
-    from clsr_tpu_torch.models.registry import get_model_class
-    from clsr_tpu_torch.training.evaluator import (predict_to_file,
-                                                   run_weighted_eval)
-    from clsr_tpu_torch.training.trainer import Trainer
     from clsr_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = make_config(args)
+    if _mesh_size(args) <= 1:
+        prepare_data(args, cfg)
+        return run(args, cfg, device)
+
+    import torch.distributed as dist
+
+    from clsr_tpu_torch.parallel import distributed
+    if "WORLD_SIZE" in os.environ:      # one process a rank, by torchrun
+        distributed.init_process_group(args.dist_backend,
+                                       timeout_s=WORLD_TIMEOUT_S)
+        try:
+            if dist.get_rank() == 0:
+                prepare_data(args, cfg)
+            dist.barrier()
+            return run(args, cfg,
+                       distributed.rank_device(args.dist_backend, device),
+                       rank=dist.get_rank())
+        finally:
+            dist.destroy_process_group()
+    prepare_data(args, cfg)
+    codes = distributed.run_local_world(
+        _rank_run, _mesh_size(args), args.dist_backend, device,
+        args=(list(sys.argv[1:] if argv is None else argv),),
+        timeout_s=WORLD_TIMEOUT_S)
+    return max(codes)
+
+
+# a spawned mesh's (and a torchrun group's) limit: a fit's length, and
+# how long a collective may wait before it fails
+WORLD_TIMEOUT_S = 7 * 24 * 3600.0
+
+
+def _rank_run(rank: int, device, argv) -> int:
+    """One rank of a spawned mesh: the CLI's run on this rank's device."""
+    args = build_arg_parser().parse_args(argv)
+    return run(args, make_config(args), device, rank=rank)
+
+
+def prepare_data(args, cfg) -> None:
+    """Write the synthetic set, or run the ETL on --raw_data, when the
+    data directory holds neither the TSVs nor a pack."""
+    from clsr_tpu_torch.data.etl import data_preprocessing
+    from clsr_tpu_torch.data.packed import PACKED_FILENAME
+    from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
 
     data_dir = os.path.join(args.data_path, args.dataset)
     files = {name: os.path.join(data_dir, f"{name}_data")
@@ -325,6 +389,27 @@ def main(argv=None) -> int:
             raise SystemExit(
                 f"{files['train']} missing; pass --raw_data to preprocess")
 
+
+def run(args, cfg, device, rank: int = 0) -> int:
+    """Load the data, fit, test and predict on `device`; on a mesh every
+    rank runs it and rank 0 alone prints and writes."""
+    from clsr_tpu_torch.data.graph import build_interaction_graph
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.packed import (PACKED_FILENAME,
+                                            build_interaction_graph_packed,
+                                            load_packed, make_loader)
+    from clsr_tpu_torch.data.parser import parse_file, time_range_for_unit
+    from clsr_tpu_torch.data.vocab import load_vocab
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.evaluator import (predict_to_file,
+                                                   run_weighted_eval)
+    from clsr_tpu_torch.training.trainer import Trainer
+
+    say = print if rank == 0 else (lambda *a, **k: None)
+    data_dir = os.path.join(args.data_path, args.dataset)
+    files = {name: os.path.join(data_dir, f"{name}_data")
+             for name in ("train", "valid", "test")}
+    packed_file = os.path.join(data_dir, PACKED_FILENAME)
     use_packed = args.data_format == "packed" or (
         args.data_format == "auto" and os.path.exists(packed_file)
         and args.shuffle_history_seed is None)
@@ -342,8 +427,8 @@ def main(argv=None) -> int:
     if use_packed:
         t0 = time.perf_counter()
         pack = load_packed(packed_file)
-        print(f"load {PACKED_FILENAME}: {pack.n_events} events in "
-              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        say(f"load {PACKED_FILENAME}: {pack.n_events} events in "
+            f"{time.perf_counter() - t0:.3f}s", flush=True)
         for name, ngs in (("train", 0), ("valid", cfg.valid_num_ngs),
                           ("test", cfg.test_num_ngs)):
             stored = pack.splits[name].num_ngs
@@ -357,8 +442,8 @@ def main(argv=None) -> int:
                 time_range_for_unit(cfg.time_unit),
                 recent_k=args.counterfactual_recent_k,
                 min_batch_rows=cfg.drop_remainder_min)
-            print(f"view {name}: {loaders[name].view.n_rows} lines in "
-                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            say(f"view {name}: {loaders[name].view.n_rows} lines in "
+                f"{time.perf_counter() - t0:.3f}s", flush=True)
     else:
         for name, path in files.items():
             t0 = time.perf_counter()
@@ -368,8 +453,8 @@ def main(argv=None) -> int:
             loaders[name] = SequenceLoader(
                 ds, cfg.max_seq_length,
                 min_batch_rows=cfg.drop_remainder_min)
-            print(f"parse {name}: {len(ds)} lines in "
-                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            say(f"parse {name}: {len(ds)} lines in "
+                f"{time.perf_counter() - t0:.3f}s", flush=True)
 
     kw = {}
     if cfg.model_type == "lgn":
@@ -380,8 +465,8 @@ def main(argv=None) -> int:
             build_interaction_graph_packed(pack, len(uv), len(iv))
             if use_packed else
             build_interaction_graph(files["train"], uv, iv, cv))
-        print(f"graph: {len(kw['graph'].src)} edges in "
-              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        say(f"graph: {len(kw['graph'].src)} edges in "
+            f"{time.perf_counter() - t0:.3f}s", flush=True)
     model = get_model_class(cfg.model_type)(cfg, len(uv), len(iv), len(cv),
                                             device=device, **kw)
     trainer = Trainer(model, cfg)
@@ -391,8 +476,8 @@ def main(argv=None) -> int:
         res = run_weighted_eval(trainer.eval_step, trainer.state.model,
                                 loaders["test"], cfg,
                                 num_ngs=cfg.test_num_ngs, **kw)
-        print(f"test eval time {time.perf_counter() - t0:.3f}s", flush=True)
-        print(res, flush=True)
+        say(f"test eval time {time.perf_counter() - t0:.3f}s", flush=True)
+        say(res, flush=True)
         return res
 
     if args.only_test:
@@ -411,7 +496,8 @@ def main(argv=None) -> int:
     if args.write_prediction_to_file:
         predict_to_file(trainer.eval_step, trainer.state.model,
                         loaders["test"], cfg,
-                        os.path.join(args.data_path, "output.txt"))
+                        os.path.join(args.data_path, "output.txt")
+                        if rank == 0 else os.devnull)
     return 0
 
 

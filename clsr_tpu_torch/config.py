@@ -231,8 +231,18 @@ class Config:
                                     # engine of lazyadam (one sorted
                                     # gather and one row write per table
                                     # per step, training/compact_rows.py)
+    # the (data, model) mesh of ranks (parallel/mesh.py): the batch over
+    # 'data' (or over both axes under mesh_flat_batch), the tables
+    # row-sharded over 'model'
     data_parallel: int = 1
     model_parallel: int = 1
+    mesh_flat_batch: str = "auto"   # 'auto' | 'on' | 'off': 'auto' = on
+                                    # when model_parallel > 1 and the
+                                    # batch divides data*model
+    mesh_update_routing: str = "broadcast"  # 'broadcast' | 'owner' (the
+                                    # owner-routed merge: ROADMAP 10b)
+    mesh_row_layout: str = "auto"   # 'auto' | 'interleaved' |
+                                    # 'contiguous' (parallel/rowmap.py)
     # K train steps a host call: on the card one captured train step
     # replayed K times (training/steps.py MultiTrainStep,
     # ResidentMultiStep); the same math as K single steps
@@ -339,6 +349,24 @@ class Config:
         if self.compact_rows not in ("auto", "off"):
             raise ValueError(
                 f"compact_rows must be auto/off, got {self.compact_rows}")
+        if self.mesh_flat_batch not in ("auto", "on", "off"):
+            raise ValueError(
+                f"mesh_flat_batch must be auto/on/off, "
+                f"got {self.mesh_flat_batch}")
+        n_dev = self.data_parallel * self.model_parallel
+        if self.mesh_flat_batch == "on" and self.batch_size % n_dev:
+            raise ValueError(
+                f"mesh_flat_batch='on' needs batch_size divisible by "
+                f"data_parallel*model_parallel ({self.batch_size} % "
+                f"{n_dev} != 0)")
+        if self.mesh_update_routing not in ("broadcast", "owner"):
+            raise ValueError(
+                f"mesh_update_routing must be broadcast/owner, got "
+                f"{self.mesh_update_routing}")
+        if self.mesh_row_layout not in ("auto", "interleaved", "contiguous"):
+            raise ValueError(
+                f"mesh_row_layout must be auto/interleaved/contiguous, "
+                f"got {self.mesh_row_layout}")
         if self.resident_data not in ("auto", "on", "off"):
             raise ValueError(
                 f"resident_data must be auto/on/off, got {self.resident_data}")

@@ -1,7 +1,7 @@
 """Device-resident training data and length buckets.
 
 Counterpart of clsr_tpu/data/resident.py:44-322 (one device; the mesh
-functions, :325-527, wait for ROADMAP queue 1 item 10).  The streamed
+functions, :325-527, wait for ROADMAP queue 1 item 10b).  The streamed
 path copies every batch from the host; here the padded train set is
 uploaded once (`build_resident`) and each step gathers its B rows on the
 device (`gather_batch`) from an epoch permutation at an offset, so a

@@ -41,8 +41,14 @@ ops/mlp.py, ops/attention.py and ops/fused_clsr.py); parameters, BN
 statistics and the carries stay f32.  A serving model may hold int8
 tables with `<name>_scales` [N, 1] f32 beside them (serving.py
 `quantize_tables`): `lookup_rows` dequantizes after the gather, and
-training refuses such a model (`check_not_quantized`).  A device mesh
-waits for its ROADMAP item.
+training refuses such a model (`check_not_quantized`).
+
+On a (data, model) mesh (parallel/mesh.py; CLSR only, the rest of the
+zoo waits for ROADMAP queue 1 item 10b) a table row-sharded by
+`place_model` is looked up through `parallel.embedding.gather_rows`
+(train and eval), and the lazy L2 and discrepancy sums count each
+globally unique row once, on the rank holding its first occurrence
+(`global_first`); the losses add the ranks' shares.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ from clsr_tpu_torch.ops.attention import TargetAttention
 from clsr_tpu_torch.ops.initializers import get_initializer, new_param
 from clsr_tpu_torch.ops.mlp import FcnNet, dropout
 from clsr_tpu_torch.ops.segment_sum import lookup
+from clsr_tpu_torch.parallel.embedding import gather_rows, global_first
+from clsr_tpu_torch.parallel.mesh import active_mesh
 from clsr_tpu_torch.utils.device import resolve_device
 
 
@@ -104,21 +112,34 @@ def _first_occurrence(ids: torch.Tensor):
     return flat, first
 
 
+def _unique_rows(table: torch.Tensor, ids: torch.Tensor):
+    """(rows, first-occurrence mask) of the ids: sorted, or on a mesh this
+    rank's ids with the global first-occurrence mask."""
+    mesh = active_mesh()
+    if mesh is None:
+        flat, first = _first_occurrence(ids)
+        return lookup_cast(lookup(table, flat)), first
+    flat = ids.reshape(-1)
+    rows = (gather_rows(table, flat, mesh)
+            if getattr(table, "mesh_rows", None) is not None
+            else lookup(table, flat))
+    return lookup_cast(rows), global_first(flat, mesh)
+
+
 def unique_rows_sumsq(table: torch.Tensor, ids: torch.Tensor
                       ) -> torch.Tensor:
-    """sum(||table[id]||^2) over the UNIQUE ids (models/base.py:99-110)."""
-    flat, first = _first_occurrence(ids)
-    rows = lookup_cast(lookup(table, flat))
+    """sum(||table[id]||^2) over the UNIQUE ids (models/base.py:99-110);
+    on a mesh this rank's share."""
+    rows, first = _unique_rows(table, ids)
     return ((rows * rows).sum(-1) * first).sum()
 
 
 def unique_rows_stats(table_a: torch.Tensor, table_b: torch.Tensor,
                       ids: torch.Tensor):
     """(sumsq_a, sumsq_b, sum((a-b)^2), n_unique*dim) over unique ids
-    (models/base.py:113-131)."""
-    flat, first = _first_occurrence(ids)
-    ra = lookup_cast(lookup(table_a, flat))
-    rb = lookup_cast(lookup(table_b, flat))
+    (models/base.py:113-131); on a mesh this rank's shares."""
+    ra, first = _unique_rows(table_a, ids)
+    rb, _ = _unique_rows(table_b, ids)
     fa = first[:, None].to(ra.dtype)
     diff = ra - rb
     return ((ra * ra * fa).sum(), (rb * rb * fa).sum(),
@@ -154,10 +175,11 @@ class EmbedContext:
 def check_supported(cfg: Config) -> None:
     """Raise on settings the port does not run yet, naming the ROADMAP
     item that brings them."""
-    if cfg.data_parallel * cfg.model_parallel > 1:
+    if (cfg.data_parallel * cfg.model_parallel > 1
+            and cfg.model_type.lower() != "clsr"):
         raise NotImplementedError(
-            "a device mesh (data_parallel*model_parallel > 1) waits for "
-            "ROADMAP queue 1 item 10 (parallel)")
+            f"{cfg.model_type} on a device mesh waits for ROADMAP queue 1 "
+            f"item 10b (parallel); the mesh runs CLSR")
 
 
 class SequentialModelBase(nn.Module):
@@ -226,6 +248,13 @@ class SequentialModelBase(nn.Module):
         `F.embedding`; bf16 rows upcast, int8 rows dequantized by their
         gathered `<name>_scales`."""
         table = getattr(self, name)
+        mesh = active_mesh()
+        if mesh is not None and getattr(table, "mesh_rows", None) is not None:
+            rows = gather_rows(table, ids, mesh)
+            if table.dtype == torch.int8:
+                return rows.float() * gather_rows(
+                    getattr(self, f"{name}_scales"), ids, mesh)
+            return lookup_cast(rows)
         if self.training:
             return lookup_cast(lookup(table, ids))
         rows = F.embedding(ids, table)

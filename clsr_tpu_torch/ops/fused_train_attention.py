@@ -32,6 +32,15 @@ output bias b2 is not an input: it cancels in the softmax over L.
     the saved inputs (no [B, L, G, H] activation is saved), as the JAX
     custom VJP does (:721-731).  `enable_bn=False` gives the identity
     affine with the dense biases as shifts (:659-665) and no statistics.
+
+On a mesh (JAX `fused_train_attention_mesh`, :355-395, `gsum` :622-633,
+`_gmean` :524-531) the statistics are the global batch's: K3a and K3b
+still sum this rank's rows, one all_reduce over the batch shards
+globalizes each pass's (sum, sum of squares) before its fold, and the
+row count is the global one; K1 then runs on the rank's rows.  The
+recomputing backward takes its means through a differentiable
+all_reduce (ops/mlp.py `batch_moments`), so it sees the same global
+statistics and its through-the-statistics terms reach every shard.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ from clsr_tpu_torch.ops import _build
 from clsr_tpu_torch.ops.fused_attention import (MASK_PADDING_VALUE,
                                                 fused_eval_attention)
 from clsr_tpu_torch.ops.fused_scan import recompute_grads
-from clsr_tpu_torch.ops.mlp import BN_EPSILON
+from clsr_tpu_torch.ops.mlp import BN_EPSILON, batch_moments
+from clsr_tpu_torch.parallel.mesh import batch_total, global_rows
 
 # widths the statistics kernels are compiled for (csrc/train_stats.cu):
 # D of the clsr.yaml short- and long-term scorers, H0, H1
@@ -153,8 +163,8 @@ def train_scorer_math(keys, keys_proj, query, mask, k0, b0, scale0, shift0,
     wk, wq, wd, wm = k0.split(D, dim=0)
     x0 = _x0(query, keys_proj, wk + wd, wq - wd, wm) + b0
     if enable_bn:
-        mean0 = x0.mean((0, 1, 2))
-        var0 = (x0 * x0).mean((0, 1, 2)) - mean0 * mean0
+        mean0, sq0 = batch_moments(x0, (0, 1, 2))
+        var0 = sq0 - mean0 * mean0
         y0 = torch.relu(scale0 * (x0 - mean0) * torch.rsqrt(var0 + eps)
                         + shift0)
     else:
@@ -162,8 +172,8 @@ def train_scorer_math(keys, keys_proj, query, mask, k0, b0, scale0, shift0,
         y0 = torch.relu(x0)
     x1 = y0 @ w1 + b1
     if enable_bn:
-        mean1 = x1.mean((0, 1, 2))
-        var1 = (x1 * x1).mean((0, 1, 2)) - mean1 * mean1
+        mean1, sq1 = batch_moments(x1, (0, 1, 2))
+        var1 = sq1 - mean1 * mean1
         y1 = torch.relu(scale1 * (x1 - mean1) * torch.rsqrt(var1 + eps)
                         + shift1)
     else:
@@ -190,14 +200,16 @@ def _forward(keys, keys_proj, query, mask, k0, b0, scale0, shift0, w1, b1,
     wm = wm.contiguous()
     w1 = w1.contiguous()
     if enable_bn:
-        n_rows = B * L * G
-        s0, q0 = train_stats0(query, keys_proj, wk_eff, wq_eff, wm)
+        n_rows = global_rows(B) * L * G
+        s0, q0 = batch_total(torch.stack(
+            train_stats0(query, keys_proj, wk_eff, wq_eff, wm)))
         mean0 = s0 / n_rows                       # biasless x0 mean
         var0 = q0 / n_rows - mean0 * mean0
         a0 = scale0 * torch.rsqrt(var0 + eps)
         c0 = shift0 - a0 * mean0
-        s1, q1 = train_stats1(query, keys_proj, wk_eff, wq_eff, wm,
-                              a0.contiguous(), c0.contiguous(), w1)
+        s1, q1 = batch_total(torch.stack(
+            train_stats1(query, keys_proj, wk_eff, wq_eff, wm,
+                         a0.contiguous(), c0.contiguous(), w1)))
         mean1 = s1 / n_rows
         var1 = q1 / n_rows - mean1 * mean1
         a1 = scale1 * torch.rsqrt(var1 + eps)

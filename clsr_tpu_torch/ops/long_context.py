@@ -38,7 +38,8 @@ the JAX module's subtree across as it is.
 JAX runs this as a `lax.scan` of XLA ops, with no Pallas kernel, so the
 port has no kernel here either.  The sequence-parallel merge of the
 per-shard partials (`axis_name`, :159-166) waits for ROADMAP queue 1
-item 10 (parallel) and raises.
+item 10b (parallel) and raises.  On the (data, model) mesh the layer is
+pure per row and runs on each rank's rows.
 """
 
 from __future__ import annotations
@@ -160,7 +161,7 @@ class LongTargetAttention(nn.Module):
         if axis_name is not None:
             raise NotImplementedError(
                 "the sequence-parallel merge of long-context attention "
-                "waits for ROADMAP queue 1 item 10 (parallel)")
+                "waits for ROADMAP queue 1 item 10b (parallel)")
         squeeze = query.dim() == 2
         if squeeze:
             query = query[:, None, :]

@@ -39,6 +39,15 @@ with bfloat16 the dense layers cast their input, kernel and bias to it
 and compute there (the parameters stay f32), BN takes its statistics
 and normalises in f32 and hands back the layer's dtype, as flax's does,
 and FcnNet's output is cast back to f32.
+
+On a mesh (parallel/mesh.py `active_mesh`) every batch statistic is the
+global batch's, as GSPMD makes JAX's: train-mode BN, MaskedBatchNorm
+and Dice sum their per-channel sums over the batch shards with a
+differentiable all_reduce (its backward all_reduces the cotangents, so
+each shard's gradient sees every shard's rows), and the running
+statistics come out bit-identical on every rank.  Dropout draws its mask
+at the global batch's shape and keeps this rank's rows, so a W-rank
+step draws the masks a one-rank step draws.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from torch import nn
 
 from clsr_tpu_torch.ops.initializers import (Initializer, new_param,
                                              ones_init, zeros_init)
+from clsr_tpu_torch.parallel.mesh import (batch_sum, batch_total,
+                                          global_rows, local_rows_of)
 
 BN_EPSILON = 1e-4
 BN_MOMENTUM = 0.95
@@ -59,15 +70,41 @@ BN_MOMENTUM = 0.95
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
             ) -> torch.Tensor:
     """flax nn.Dropout in train mode: keep with probability 1 - rate and
-    scale the kept values by 1 / (1 - rate); the mask from `generator`."""
+    scale the kept values by 1 / (1 - rate); the mask from `generator`,
+    drawn at the global batch's shape on a mesh (x batch-leading)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.promote_types(x.dtype, torch.float32)
-                      ) >= rate
+    shape = (global_rows(x.shape[0]),) + tuple(x.shape[1:])
+    keep = local_rows_of(torch.rand(
+        shape, generator=generator, device=x.device,
+        dtype=torch.promote_types(x.dtype, torch.float32))) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _global_mean(x: torch.Tensor, axes, keepdim: bool = False
+                 ) -> torch.Tensor:
+    """x.mean(axes) over the global batch: off a mesh x.mean itself; on a
+    mesh the shards' sums all_reduced (differentiably) over equal
+    shards."""
+    n = global_rows(1)
+    if n == 1:
+        return x.mean(axes, keepdim=keepdim)
+    for a in axes:
+        n *= x.shape[a]
+    return batch_sum(x.sum(axes, keepdim=keepdim)) / n
+
+
+def batch_moments(x: torch.Tensor, axes) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """(E[x], E[x^2]) over `axes` of the global batch: on a mesh both
+    sums in one differentiable all_reduce over equal shards."""
+    if global_rows(1) == 1:
+        return x.mean(axes), (x * x).mean(axes)
+    n = global_rows(x.numel() // x.shape[-1])
+    mean, sq = batch_sum(torch.stack([x.sum(axes), (x * x).sum(axes)])) / n
+    return mean, sq
 
 
 def dense(in_dim: int, out_dim: int, init: Initializer,
@@ -96,9 +133,9 @@ class Dice(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes, keepdim=True)
-        std = torch.sqrt((torch.square(x - mean) + self.EPS).mean(
-            axes, keepdim=True))
+        mean = _global_mean(x, axes, keepdim=True)
+        std = torch.sqrt(_global_mean(torch.square(x - mean) + self.EPS,
+                                      axes, keepdim=True))
         p = torch.sigmoid((x - mean) / (std + self.EPS))
         return self.alpha * (1.0 - p) * x + p * x
 
@@ -160,8 +197,8 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, sq = batch_moments(xf, axes)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
@@ -198,9 +235,9 @@ class MaskedBatchNorm(BatchNorm):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             wb = weight.float().expand(x.shape[:-1] + (1,))
-            den = wb.sum(axes).clamp_min(1.0)
-            mean = (xf * wb).sum(axes) / den
-            var = (wb * torch.square(xf - mean)).sum(axes) / den
+            den = batch_total(wb.sum(axes)).clamp_min(1.0)
+            mean = batch_sum((xf * wb).sum(axes)) / den
+            var = batch_sum((wb * torch.square(xf - mean)).sum(axes)) / den
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var

@@ -24,8 +24,19 @@ sequential_base_model.py:326-347):
     config's compute_dtype and embedding_dtype as training does.
 
 Every model of the registry serves but LGN, which raises, as the JAX
-service cannot build it (it holds no interaction graph).  A device mesh
-waits for ROADMAP queue 1 item 10 (parallel) and raises.
+service cannot build it (it holds no interaction graph).
+
+On a (data, model) mesh (cfg.data_parallel * cfg.model_parallel > 1,
+JAX :93-122; parallel/mesh.py) every rank of the process group builds
+the same service and calls `score` with the same requests: the model's
+tables are row-sharded (`place_model`, after a checkpoint is loaded in
+the logical layout), each dispatch's rows are padded to a multiple of
+the batch shards (flat under `resolve_flat_batch(cfg, pads_rows=True)`),
+each rank scores its rows, K1 on its share, and the shards' scores are
+gathered, so every rank returns every score.  The thread-driven
+`AsyncScoringService` coalesces requests by arrival time, which the
+ranks do not share, and refuses a mesh (ROADMAP queue 1 item 10b), as
+do `save` and `load` of a mesh service's weights.
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ from clsr_tpu_torch.data.parser import (compute_time_features,
                                         time_range_for_unit)
 from clsr_tpu_torch.data.vocab import Vocab
 from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.parallel.mesh import (make_mesh,
+                                          make_sharded_eval_step,
+                                          mesh_size, place_model)
 from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.steps import make_eval_step_fn
 from clsr_tpu_torch.utils.device import resolve_device
@@ -88,8 +102,10 @@ def quantize_tables(model: nn.Module) -> None:
                             / torch.full_like(table[:1, :1], 127.0),
                             min=1e-12)
         q = torch.clamp(torch.round(table / scale), -127, 127)
-        setattr(owner, leaf, nn.Parameter(q.to(torch.int8),
-                                          requires_grad=False))
+        quantized = nn.Parameter(q.to(torch.int8), requires_grad=False)
+        if getattr(p, "mesh_rows", None) is not None:   # a sharded block
+            quantized.mesh_rows = p.mesh_rows
+        setattr(owner, leaf, quantized)
         setattr(owner, f"{leaf}_scales",
                 nn.Parameter(scale, requires_grad=False))
 
@@ -121,13 +137,24 @@ class ScoringService:
         self.model = get_model_class(cfg.model_type)(
             cfg, n_users, n_items, n_cates, device=self.device)
         self.model.eval()
-        self.batch_buckets = sorted(batch_buckets)
+        self.mesh = (make_mesh(cfg, pads_rows=True) if mesh_size(cfg) > 1
+                     else None)
+        n = self.mesh.n_batch if self.mesh is not None else 1
+        # a dispatch's rows: a multiple of the batch shards (JAX :228)
+        self.batch_buckets = sorted({-(-b // n) * n for b in batch_buckets})
         self.cand_buckets = sorted(cand_buckets)
         self._time_range = time_range_for_unit(cfg.time_unit)
-        self._eval_step = make_eval_step_fn(cfg)
+        self._eval_step = (make_eval_step_fn(cfg) if self.mesh is None
+                           else make_sharded_eval_step(cfg, self.mesh))
         if checkpoint is not None:
             self.load(checkpoint)
-        if int8_tables:
+        self._place()
+
+    def _place(self) -> None:
+        """Shard the tables over the mesh, then quantize (int8_tables)."""
+        if self.mesh is not None:
+            place_model(self.model, self.mesh)
+        if self.int8_tables:
             quantize_tables(self.model)
 
     # ------------------------------------------------------------- ckpt
@@ -135,10 +162,21 @@ class ScoringService:
         """Restore a state_dict written by `save` (weights.save) of a
         service like this one; a checkpoint given to the constructor is
         loaded before the tables are quantized."""
+        self._refuse_mesh("load")
         weights.load(self.model, path)
 
     def save(self, path: str) -> None:
+        self._refuse_mesh("save")
         weights.save(self.model, path)
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self.mesh is not None and any(
+                getattr(p, "mesh_rows", None) is not None
+                for p in self.model.parameters()):
+            raise NotImplementedError(
+                f"{what} of a sharded service's weights waits for ROADMAP "
+                f"queue 1 item 10b (parallel); load_latest reads a "
+                f"training checkpoint on a mesh")
 
     def load_latest(self, model_dir: str) -> None:
         """Restore the model part of the newest `epoch_<n>` checkpoint
@@ -150,8 +188,10 @@ class ScoringService:
                 cfg, self.model.n_users, self.model.n_items,
                 self.model.n_cates, device=self.device)
             self.model.eval()
+            if self.mesh is not None:
+                place_model(self.model, self.mesh)
         checkpoint.load_model(checkpoint.latest_epoch_dir(model_dir),
-                              self.model)
+                              self.model, self.mesh)
         if self.int8_tables:
             quantize_tables(self.model)
 
@@ -230,6 +270,11 @@ class AsyncScoringService:
 
     def __init__(self, service: ScoringService, max_wait_ms: float = 2.0,
                  max_batch: Optional[int] = None):
+        if service.mesh is not None:
+            raise NotImplementedError(
+                "the async frontend on a mesh waits for ROADMAP queue 1 "
+                "item 10b (parallel): its ranks would coalesce different "
+                "requests; call ScoringService.score on every rank")
         self._svc = service
         self._max_wait = max_wait_ms / 1e3
         self._max_batch = max_batch or service.batch_buckets[-1]

@@ -19,6 +19,15 @@ A lazyadam state is restored whole: the table Parameters and the pmn
 rows both come from the file, so under the compact engine the tables
 equal pmn[:, :D] after a load as after every step.
 
+On a mesh (`mesh`; JAX trainer.py:678-720) a checkpoint holds the
+LOGICAL layout all the same: each row-sharded tensor (a table block,
+its moment rows, a dense rule's state of it) is gathered over its model
+row into the id-ordered table (parallel/mesh.py `logical_tensor`), rank
+0 writes, and every rank waits for the write; a load reads the logical
+file on every rank and keeps the rank's block (`local_tensor`).  So a
+checkpoint moves between a mesh and one device in both directions, and
+between layouts and mesh shapes.
+
 Run state for an exact mid-epoch resume (JAX :109-167): `save_run_state`
 / `load_run_state` keep `<dir>/run_state.npz` with JAX's fields: the
 epoch, the calls done, the step, the host RandomState's MT19937 state
@@ -34,11 +43,13 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from clsr_tpu_torch.parallel.mesh import (Mesh, barrier, local_tensor,
+                                          logical_tensor, sharded_tables)
 from clsr_tpu_torch.training.lazy_adam import LazyAdamState
 from clsr_tpu_torch.training.state import TrainState
 
@@ -71,9 +82,40 @@ def read_meta(path: str) -> Optional[Dict[str, Any]]:
         return json.load(f)
 
 
-def save_state(path: str, state: TrainState) -> None:
-    """Write `state` into the directory `path` (made if missing)."""
-    os.makedirs(path, exist_ok=True)
+def _relayout(blob: Dict[str, Any], state: TrainState,
+              fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
+    """Apply fn to every row-sharded tensor of a checkpoint's blob, in
+    place: the sharded tables' entries of the model, of the moments and
+    of a dense rule's per-parameter state (tensors of the table's
+    shape, by the optimizer's parameter order)."""
+    tables = sharded_tables(state.model)
+    model = blob["model"]
+    for name in sorted(tables):
+        model[name] = fn(model[name])
+    opt = blob["optimizer"]
+    if opt["kind"] == "lazyadam":
+        for name in sorted(tables):
+            opt["moments"][name] = fn(opt["moments"][name])
+        return
+    dense = state.optimizer
+    params = [p for g in dense.param_groups for p in g["params"]]
+    ids = {id(p) for p in tables.values()}
+    states = opt["state_dict"]["state"]
+    for i, p in enumerate(params):
+        if id(p) not in ids or i not in states:
+            continue
+        # a copy: state_dict() hands out the optimizer's own state dicts
+        st = states[i] = dict(states[i])
+        for k in sorted(st):
+            v = st[k]
+            if torch.is_tensor(v) and v.dim() and v.shape[1:] == p.shape[1:]:
+                st[k] = fn(v)
+
+
+def save_state(path: str, state: TrainState, mesh: Optional[Mesh] = None
+               ) -> None:
+    """Write `state` into the directory `path` (made if missing); on a
+    mesh every rank calls it, and rank 0 writes the logical layout."""
     opt = state.optimizer
     if isinstance(opt, LazyAdamState):
         optimizer = {"kind": "lazyadam", "moments": dict(opt.moments),
@@ -82,11 +124,17 @@ def save_state(path: str, state: TrainState) -> None:
                      "dense": opt.dense_opt.state_dict()}
     else:
         optimizer = {"kind": _kind(opt), "state_dict": opt.state_dict()}
-    tmp = os.path.join(path, f"{STATE_NAME}.{os.getpid()}.tmp")
-    torch.save({"model": state.model.state_dict(), "optimizer": optimizer,
-                "step": state.step}, tmp)
-    os.replace(tmp, os.path.join(path, STATE_NAME))
-    write_meta(path, {"format": FORMAT})
+    blob = {"model": state.model.state_dict(), "optimizer": optimizer,
+            "step": state.step}
+    if mesh is not None:
+        _relayout(blob, state, lambda t: logical_tensor(t, mesh))
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, f"{STATE_NAME}.{os.getpid()}.tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, os.path.join(path, STATE_NAME))
+        write_meta(path, {"format": FORMAT})
+    barrier(mesh)
 
 
 def _read(path: str) -> Dict[str, Any]:
@@ -100,15 +148,25 @@ def _read(path: str) -> Dict[str, Any]:
                       weights_only=True)
 
 
-def load_model(path: str, model: torch.nn.Module) -> None:
-    """Restore only the model part (parameters and BN statistics)."""
-    model.load_state_dict(_read(path)["model"])
+def load_model(path: str, model: torch.nn.Module,
+               mesh: Optional[Mesh] = None) -> None:
+    """Restore only the model part (parameters and BN statistics); on a
+    mesh each rank keeps its blocks of the sharded tables."""
+    sd = _read(path)["model"]
+    if mesh is not None:
+        for name in sharded_tables(model):
+            sd[name] = local_tensor(sd[name], mesh)
+    model.load_state_dict(sd)
 
 
 @torch.no_grad()
-def load_state(path: str, state: TrainState) -> TrainState:
-    """Restore the checkpoint at `path` into `state`, in place."""
+def load_state(path: str, state: TrainState, mesh: Optional[Mesh] = None
+               ) -> TrainState:
+    """Restore the checkpoint at `path` into `state`, in place; on a mesh
+    each rank keeps its blocks of the row-sharded tensors."""
     blob = _read(path)
+    if mesh is not None:
+        _relayout(blob, state, lambda t: local_tensor(t, mesh))
     state.model.load_state_dict(blob["model"])
     saved, opt = blob["optimizer"], state.optimizer
     lazy = isinstance(opt, LazyAdamState)

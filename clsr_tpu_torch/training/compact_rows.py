@@ -18,8 +18,9 @@ Counterpart of clsr_tpu/training/compact_rows.py.  Per table and step:
 The JAX package installs the rows through a thread-local context
 (`use_compact_rows`), a workaround for flax's module calls; the port
 passes the context explicitly, `model(batch, ..., compact=ctx)` down to
-`seq_graph`.  Single-device only, as in JAX; the mesh engine
-(training/mesh_compact.py) waits for ROADMAP queue 1, parallel.
+`seq_graph`.  On a mesh, training/mesh_compact.py builds the plans
+(`MeshPlan`, a `Plan` whose first-occurrence mask is the global one)
+and the rows, and the context is made here the same way.
 """
 
 from __future__ import annotations

@@ -36,8 +36,29 @@ nothing from the host and can be captured in a CUDA graph.
 Each table's update returns its scatter-sets as (table, ids, rows)
 entries, and `_finish` writes every entry of the step with one
 `row_update.scatter_rows_group` call: one K5 launch per step, in place.
-The mesh-sharded updates of the JAX package (:194-259, :324-666) wait
-for ROADMAP queue 1, parallel.
+
+On a (data, model) mesh (parallel/mesh.py), the broadcast half of the
+JAX package's mesh updates:
+
+  * `table_update_sharded` (JAX :194-259), the legacy path on a
+    row-sharded table: the batch shards' ids all_gathered and sorted,
+    the rank's block of the gradient (already summed over the data
+    column, training/steps.py) read at the ids it owns, the clip norm's
+    sum of squares all_reduced over the model row;
+  * `compact_table_update_mesh` (JAX :324-418, the broadcast merge): the
+    ranks' w-space gradients and ids all_gathered over the batch group,
+    the plan's global order (training/mesh_compact.py) replayed, so each
+    unique row's gradient and the clip norm are the global ones on every
+    rank, then the pmn rows the rank owns updated;
+  * a replicated table (rows not divisible by model_parallel) takes the
+    single-device updates on the gathered ids and the batch-summed
+    gradient.
+
+Both write through K5, the rows the rank does not own filtered out
+first: the owned rows' local targets come first, ascending, and the
+others get targets past the block, which K5 drops.  The pmn param lane
+holds the rows rounded to the table's type, as on one device.  The
+owner-routed merge (JAX :420-606) waits for ROADMAP queue 1 item 10b.
 """
 
 from __future__ import annotations
@@ -53,6 +74,8 @@ from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.ops.row_update import Entry, scatter_rows_group
 from clsr_tpu_torch.ops.segment_sum import run_lengths, segment_sum
+from clsr_tpu_torch.parallel import collectives as col
+from clsr_tpu_torch.parallel.embedding import owned_rows
 from clsr_tpu_torch.training.compact_rows import Plan, supported_tables
 from clsr_tpu_torch.training.optimizer import (build_optimizer,
                                                clip_by_norm_each)
@@ -140,6 +163,18 @@ def _adam_rows(p_old, mv, g, t, lr):
     v_new = B2 * mv[:, D:] + (1.0 - B2) * g * g
     step = lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS)
     return p_old - step, m_new, v_new
+
+
+def _owned_first(loc: torch.Tensor, ok: torch.Tensor, rows: int,
+                 *values: torch.Tensor):
+    """(targets, values reordered) for K5 on a rank's [rows, W] block: the
+    owned rows first in their (ascending) order at their local rows, then
+    the others at rows + i, past the block."""
+    order = torch.argsort((~ok).to(torch.uint8), stable=True)
+    ar = torch.arange(loc.shape[0], device=loc.device, dtype=loc.dtype)
+    tgt = torch.where(ok, loc, rows + ar).index_select(0, order)
+    return (tgt.to(torch.int32),) + tuple(v.index_select(0, order)
+                                          for v in values)
 
 
 class LazyAdam:
@@ -238,6 +273,93 @@ class LazyAdam:
         return [(param.data, tgt, new_rows),
                 (mn, tgt, torch.cat(mn_rows, -1))]
 
+    @torch.no_grad()
+    def table_update_sharded(self, param: torch.Tensor,
+                             grad: torch.Tensor, mn: torch.Tensor,
+                             ids: torch.Tensor, t, mesh) -> List[Entry]:
+        """The legacy update of this rank's block of a row-sharded table
+        (JAX :194-259): `grad` is the block's gradient summed over the
+        data column, `ids` this rank's batch ids."""
+        D = param.shape[1]
+        off = D if is_pmn(param, mn) else 0
+        ids = col.all_gather(ids.reshape(-1).to(torch.int32),
+                             mesh.batch_group).reshape(-1)
+        ids = torch.sort(ids).values
+        first = torch.ones_like(ids, dtype=torch.bool)
+        first[1:] = ids[1:] != ids[:-1]
+        rows = param.shape[0]
+        loc, ok = owned_rows(ids, mesh, rows)
+        okf = ok[:, None].float()
+        g = grad.index_select(0, loc).float() * okf
+        sumsq = col.all_reduce(((g * g).sum(-1) * first).sum(),
+                               mesh.model_group)
+        g = g * self._clip_scale(sumsq)
+        mv = mn.index_select(0, loc)
+        p_old = (mv[:, :D] * okf if off
+                 else param.index_select(0, loc).float())
+        new_rows, m_new, v_new = _adam_rows(p_old, mv[:, off:], g, t,
+                                            self.lr)
+        new_rows = new_rows.to(param.dtype)
+        mn_rows = torch.cat(([new_rows.float()] if off else [])
+                            + [m_new, v_new], -1)
+        tgt, new_rows, mn_rows = _owned_first(loc, ok, rows, new_rows,
+                                              mn_rows)
+        return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)]
+
+    @torch.no_grad()
+    def compact_table_update_mesh(self, param: torch.Tensor,
+                                  gw: torch.Tensor, mn: torch.Tensor, plan,
+                                  t, mesh, n_rows: int, sharded: bool
+                                  ) -> List[Entry]:
+        """The broadcast merge (JAX :324-418) for this rank's block (or
+        the whole, replicated) of a pmn table of n_rows logical rows:
+        `gw` [Mi, D] is the rank's w-space gradient, `plan` its
+        training/mesh_compact.py plan."""
+        D = param.shape[1]
+        if not is_pmn(param, mn):
+            raise ValueError("the mesh compact update needs the pmn layout")
+        n = plan.gids.shape[0]
+        Mc = min(n, n_rows)     # at most n_rows distinct rows can occur
+        g_all = col.all_gather(gw.float().contiguous(),
+                               mesh.batch_group).reshape(-1, D)
+        g = segment_sum(g_all.index_select(0, plan.gperm),
+                        run_lengths(plan.gidx_first, Mc))
+        ar = torch.arange(Mc, dtype=torch.int32, device=gw.device)
+        valid = ar < plan.gseg[-1] + 1
+        g = g * self._clip_scale((g * g).sum())     # rows >= nseg are zero
+        uid = plan.gids.index_select(
+            0, torch.clamp(plan.gidx_first[:Mc], max=n - 1))
+        uid = torch.where(valid, uid, torch.zeros_like(uid))
+        rows = param.shape[0]
+        if sharded:
+            loc, ok = owned_rows(uid, mesh, rows)
+            ok = ok & valid
+        else:
+            loc, ok = uid, valid
+        mv = mn.index_select(0, loc) * ok[:, None].float()
+        new_rows, m_new, v_new = _adam_rows(mv[:, :D], mv[:, D:], g, t,
+                                            self.lr)
+        new_rows = new_rows.to(param.dtype)   # pmn's lane: the table's rows
+        tgt, new_rows, mn_rows = _owned_first(
+            loc, ok, rows, new_rows,
+            torch.cat([new_rows.float(), m_new, v_new], -1))
+        return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)]
+
+    def compact_mesh_update(self, model: nn.Module, state: LazyAdamState,
+                            gws: Dict[str, torch.Tensor],
+                            plans: Dict[str, Plan],
+                            table_names: Dict[str, str], mesh) -> None:
+        """Mesh compact table updates and dense Adam (JAX :633-666, the
+        broadcast branch): the dense gradients arrive summed over the
+        batch shards."""
+        def per_table(path, param, mn, t):
+            name = table_names[path]
+            n_rows = getattr(param, "mesh_rows", None)
+            return self.compact_table_update_mesh(
+                param, gws[name], mn, plans[name], t, mesh,
+                n_rows or param.shape[0], n_rows is not None)
+        self._finish(model, state, per_table)
+
     def _finish(self, model: nn.Module, state: LazyAdamState,
                 per_table: Callable[[str, torch.Tensor, torch.Tensor,
                                      torch.Tensor], List[Entry]]) -> None:
@@ -274,16 +396,25 @@ class LazyAdam:
         self._finish(model, state, per_table)
 
     def update(self, model: nn.Module, state: LazyAdamState,
-               table_ids: Dict[str, torch.Tensor]) -> None:
+               table_ids: Dict[str, torch.Tensor], mesh=None) -> None:
         """Legacy lazy update from the tables' dense gradients (JAX
-        :682-702, single device); the tables' .grad is released after."""
+        :682-702; on a mesh the gradients arrive summed over the batch
+        shards, a row-sharded table's over the data column); the tables'
+        .grad is released after."""
         def per_table(path, param, mn, t):
             name = path.rpartition(".")[2]
             ids = table_ids.get(name)
             if ids is None:
                 raise ValueError(
                     f"lazyadam: no touched-row mapping for table {name}")
-            entries = self.table_update(param, param.grad, mn, ids, t)
+            if getattr(param, "mesh_rows", None) is not None:
+                entries = self.table_update_sharded(param, param.grad, mn,
+                                                    ids, t, mesh)
+            else:
+                if mesh is not None:
+                    ids = col.all_gather(ids.reshape(-1).contiguous(),
+                                         mesh.batch_group)
+                entries = self.table_update(param, param.grad, mn, ids, t)
             param.grad = None
             return entries
         self._finish(model, state, per_table)

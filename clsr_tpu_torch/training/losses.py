@@ -20,6 +20,14 @@ Counterpart of clsr_tpu/training/losses.py:41-200:
     attn_labels) over valid rows.
 
 Every mean respects Batch.valid.
+
+On a mesh (parallel/mesh.py) each rank's LossParts are its share: the
+sums over its rows divided by the global denominators (`batch_total`),
+its globally-first rows' L2 and discrepancy sums, and the replicated
+parameters' layer terms on the first batch shard only (`batch_share`),
+so the shares sum to the global loss once and their gradients, summed
+over the batch shards, are the global gradient.  The square loss's root
+is taken of the global sum on every rank, as a 1/n_batch share.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from torch import nn
 
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.parallel.mesh import (batch_share, batch_sum,
+                                          batch_total, global_rows)
 
 
 @dataclasses.dataclass
@@ -68,13 +78,13 @@ def data_loss_fn(cfg: Config, logits: torch.Tensor, labels: torch.Tensor,
         logits = logits.movedim(2, 1).reshape(B * L, G)
         labels = labels.movedim(2, 1).reshape(B * L, G)
         valid = valid.repeat_interleave(L)
-    n_valid = valid.sum().clamp_min(1.0)
+    n_valid = batch_total(valid.sum()).clamp_min(1.0)
     if cfg.loss == "softmax":
         logp = F.log_softmax(logits, dim=-1)
         pos_logp = (logp * labels).sum(-1)                   # [B]
         return -(pos_logp * valid).sum() / n_valid
     wflat = valid[:, None].expand(logits.shape)
-    denom = wflat.sum().clamp_min(1.0)
+    denom = batch_total(wflat.sum()).clamp_min(1.0)
     if cfg.loss == "cross_entropy_loss":
         ce = (torch.clamp(logits, min=0.0) - logits * labels
               + torch.log1p(torch.exp(-logits.abs())))
@@ -82,7 +92,8 @@ def data_loss_fn(cfg: Config, logits: torch.Tensor, labels: torch.Tensor,
     pred = (torch.sigmoid(logits) if cfg.method == "classification"
             else logits)
     if cfg.loss == "square_loss":
-        return torch.sqrt(((pred - labels) ** 2 * wflat).sum() / denom)
+        return torch.sqrt(batch_sum(((pred - labels) ** 2 * wflat).sum())
+                          / denom) / global_rows(1)
     if cfg.loss == "log_loss":
         eps = 1e-7  # tf.losses.log_loss epsilon
         ll = -(labels * torch.log(pred + eps)
@@ -93,7 +104,7 @@ def data_loss_fn(cfg: Config, logits: torch.Tensor, labels: torch.Tensor,
 
 def regular_loss_fn(cfg: Config, model: nn.Module,
                     aux: Dict[str, Any]) -> torch.Tensor:
-    layer_sumsq, layer_sumabs = layer_param_sums(model)
+    layer_sumsq, layer_sumabs = map(batch_share, layer_param_sums(model))
     embed_sumsq = aux.get("embed_sumsq", 0.0)
     l2 = 0.5 * cfg.embed_l2 * embed_sumsq + 0.5 * cfg.layer_l2 * layer_sumsq
     l1 = cfg.layer_l1 * layer_sumabs
@@ -112,7 +123,7 @@ def contrastive_loss_fn(cfg: Config, aux: Dict[str, Any], batch: Batch
     recent_f = aux["hist_recent"][:, None, :].expand(B, G, D)
     cmask = ((aux["seq_len"] > cfg.contrastive_length_threshold).float()
              * batch.valid)[:, None].expand(B, G)
-    denom = cmask.sum().clamp_min(1.0)
+    denom = batch_total(cmask.sum()).clamp_min(1.0)
 
     def masked_mean(per_row):                                 # [B, G]
         return (cmask * per_row).sum() / denom
@@ -143,7 +154,8 @@ def contrastive_loss_fn(cfg: Config, aux: Dict[str, Any], batch: Batch
 
 def discrepancy_loss_fn(cfg: Config, aux: Dict[str, Any]) -> torch.Tensor:
     """clsr.py:73-82 — note the NEGATIVE sign."""
-    count = torch.as_tensor(aux["discrepancy_count"], dtype=torch.float32)
+    count = batch_total(torch.as_tensor(aux["discrepancy_count"],
+                                        dtype=torch.float32))
     mean_sq = aux["discrepancy_sumsq"] / count.clamp_min(1.0)
     return -cfg.discrepancy_loss_weight * mean_sq
 
@@ -153,8 +165,8 @@ def attn_loss_fn(cfg: Config, aux: Dict[str, Any], batch: Batch
     """attn_loss_weight * mse(alpha, attn_labels) over valid rows."""
     alpha = aux["alpha"]                                      # [B, G]
     w = batch.valid[:, None].expand(alpha.shape)
-    mse = ((alpha - aux["attn_labels"]) ** 2 * w).sum() / w.sum().clamp_min(
-        1.0)
+    mse = (((alpha - aux["attn_labels"]) ** 2 * w).sum()
+           / batch_total(w.sum()).clamp_min(1.0))
     return cfg.attn_loss_weight * mse
 
 

@@ -13,6 +13,13 @@ from JAX's by design, so parity tests inject negatives.
 
 `expand_nextitnet` (JAX :53-94, nextitnet_iterator.py:100-215) builds
 NextItNet's per-position targets the same way, drawing per position.
+
+On a mesh the negatives are the global batch's, as GSPMD makes JAX's:
+`on_global_batch` all_gathers the shards' positive (item, cate) columns
+and valid flags over the batch group, every rank draws the global
+[B, num_ngs] negatives from its generator (kept in lockstep: every
+rank's is seeded alike and draws alike), and keeps its own rows, so a
+W-rank step draws the negatives a one-rank step draws.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.models.nextitnet import right_align
+from clsr_tpu_torch.parallel.mesh import (active_mesh, gather_rows_of,
+                                          local_rows_of)
 
 
 def _draw(generator: torch.Generator, shape, n_valid: torch.Tensor,
@@ -98,3 +107,21 @@ def expand_nextitnet(generator: torch.Generator, batch: Batch,
     labels[:, 0, :] = 1.0
     return dataclasses.replace(batch, items=items, cates=cates,
                                labels=labels)
+
+
+def on_global_batch(expand, generator: torch.Generator, batch: Batch,
+                    num_ngs: int) -> Batch:
+    """expand(generator, batch, num_ngs) on the global batch's positives
+    when a mesh is active, this rank's rows of the result kept; `expand`
+    reads the positives' items, cates and valid flags only."""
+    mesh = active_mesh()
+    if mesh is None:
+        return expand(generator, batch, num_ngs)
+    pos = gather_rows_of(torch.stack([batch.items[:, 0],
+                                      batch.cates[:, 0]], 1), mesh)
+    glob = dataclasses.replace(batch, items=pos[:, :1], cates=pos[:, 1:],
+                               valid=gather_rows_of(batch.valid, mesh))
+    out = expand(generator, glob, num_ngs)
+    return dataclasses.replace(batch, items=local_rows_of(out.items),
+                               cates=local_rows_of(out.cates),
+                               labels=local_rows_of(out.labels))

@@ -33,7 +33,7 @@ arithmetic.  None of these is a Pallas kernel in the JAX package.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -48,12 +48,20 @@ FTRL_POWER = 0.5              # -learning_rate_power
 
 
 @torch.no_grad()
-def clip_by_norm_each(grads: Iterable[torch.Tensor],
-                      max_norm: float) -> None:
+def clip_by_norm_each(grads: Iterable[torch.Tensor], max_norm: float,
+                      sumsq: Optional[Callable[[torch.Tensor, int],
+                                               torch.Tensor]] = None
+                      ) -> None:
     """tf.clip_by_norm per tensor, in place: g * max_norm / ||g|| where
-    ||g|| > max_norm, else g."""
-    for g in grads:
-        norm = torch.linalg.vector_norm(g)
+    ||g|| > max_norm, else g.  `sumsq(s, i)`, when given, maps the i-th
+    tensor's local sum of squares to its whole tensor's (a row-sharded
+    table's, summed over the mesh's model row; JAX :153 gets it from
+    GSPMD)."""
+    for i, g in enumerate(grads):
+        if sumsq is None:
+            norm = torch.linalg.vector_norm(g)
+        else:
+            norm = torch.sqrt(sumsq((g.float() * g.float()).sum(), i))
         g.mul_(torch.where(norm > max_norm, max_norm / norm,
                            torch.ones_like(norm)))
 

@@ -26,6 +26,17 @@ resident steps run it unchanged.
 
 All scatter-sets of a lazy step go out in one K5 launch.
 
+On a (data, model) mesh (parallel/mesh.py; JAX's `mesh_compact_step`,
+:131-163, and `_step_inner`'s dispatch, :167-200) each rank runs the
+step on its batch shard with the mesh active: the negatives are drawn
+on the global batch, the losses are the rank's shares, `reduce_grads`
+sums the dense gradients over the batch group (each row-sharded table
+block's over the data column), and the table update is the compact
+engine's broadcast merge on the pmn layout (training/mesh_compact.py),
+else the legacy lazy update of the sharded blocks; the dense rules clip
+a sharded table by its whole norm.  The LossParts returned are the
+global ones, summed over the ranks' shares.
+
 The port runs the step on the model's device and updates the state in
 place.  With use_pallas_train_attention on, both target-attention
 layers run K3a, K3b and K1; with use_pallas_scan, the recurrence runs K2
@@ -80,6 +91,10 @@ from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
                                           gather_batch)
 from clsr_tpu_torch.models.base import check_not_quantized
 from clsr_tpu_torch.ops import launches
+from clsr_tpu_torch.parallel.collectives import all_reduce
+from clsr_tpu_torch.parallel.mesh import (Mesh, is_table, make_mesh,
+                                          mesh_size, sharded_tables,
+                                          use_mesh)
 from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
                                                   supported_tables)
@@ -88,24 +103,88 @@ from clsr_tpu_torch.training.lazy_adam import (LazyAdam, LazyAdamState,
                                                fused_tables_enabled, is_pmn,
                                                per_position)
 from clsr_tpu_torch.training.losses import LossParts, total_loss
+from clsr_tpu_torch.training.mesh_compact import (build_mesh_plans,
+                                                  gather_mesh_ws)
 from clsr_tpu_torch.training.negative_sampling import (expand_nextitnet,
-                                                       expand_with_negatives)
+                                                       expand_with_negatives,
+                                                       on_global_batch)
 from clsr_tpu_torch.training.optimizer import clip_by_norm_each
 from clsr_tpu_torch.training.state import TrainState
 
 LOSS_FIELDS = tuple(f.name for f in dataclasses.fields(LossParts))
 
 
+def _mesh_of(cfg: Config, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The step's mesh: `mesh`, or for a mesh config the process group's
+    (parallel/mesh.py make_mesh, which raises without one)."""
+    if mesh is None and mesh_size(cfg) > 1:
+        mesh = make_mesh(cfg)
+    return mesh
+
+
+@torch.no_grad()
+def reduce_grads(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Sum the batch shards' gradients, in place: the replicated
+    parameters' over the batch group in one all_reduce of their
+    concatenation, each row-sharded table block's over the data column
+    (its model row holds the other blocks).  A block's rows that no rank
+    of the column touched are zero on every rank, so only the rows some
+    rank's gradient has nonzero travel: the same sums, a batch's rows in
+    place of the block's (one host sync a table)."""
+    dense = [p for n, p in model.named_parameters()
+             if p.grad is not None and getattr(p, "mesh_rows", None) is None]
+    if dense:
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in dense]),
+                          mesh.batch_group)
+        for p, g in zip(dense, flat.split([p.numel() for p in dense])):
+            p.grad.copy_(g.view_as(p.grad))
+    for p in sharded_tables(model).values():
+        if p.grad is None:
+            continue
+        touched = all_reduce((p.grad != 0).any(1).to(torch.uint8),
+                             mesh.data_group)
+        rows = touched.nonzero()[:, 0]
+        p.grad[rows] = all_reduce(p.grad[rows], mesh.data_group)
+
+
+def _clip_dense(model: torch.nn.Module, cfg: Config,
+                mesh: Optional[Mesh]) -> None:
+    """Per-tensor clip of every gradient; a row-sharded table's norm is
+    its whole table's (summed over the model row)."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    sumsq = None
+    if mesh is not None:
+        def sumsq(s, i):
+            if getattr(params[i], "mesh_rows", None) is None:
+                return s
+            return all_reduce(s, mesh.model_group)
+    clip_by_norm_each([p.grad for p in params], cfg.max_grad_norm, sumsq)
+
+
+def _global_parts(parts: LossParts, mesh: Mesh) -> LossParts:
+    """The global loss parts: the ranks' shares summed (no gradient)."""
+    return _parts(all_reduce(_row(parts), mesh.batch_group))
+
+
 def _make_step_body(model: torch.nn.Module, cfg: Config,
-                    allow_pallas: Optional[bool]) -> Callable[
+                    allow_pallas: Optional[bool],
+                    mesh: Optional[Mesh] = None) -> Callable[
         [TrainState, Batch, torch.Generator], LossParts]:
     """The device work of one train step, from the negatives to the
     optimizer: (state, batch, generator) -> LossParts (not detached).
     It touches no host state but the tensors of `state`, so a CUDA graph
-    can capture it; `make_train_step_fn` documents the step."""
-    if cfg.data_parallel * cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "a device mesh waits for ROADMAP queue 1, parallel")
+    can capture it; `make_train_step_fn` documents the step.  On a mesh
+    `batch` is this rank's shard and the parts are the global ones
+    (detached)."""
+    mesh = _mesh_of(cfg, mesh)
+    if mesh is not None:
+        unplaced = [n for n, p in model.named_parameters()
+                    if is_table(n) and mesh.sharded(p.shape[0])
+                    and getattr(p, "mesh_rows", None) is None]
+        if unplaced:
+            raise ValueError(f"tables {unplaced} are not row-sharded: "
+                             f"place the model (parallel.mesh.place_model) "
+                             f"before making its state and steps")
     check_not_quantized(model)
     num_ngs = cfg.train_num_ngs
     lazy = LazyAdam(cfg) if cfg.optimizer == "lazyadam" else None
@@ -122,6 +201,9 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
         model.zero_grad(set_to_none=True)
         with record_function("train_step.backward"):
             parts.loss.backward()
+        if mesh is not None:
+            with record_function("train_step.reduce_grads"):
+                reduce_grads(model, mesh)
         return parts
 
     def compact_step(state: TrainState, batch: Batch,
@@ -131,8 +213,10 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
         opt = state.optimizer
         tables = {n: p for n, p in model.named_parameters()
                   if n in table_names}
-        plans = build_plans(table_names, batch)
+        if mesh is not None:
+            return mesh_compact_step(state, batch, generator, tables)
         fused = all(is_pmn(p, opt.moments[n]) for n, p in tables.items())
+        plans = build_plans(table_names, batch)
         ws_full = gather_ws({n: opt.moments[n] for n in tables} if fused
                             else tables, table_names, plans)
         # pmn: the param lane in the table's dtype (exact: it holds the
@@ -147,33 +231,76 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
                             plans, ws_full if fused else ws, table_names)
         return parts
 
-    def body(state: TrainState, batch: Batch, generator: torch.Generator
-             ) -> LossParts:
+    def mesh_compact_step(state: TrainState, batch: Batch,
+                          generator: torch.Generator, tables
+                          ) -> LossParts:
+        """The compact row engine on the mesh (JAX :131-163,
+        training/mesh_compact.py): this rank's plans with the global
+        merge order, one collective row gather per table, the w-space
+        backward on the rank's rows, the broadcast merge."""
+        opt = state.optimizer
+        plans = build_mesh_plans(table_names, batch, mesh)
+        ws_full = gather_mesh_ws(
+            {n: opt.moments[n] for n in tables}, table_names, plans, mesh,
+            {n: getattr(p, "mesh_rows", None) is not None
+             for n, p in tables.items()})
+        ws = {table_names[n]: ws_full[table_names[n]][:, :p.shape[1]]
+              .to(p.dtype).contiguous().requires_grad_()
+              for n, p in tables.items()}
+        parts = forward_backward(batch, generator, make_context(plans, ws))
+        lazy.compact_mesh_update(model, opt,
+                                 {k: w.grad for k, w in ws.items()}, plans,
+                                 table_names, mesh)
+        return parts
+
+    def compact_applies(state: TrainState) -> bool:
+        """The compact engine runs; on a mesh only on the pmn layout (JAX
+        :167-200: a split layout takes the legacy path there)."""
+        if table_names is None:
+            return False
+        if mesh is None:
+            return True
+        params = dict(model.named_parameters())
+        return all(is_pmn(params[n], state.optimizer.moments[n])
+                   for n in table_names)
+
+    def run(state: TrainState, batch: Batch, generator: torch.Generator
+            ) -> LossParts:
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
-                batch = expand(generator, batch, num_ngs)
+                batch = on_global_batch(expand, generator, batch, num_ngs)
         model.train()
-        if table_names is not None:
+        if compact_applies(state):
             parts = compact_step(state, batch, generator)
         else:
             parts = forward_backward(batch, generator)
             if lazy is not None:
-                lazy.update(model, state.optimizer, batch_table_ids(batch))
+                lazy.update(model, state.optimizer, batch_table_ids(batch),
+                            mesh)
             else:
                 if cfg.is_clip_norm:
                     with record_function("train_step.clip"):
-                        clip_by_norm_each([p.grad for p in model.parameters()
-                                           if p.grad is not None],
-                                          cfg.max_grad_norm)
+                        _clip_dense(model, cfg, mesh)
                 with record_function("train_step.adam"):
                     state.optimizer.step()
         return parts
 
+    if mesh is None:
+        run.mesh = None
+        return run
+
+    def body(state: TrainState, batch: Batch, generator: torch.Generator
+             ) -> LossParts:
+        with use_mesh(mesh):
+            return _global_parts(run(state, batch, generator), mesh)
+
+    body.mesh = mesh
     return body
 
 
 def make_train_step_fn(model: torch.nn.Module, cfg: Config,
-                       allow_pallas: Optional[bool] = None) -> Callable[
+                       allow_pallas: Optional[bool] = None,
+                       mesh: Optional[Mesh] = None) -> Callable[
         [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
     """The train step: (state, batch, generator) -> (state, LossParts).
 
@@ -184,8 +311,15 @@ def make_train_step_fn(model: torch.nn.Module, cfg: Config,
     fused train scorer; None defers to cfg.use_pallas_train_attention
     ('auto' = on for CUDA tensors).  After the step each parameter's
     `.grad` holds its clipped gradient, except the tables under
-    lazyadam, which hold none."""
-    body = _make_step_body(model, cfg, allow_pallas)
+    lazyadam, which hold none.
+
+    On a mesh (`mesh`, or the process group's for a mesh config) the
+    model's tables must be placed (parallel/mesh.py `place_model`)
+    before its state is made; `batch` is this rank's shard of the global
+    batch, the step is the global batch's (negatives, dropout masks and
+    BN statistics of the global batch, gradients summed over the
+    shards), and the LossParts are the global ones on every rank."""
+    body = _make_step_body(model, cfg, allow_pallas, mesh)
 
     def step(state: TrainState, batch: Batch, generator: torch.Generator):
         parts = body(state, batch, generator)
@@ -212,12 +346,13 @@ def sync_params_from_opt(state: TrainState) -> TrainState:
     return state
 
 
-def make_train_step(model: torch.nn.Module, cfg: Config) -> Callable[
+def make_train_step(model: torch.nn.Module, cfg: Config,
+                    mesh: Optional[Mesh] = None) -> Callable[
         [TrainState, Batch, torch.Generator], Tuple[TrainState, LossParts]]:
     """The train step with the config's kernel gates.  Unlike the JAX
     package's, it needs no parameter sync after a step: every lazy
     update writes the touched table rows itself."""
-    return make_train_step_fn(model, cfg)
+    return make_train_step_fn(model, cfg, mesh=mesh)
 
 
 def _fields(batch: Batch) -> List[torch.Tensor]:
@@ -273,12 +408,16 @@ class MultiTrainStep:
     the state's tensors: `reset()` drops it (Trainer.load does, since
     loading replaces the optimizers' tensors), and a call with another
     state or generator warms up and captures again.  A capture that
-    fails raises; no CUDA step falls back to the eager step."""
+    fails raises; no CUDA step falls back to the eager step.
+
+    On a mesh every step runs eagerly (parallel/mesh.py: a graph cannot
+    capture gloo's host-staged collectives)."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
-                 steps_per_call: int):
+                 steps_per_call: int, mesh: Optional[Mesh] = None):
         self.steps_per_call = steps_per_call
-        self._body = _make_step_body(model, cfg, None)
+        self._body = _make_step_body(model, cfg, None, mesh)
+        self._graphed = self._body.mesh is None
         self.capture_stats: Optional[dict] = None
         self.reset()
 
@@ -307,7 +446,7 @@ class MultiTrainStep:
 
     def _step(self, state, batch, generator) -> torch.Tensor:
         """One step; its loss parts as a [len(LOSS_FIELDS)] tensor."""
-        on_card = batch.users.device.type == "cuda"
+        on_card = batch.users.device.type == "cuda" and self._graphed
         bound = (self._bound is not None and self._bound[0] is state
                  and self._bound[1] is generator)
         if on_card and bound:
@@ -366,10 +505,11 @@ def _capture_step(run: Callable[[], torch.Tensor],
 
 
 def make_multi_train_step(model: torch.nn.Module, cfg: Config,
-                          steps_per_call: int) -> MultiTrainStep:
+                          steps_per_call: int,
+                          mesh: Optional[Mesh] = None) -> MultiTrainStep:
     """K = steps_per_call train steps a host call (JAX :267-290); see
     `MultiTrainStep`."""
-    return MultiTrainStep(model, cfg, steps_per_call)
+    return MultiTrainStep(model, cfg, steps_per_call, mesh)
 
 
 def make_resident_step(model: torch.nn.Module, cfg: Config) -> Callable[

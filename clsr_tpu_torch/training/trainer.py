@@ -69,9 +69,24 @@ How the port runs what the JAX package runs:
     at each show_step boundary the histogram step (training/steps.py
     `make_histogram_step`) runs on a fixed probe batch, the first train
     batch of RandomState(0), and the counts go to the summary writer.
-  * A mesh (item 10) raises.  The torch generator is drawn by the steps
-    (and the bucketed refresh) alone, so the resident and the streamed
-    path draw the same numbers.
+  * The torch generator is drawn by the steps (and the bucketed
+    refresh) alone, so the resident and the streamed path draw the same
+    numbers.
+  * A (data, model) mesh (cfg.data_parallel * cfg.model_parallel > 1,
+    JAX :46-110; parallel/mesh.py): every rank of the process group
+    builds the same Trainer.  The model's tables are row-sharded before
+    the state is made (`place_model`); every rank streams the same
+    global batches from its loader and keeps its own rows (axis 1 of a
+    stacked [K, B, ...] item), the steps are the mesh's
+    (training/steps.py; K steps a call run eagerly), and the eval step
+    pads each global batch to a multiple of the batch shards, scores the
+    rank's rows and gathers the predictions, so every rank computes the
+    same metrics.  Rank 0 alone logs and writes summaries; checkpoints
+    hold the logical layout (training/checkpoint.py), written by rank 0
+    and loaded by every rank.  Refused on a mesh, naming ROADMAP queue 1
+    item 10b: resident data (`resident_data: on`; 'auto' streams),
+    length buckets, mid-epoch autosave and resume, histograms, the
+    owner-routed merge and every model but CLSR.
 """
 
 from __future__ import annotations
@@ -93,6 +108,10 @@ from clsr_tpu_torch.data.resident import (EpochFeed, build_resident,
                                           perm_length,
                                           resident_nbytes_estimate,
                                           resolve_bucket_paddings)
+from clsr_tpu_torch.parallel.mesh import (make_mesh,
+                                          make_sharded_eval_step,
+                                          mesh_size, place_model,
+                                          shard_batch)
 from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.state import create_train_state
@@ -106,13 +125,35 @@ from clsr_tpu_torch.training.steps import (make_eval_step_fn,
 from clsr_tpu_torch.utils.summaries import SummaryWriter
 
 
+def mesh_refusals(cfg: Config) -> List[str]:
+    """The settings of cfg that a mesh does not run yet (ROADMAP queue 1
+    item 10b)."""
+    if mesh_size(cfg) <= 1:
+        return []
+    out = []
+    if cfg.mesh_update_routing != "broadcast":
+        out.append("mesh_update_routing owner (the owner-routed merge)")
+    if cfg.resident_data == "on":
+        out.append("resident_data on (mesh-resident data)")
+    if cfg.length_buckets != "off":
+        out.append("length_buckets (resident only)")
+    if cfg.autosave_every_calls:
+        out.append("autosave_every_calls (mid-epoch resume)")
+    if cfg.write_histograms:
+        out.append("write_histograms")
+    if cfg.model_type.lower() != "clsr":
+        out.append(f"model {cfg.model_type}")
+    return out
+
+
 def check_trainable(cfg: Config) -> None:
     """Raise on settings whose fit path is not ported, naming the ROADMAP
     item that brings it."""
-    if cfg.data_parallel * cfg.model_parallel > 1:
+    refused = mesh_refusals(cfg)
+    if refused:
         raise NotImplementedError(
-            "a device mesh (data_parallel * model_parallel > 1) waits for "
-            "ROADMAP queue 1 item 10 (parallel)")
+            f"on a device mesh, {'; '.join(refused)} wait for ROADMAP "
+            f"queue 1 item 10b (parallel)")
 
 
 class Trainer:
@@ -120,24 +161,31 @@ class Trainer:
         check_trainable(cfg)
         self.model = model
         self.cfg = cfg
-        self.log = log
+        self.mesh = make_mesh(cfg) if mesh_size(cfg) > 1 else None
+        # on a mesh rank 0 alone logs and writes summaries
+        self._writer = self.mesh is None or self.mesh.rank == 0
+        self.log = log if self._writer else (lambda *a, **k: None)
         self.device = next(model.parameters()).device
+        if self.mesh is not None:
+            place_model(model, self.mesh)
         if cfg.use_pallas_scan and cfg.compute_dtype == "bfloat16":
             log("compute_dtype bfloat16: the recurrence runs its plain bf16 "
                 "path, not K2 (the JAX package runs K2 under f32 compute "
                 "only, ops/fused_clsr.py:291)")
         self.state = create_train_state(model, cfg)
-        self.train_step = make_train_step(model, cfg)
-        self.eval_step = make_eval_step_fn(cfg)
+        self.train_step = make_train_step(model, cfg, self.mesh)
+        self.eval_step = (make_eval_step_fn(cfg) if self.mesh is None
+                          else make_sharded_eval_step(cfg, self.mesh))
         self.multi_step = (make_multi_train_step(
-            model, cfg, cfg.train_steps_per_call)
+            model, cfg, cfg.train_steps_per_call, self.mesh)
             if cfg.train_steps_per_call > 1 else None)
         self.best_epoch = 0
         self.eval_history: List[Tuple[int, Dict[str, float]]] = []
         # per epoch: steps, examples, train and eval seconds, mean loss
         # (and on the bucketed path the BN refresh's seconds)
         self.epoch_stats: List[Dict[str, float]] = []
-        self.summary = SummaryWriter(cfg.summaries_dir, cfg.write_tfevents)
+        self.summary = SummaryWriter(
+            cfg.summaries_dir if self._writer else None, cfg.write_tfevents)
         # the resident path's state, built at its first epoch: one feed
         # (EpochFeed) a dataset or bucket, each with its eligible local
         # rows, the upload's bytes and seconds, the steps, the refresh
@@ -155,7 +203,7 @@ class Trainer:
         """resident_data: 'on', or 'auto' when the upload fits
         cfg.resident_max_bytes (JAX :139-155, one device)."""
         cfg = self.cfg
-        if cfg.resident_data == "off":
+        if cfg.resident_data == "off" or self.mesh is not None:
             return False
         if cfg.resident_data == "on":
             return True
@@ -366,7 +414,11 @@ class Trainer:
                         B, np_rng, min_seq_length=cfg.min_seq_length)
                 for _ in range(calls_done):     # no device work
                     next(items, None)
-                for item in device_batches(counted(items), self.device,
+                items = counted(items)
+                if self.mesh is not None:       # this rank's rows
+                    items = (shard_batch(b, self.mesh, b.users.ndim - 1)
+                             for b in items)
+                for item in device_batches(items, self.device,
                                            cfg.prefetch_batches):
                     if item.users.ndim == 2:    # [K, B, ...] stacked
                         self.state, parts = multi(self.state, item,
@@ -510,13 +562,15 @@ class Trainer:
             for tag, parts in hists.items()})
 
     def save(self, path: str) -> None:
-        checkpoint.save_state(os.path.abspath(path), self.state)
+        """Write a checkpoint (on a mesh: every rank calls, rank 0 writes
+        the logical layout)."""
+        checkpoint.save_state(os.path.abspath(path), self.state, self.mesh)
 
     def load(self, path: str) -> None:
         """Restore a checkpoint into the state.  Loading replaces the
         optimizers' tensors, which a captured train step still writes, so
         the graphs are dropped and the next steps capture again."""
-        checkpoint.load_state(os.path.abspath(path), self.state)
+        checkpoint.load_state(os.path.abspath(path), self.state, self.mesh)
         for steps in (self.multi_step, self.resident_step):
             if hasattr(steps, "reset"):
                 steps.reset()

@@ -173,6 +173,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "import clsr_tpu_torch.utils.summaries\n"
             "import clsr_tpu_torch.utils.profiling\n"
             "import clsr_tpu_torch.ops.long_context\n"
+            "import clsr_tpu_torch.parallel.distributed\n"
+            "import clsr_tpu_torch.parallel.embedding\n"
+            "import clsr_tpu_torch.training.mesh_compact\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))\n")
@@ -193,7 +196,9 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "probe_k2.py")]
+    # the mesh tests' rank side runs in spawned ranks, without JAX
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "probe_k2.py",
+                                             "tests/torch_mesh_worker.py")]
     for root, _, files in os.walk(os.path.join(REPO, "clsr_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = {p: m for p in paths for m in _imports(p) if _forbidden(m)}

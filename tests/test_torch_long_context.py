@@ -14,7 +14,7 @@ tests/test_long_context.py:80-113): one train step against JAX's (loss
 parts and clipped gradients, K2's plain versions on and off) and the
 eval step; the flax subtree through from_flax / to_flax; the scoring
 service against JAX's; K1 and K3 never run on the path; the sequence-
-parallel branch names item 10.
+parallel branch names item 10b.
 """
 
 import dataclasses
@@ -174,7 +174,7 @@ def test_sequence_parallel_merge_names_item_10():
     mod = LongTargetAttention(DQ, DK, LAYERS, get_initializer("tnormal",
                                                               0.1),
                               torch.Generator(), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 10\\b"):
+    with pytest.raises(NotImplementedError, match="item 10b\\b"):
         mod(*(torch.from_numpy(a) for a in (query, keys, mask)),
             axis_name="seq")
 

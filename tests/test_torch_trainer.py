@@ -507,10 +507,16 @@ UNPORTED = {
     "etl_processes": (["--etl_processes", "4"], "11b"),
     "etl_native": (["--etl_native"], "11b"),
     "etl_format": (["--etl_format", "packed"], "11b"),
-    "data_parallel": (["--data_parallel", "2"], 10),
-    "model_parallel": (["--model_parallel", "2"], 10),
-    "mesh_routing": (["--mesh_update_routing", "owner"], 10),
-    "mesh_layout": (["--mesh_row_layout", "contiguous"], 10),
+    "data_parallel": (["--data_parallel", "2", "--dist_backend", "gloo"],
+                      "10a"),
+    "model_parallel": (["--model_parallel", "2", "--dist_backend", "gloo"],
+                       "10a"),
+    "mesh_routing": (["--mesh_update_routing", "owner"], "10b"),
+    "mesh_layout": (["--mesh_row_layout", "contiguous"], "10a"),
+    "mesh_flat_batch": (["--mesh_flat_batch", "off"], "10a"),
+    "mesh_capacity": (["--mesh_owner_capacity", "2"], "10b"),
+    "mesh_resident": (["--data_parallel", "2", "--dist_backend", "gloo",
+                       "--resident_data", "on"], "10b"),
     "resume": (["--resume"], 11),
     "autosave": (["--autosave_every_calls", "5"], 11),
     "resident_on": (["--resident_data", "on"], 5),
@@ -532,10 +538,11 @@ UNPORTED = {
 # parse and reach the Config (--resume and item 11b's ETL and data-format
 # flags reach main: the parsed args), and those settings fit (items 8 and
 # 8b are the two halves of the model zoo; 11 and 11b the host remainder,
-# 11b the ETL and the packed format).  Under
+# 11b the ETL and the packed format; 10a the mesh's main path, whose
+# owner-routed merge and mesh-resident data wait for 10b).  Under
 # --attention_block_size the config refuses clsr.yaml's enable_bn, as
 # the JAX CLI's does (REFUSED_BY_CONFIG).
-PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, 11, "11b"}
+PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, "10a", 11, "11b"}
 REFUSED_BY_CONFIG = {"attention_block": "requires enable_bn: False"}
 PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "raw_data": ("raw_data", "x.csv"),
@@ -554,6 +561,10 @@ PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "compute_bf16": ("compute_dtype", "bfloat16"),
                  "embedding_bf16": ("embedding_dtype", "bfloat16"),
                  "optimizer": ("optimizer", "adagrad"),
+                 "data_parallel": ("data_parallel", 2),
+                 "model_parallel": ("model_parallel", 2),
+                 "mesh_layout": ("mesh_row_layout", "contiguous"),
+                 "mesh_flat_batch": ("mesh_flat_batch", "off"),
                  "sequential_model": ("sequential_model", "gru")}
 
 
@@ -587,7 +598,10 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(resident_data="on"), 5), (dict(data_parallel=2), 10),
+    (dict(resident_data="on"), 5),
+    # the mesh is ported (item 10a); mesh-resident data waits for 10b
+    pytest.param(dict(data_parallel=2, resident_data="on"), "10b",
+                 id="kw1-10"),
     (dict(autosave_every_calls=2, model_dir="<tmp>"), 11),
     (dict(write_histograms=True, summaries_dir="<tmp>"), 11)])
 def test_trainer_refuses_unported_settings(data, tmp_path, kw, item):

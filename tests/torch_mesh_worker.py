@@ -1,0 +1,310 @@
+"""The rank side of the port's mesh tests (tests/test_torch_parallel.py,
+tests/test_torch_mesh_train.py).
+
+Each spawned rank of a 4-rank gloo world (parallel/distributed.py
+`run_local_world`) runs one of the `*_world` functions below on the
+inputs its test file made with numpy, and returns numpy results (logical
+tables, global outputs) for the file to hold against JAX's mesh and the
+port's one-rank run.  This module imports torch and the port only: a
+spawned rank imports it to find its function, and JAX stays out of the
+ranks.
+"""
+
+import dataclasses
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+import clsr_tpu_torch.training.steps as port_steps
+from clsr_tpu_torch.config import load_config
+from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.data.loader import SequenceLoader
+from clsr_tpu_torch.data.parser import parse_file
+from clsr_tpu_torch.data.vocab import Vocab, load_vocab
+from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.ops import fused_train_attention as fta
+from clsr_tpu_torch.parallel import collectives as col
+from clsr_tpu_torch.parallel import mesh as pm
+from clsr_tpu_torch.parallel.embedding import gather_rows
+from clsr_tpu_torch.serving import ScoringService
+from clsr_tpu_torch.training.evaluator import run_weighted_eval
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+from clsr_tpu_torch.training.state import create_train_state
+from clsr_tpu_torch.training.steps import make_train_step
+from clsr_tpu_torch.training.trainer import Trainer
+
+
+def np_of(t) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def batch_of(arrays) -> Batch:
+    return Batch(**{k: torch.from_numpy(np.array(v)) for k, v in
+                    arrays.items()})
+
+
+def cfg_of(kw) -> object:
+    return load_config(None, **kw)
+
+
+def model_of(cfg, sizes, state_dict=None):
+    model = get_model_class("clsr")(cfg, *sizes, device="cpu")
+    if state_dict is not None:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state_dict.items()})
+    return model
+
+
+def logical_state(state, mesh):
+    """The model's state_dict, the lazy moments and the dense Adam
+    moments ({'exp_avg/<name>', 'exp_avg_sq/<name>'}), logical, as
+    numpy."""
+    tables = pm.sharded_tables(state.model)
+    logical = lambda k, v: np_of(pm.logical_tensor(v, mesh) if k in tables
+                                 else v)
+    sd = {k: logical(k, v) for k, v in state.model.state_dict().items()}
+    moments, adam = {}, state.optimizer
+    if isinstance(adam, LazyAdamState):
+        moments = {k: logical(k, v) for k, v in adam.moments.items()}
+        adam = adam.dense_opt
+    dense = {}
+    for name, p in state.model.named_parameters():
+        for key, v in adam.state.get(p, {}).items():
+            if key in ("exp_avg", "exp_avg_sq"):
+                dense[f"{key}/{name}"] = logical(name, v)
+    return sd, moments, dense
+
+
+def recording_clip(model, record):
+    """training/steps.py's clip_by_norm_each, recording each gradient's
+    norms before the clip: {name: (this rank's, the whole tensor's)}."""
+    clip = port_steps.clip_by_norm_each
+
+    def wrapped(grads, max_norm, sumsq=None):
+        grads = list(grads)
+        names = {id(p.grad): n for n, p in model.named_parameters()
+                 if p.grad is not None}
+        for i, g in enumerate(grads):
+            local = (g.float() * g.float()).sum()
+            whole = local if sumsq is None else sumsq(local, i)
+            record[names[id(g)]] = (float(local.sqrt()), float(whole.sqrt()))
+        return clip(grads, max_norm, sumsq)
+
+    return clip, wrapped
+
+
+def parts_of(parts):
+    return {f.name: float(getattr(parts, f.name))
+            for f in dataclasses.fields(parts)}
+
+
+# ------------------------------------------------------ test_torch_parallel
+
+
+def _collective_cases(rank, mesh):
+    """all_reduce / all_gather / reduce_scatter, and all_reduce_grad's
+    transpose, over the model row and the world, on rank-seeded data."""
+    out = {}
+    x = torch.from_numpy(np.random.RandomState(rank).randn(4, 3)
+                         .astype(np.float32))
+    for name, group in (("model", mesh.model_group), ("world", mesh.world)):
+        n = col.group_size(group)
+        out[f"{name}/all_reduce"] = np_of(col.all_reduce(x, group))
+        out[f"{name}/all_reduce_again"] = np_of(col.all_reduce(x, group))
+        out[f"{name}/all_gather"] = np_of(col.all_gather(x, group))
+        xs = x[:n] if n <= 4 else x
+        out[f"{name}/reduce_scatter"] = np_of(col.reduce_scatter(xs, group))
+        leaf = xs.clone().requires_grad_()
+        y = col.all_reduce_grad(leaf, group)
+        w = torch.arange(y.numel(), dtype=torch.float32).reshape(
+            y.shape) + rank
+        (y * w).sum().backward()
+        out[f"{name}/all_reduce_grad/grad"] = np_of(leaf.grad)
+    return out
+
+
+def _gather_case(case, mesh):
+    """gather_rows of a logical table's block at this rank's ids; the
+    global output and the logical table gradient of sum(out * w)."""
+    table = torch.from_numpy(case["table"])
+    ids = torch.from_numpy(case["ids"])
+    w = torch.from_numpy(case["w"])
+    block = pm.local_tensor(table, mesh).requires_grad_()
+    local_ids = pm.shard_rows(ids, mesh)
+    out = gather_rows(block, local_ids, mesh)
+    (out * pm.shard_rows(w, mesh)).sum().backward()
+    grad = col.all_reduce(block.grad, mesh.data_group)
+    return {"out": np_of(pm.gather_rows_of(out, mesh)),
+            "grad": np_of(pm.logical_tensor(grad, mesh))}
+
+
+def _k3_case(case, mesh):
+    """The fused train scorer's plain path with global BN statistics: the
+    global output, statistics and input gradients."""
+    inputs = [torch.from_numpy(case[k]) for k in (
+        "keys", "keys_proj", "query", "mask")]
+    params = [torch.from_numpy(case[k]).requires_grad_() for k in (
+        "k0", "b0", "scale0", "shift0", "w1", "b1", "scale1", "shift1",
+        "w2")]
+    local = [pm.shard_rows(t, mesh).clone().requires_grad_()
+             for t in inputs[:3]] + [pm.shard_rows(inputs[3], mesh)]
+    with pm.use_mesh(mesh):
+        att, m0, v0, m1, v1 = fta.fused_train_attention(*local, *params)
+        cot = pm.shard_rows(torch.from_numpy(case["cot"]), mesh)
+        (att * cot).sum().backward()
+    out = {"att": np_of(pm.gather_rows_of(att, mesh)),
+           "stats": [np_of(t) for t in (m0, v0, m1, v1)]}
+    for name, t in zip(("keys", "keys_proj", "query"), local[:3]):
+        out[f"d_{name}"] = np_of(pm.gather_rows_of(t.grad, mesh))
+    for name, p in zip(("k0", "b0", "scale0", "shift0", "w1", "b1",
+                        "scale1", "shift1", "w2"), params):
+        out[f"d_{name}"] = np_of(col.all_reduce(p.grad, mesh.batch_group))
+    out["launches"] = (fta.train_stats0.launches, fta.train_stats1.launches)
+    return out
+
+
+def _step_case(case, sizes):
+    """One train step on this rank's shard from the given logical state;
+    (global loss parts, logical state after, the gradients' norms before
+    the dense clip)."""
+    cfg = cfg_of(case["cfg"])
+    mesh = pm.make_mesh(cfg)
+    model = model_of(cfg, sizes, case["state_dict"])
+    pm.place_model(model, mesh)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg, mesh)
+    batch = pm.shard_batch(batch_of(case["batch"]), mesh)
+    norms = {}
+    clip, port_steps.clip_by_norm_each = recording_clip(model, norms)
+    try:
+        state, parts = step(state, batch, torch.Generator().manual_seed(0))
+    finally:
+        port_steps.clip_by_norm_each = clip
+    sd, moments, dense = logical_state(state, mesh)
+    return {"parts": parts_of(parts), "state_dict": sd, "moments": moments,
+            "dense_moments": dense, "clip_norms": norms,
+            "count": int(getattr(state.optimizer, "count", state.step))}
+
+
+def _eval_case(case, sizes):
+    """The mesh eval step on a global batch (K1's plain path), and the
+    mesh ScoringService's scores of the requests."""
+    cfg = cfg_of(case["cfg"])
+    mesh = pm.make_mesh(cfg)
+    model = model_of(cfg, sizes, case["state_dict"])
+    pm.place_model(model, mesh)
+    step = pm.make_sharded_eval_step(cfg, mesh)
+    preds, alpha = step(model, batch_of(case["batch"]))
+    return {"preds": np_of(preds), "alpha": np_of(alpha)}
+
+
+def _serve_case(case, sizes, tmp):
+    """The mesh ScoringService, its weights loaded (logical) before it
+    shards them."""
+    cfg = cfg_of(case["cfg"])
+    path = os.path.join(tmp, "weights.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                case["state_dict"].items()}, path)
+    svc = ScoringService(cfg, *sizes, *(Vocab(m) for m in case["maps"]),
+                         checkpoint=path, batch_buckets=(8, 64),
+                         cand_buckets=(16, 128), device="cpu")
+    return {"scores": [np.asarray(s) for s in svc.score(case["requests"])],
+            "sharded": sorted(pm.sharded_tables(svc.model)),
+            "n_batch": svc.mesh.n_batch}
+
+
+def parallel_world(rank, device, spec):
+    out = {}
+    cfg22 = cfg_of(dict(spec["base_cfg"], data_parallel=2, model_parallel=2))
+    out["collectives"] = _collective_cases(rank, pm.make_mesh(cfg22))
+    for key, case in spec["gather"].items():
+        d, m, flat, layout = key
+        mesh = pm.make_mesh(cfg_of(dict(
+            spec["base_cfg"], data_parallel=d, model_parallel=m,
+            mesh_flat_batch="on" if flat else "off",
+            mesh_row_layout=layout)))
+        out[("gather",) + key] = _gather_case(case, mesh)
+    out["k3"] = _k3_case(spec["k3"], pm.make_mesh(cfg_of(dict(
+        spec["base_cfg"], data_parallel=2, model_parallel=2))))
+    for name, case in spec["steps"].items():
+        out[("step", name)] = _step_case(case, spec["sizes"])
+    out["eval"] = _eval_case(spec["eval"], spec["sizes"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out["serve"] = _serve_case(spec["serve"], spec["sizes"], tmp)
+    return out
+
+
+# ---------------------------------------------------- test_torch_mesh_train
+
+
+def deterministic_negatives(generator, batch, num_ngs):
+    """The negatives of row b are the positives of rows b + 1 ... b + k
+    (mod the valid rows), as tests/test_torch_trainer.py injects them on
+    both sides; on a mesh the steps call it on the global batch."""
+    B = batch.items.shape[0]
+    n_valid = batch.valid.sum().to(torch.int64).clamp_min(1)
+    idx = torch.remainder(torch.arange(B)[:, None]
+                          + torch.arange(1, num_ngs + 1)[None, :], n_valid)
+    pi, pc = batch.items[:, 0], batch.cates[:, 0]
+    items = torch.cat([pi[:, None], pi[idx]], dim=1)
+    cates = torch.cat([pc[:, None], pc[idx]], dim=1)
+    labels = torch.zeros(items.shape, dtype=torch.float32)
+    labels[:, 0] = 1.0
+    return dataclasses.replace(batch, items=items, cates=cates,
+                               labels=labels)
+
+
+def loaders_of(spec):
+    vocabs = [load_vocab(spec["paths"][f"{n}_vocab"])
+              for n in ("user", "item", "cate")]
+    return {s: SequenceLoader(parse_file(spec["paths"][s], *vocabs),
+                              spec["L"])
+            for s in ("train", "valid", "test")}
+
+
+def _fit(cfg, sizes, loaders, state_dict=None):
+    """A mesh Trainer (state_dict: its logical start, else the seed's),
+    fitted: its eval history, steps, logical state, and with save_model
+    the test metrics of its best epoch's checkpoint, loaded back."""
+    model = model_of(cfg, sizes, state_dict)
+    t = Trainer(model, cfg, log=lambda *a: None)
+    t.fit(loaders["train"], loaders["valid"])
+    out = {"history": t.eval_history, "best_epoch": t.best_epoch,
+           "steps": [s["steps"] for s in t.epoch_stats],
+           "state": logical_state(t.state, t.mesh)}
+    if cfg.save_model and cfg.model_dir:    # the best epoch's checkpoint
+        t.load_latest(cfg.model_dir)
+        out["ckpt_test"] = run_weighted_eval(
+            t.eval_step, t.state.model, loaders["test"], cfg,
+            cfg.test_num_ngs, calc_mean_alpha=True)
+    return out
+
+
+def train_world(rank, device, spec):
+    out = {}
+    for name, case in spec["steps"].items():
+        out[("step", name)] = _step_case(case, spec["sizes"])
+    loaders = loaders_of(spec)
+    # a one-device checkpoint, loaded on the mesh
+    cfg = cfg_of(spec["loaded"]["cfg"])
+    t = Trainer(model_of(cfg, spec["sizes"]), cfg, log=lambda *a: None)
+    t.load_latest(spec["loaded"]["model_dir"])
+    out["loaded_test"] = run_weighted_eval(
+        t.eval_step, t.state.model, loaders["test"], cfg, cfg.test_num_ngs,
+        calc_mean_alpha=True)
+    # two epochs against JAX's mesh fit, negatives injected
+    expand = port_steps.expand_with_negatives
+    port_steps.expand_with_negatives = deterministic_negatives
+    try:
+        out["fit"] = _fit(cfg_of(spec["fit"]["cfg"]), spec["sizes"],
+                          loaders, spec["fit"]["state_dict"])
+    finally:
+        port_steps.expand_with_negatives = expand
+    # its own in-batch sampling, against the one-rank port; twice, bit
+    # for bit
+    for run, kw in zip(("own", "own_again"), spec["own"]["cfgs"]):
+        out[run] = _fit(cfg_of(kw), spec["sizes"], loaders,
+                        spec["fit"]["state_dict"])
+    return out
