@@ -148,7 +148,7 @@ Phases, each fatal on failure:
      groups as the eval step does, within 1e-6.  Then run A's config with
      K = 1 (eager single steps) for one epoch of the train set's first
      20 batches in the same run, and
-     torch.profiler over 2 streamed eager steps and one streamed graphed
+     torch.profiler over 1 streamed eager step and one streamed graphed
      call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
      share, kernels on the device and host launch calls a step).  Run B: the same config
      with use_pallas_scan, use_pallas_train_attention 'on', lazyadam and
@@ -358,6 +358,35 @@ Phases, each fatal on failure:
      counts (10,000 users, 50,000 items, 1,001 cates: the checkpoint
      stays small) saved on the mesh, loaded on one device, its eval
      within 1e-5 of the mesh's.
+ 20. the rest of the mesh's training path, inside phase 19's world (no
+     second spawn), clsr.yaml, phases 5-10's tables, B = 400, each rank:
+     (a) lazyadam compact, flat, `mesh_update_routing: owner` (capacity
+     4, the interleaved rows 'auto' then takes), phase 19's 8 steps,
+     twice: the loss parts within 1e-4 relative of phase 19 (a)'s
+     broadcast run on the rank and of the one-rank run, the state held to
+     the one-rank run with phase 19's gates, route_overflow 0, the two
+     runs bit for bit, K5 once a step; the collective bytes a step a
+     rank (parallel/collectives.py `count_collectives`) of the owner and
+     of phase 19 (a)'s broadcast merge; (b) a capacity of one slot a
+     bucket (every step overflows) under `fallback`, 4 steps: bit for
+     bit a broadcast run on the same interleaved rows, route_overflow
+     above 0 after each step; (c) the same capacity under `drop`: the
+     same overflow counts a step as (b), and no float all_gather or
+     all_to_all carrying the item table's [Mi, D] gradient stream, which
+     the broadcast merge all_gathers; (d) on phase 11's synthetic set
+     (its first 16 x 400 train rows, 200 valid groups, 64 test groups):
+     a fit of 16 lazyadam steps, 4 a call, every kernel gate, streamed
+     and with `resident_data: auto` (resident on the mesh), the eval
+     history and every state tensor bit for bit, K1, K2, K2 bwd, K3a,
+     K3b and K5 launched on the resident path; then `length_buckets:
+     auto` (8 refresh batches), K1 and K2 against their plain versions
+     at every Lb on the mesh (1e-4, 1e-5); (e) the sequence-parallel
+     merge of long-context attention, L = 1,000 keys over the 4 ranks
+     (B = 100, clsr.yaml's scorer, block 64): the output and the keys'
+     and parameters' gradients against the one-rank blocked attention
+     (1e-5, 1e-4 of max abs); (f) GRU4Rec and DIN (their yaml widths,
+     the train kernels on) 4 lazyadam steps each, held to one rank with
+     phase 19's gates.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -372,7 +401,9 @@ call), `p17_long_serve` and `p17_resume_fit` (the resumed fit), and
 phase 18's `p18_etl_fit` (the epoch and test eval from the pack) and
 `p18_cli` (the CLI run from the raw log and its --only_test), and
 phase 19's `p19_mesh_train` (run (a)'s first 8 steps, summed over the
-4 ranks)), the
+4 ranks), and phase 20's `p20_owner_train` ((a)'s first run),
+`p20_mesh_resident` ((d)'s resident fit) and `p20_zoo_mesh` ((f)), each
+summed over the 4 ranks), the
 card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
@@ -4357,7 +4388,7 @@ def train_and_evaluate(smi):
         trainer_a = eager_a.pop("trainer")
         # few steps: each makes ~12,000 launches for the profiler
         profile_a = {"eager": profile_fit(trainer_a, loaders["train"], smi,
-                                          graphed=False, n=2),
+                                          graphed=False, n=1),
                      "graphed": profile_fit(trainer_a, loaders["train"],
                                             smi, graphed=True, n=8)}
         del trainer_a
@@ -4562,6 +4593,8 @@ def train_and_evaluate(smi):
         p16 = zoo_fits(root, smi, ZOO_REST_FITS, "16")
         mark("phase 16 (c)")
         return dict(
+            p20_sets=p20_sets_of(parsed["train"], parsed["valid"],
+                                 parsed["test"], sizes),
             data=P11_DATA, write_s=write_s, parse=parse,
             run_a=dict(a, wall_s=wall, launches=launches_a,
                        only_test=only, only_test_wall_s=wall_t,
@@ -5092,11 +5125,12 @@ def p19_start(cfg, sizes, mesh=None):
     return model, {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def p19_train(model, start, cfg, batches, mesh=None, touched=None):
+def p19_train(model, start, cfg, batches, mesh=None, touched=None,
+              after_step=None):
     """len(batches) train steps of cfg from `start` (p19_start's):
     (loss parts [n, 5], the state, the launches of the steps, ms a step
     after the first, and with `touched` the state's p19_snapshot after
-    the first step)."""
+    the first step); `after_step(state)` runs after each step."""
     from clsr_tpu_torch.ops import launches
     from clsr_tpu_torch.parallel.mesh import shard_batch
     from clsr_tpu_torch.training.state import create_train_state
@@ -5113,6 +5147,8 @@ def p19_train(model, start, cfg, batches, mesh=None, touched=None):
     for i, b in enumerate(local):
         state, parts = step(state, b, gen)
         rows.append([float(getattr(parts, f)) for f in LOSS_FIELDS])
+        if after_step is not None:
+            after_step(state)
         if i == 0:
             if touched is not None:
                 first = p19_snapshot(state, touched, mesh)
@@ -5167,8 +5203,10 @@ def p19_gloo_cuda(device):
 
 
 def p19_rank(rank, device, spec):
-    """One rank of phase 19's world: (a) twice, (b), (c), (d)."""
+    """One rank of phase 19's world: (a) twice, (b), (c), (d); then phase
+    20's (p20_rank)."""
     from clsr_tpu_torch import serving
+    from clsr_tpu_torch.parallel import collectives as col
     from clsr_tpu_torch.parallel.mesh import (make_mesh,
                                               make_sharded_eval_step)
     from clsr_tpu_torch.training import checkpoint
@@ -5189,11 +5227,13 @@ def p19_rank(rank, device, spec):
         cfg = p19_cfg(**kw, **P19_MESH)
         mesh = make_mesh(cfg)
         t0 = time.perf_counter()
-        losses, state, counts, ms, step1 = p19_train(
-            model, start, cfg, batches[:n], mesh, touched)
+        with col.count_collectives() as calls:      # phase 20 (a)'s bytes
+            losses, state, counts, ms, step1 = p19_train(
+                model, start, cfg, batches[:n], mesh, touched)
         out[run] = dict(losses=losses, launches=counts, ms=ms,
                         flat=mesh.flat, step1=step1,
-                        state=p19_snapshot(state, touched, mesh))
+                        state=p19_snapshot(state, touched, mesh),
+                        bytes=p20_bytes(calls, n, p20_item_stream(cfg)[1]))
         del state
         again, state, _, ms2, _ = p19_train(model, start, cfg, batches[:n],
                                             mesh)
@@ -5230,6 +5270,9 @@ def p19_rank(rank, device, spec):
     preds, _ = make_sharded_eval_step(cfg, mesh)(
         state.model, p19_eval_batch(dsizes, P19_SEED + 2))
     out["d"] = dict(preds=preds.cpu().numpy(), s=time.perf_counter() - t0)
+    del state
+    torch.cuda.empty_cache()
+    out["p20"] = p20_rank(rank, device, spec, sizes, batches, touched)
     return out
 
 
@@ -5282,9 +5325,11 @@ def p19_moments(got, want):
     return worst
 
 
-def mesh_phase(smi, backend="gloo"):
-    """Phase 19: the (data, model) mesh on the card, a 4-rank gloo world
-    at (2, 2) against the one-rank port from the same seed.  With
+def mesh_phase(smi, backend="gloo", p20_sets=None):
+    """Phases 19 and 20: the (data, model) mesh on the card, a 4-rank
+    gloo world at (2, 2) against the one-rank port from the same seed.
+    `p20_sets` are phase 20 (d)'s rows of phase 11's set
+    (`p20_sets_of`); without them the set is written here.  With
     backend "nccl" the ranks take a card each (on a host of 4 cards:
     `python3 -c "import chip_smoke as c; s = c.card_check();
     c.build_kernels(); c.mesh_phase(s, 'nccl')"`)."""
@@ -5313,16 +5358,23 @@ def mesh_phase(smi, backend="gloo"):
     vocabs = vocab_for(reqs)
     svc = serving.ScoringService(p19_cfg(), *sizes, *vocabs)
     want_scores = svc.score(reqs)
-    del svc, batches
+    del svc
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs20 = p20_refs(sizes, batches)
+    del batches
+    ref20_s = time.perf_counter() - t0
     root = tempfile.mkdtemp(prefix="clsr_phase19_")
     try:
+        if p20_sets is None:
+            p20_sets = p20_write_sets(root)
         t0 = time.perf_counter()
         ranks = run_local_world(
             p19_rank, 4, backend, "cuda",
             (dict(requests=reqs, vocabs=vocabs, backend=backend,
-                  ckpt=os.path.join(root, "epoch_1")),), P19_TIMEOUT_S)
+                  ckpt=os.path.join(root, "epoch_1"),
+                  p20_sets=p20_sets),), P19_TIMEOUT_S)
         world_s = time.perf_counter() - t0
         # (d) the mesh checkpoint on one device
         dcfg = p19_cfg(optimizer="lazyadam")
@@ -5414,10 +5466,466 @@ def mesh_phase(smi, backend="gloo"):
                        for run, v in ref.items()}
     if failed:
         raise AssertionError("phase 19: " + "; ".join(failed))
-    out["launches"] = {"p19_mesh_train": {
-        k: sum(res["a"]["launches"].get(k, 0) for res in ranks)
-        for k in kernels}}
+    failed, rows20 = p20_check(ranks, ref, refs20, lr)
+    for r, row in rows20.items():
+        a, d = row["a"], row["d"]
+        log(f"phase 20 rank {r}: (a) owner merge: loss rel err "
+            f"{a['loss_rel_err']:.3g} (one rank), "
+            f"{a['loss_rel_err_broadcast']:.3g} (the broadcast run), step 1 "
+            f"{a['errs_step1']}, last {a['errs']}, moments step 1 "
+            f"{a['moment_rel_err_step1']}, {a['ms']:.1f} ms a step against "
+            f"the broadcast's {a['broadcast_ms']:.1f}, launches "
+            f"{a['launches']}, bytes received a step a rank: owner "
+            f"{a['bytes']['total']:,.0f} (merge streams "
+            f"{a['bytes']['merge']:,.0f}), broadcast "
+            f"{a['broadcast_bytes']['total']:,.0f} (merge streams "
+            f"{a['broadcast_bytes']['merge']:,.0f}); (b) fallback at C = 1: "
+            f"overflow {row['b']['overflow']}, {row['b']['ms']:.1f} ms a "
+            f"step; (c) drop: overflow {row['c']['overflow']}, "
+            f"{row['c']['ms']:.1f} ms, bytes {row['c']['bytes']['total']:,.0f}"
+            f" (merge {row['c']['bytes']['merge']:,.0f}), streams of >= "
+            f"{row['item_stream'][1]:,} floats {row['c']['bytes']['stream']};"
+            f" (d) streamed {d['streamed']['s']:.1f} s, resident "
+            f"{d['resident']['s']:.1f} s, bit for bit {d['bit_identical']},"
+            f" resident launches {d['resident']['launches']}, buckets Lb "
+            f"{d['buckets']['lb']} {d['buckets']['s']:.1f} s launches "
+            f"{d['buckets']['launches']}, K1 / K2 errs by Lb "
+            f"{d['kernel_errs']}; (e) {row['e']}; (f) "
+            + ", ".join(f"{k} loss rel err {v['loss_rel_err']:.3g} step 1 "
+                        f"{v['errs_step1']} last {v['errs']} moments "
+                        f"{v['moment_rel_err_step1']} {v['ms']:.1f} ms a "
+                        f"step (one rank {v['one_rank_ms']:.1f})"
+                        for k, v in row["f"].items())
+            + f"; s {row['s']}")
+    log(f"phase 20: the ranks' work {max(r['s']['all'] for r in rows20.values()):.1f} s, "
+        f"the one-rank (f) runs {ref20_s:.1f} s")
+    out["p20"] = dict(ranks=rows20, ref_s=ref20_s)
+    if failed:
+        raise AssertionError("phase 20: " + "; ".join(failed))
+
+    def summed(pick):
+        return {k: sum(pick(res["p20"]).get(k, 0) for res in ranks)
+                for k in kernels}
+    out["launches"] = {
+        "p19_mesh_train": {
+            k: sum(res["a"]["launches"].get(k, 0) for res in ranks)
+            for k in kernels},
+        "p20_owner_train": summed(lambda p: p["a"]["launches"]),
+        "p20_mesh_resident": summed(
+            lambda p: p["d"]["resident"]["launches"]),
+        "p20_mesh_buckets": summed(
+            lambda p: p["d"]["buckets"]["launches"]),
+        "p20_zoo_mesh": {k: sum(f["launches"].get(k, 0)
+                                for res in ranks
+                                for f in res["p20"]["f"].values())
+                         for k in kernels}}
     return out
+
+
+def p20_write_sets(root):
+    """Phase 11's synthetic set, written and parsed here (phase 19 and 20
+    run alone), cut to p20_sets_of's rows."""
+    from clsr_tpu_torch.data.parser import parse_file
+    from clsr_tpu_torch.data.synthetic import write_synthetic_dataset
+    from clsr_tpu_torch.data.vocab import load_vocab
+    paths = write_synthetic_dataset(os.path.join(root, "p20"),
+                                    valid_num_ngs=4, test_num_ngs=99,
+                                    **P11_DATA)
+    vocabs = [load_vocab(paths[f"{n}_vocab"])
+              for n in ("user", "item", "cate")]
+    return p20_sets_of(*(parse_file(paths[k], *vocabs)
+                         for k in ("train", "valid", "test")),
+                       tuple(map(len, vocabs)))
+
+# ------------------------------------------------------------- phase 20
+# the rest of the mesh's training path, run inside phase 19's world
+P20_OWNER = dict(optimizer="lazyadam", mesh_update_routing="owner",
+                 mesh_owner_capacity=4.0)
+P20_ONE_SLOT = 1e-6            # (b), (c): int(1e-6 * Mi) = 0, so C = 1
+P20_STEPS_BC = 4               # (b), (c): steps
+P20_FIT = dict(optimizer="lazyadam", epochs=1, train_steps_per_call=4,
+               valid_num_ngs=4, test_num_ngs=99, show_step=0,
+               save_model=False, early_stop=10)
+P20_FIT_ROWS = 16 * TRAIN_B    # (d): 16 steps of B = 400
+P20_VALID_GROUPS, P20_TEST_GROUPS = 200, 64
+P20_TEST_G = 100               # a test group: 1 + 99
+P20_EVAL_ROWS = 4              # (d): a test batch's groups, one a rank
+P20_REFRESH = 8                # (d): the bucketed epoch's refresh batches
+P20_ATT = dict(B=100, L=1_000, block=64)     # (e)
+P20_ATT_TOL = (1e-5, 1e-4)     # (e): output abs; gradients of max abs
+P20_ZOO = (("gru4rec", "gru4rec"), ("din", "din"))
+P20_ZOO_STEPS = 4
+P20_KERNELS = ("eval_scorer", "clsr_scan", "clsr_scan_backward",
+               "train_stats0", "train_stats1", "row_scatter")
+
+
+def p20_cfg(**kw):
+    return p19_cfg(**P19_MESH, **kw)
+
+
+def p20_start(cfg, sizes, mesh=None):
+    """cfg's model (clsr.yaml's or a zoo yaml's) from the config's seed,
+    spread as phase 19's, placed on the mesh; and a copy of its start."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.parallel.mesh import place_model
+    model = get_model_class(cfg.model_type)(cfg, *sizes)
+    spread(model, P19_SEED)
+    if mesh is not None:
+        place_model(model, mesh)
+    return model, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def p20_same(a, b):
+    """Two p19_snapshot's bit for bit."""
+    return a.keys() == b.keys() and all(
+        np.array_equal(*(np.asarray(x[k][-1] if isinstance(x[k], tuple)
+                                    else x[k]) for x in (a, b)))
+        for k in a)
+
+
+def p20_bytes(calls, steps, stream):
+    """From a count_collectives record of `steps` steps: bytes received a
+    step a rank by every collective and by the float all_gathers and
+    all_to_alls (the merges' gradient streams), and the float ones
+    carrying `stream` floats or more (the item table's [Mi, D] stream)."""
+    floats = [c for c in calls if c.dtype == torch.float32
+              and c.kind in ("all_gather", "all_to_all")]
+    return dict(
+        total=sum(c.received_bytes for c in calls) / steps,
+        merge=sum(c.received_bytes for c in floats) / steps,
+        calls=len(calls) / steps,
+        stream=sorted({(c.kind, c.group, c.shape) for c in floats
+                       if int(np.prod(c.shape)) >= stream}))
+
+
+def p20_item_stream(cfg):
+    """Mi * D of the item table on a rank of a flat batch: its sorted ids
+    (history + candidates) times the row width."""
+    mi = TRAIN_B // 4 * (TRAIN_L + 1 + cfg.train_num_ngs)
+    return mi, mi * cfg.item_embedding_dim
+
+
+def p20_attention(device, group, rank, n):
+    """(e): the sequence-parallel merge over `group` against the one-rank
+    blocked attention: (output max abs err, the keys' and parameters'
+    gradients' max abs err over their max abs)."""
+    from clsr_tpu_torch.ops.initializers import get_initializer
+    from clsr_tpu_torch.ops.long_context import LongTargetAttention
+    from clsr_tpu_torch.parallel import collectives as col
+    cfg = p19_cfg()
+    B, L, blk = P20_ATT["B"], P20_ATT["L"], P20_ATT["block"]
+    dq, dk = cfg.user_embedding_dim, cfg.item_embedding_dim + \
+        cfg.cate_embedding_dim
+    mod = LongTargetAttention(
+        dq, dk, cfg.att_fcn_layer_sizes, get_initializer("tnormal", 0.1),
+        torch.Generator(device=device).manual_seed(P19_SEED), device,
+        block_size=blk)
+    rng = np.random.RandomState(P19_SEED + 20)     # the same on each rank
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    query, keys = dev(rng.randn(B, dq)), dev(rng.randn(B, L, dk))
+    mask = dev(np.arange(L)[None] < rng.randint(1, L + 1, B)[:, None])
+    cot = dev(rng.randn(B, dk))
+    params = list(mod.parameters())
+    full = keys.clone().requires_grad_()
+    want = mod(query, full, mask)
+    g_want = torch.autograd.grad((want * cot).sum(), [full] + params)
+    per = L // n
+    part = keys[:, rank * per:(rank + 1) * per].clone().requires_grad_()
+    got = mod(query, part, mask[:, rank * per:(rank + 1) * per],
+              axis_name=group)
+    g_got = torch.autograd.grad((got * cot).sum() / n, [part] + params)
+    d_keys = col.all_gather(g_got[0], group).permute(1, 0, 2, 3).reshape(
+        B, L, dk)
+    grads = [d_keys] + [col.all_reduce(g, group) for g in g_got[1:]]
+    names = ["keys"] + [n for n, _ in mod.named_parameters()]
+    out_err = float((got - want).detach().abs().max())
+    # the output bias under the softmax over L has a zero gradient by
+    # construction (rounding noise on both sides): held in absolute terms
+    rel = {n: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for n, g, w in zip(names, grads, g_want)
+           if n != "w_nn_output_bias"}
+    zero_abs = float((grads[-1] - g_want[-1]).abs().max())
+    return dict(out_err=out_err, grad_err=max(rel.values()),
+                worst=max(rel, key=rel.get), zero_grad_abs=zero_abs,
+                finite=bool(torch.isfinite(got).all()))
+
+
+def p20_fits(spec, device, mesh):
+    """(d): the streamed, resident and bucketed fits on phase 11's rows,
+    the launches of each, and K1 / K2 against their plain versions at
+    every Lb of the bucketed model on the mesh."""
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.ops import launches
+    from clsr_tpu_torch.parallel.mesh import shard_batch, use_mesh
+    from clsr_tpu_torch.training.trainer import Trainer
+    sets = spec["p20_sets"]
+    loaders = {k: SequenceLoader(sets[k], TRAIN_L)
+               for k in ("train", "valid", "test")}
+    out, trainers = {}, {}
+    for run, kw in (("streamed", dict(resident_data="off")),
+                    ("resident", dict(resident_data="auto")),
+                    ("buckets", dict(resident_data="auto",
+                                     length_buckets="auto",
+                                     bn_refresh_batches=P20_REFRESH))):
+        cfg = p20_cfg(**P20_FIT, **kw)
+        model = get_model_class("clsr")(cfg, *sets["sizes"])
+        spread(model, P19_SEED)
+        t = Trainer(model, cfg, log=lambda *a: None)
+        torch.cuda.synchronize()
+        launches.add(launches.snapshot(), -1)       # every count to 0
+        t0 = time.perf_counter()
+        t.fit(loaders["train"], loaders["valid"])
+        torch.cuda.synchronize()
+        out[run] = dict(
+            s=time.perf_counter() - t0, history=t.eval_history,
+            steps=t.epoch_stats[0]["steps"], resident=t.feeds is not None,
+            bucketed=t.bucketed,
+            lb=[f.res.seq_len for f, _ in t.feeds] if t.feeds else [],
+            launches={n: k for n, k in launches.snapshot().items() if k})
+        trainers[run] = t
+    a, b = (trainers[r].state for r in ("streamed", "resident"))
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    out["bit_identical"] = bool(
+        sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+        and all(torch.equal(a.optimizer.moments[k], b.optimizer.moments[k])
+                for k in a.optimizer.moments)
+        and torch.equal(a.optimizer.count, b.optimizer.count))
+    t = trainers["buckets"]
+    errs = {}
+    with use_mesh(t.mesh):
+        for lb, batch in sorted(first_batches(
+                loaders["test"], P20_TEST_G, P20_EVAL_ROWS * P20_TEST_G,
+                out["buckets"]["lb"]).items()):
+            errs[lb] = kernels_at(t.cfg, t.state.model, shard_batch(
+                to_device(batch, device), t.mesh))
+    out["kernel_errs"] = errs
+    return out
+
+
+def p20_rank(rank, device, spec, sizes, batches, touched):
+    """Phase 20's work on one rank of phase 19's world: (a)-(f)."""
+    from clsr_tpu_torch.parallel import collectives as col
+    from clsr_tpu_torch.parallel.mesh import make_mesh
+    t_all = time.perf_counter()
+    out, s = {}, {}
+    cfg = p20_cfg(**P20_OWNER)
+    mesh = make_mesh(cfg)
+    mi, stream = p20_item_stream(cfg)
+    t0 = time.perf_counter()
+    model, start = p20_start(cfg, sizes, mesh)
+    s["start"] = time.perf_counter() - t0
+    # (a) the owner merge, twice
+    t0 = time.perf_counter()
+    ovf = []
+    with col.count_collectives() as calls:
+        losses, state, counts, ms, step1 = p19_train(
+            model, start, cfg, batches, mesh, touched,
+            after_step=lambda st: ovf.append(int(st.optimizer.route_overflow)))
+    snap = p19_snapshot(state, touched, mesh)
+    del state
+    again, state, _, ms2, _ = p19_train(model, start, cfg, batches, mesh)
+    out["a"] = dict(losses=losses, launches=counts, ms=ms, ms_again=ms2,
+                    step1=step1, state=snap, overflow=ovf,
+                    interleaved=mesh.interleaved, flat=mesh.flat,
+                    bytes=p20_bytes(calls, len(batches), stream),
+                    bit_identical=bool(np.array_equal(again, losses)
+                                       and p20_same(snap, p19_snapshot(
+                                           state, touched, mesh))))
+    del state
+    s["a"] = time.perf_counter() - t0
+    # (b) fallback at one slot, its broadcast twin, (c) drop
+    t0 = time.perf_counter()
+    n = P20_STEPS_BC
+    for run, c in (
+            ("b", p20_cfg(**dict(P20_OWNER,
+                                 mesh_owner_capacity=P20_ONE_SLOT))),
+            ("b_broadcast", p20_cfg(optimizer="lazyadam",
+                                    mesh_row_layout="interleaved")),
+            ("c", p20_cfg(**dict(P20_OWNER,
+                                 mesh_owner_capacity=P20_ONE_SLOT,
+                                 mesh_owner_overflow="drop")))):
+        ovf = []
+        with col.count_collectives() as calls:
+            losses, state, counts, ms, _ = p19_train(
+                model, start, c, batches[:n], make_mesh(c),
+                after_step=lambda st: ovf.append(
+                    int(st.optimizer.route_overflow)))
+        out[run] = dict(losses=losses, overflow=ovf, ms=ms, launches=counts,
+                        state=p19_snapshot(state, touched, mesh),
+                        bytes=p20_bytes(calls, n, stream))
+        del state
+    # compared here: the snapshots stay on the rank
+    out["b"]["same_as_broadcast"] = bool(
+        np.array_equal(out["b"]["losses"], out["b_broadcast"]["losses"])
+        and p20_same(out["b"]["state"], out["b_broadcast"]["state"]))
+    for run in ("b", "b_broadcast", "c"):
+        del out[run]["state"]
+    del model, start
+    torch.cuda.empty_cache()
+    s["b_c"] = time.perf_counter() - t0
+    # (d) mesh-resident data and length buckets
+    t0 = time.perf_counter()
+    out["d"] = p20_fits(spec, device, mesh)
+    torch.cuda.empty_cache()
+    s["d"] = time.perf_counter() - t0
+    # (e) the sequence-parallel merge over the 4 ranks
+    t0 = time.perf_counter()
+    out["e"] = p20_attention(device, mesh.world, rank, 4)
+    s["e"] = time.perf_counter() - t0
+    # (f) GRU4Rec and DIN, held at the rows their steps touch
+    t0 = time.perf_counter()
+    out["f"] = {}
+    touched = p19_touched(batches[:P20_ZOO_STEPS])
+    for name, yaml in P20_ZOO:
+        c = zoo_cfg(yaml, dict(batch_size=TRAIN_B, optimizer="lazyadam",
+                               use_pallas_train_attention="on", **P19_MESH))
+        m = make_mesh(c)
+        model, start = p20_start(c, sizes, m)
+        losses, state, counts, ms, step1 = p19_train(
+            model, start, c, batches[:P20_ZOO_STEPS], m, touched)
+        out["f"][name] = dict(losses=losses, launches=counts, ms=ms,
+                              step1=step1,
+                              state=p19_snapshot(state, touched, m))
+        del model, start, state
+        torch.cuda.empty_cache()
+    s["f"] = time.perf_counter() - t0
+    s["all"] = time.perf_counter() - t_all
+    out["s"] = s
+    out["item_stream"] = (mi, stream)
+    return out
+
+
+def p20_refs(sizes, batches):
+    """(f)'s one-rank runs of GRU4Rec and DIN."""
+    out = {}
+    touched = p19_touched(batches[:P20_ZOO_STEPS])
+    for name, yaml in P20_ZOO:
+        c = zoo_cfg(yaml, dict(batch_size=TRAIN_B, optimizer="lazyadam",
+                               use_pallas_train_attention="on"))
+        model, start = p20_start(c, sizes)
+        losses, state, counts, ms, step1 = p19_train(
+            model, start, c, batches[:P20_ZOO_STEPS], touched=touched)
+        out[name] = dict(losses=losses, ms=ms, launches=counts, step1=step1,
+                         state=p19_snapshot(state, touched))
+        del model, start, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def p20_sets_of(train, valid, test, sizes):
+    """(d)'s rows of phase 11's parsed splits: the first 16 x 400 train
+    rows, 400 valid groups of 5, 64 test groups of 100."""
+    return dict(train=head(train, P20_FIT_ROWS),
+                valid=head(valid, P20_VALID_GROUPS * 5),
+                test=head(test, P20_TEST_GROUPS * P20_TEST_G), sizes=sizes)
+
+
+def p20_check(ranks, ref19, refs, lr):
+    """Phase 20's gates on every rank's results: (failures, a summary
+    row a rank)."""
+    failed, rows = [], {}
+    for r, res in enumerate(ranks):
+        p, bad = res["p20"], []
+        a = p["a"]
+        rel = lambda x, y: float(np.max(np.abs(x - y) / np.maximum(
+            np.abs(y), 1e-12)))
+        rel_one, rel_b = (rel(a["losses"], ref19["a"]["losses"]),
+                          rel(a["losses"], res["a"]["losses"]))
+        errs1, bad1 = p19_compare(a["step1"], ref19["a"]["step1"], 2.1 * lr)
+        errs, badn = p19_compare(a["state"], ref19["a"]["state"],
+                                 2.1 * lr * len(a["losses"]))
+        mom1 = p19_moments(a["step1"], ref19["a"]["step1"])
+        bad += [f"(a) {k} after step 1" for k in bad1]
+        bad += [f"(a) {k} after the last step" for k in badn]
+        if max(rel_one, rel_b) > P19_LOSS_REL:
+            bad.append(f"(a) losses {rel_one:.3g} / {rel_b:.3g}")
+        if mom1[0] > P19_LOSS_REL:
+            bad.append(f"(a) moment {mom1[1]} after step 1 {mom1[0]:.3g}")
+        if any(a["overflow"]) or not a["interleaved"] or not a["flat"]:
+            bad.append(f"(a) overflow {a['overflow']}, interleaved "
+                       f"{a['interleaved']}, flat {a['flat']}")
+        if not a["bit_identical"]:
+            bad.append("(a) two runs differ")
+        if a["launches"].get("row_scatter") != len(a["losses"]):
+            bad.append(f"(a) K5 {a['launches'].get('row_scatter')} "
+                       f"launches for {len(a['losses'])} steps")
+        missing = [k for k in P20_KERNELS if not a["launches"].get(k)]
+        if missing:
+            bad.append(f"(a) kernels {missing} never launched")
+        b, bb, c = p["b"], p["b_broadcast"], p["c"]
+        inc = lambda o: list(np.diff([0] + o))
+        if not b["same_as_broadcast"]:
+            bad.append("(b) fallback differs from the broadcast merge")
+        if min(inc(b["overflow"])) <= 0:
+            bad.append(f"(b) overflow {b['overflow']}")
+        if inc(c["overflow"]) != inc(b["overflow"]):
+            bad.append(f"(c) overflow {c['overflow']} against (b)'s "
+                       f"{b['overflow']}")
+        if c["bytes"]["stream"] or not res["a"]["bytes"]["stream"]:
+            bad.append(f"(c) streams {c['bytes']['stream']}, phase 19 "
+                       f"(a)'s {res['a']['bytes']['stream']}")
+        if not np.isfinite(c["losses"]).all():
+            bad.append("(c) losses not finite")
+        d = p["d"]
+        if not (d["bit_identical"] and d["streamed"]["history"]
+                == d["resident"]["history"]):
+            bad.append("(d) resident differs from streamed")
+        if d["streamed"]["resident"] or not d["resident"]["resident"]:
+            bad.append("(d) 'auto' did not go resident")
+        if not (d["streamed"]["steps"] == d["resident"]["steps"]
+                == P20_FIT_ROWS // TRAIN_B):
+            bad.append(f"(d) steps {d['streamed']['steps']}")
+        missing = [k for k in P20_KERNELS
+                   if not d["resident"]["launches"].get(k)]
+        if missing:
+            bad.append(f"(d) kernels {missing} never launched resident")
+        if not d["buckets"]["bucketed"] or not d["kernel_errs"]:
+            bad.append(f"(d) buckets {d['buckets']['lb']}, kernel checks "
+                       f"at {sorted(d['kernel_errs'])}")
+        for lb, (e1, e2) in d["kernel_errs"].items():
+            if e1 > K1_TOL or e2 > K2_TOL:
+                bad.append(f"(d) Lb {lb}: K1 {e1:.3g}, K2 {e2:.3g}")
+        e = p["e"]
+        if not (e["finite"] and e["out_err"] <= P20_ATT_TOL[0]
+                and e["grad_err"] <= P20_ATT_TOL[1]
+                and e["zero_grad_abs"] <= P20_ATT_TOL[0]):
+            bad.append(f"(e) {e}")
+        zoo = {}
+        for name, got in p["f"].items():
+            want = refs[name]
+            zrel = rel(got["losses"], want["losses"])
+            z1, zb1 = p19_compare(got["step1"], want["step1"], 2.1 * lr)
+            zn, zbn = p19_compare(got["state"], want["state"],
+                                  2.1 * lr * P20_ZOO_STEPS)
+            zm = p19_moments(got["step1"], want["step1"])
+            bad += [f"(f) {name} {k}" for k in zb1 + zbn]
+            if zrel > P19_LOSS_REL or zm[0] > P19_LOSS_REL:
+                bad.append(f"(f) {name}: losses {zrel:.3g}, moment "
+                           f"{zm}")
+            if not got["launches"].get("row_scatter"):
+                bad.append(f"(f) {name}: K5 never launched")
+            zoo[name] = dict(loss_rel_err=zrel, errs_step1=z1, errs=zn,
+                             moment_rel_err_step1=zm, ms=got["ms"],
+                             one_rank_ms=want["ms"],
+                             launches=got["launches"])
+        failed += [f"rank {r}: {x}" for x in bad]
+        rows[r] = dict(
+            a=dict(loss_rel_err=rel_one, loss_rel_err_broadcast=rel_b,
+                   errs_step1=errs1, errs=errs, moment_rel_err_step1=mom1,
+                   ms=a["ms"], ms_again=a["ms_again"],
+                   broadcast_ms=res["a"]["ms"], launches=a["launches"],
+                   bytes=a["bytes"], broadcast_bytes=res["a"]["bytes"]),
+            b=dict(overflow=b["overflow"], ms=b["ms"],
+                   broadcast_ms=bb["ms"], bytes=b["bytes"]),
+            c=dict(overflow=c["overflow"], ms=c["ms"], bytes=c["bytes"]),
+            d={k: (v if k in ("bit_identical", "kernel_errs") else
+                   {kk: vv for kk, vv in v.items() if kk != "history"})
+               for k, v in d.items()},
+            e=e, f=zoo, s=p["s"], item_stream=p["item_stream"])
+    return failed, rows
+
 
 
 def main():
@@ -5447,9 +5955,10 @@ def main():
     rest = timed("model zoo rest", zoo_rest, smi,
                  zoo["train"]["clsr_fused"]["lazyadam"]["step_ms"])
     fit = timed("train and evaluate", train_and_evaluate, smi)
+    p20_sets = fit.pop("p20_sets")
     long = timed("long context", long_context, smi)
     etl18 = timed("etl", etl_phase, smi)
-    mesh19 = timed("mesh", mesh_phase, smi)
+    mesh19 = timed("mesh", mesh_phase, smi, "gloo", p20_sets)
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],

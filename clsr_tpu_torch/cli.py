@@ -26,10 +26,12 @@ prepares the data, the others wait), else the CLI prepares the data and
 spawns D*M local ranks (`parallel.distributed.run_local_world`; gloo
 may put every rank on one card or the CPU, nccl needs a GPU a rank).
 Every rank runs the same fit and eval on its share; rank 0 prints and
-writes.  The owner-routed merge (`--mesh_update_routing owner` and its
-capacity and overflow flags) and, on a mesh, resident data, length
-buckets, autosave and resume, histograms and every model but CLSR raise
-NotImplementedError naming ROADMAP queue 1 item 10b.  Kill and resume
+writes.  The owner-routed merge (`--mesh_update_routing owner`,
+`--mesh_owner_capacity`, `--mesh_owner_overflow`), resident data
+(`--resident_data`, 'auto' resident when the set fits) and length
+buckets run on a mesh, and every model but LGN; on a mesh, LGN,
+autosave and resume and histograms raise NotImplementedError naming
+ROADMAP queue 1 item 10c.  Kill and resume
 (`--autosave_every_calls N`, `--resume`), `--write_histograms`,
 `--write_tfevents` and `--attention_block_size` run as in JAX; with
 `--attention_block_size` the config must set `enable_bn: False`, which
@@ -204,22 +206,15 @@ def refuse_unported(args) -> None:
     naming its ROADMAP queue 1 item."""
     from clsr_tpu_torch.models.registry import get_model_class
 
-    if ((args.mesh_update_routing, args.mesh_owner_capacity,
-         args.mesh_owner_overflow) != ("broadcast", 4.0, "fallback")):
-        _waits("the owner-routed mesh merge (--mesh_update_routing owner, "
-               "--mesh_owner_capacity, --mesh_owner_overflow)", "10b",
-               "parallel")
     if _mesh_size(args) > 1:
         on_mesh = [flag for flag, set_ in (
-            ("--resident_data on", args.resident_data == "on"),
-            ("--length_buckets", args.length_buckets not in (None, "off")),
             ("--autosave_every_calls", bool(args.autosave_every_calls)),
             ("--resume", args.resume),
             ("--write_histograms", args.write_histograms),
-            (f"--model {args.model}", args.model.lower() != "clsr"))
+            (f"--model {args.model}", args.model.lower() == "lgn"))
             if set_]
         if on_mesh:
-            _waits(f"on a device mesh, {', '.join(on_mesh)}", "10b",
+            _waits(f"on a device mesh, {', '.join(on_mesh)}", "10c",
                    "parallel")
         if args.dist_backend is None:
             raise ValueError("a mesh (data_parallel * model_parallel > 1) "
@@ -285,6 +280,9 @@ def make_config(args):
         data_parallel=args.data_parallel,
         model_parallel=args.model_parallel,
         mesh_flat_batch=args.mesh_flat_batch,
+        mesh_update_routing=args.mesh_update_routing,
+        mesh_owner_capacity=args.mesh_owner_capacity,
+        mesh_owner_overflow=args.mesh_owner_overflow,
         mesh_row_layout=args.mesh_row_layout,
         resident_data=args.resident_data,
         autosave_every_calls=args.autosave_every_calls,

@@ -239,8 +239,19 @@ class Config:
     mesh_flat_batch: str = "auto"   # 'auto' | 'on' | 'off': 'auto' = on
                                     # when model_parallel > 1 and the
                                     # batch divides data*model
-    mesh_update_routing: str = "broadcast"  # 'broadcast' | 'owner' (the
-                                    # owner-routed merge: ROADMAP 10b)
+    mesh_update_routing: str = "broadcast"  # 'broadcast' | 'owner': the
+                                    # compact merge all_gathers the whole
+                                    # (id, gradient) stream, or routes
+                                    # each unique row's summed gradient
+                                    # to its owner in static buckets
+                                    # (training/lazy_adam.py)
+    mesh_owner_capacity: float = 4.0  # owner buckets' slots: ceil(f * Mi
+                                    # / m) clamped to [1, Mi]
+    mesh_owner_overflow: str = "fallback"  # 'fallback' | 'drop': a step
+                                    # whose buckets overflow takes the
+                                    # broadcast merge for that table, or
+                                    # drops the overflowed entries; both
+                                    # count them in route_overflow
     mesh_row_layout: str = "auto"   # 'auto' | 'interleaved' |
                                     # 'contiguous' (parallel/rowmap.py)
     # K train steps a host call: on the card one captured train step
@@ -363,6 +374,14 @@ class Config:
             raise ValueError(
                 f"mesh_update_routing must be broadcast/owner, got "
                 f"{self.mesh_update_routing}")
+        if self.mesh_owner_capacity <= 0:
+            raise ValueError(
+                f"mesh_owner_capacity must be > 0, got "
+                f"{self.mesh_owner_capacity}")
+        if self.mesh_owner_overflow not in ("fallback", "drop"):
+            raise ValueError(
+                f"mesh_owner_overflow must be fallback/drop, got "
+                f"{self.mesh_owner_overflow}")
         if self.mesh_row_layout not in ("auto", "interleaved", "contiguous"):
             raise ValueError(
                 f"mesh_row_layout must be auto/interleaved/contiguous, "

@@ -1,7 +1,6 @@
 """Device-resident training data and length buckets.
 
-Counterpart of clsr_tpu/data/resident.py:44-322 (one device; the mesh
-functions, :325-527, wait for ROADMAP queue 1 item 10b).  The streamed
+Counterpart of clsr_tpu/data/resident.py:44-527.  The streamed
 path copies every batch from the host; here the padded train set is
 uploaded once (`build_resident`) and each step gathers its B rows on the
 device (`gather_batch`) from an epoch permutation at an offset, so a
@@ -25,6 +24,19 @@ call of K steps sends the device one scalar and no batch.
     epoch permutation, the used length and the offset), kept in the same
     storage for a captured step's life; training/steps.py runs the
     steps.
+  * On a (data, model) mesh (JAX :325-527): `build_resident_mesh` pads
+    the rows with zeros to a multiple of the batch shards and uploads
+    only this rank's block of them (block k of the batch shards' order,
+    parallel/mesh.py `batch_index`: data-major over (data, model) under
+    a flat batch, else the data index, the model row holding the same
+    block); `gather_batch_mesh` gathers the batch rows the rank holds,
+    the others +0.0 as `gather_batch` zeroes invalid rows, and one
+    reduce_scatter over the batch group hands each rank its [B/n] block
+    of rows, O(B x row bytes) a step whatever the dataset's size.  The
+    fields travel as one int32 tensor (floats as their bits): a sum of
+    one nonzero and zeros is exact in integers, so the block equals
+    `gather_batch`'s rows bit for bit.  An `EpochFeed` made with the mesh
+    gathers through it.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import numpy as np
 import torch
 
 from clsr_tpu_torch.data.batch import Batch
+from clsr_tpu_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass
@@ -277,16 +290,62 @@ def resolve_bucket_paddings(cfg, lengths: np.ndarray) -> List[int]:
 
 
 def build_resident_buckets(view, paddings: List[int], device,
-                           round_rows: int = 0):
+                           round_rows: int = 0, mesh=None):
     """[(ResidentDataset padded to Lb, dataset row ids)] a bucket; the
     ids map a bucket's local rows back to the dataset's.  Short rows
-    store Lb columns, so the buckets take less memory than one upload."""
+    store Lb columns, so the buckets take less memory than one upload.
+    With a mesh each bucket is row-sharded (`build_resident_mesh`)."""
     out = []
     for Lb, rows in bucket_rows(view.lengths, view.item_hist.shape[1],
                                 paddings):
         sub = pad_view_rows(_SubView(view, rows, Lb), round_rows)
-        out.append((build_resident(sub, device), rows))
+        out.append((build_resident(sub, device) if mesh is None
+                    else build_resident_mesh(sub, mesh, device), rows))
     return out
+
+
+def build_resident_mesh(view, mesh, device) -> ResidentDataset:
+    """This rank's block of the view's rows, zero-padded to a multiple of
+    the batch shards (JAX :346-386): rank k of the batch shards holds
+    rows [k R, (k + 1) R).  The epoch permutation indexes real rows only,
+    so no padding row is ever gathered."""
+    padded = _PadRows(view, mesh.n_batch)
+    R = len(padded.users) // mesh.n_batch
+    k = mesh.batch_index
+    return build_resident(_SubView(padded, np.arange(k * R, (k + 1) * R),
+                                   view.item_hist.shape[1]), device)
+
+
+_WIRE_FIELDS = ("users", "items", "cates", "labels", "item_hist",
+                "cate_hist", "mask", "time_diff", "time_from_first",
+                "time_to_now")
+
+
+def gather_batch_mesh(res: ResidentDataset, idx: torch.Tensor,
+                      valid: torch.Tensor, mesh) -> Batch:
+    """This rank's [B/n] block of the batch at global rows `idx` [B]
+    (valid [B] bool) from the rank's block `res` of a row-sharded
+    dataset (JAX :389-442): the rows it holds gathered, the others
+    zero, then one reduce_scatter over the batch group."""
+    n = mesh.n_batch
+    B = idx.shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} not divisible by {n} batch shards")
+    k, b = mesh.batch_index, B // n
+    loc = idx - k * res.n_rows
+    ok = (loc >= 0) & (loc < res.n_rows)
+    part = gather_batch(res, torch.where(ok, loc, torch.zeros_like(loc)),
+                        valid & ok)
+    cols = [getattr(part, f) for f in _WIRE_FIELDS]
+    wire = torch.cat([c.reshape(B, -1).view(torch.int32) for c in cols], 1)
+    got = col.reduce_scatter(wire.reshape(n, b, -1), mesh.batch_group)
+    out, at = {}, 0
+    for f, c in zip(_WIRE_FIELDS, cols):
+        w = c.reshape(B, -1).shape[1]
+        out[f] = got[:, at:at + w].contiguous().view(c.dtype).reshape(
+            (b,) + tuple(c.shape[1:]))
+        at += w
+    return Batch(**out, valid=valid[k * b:(k + 1) * b].to(torch.float32))
 
 
 class EpochFeed:
@@ -295,11 +354,14 @@ class EpochFeed:
     offset of the next step's first row (`offset`), all on the
     dataset's device.  A new epoch writes `perm` and `n_rows` in place
     (`set_epoch`) and a call sets `offset` with one fill, so a captured
-    step that reads them stays valid; a step advances `offset` by B."""
+    step that reads them stays valid; a step advances `offset` by B.
+    With a mesh, `res` is the rank's block and `batch` returns the
+    rank's share (`gather_batch_mesh`)."""
 
-    def __init__(self, res: ResidentDataset, perm_len: int):
+    def __init__(self, res: ResidentDataset, perm_len: int, mesh=None):
         device = res.users.device
         self.res = res
+        self.mesh = mesh
         self.perm = torch.zeros(perm_len, dtype=torch.int64, device=device)
         self.n_rows = torch.zeros((), dtype=torch.int64, device=device)
         self.offset = torch.zeros((), dtype=torch.int64, device=device)
@@ -316,7 +378,10 @@ class EpochFeed:
         at or past n_rows zeroed), then offset += B."""
         pos = self.offset + torch.arange(batch_size,
                                          device=self.perm.device)
-        batch = gather_batch(self.res, self.perm.index_select(0, pos),
-                             pos < self.n_rows)
+        idx = self.perm.index_select(0, pos)
+        batch = (gather_batch(self.res, idx, pos < self.n_rows)
+                 if self.mesh is None else
+                 gather_batch_mesh(self.res, idx, pos < self.n_rows,
+                                   self.mesh))
         self.offset.add_(batch_size)
         return batch

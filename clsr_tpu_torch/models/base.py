@@ -43,8 +43,9 @@ tables with `<name>_scales` [N, 1] f32 beside them (serving.py
 `quantize_tables`): `lookup_rows` dequantizes after the gather, and
 training refuses such a model (`check_not_quantized`).
 
-On a (data, model) mesh (parallel/mesh.py; CLSR only, the rest of the
-zoo waits for ROADMAP queue 1 item 10b) a table row-sharded by
+On a (data, model) mesh (parallel/mesh.py; every model but LGN, whose
+propagation reads the whole tables and waits for ROADMAP queue 1 item
+10c) a table row-sharded by
 `place_model` is looked up through `parallel.embedding.gather_rows`
 (train and eval), and the lazy L2 and discrepancy sums count each
 globally unique row once, on the rank holding its first occurrence
@@ -176,10 +177,11 @@ def check_supported(cfg: Config) -> None:
     """Raise on settings the port does not run yet, naming the ROADMAP
     item that brings them."""
     if (cfg.data_parallel * cfg.model_parallel > 1
-            and cfg.model_type.lower() != "clsr"):
+            and cfg.model_type.lower() == "lgn"):
         raise NotImplementedError(
-            f"{cfg.model_type} on a device mesh waits for ROADMAP queue 1 "
-            f"item 10b (parallel); the mesh runs CLSR")
+            f"{cfg.model_type} on a device mesh (its propagation reads the "
+            f"whole tables) waits for ROADMAP queue 1 item 10c (parallel); "
+            f"the mesh runs every other model")
 
 
 class SequentialModelBase(nn.Module):

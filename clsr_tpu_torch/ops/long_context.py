@@ -36,10 +36,21 @@ The parameters are owned directly under flax's names and layouts
 the JAX module's subtree across as it is.
 
 JAX runs this as a `lax.scan` of XLA ops, with no Pallas kernel, so the
-port has no kernel here either.  The sequence-parallel merge of the
-per-shard partials (`axis_name`, :159-166) waits for ROADMAP queue 1
-item 10b (parallel) and raises.  On the (data, model) mesh the layer is
+port has no kernel here either.  On the (data, model) mesh the layer is
 pure per row and runs on each rank's rows.
+
+The sequence-parallel merge (`axis_name`, JAX :157-166): with a
+torch.distributed process group as `axis_name`, the keys and mask are
+this rank's shard of the L axis (the group's ranks in order hold
+consecutive shards), the blocks run over the shard, and the shards'
+(m, s, acc) are all_gathered in rank order and merged with lse algebra:
+m_g = max_r m_r, s = sum_r s_r exp(m_r - m_g), acc likewise.  A shard
+whose keys are all padding carries m = MASK_PADDING_VALUE, a finite
+value, so its weight exp(m_r - m_g) is 0 or 1, never NaN.  The gather is
+differentiable: its backward hands each rank its slice of the
+cotangent summed over the group (parallel/collectives.py
+`all_gather_grad`), so each rank's loss is its share of the whole and
+the key gradients land on the rank that holds the keys.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from clsr_tpu_torch.ops.fused_attention import MASK_PADDING_VALUE
 from clsr_tpu_torch.ops.initializers import (Initializer, new_param,
                                              zeros_init)
+from clsr_tpu_torch.parallel.collectives import all_gather_grad
 
 
 def scorer_apply(keys_blk: torch.Tensor, query: torch.Tensor,
@@ -154,14 +166,18 @@ class LongTargetAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, keys: torch.Tensor,
                 mask: torch.Tensor, train_kernel: Optional[bool] = None,
-                axis_name: Optional[str] = None) -> torch.Tensor:
+                axis_name=None) -> torch.Tensor:
         """query [B, Dq] or [B, G, Dq]; keys [B, L, Dk]; mask [B, L] ->
         att_fea [B, Dk] or [B, G, Dk].  `train_kernel` is accepted for
-        the models' calls and ignored: no kernel runs here."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                "the sequence-parallel merge of long-context attention "
-                "waits for ROADMAP queue 1 item 10b (parallel)")
+        the models' calls and ignored: no kernel runs here.  With a
+        process group as `axis_name`, keys and mask are this rank's
+        shard of the sequence (the module docstring)."""
+        if isinstance(axis_name, str):
+            raise TypeError(
+                "axis_name must be a torch.distributed process group over "
+                "which the keys' L axis is sharded (the sequence-parallel "
+                "merge, ROADMAP queue 1 item 10b), not the JAX axis name "
+                f"{axis_name!r}")
         squeeze = query.dim() == 2
         if squeeze:
             query = query[:, None, :]
@@ -188,5 +204,13 @@ class LongTargetAttention(nn.Module):
                                        preserve_rng_state=False)
             else:
                 m, s, acc = self._block(*args)
+        if axis_name is not None:
+            m_all = all_gather_grad(m, axis_name)           # [P, B, G]
+            s_all = all_gather_grad(s, axis_name)
+            acc_all = all_gather_grad(acc, axis_name)
+            m_g = torch.amax(m_all, dim=0)
+            scale = torch.exp(m_all - m_g[None])
+            s = (s_all * scale).sum(0)
+            acc = (acc_all * scale[..., None]).sum(0)
         att_fea = acc / s.clamp_min(1e-30)[..., None]
         return att_fea[:, 0] if squeeze else att_fea

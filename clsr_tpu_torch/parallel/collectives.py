@@ -12,12 +12,29 @@ model row, or every rank):
     runs from one seed are bit-identical (no ring or tree order that a
     backend may choose);
   * `reduce_scatter(x, group)`: x [n, ...]; rank k gets sum_r x_r[k], by
-    an all-to-all and the same rank-order sum.
+    an all-to-all and the same rank-order sum;
+  * `all_to_all(x, group)`: x [n, ...]; rank k gets [x_0[k], x_1[k],
+    ...], no sum (the owner-routed merge's buckets,
+    training/lazy_adam.py).
 
 `all_reduce_grad` is all_reduce as a `torch.autograd.Function` whose
 backward is its transpose, an all_reduce (the batch statistics' sums,
-parallel/mesh.py `batch_sum`); the lookups write their own backwards
-(parallel/embedding.py).
+parallel/mesh.py `batch_sum`); `all_gather_grad` is all_gather with the
+rank's slice of the summed cotangent as its backward, a reduce_scatter
+(the sequence-parallel merge, ops/long_context.py); the lookups write
+their own backwards (parallel/embedding.py).
+
+The collective-byte count (the counterpart of clsr_tpu/utils/
+hlo_bytes.py's accounting, which reads the compiled HLO the port does
+not have): inside `with count_collectives() as calls:` every call made
+here appends a `Call` to `calls`: its kind, its group's name ('data',
+'model' or 'world', as parallel/mesh.py `make_mesh` labels them), the
+wire tensor's shape and dtype, its payload bytes (the tensor a rank
+sends) and the bytes each rank receives, by hlo_bytes' ring formulas
+applied to what is sent: an all_gather receives out * (g-1)/g, and so
+does all_reduce, which is an all_gather here (the rank-order sum);
+reduce_scatter and all_to_all, each one all-to-all, receive
+in * (g-1)/g.  Outside the block it costs one list test a call.
 
 Under the gloo backend a CUDA tensor goes through host memory (gloo's
 transport), and bool and bf16 tensors travel as uint8 and f32 (exact);
@@ -27,10 +44,60 @@ input without a call.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, List, Tuple
+
 import torch
 import torch.distributed as dist
 
 _WIRE_DTYPES = {torch.bool: torch.uint8, torch.bfloat16: torch.float32}
+
+
+@dataclasses.dataclass
+class Call:
+    """One collective as the byte count records it."""
+
+    kind: str                   # all_gather, all_reduce, reduce_scatter,
+    #                             all_to_all
+    group: str                  # 'data', 'model', 'world' or 'other'
+    shape: Tuple[int, ...]      # the wire tensor a rank sends
+    dtype: torch.dtype
+    payload_bytes: int          # that tensor's bytes
+    received_bytes: int         # each rank's, by the ring formulas
+
+
+_recorders: List[List[Call]] = []
+_group_names: Dict[int, str] = {}
+
+
+def label_group(group, name: str) -> None:
+    """Name a process group for the byte count (parallel/mesh.py)."""
+    _group_names[id(group)] = name
+
+
+@contextlib.contextmanager
+def count_collectives() -> Iterator[List[Call]]:
+    """Record every collective made inside the block (see the module
+    docstring); yields the list the calls are appended to."""
+    calls: List[Call] = []
+    _recorders.append(calls)
+    try:
+        yield calls
+    finally:
+        _recorders.remove(calls)
+
+
+def _record(kind: str, w: torch.Tensor, group, n: int) -> None:
+    if not _recorders:
+        return
+    payload = w.numel() * w.element_size()
+    received = (payload * (n - 1) if kind in ("all_gather", "all_reduce")
+                else payload * (n - 1) // n)
+    call = Call(kind, _group_names.get(id(group), "other"),
+                tuple(w.shape), w.dtype, payload, received)
+    for calls in _recorders:
+        calls.append(call)
 
 
 def group_size(group) -> int:
@@ -56,37 +123,54 @@ def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """[n, *x.shape]: every rank's x in group-rank order."""
+def _gather(x: torch.Tensor, group, kind: str) -> torch.Tensor:
     n = group_size(group)
     if n == 1:
         return x[None]
     w = _to_wire(x, group)
+    _record(kind, w, group, n)
     out = [torch.empty_like(w) for _ in range(n)]
     dist.all_gather(out, w, group=group)
     return _from_wire(torch.stack(out), x)
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, *x.shape]: every rank's x in group-rank order."""
+    return _gather(x, group, "all_gather")
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's x, in group-rank order."""
     if group_size(group) == 1:
         return x
-    return _ordered_sum(all_gather(x, group))
+    return _ordered_sum(_gather(x, group, "all_reduce"))
+
+
+def _exchange(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """out[r] = x_r[me] for x [n, ...]: one all_to_all_single."""
+    n = group_size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"{kind} over {n} ranks needs a leading axis of "
+                         f"{n}, got {tuple(x.shape)}")
+    if n == 1:
+        return x
+    w = _to_wire(x, group)
+    _record(kind, w, group, n)
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=group)
+    return _from_wire(out, x)
 
 
 def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     """x [n, ...] on each rank; rank k gets the sum over ranks r of
     x_r[k], in rank order."""
-    n = group_size(group)
-    if x.shape[0] != n:
-        raise ValueError(f"reduce_scatter over {n} ranks needs a leading "
-                         f"axis of {n}, got {tuple(x.shape)}")
-    if n == 1:
-        return x[0]
-    w = _to_wire(x, group)
-    out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=group)
-    return _ordered_sum(_from_wire(out, x))
+    return _ordered_sum(_exchange(x, group, "reduce_scatter"))
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x [n, ...] on each rank; rank k gets [x_0[k], x_1[k], ...] (no
+    sum): x_r[k] is what rank r sends rank k."""
+    return _exchange(x, group, "all_to_all")
 
 
 class _AllReduce(torch.autograd.Function):
@@ -104,3 +188,22 @@ class _AllReduce(torch.autograd.Function):
 def all_reduce_grad(x: torch.Tensor, group) -> torch.Tensor:
     """all_reduce with an all_reduce backward."""
     return _AllReduce.apply(x, group)
+
+
+class _AllGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group), None
+
+
+def all_gather_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """all_gather whose backward hands each rank its slice of the
+    cotangent summed over the group (each rank's loss a share of the
+    whole, as for all_reduce_grad)."""
+    return _AllGather.apply(x, group)

@@ -139,6 +139,10 @@ def make_mesh(cfg: Config, pads_rows: bool = False) -> Mesh:
              for j in range(m)],
             [dist.new_group([i * m + j for j in range(m)])
              for i in range(d)])
+        for name, groups in zip(("data", "model"), _groups[key]):
+            for g in groups:
+                col.label_group(g, name)
+        col.label_group(dist.group.WORLD, "world")
     data_groups, model_groups = _groups[key]
     rank = dist.get_rank()
     return Mesh(n_data=d, n_model=m, rank=rank,

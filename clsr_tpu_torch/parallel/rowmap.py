@@ -8,10 +8,11 @@ row-sharded over the mesh's m model ranks keeps N/m rows on each rank:
   interleaved  rank j holds logical rows {i : i % m == j} at local
                position i // m (owner = id % m, local = id // m)
 
-Contiguous is the default under the broadcast merge (the only merge of
-this slice); interleaved is the layout of the owner-routed merge, which
-spreads a frequency-ordered vocab's hot rows over the owners, and runs
-here when `mesh_row_layout: interleaved` asks for it.  Checkpoints hold
+Contiguous is the default under the broadcast merge; interleaved is
+the default under the owner-routed merge (`mesh_row_layout: auto`),
+where it spreads a frequency-ordered vocab's hot rows over the owners'
+buckets, and runs under either merge when `mesh_row_layout:
+interleaved` asks for it.  Checkpoints hold
 the LOGICAL (id-ordered) layout on every topology (training/trainer.py).
 
 Every function takes numpy arrays or torch tensors.

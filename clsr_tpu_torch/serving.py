@@ -35,7 +35,7 @@ the batch shards (flat under `resolve_flat_batch(cfg, pads_rows=True)`),
 each rank scores its rows, K1 on its share, and the shards' scores are
 gathered, so every rank returns every score.  The thread-driven
 `AsyncScoringService` coalesces requests by arrival time, which the
-ranks do not share, and refuses a mesh (ROADMAP queue 1 item 10b), as
+ranks do not share, and refuses a mesh (ROADMAP queue 1 item 10c), as
 do `save` and `load` of a mesh service's weights.
 """
 
@@ -175,7 +175,7 @@ class ScoringService:
                 for p in self.model.parameters()):
             raise NotImplementedError(
                 f"{what} of a sharded service's weights waits for ROADMAP "
-                f"queue 1 item 10b (parallel); load_latest reads a "
+                f"queue 1 item 10c (parallel); load_latest reads a "
                 f"training checkpoint on a mesh")
 
     def load_latest(self, model_dir: str) -> None:
@@ -273,7 +273,7 @@ class AsyncScoringService:
         if service.mesh is not None:
             raise NotImplementedError(
                 "the async frontend on a mesh waits for ROADMAP queue 1 "
-                "item 10b (parallel): its ranks would coalesce different "
+                "item 10c (parallel): its ranks would coalesce different "
                 "requests; call ScoringService.score on every rank")
         self._svc = service
         self._max_wait = max_wait_ms / 1e3

@@ -120,7 +120,7 @@ def save_state(path: str, state: TrainState, mesh: Optional[Mesh] = None
     if isinstance(opt, LazyAdamState):
         optimizer = {"kind": "lazyadam", "moments": dict(opt.moments),
                      "count": int(opt.count),
-                     "route_overflow": opt.route_overflow,
+                     "route_overflow": int(opt.route_overflow),
                      "dense": opt.dense_opt.state_dict()}
     else:
         optimizer = {"kind": _kind(opt), "state_dict": opt.state_dict()}
@@ -186,7 +186,7 @@ def load_state(path: str, state: TrainState, mesh: Optional[Mesh] = None
                     f"and split layouts do not convert)")
             opt.moments[name].copy_(rows)
         opt.count.fill_(int(saved["count"]))
-        opt.route_overflow = int(saved["route_overflow"])
+        opt.route_overflow.fill_(int(saved["route_overflow"]))
         opt.dense_opt.load_state_dict(saved["dense"])
     else:
         opt.load_state_dict(saved["state_dict"])

@@ -54,11 +54,27 @@ JAX package's mesh updates:
     single-device updates on the gathered ids and the batch-summed
     gradient.
 
-Both write through K5, the rows the rank does not own filtered out
+  * `compact_table_update_mesh_owner` (JAX :420-606, the owner-routed
+    merge, `mesh_update_routing: owner`, on every row-sharded table):
+    the rank sums its own sorted runs, buckets the unique rows' (id,
+    gradient) by owner into static [m, C] slots (empty slots hold the
+    sentinel id N and a zero row), routes them (flat batch: one
+    all_to_all over the model row; a replicated batch: the rank's own
+    bucket, since its model row holds the same stream), all_gathers
+    them over the data column, and merges them (sentinels sort last);
+    the clip norm is the model row's sum of the owners' disjoint
+    partial sums of squares.  A (source, owner) entry past C is an
+    overflow: the count is summed over the world, so every rank holds
+    the same integer.  Under `mesh_owner_overflow: fallback` a table
+    whose count is nonzero takes the broadcast merge that step (every
+    rank reads the same count, so every rank takes the same branch);
+    under `drop` the entries are dropped.  The counts add up in the
+    state's `route_overflow`, a device int32 counter.
+
+All write through K5, the rows the rank does not own filtered out
 first: the owned rows' local targets come first, ascending, and the
 others get targets past the block, which K5 drops.  The pmn param lane
-holds the rows rounded to the table's type, as on one device.  The
-owner-routed merge (JAX :420-606) waits for ROADMAP queue 1 item 10b.
+holds the rows rounded to the table's type, as on one device.
 """
 
 from __future__ import annotations
@@ -73,9 +89,11 @@ from torch.profiler import record_function
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.ops.row_update import Entry, scatter_rows_group
-from clsr_tpu_torch.ops.segment_sum import run_lengths, segment_sum
+from clsr_tpu_torch.ops.segment_sum import (run_lengths, segment_sum,
+                                            sorted_runs)
 from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel.embedding import owned_rows
+from clsr_tpu_torch.parallel.rowmap import owner_local
 from clsr_tpu_torch.training.compact_rows import Plan, supported_tables
 from clsr_tpu_torch.training.optimizer import (build_optimizer,
                                                clip_by_norm_each)
@@ -110,14 +128,14 @@ class LazyAdamState:
     """Per-table optimizer rows {table parameter name: [N, 2D] or [N, 3D]
     f32}, the step count (an int32 scalar on the tables' device), and the
     dense Adam over the other parameters.
-    `route_overflow` is the JAX state's counter of the mesh owner-routed
-    merge; it stays 0 on a single device and is kept so that state
-    carries over."""
+    `route_overflow` (an int32 scalar on the same device) counts the
+    owner-routed merge's overflowed bucket entries, summed over the
+    world; it stays 0 on every other path."""
 
     moments: Dict[str, torch.Tensor]
     count: torch.Tensor
     dense_opt: torch.optim.Optimizer
-    route_overflow: int = 0
+    route_overflow: torch.Tensor
 
 
 def is_pmn(param: torch.Tensor, mn: torch.Tensor) -> bool:
@@ -203,7 +221,9 @@ class LazyAdam:
         return LazyAdamState(
             moments={n: init_rows(v) for n, v in tables.items()},
             count=torch.zeros((), dtype=torch.int32, device=device),
-            dense_opt=build_optimizer(self.cfg, list(dense.values())))
+            dense_opt=build_optimizer(self.cfg, list(dense.values())),
+            route_overflow=torch.zeros((), dtype=torch.int32,
+                                       device=device))
 
     def _clip_scale(self, sumsq):
         if self.max_norm <= 0.0:
@@ -345,20 +365,126 @@ class LazyAdam:
             torch.cat([new_rows.float(), m_new, v_new], -1))
         return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)]
 
+    @torch.no_grad()
+    def compact_table_update_mesh_owner(self, param: torch.Tensor,
+                                        gw: torch.Tensor, mn: torch.Tensor,
+                                        plan, t, mesh, n_rows: int
+                                        ) -> Tuple[List[Entry],
+                                                   torch.Tensor]:
+        """The owner-routed merge (JAX :420-606) for this rank's block of
+        a row-sharded pmn table of n_rows logical rows: (entries, the
+        step's overflow count summed over the world, int32).  Under
+        `mesh_owner_overflow: fallback` a nonzero count makes it the
+        broadcast merge's entries (`compact_table_update_mesh`)."""
+        D = param.shape[1]
+        if not is_pmn(param, mn):
+            raise ValueError("the owner-routed merge needs the pmn layout")
+        N, m, rows = n_rows, mesh.n_model, param.shape[0]
+        j = mesh.model_index
+        dev = gw.device
+        ids = plan.sorted_ids
+        Mi = ids.shape[0]
+        C = max(1, min(Mi, -(-int(self.cfg.mesh_owner_capacity * Mi) // m)))
+        # 1. the rank's per-unique-row sums over its sorted runs
+        gsum = segment_sum(gw.float(), run_lengths(plan.idx_first, Mi))
+        run_ok = (torch.arange(Mi, dtype=torch.int32, device=dev)
+                  < plan.seg[-1] + 1)
+        uid = ids.index_select(0, torch.clamp(plan.idx_first, max=Mi - 1))
+        uid = torch.where(run_ok, uid, torch.full_like(uid, N))
+        # 2. static [m, C] buckets by owner; a run's slot is its rank
+        #    among the runs of its owner (a running count a column)
+        owner = torch.clamp(owner_local(uid, m, rows, mesh.interleaved)[0],
+                            0, m - 1)
+        onehot = ((owner[:, None] == torch.arange(m, device=dev)[None])
+                  & run_ok[:, None]).to(torch.int32)
+        slot = torch.cumsum(onehot, 0).gather(1, owner[:, None].long())[
+            :, 0] - 1
+        in_cap = slot < C
+        send_ok = run_ok & in_cap
+        tgt = torch.where(send_ok, owner * C + slot,
+                          torch.full_like(owner, m * C)).long()
+        send_ids = torch.full((m * C + 1,), N, dtype=torch.int32,
+                              device=dev)
+        send_ids[tgt] = uid
+        send_g = torch.zeros(m * C + 1, D, dtype=torch.float32, device=dev)
+        send_g[tgt] = gsum
+        # one wire tensor: the id rides in the last column as its int32
+        # bits (collectives copy, never add, them); the sink slot m*C,
+        # where the unsent runs went, is cut off
+        send = torch.cat([send_g[:m * C],
+                          send_ids[:m * C].view(torch.float32)[:, None]], 1)
+        lost = run_ok & ~in_cap
+        if not mesh.flat:   # the model row holds one stream: count once
+            lost = lost & (owner == j)
+        ovf = col.all_reduce(lost.sum().to(torch.int32)[None],
+                             mesh.world)[0]
+        if self.cfg.mesh_owner_overflow == "fallback" and int(ovf):
+            return self.compact_table_update_mesh(
+                param, gw, mn, plan, t, mesh, n_rows, True), ovf
+        # 3. route each bucket to its owner; 4. collect the column's
+        if mesh.flat:
+            got = col.all_to_all(send.reshape(m, C, D + 1),
+                                 mesh.model_group)
+        else:
+            got = send[j * C:(j + 1) * C]
+        got = col.all_gather(got.contiguous(),
+                             mesh.data_group).reshape(-1, D + 1)
+        # 5. the merge: stable sort, the sentinels (N) last
+        gid = got[:, D].contiguous().view(torch.int32)
+        order = torch.argsort(gid, stable=True)
+        sid = gid.index_select(0, order)
+        K = sid.shape[0]
+        Kc = min(K, N + 1)          # at most N real runs + the sentinels'
+        _, seg, idx_first = sorted_runs(sid)
+        g = segment_sum(got[:, :D].index_select(0, order),
+                        run_lengths(idx_first, Kc))
+        gu = sid.index_select(0, torch.clamp(idx_first[:Kc], max=K - 1))
+        valid = ((torch.arange(Kc, dtype=torch.int32, device=dev)
+                  < seg[-1] + 1) & (gu >= 0) & (gu < N))
+        if self.max_norm > 0.0:
+            # the owners' rows partition the unique rows: the model row's
+            # sum of the disjoint partial sums is the whole table's
+            sumsq = col.all_reduce(
+                ((g * g).sum(-1) * valid).sum()[None], mesh.model_group)[0]
+            g = g * self._clip_scale(sumsq)
+        loc, ok = owned_rows(torch.where(valid, gu, torch.zeros_like(gu)),
+                             mesh, rows)
+        ok = ok & valid
+        mv = mn.index_select(0, loc) * ok[:, None].float()
+        new_rows, m_new, v_new = _adam_rows(mv[:, :D], mv[:, D:], g, t,
+                                            self.lr)
+        new_rows = new_rows.to(param.dtype)   # pmn's lane: the table's rows
+        tgt, new_rows, mn_rows = _owned_first(
+            loc, ok, rows, new_rows,
+            torch.cat([new_rows.float(), m_new, v_new], -1))
+        return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)], ovf
+
     def compact_mesh_update(self, model: nn.Module, state: LazyAdamState,
                             gws: Dict[str, torch.Tensor],
                             plans: Dict[str, Plan],
                             table_names: Dict[str, str], mesh) -> None:
-        """Mesh compact table updates and dense Adam (JAX :633-666, the
-        broadcast branch): the dense gradients arrive summed over the
+        """Mesh compact table updates and dense Adam (JAX :633-666): the
+        owner-routed merge for every row-sharded table under
+        `mesh_update_routing: owner`, else (and for a replicated table)
+        the broadcast merge; the dense gradients arrive summed over the
         batch shards."""
+        owner = self.cfg.mesh_update_routing == "owner"
+        overflows = []
+
         def per_table(path, param, mn, t):
             name = table_names[path]
             n_rows = getattr(param, "mesh_rows", None)
+            if owner and n_rows is not None:
+                entries, ovf = self.compact_table_update_mesh_owner(
+                    param, gws[name], mn, plans[name], t, mesh, n_rows)
+                overflows.append(ovf)
+                return entries
             return self.compact_table_update_mesh(
                 param, gws[name], mn, plans[name], t, mesh,
                 n_rows or param.shape[0], n_rows is not None)
         self._finish(model, state, per_table)
+        for ovf in overflows:
+            state.route_overflow.add_(ovf)
 
     def _finish(self, model: nn.Module, state: LazyAdamState,
                 per_table: Callable[[str, torch.Tensor, torch.Tensor,

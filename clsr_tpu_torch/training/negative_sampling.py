@@ -110,10 +110,12 @@ def expand_nextitnet(generator: torch.Generator, batch: Batch,
 
 
 def on_global_batch(expand, generator: torch.Generator, batch: Batch,
-                    num_ngs: int) -> Batch:
+                    num_ngs: int, history: bool = False) -> Batch:
     """expand(generator, batch, num_ngs) on the global batch's positives
     when a mesh is active, this rank's rows of the result kept; `expand`
-    reads the positives' items, cates and valid flags only."""
+    reads the positives' items, cates and valid flags, and with
+    `history` (NextItNet's per-position targets, `expand_nextitnet`)
+    the histories and the mask too."""
     mesh = active_mesh()
     if mesh is None:
         return expand(generator, batch, num_ngs)
@@ -121,6 +123,12 @@ def on_global_batch(expand, generator: torch.Generator, batch: Batch,
                                       batch.cates[:, 0]], 1), mesh)
     glob = dataclasses.replace(batch, items=pos[:, :1], cates=pos[:, 1:],
                                valid=gather_rows_of(batch.valid, mesh))
+    if history:
+        hist = gather_rows_of(torch.stack([batch.item_hist,
+                                           batch.cate_hist], -1), mesh)
+        glob = dataclasses.replace(glob, item_hist=hist[..., 0],
+                                   cate_hist=hist[..., 1],
+                                   mask=gather_rows_of(batch.mask, mesh))
     out = expand(generator, glob, num_ngs)
     return dataclasses.replace(batch, items=local_rows_of(out.items),
                                cates=local_rows_of(out.cates),

@@ -88,7 +88,7 @@ from torch.profiler import record_function
 from clsr_tpu_torch.config import Config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
-                                          gather_batch)
+                                          gather_batch, gather_batch_mesh)
 from clsr_tpu_torch.models.base import check_not_quantized
 from clsr_tpu_torch.ops import launches
 from clsr_tpu_torch.parallel.collectives import all_reduce
@@ -268,7 +268,8 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
             ) -> LossParts:
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
-                batch = on_global_batch(expand, generator, batch, num_ngs)
+                batch = on_global_batch(expand, generator, batch, num_ngs,
+                                        per_position(cfg))
         model.train()
         if compact_applies(state):
             parts = compact_step(state, batch, generator)
@@ -512,15 +513,17 @@ def make_multi_train_step(model: torch.nn.Module, cfg: Config,
     return MultiTrainStep(model, cfg, steps_per_call, mesh)
 
 
-def make_resident_step(model: torch.nn.Module, cfg: Config) -> Callable[
+def make_resident_step(model: torch.nn.Module, cfg: Config,
+                       mesh: Optional[Mesh] = None) -> Callable[
         [TrainState, EpochFeed, int, torch.Generator],
         Tuple[TrainState, LossParts]]:
     """One resident step, eagerly (JAX resident.py:577-603):
     (state, feed, offset, generator) -> (state, LossParts), the batch
     gathered from feed's rows [offset, offset + B).  Unlike JAX's, it
     needs no `sync_params_from_opt` at its end: the lazy update writes the
-    table rows itself (`make_train_step`)."""
-    step = make_train_step_fn(model, cfg)
+    table rows itself (`make_train_step`).  On a mesh (JAX :448-485) the
+    feed is the rank's block and gathers the rank's share."""
+    step = make_train_step_fn(model, cfg, mesh=mesh)
     B = cfg.batch_size
 
     def run(state: TrainState, feed: EpochFeed, offset: int,
@@ -551,13 +554,16 @@ class ResidentMultiStep:
     launch counts.  A feed must keep its tensors for the graph's life
     (`EpochFeed.set_epoch` writes in place); `reset()` drops every graph.
     `.grad` holds whichever graph's last values; nothing reads it
-    between steps.  A capture that fails raises."""
+    between steps.  A capture that fails raises.
+
+    On a mesh (JAX :488-527) the feeds are the rank's blocks and every
+    step runs eagerly, as `MultiTrainStep`'s do."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
-                 steps_per_call: int):
+                 steps_per_call: int, mesh: Optional[Mesh] = None):
         self.steps_per_call = steps_per_call
         self.batch_size = cfg.batch_size
-        self._body = _make_step_body(model, cfg, None)
+        self._body = _make_step_body(model, cfg, None, mesh)
         self.reset()
 
     def reset(self) -> None:
@@ -577,7 +583,7 @@ class ResidentMultiStep:
 
     def _step(self, state, feed, generator) -> torch.Tensor:
         B = self.batch_size
-        if not feed.perm.is_cuda:
+        if not feed.perm.is_cuda or self._body.mesh is not None:
             row = _row(self._body(state, feed.batch(B), generator))
         else:
             if not (self._bound is not None and self._bound[0] is state
@@ -606,13 +612,16 @@ class ResidentMultiStep:
 
 
 def make_resident_multi_step(model: torch.nn.Module, cfg: Config,
-                             steps_per_call: int) -> ResidentMultiStep:
+                             steps_per_call: int,
+                             mesh: Optional[Mesh] = None
+                             ) -> ResidentMultiStep:
     """K = steps_per_call resident steps a host call; see
     `ResidentMultiStep`."""
-    return ResidentMultiStep(model, cfg, steps_per_call)
+    return ResidentMultiStep(model, cfg, steps_per_call, mesh)
 
 
-def make_bn_refresh_fn(model: torch.nn.Module, cfg: Config) -> Callable[
+def make_bn_refresh_fn(model: torch.nn.Module, cfg: Config,
+                       mesh: Optional[Mesh] = None) -> Callable[
         [TrainState, Batch, torch.Generator], TrainState]:
     """Forward-only BN running-statistics refresh (JAX steps.py:301-328):
     (state, batch, generator) -> state.  The train-mode forward (the
@@ -621,33 +630,41 @@ def make_bn_refresh_fn(model: torch.nn.Module, cfg: Config) -> Callable[
     the state changes: no gradient, no optimizer, no step.  The length-
     bucketed epoch runs it over bucket-interleaved batches before the
     eval, since its K-step calls are each one bucket's and longer than
-    the running averages' horizon."""
+    the running averages' horizon.  On a mesh `batch` is the rank's
+    share, the negatives are drawn on the global batch and the BN
+    statistics are the global batch's."""
     num_ngs = cfg.train_num_ngs
 
     @torch.no_grad()
     def refresh(state: TrainState, batch: Batch,
                 generator: torch.Generator) -> TrainState:
-        if cfg.need_sample and num_ngs > 0:
-            batch = expand_with_negatives(generator, batch, num_ngs)
-        model.train()
-        model(batch, generator=generator)
+        with use_mesh(mesh):
+            if cfg.need_sample and num_ngs > 0:
+                batch = on_global_batch(expand_with_negatives, generator,
+                                        batch, num_ngs)
+            model.train()
+            model(batch, generator=generator)
         return state
 
     return refresh
 
 
-def make_resident_bn_refresh(model: torch.nn.Module, cfg: Config
+def make_resident_bn_refresh(model: torch.nn.Module, cfg: Config,
+                             mesh: Optional[Mesh] = None
                              ) -> Callable[[TrainState, ResidentDataset,
                                             torch.Tensor, torch.Generator],
                                            TrainState]:
-    """The refresh on resident rows (JAX resident.py:530-545):
-    (state, res, idx [B], generator) -> state, every row valid."""
-    refresh = make_bn_refresh_fn(model, cfg)
+    """The refresh on resident rows (JAX resident.py:530-575):
+    (state, res, idx [B], generator) -> state, every row valid; on a
+    mesh `res` is the rank's block (`gather_batch_mesh`)."""
+    refresh = make_bn_refresh_fn(model, cfg, mesh)
 
     def run(state: TrainState, res: ResidentDataset, idx: torch.Tensor,
             generator: torch.Generator) -> TrainState:
         valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
-        return refresh(state, gather_batch(res, idx, valid), generator)
+        batch = (gather_batch(res, idx, valid) if mesh is None
+                 else gather_batch_mesh(res, idx, valid, mesh))
+        return refresh(state, batch, generator)
 
     return run
 

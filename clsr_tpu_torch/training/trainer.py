@@ -75,18 +75,25 @@ How the port runs what the JAX package runs:
   * A (data, model) mesh (cfg.data_parallel * cfg.model_parallel > 1,
     JAX :46-110; parallel/mesh.py): every rank of the process group
     builds the same Trainer.  The model's tables are row-sharded before
-    the state is made (`place_model`); every rank streams the same
-    global batches from its loader and keeps its own rows (axis 1 of a
-    stacked [K, B, ...] item), the steps are the mesh's
+    the state is made (`place_model`); streamed, every rank reads the
+    same global batches from its loader and keeps its own rows (axis 1
+    of a stacked [K, B, ...] item); resident (`_use_resident` as JAX's:
+    the batch must divide into the batch shards), every rank uploads its
+    block of the rows (data/resident.py `build_resident_mesh`, each
+    length bucket's too), draws the same epoch permutation and gathers
+    its share of each batch on its device.  The steps are the mesh's
     (training/steps.py; K steps a call run eagerly), and the eval step
     pads each global batch to a multiple of the batch shards, scores the
     rank's rows and gathers the predictions, so every rank computes the
     same metrics.  Rank 0 alone logs and writes summaries; checkpoints
     hold the logical layout (training/checkpoint.py), written by rank 0
-    and loaded by every rank.  Refused on a mesh, naming ROADMAP queue 1
-    item 10b: resident data (`resident_data: on`; 'auto' streams),
-    length buckets, mid-epoch autosave and resume, histograms, the
-    owner-routed merge and every model but CLSR.
+    and loaded by every rank.  Without cfg.seed the ranks take rank 0's
+    clock seed, so they draw one permutation and one set of negatives
+    and masks.  Under the owner-routed merge the epoch's
+    end reads the overflow counter and logs JAX's NOTE (fallback) or
+    WARNING (drop) when it is nonzero (JAX :619-640).  Refused on a
+    mesh, naming ROADMAP queue 1 item 10c: mid-epoch autosave and
+    resume, histograms, and LGN.
 """
 
 from __future__ import annotations
@@ -104,16 +111,19 @@ from clsr_tpu_torch.data.loader import SequenceLoader
 from clsr_tpu_torch.data.prefetch import device_batches, to_device
 from clsr_tpu_torch.data.resident import (EpochFeed, build_resident,
                                           build_resident_buckets,
+                                          build_resident_mesh,
                                           epoch_permutation, pad_view_rows,
                                           perm_length,
                                           resident_nbytes_estimate,
                                           resolve_bucket_paddings)
+from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel.mesh import (make_mesh,
                                           make_sharded_eval_step,
                                           mesh_size, place_model,
                                           shard_batch)
 from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import (make_eval_step_fn,
                                            make_histogram_step,
@@ -127,23 +137,23 @@ from clsr_tpu_torch.utils.summaries import SummaryWriter
 
 def mesh_refusals(cfg: Config) -> List[str]:
     """The settings of cfg that a mesh does not run yet (ROADMAP queue 1
-    item 10b)."""
+    item 10c)."""
     if mesh_size(cfg) <= 1:
         return []
     out = []
-    if cfg.mesh_update_routing != "broadcast":
-        out.append("mesh_update_routing owner (the owner-routed merge)")
-    if cfg.resident_data == "on":
-        out.append("resident_data on (mesh-resident data)")
-    if cfg.length_buckets != "off":
-        out.append("length_buckets (resident only)")
     if cfg.autosave_every_calls:
         out.append("autosave_every_calls (mid-epoch resume)")
     if cfg.write_histograms:
         out.append("write_histograms")
-    if cfg.model_type.lower() != "clsr":
+    if cfg.model_type.lower() == "lgn":
         out.append(f"model {cfg.model_type}")
     return out
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(
+        f"on a device mesh, {what} wait for ROADMAP queue 1 item 10c "
+        f"(parallel)")
 
 
 def check_trainable(cfg: Config) -> None:
@@ -151,9 +161,7 @@ def check_trainable(cfg: Config) -> None:
     item that brings it."""
     refused = mesh_refusals(cfg)
     if refused:
-        raise NotImplementedError(
-            f"on a device mesh, {'; '.join(refused)} wait for ROADMAP "
-            f"queue 1 item 10b (parallel)")
+        _refuse("; ".join(refused))
 
 
 class Trainer:
@@ -201,9 +209,12 @@ class Trainer:
 
     def _use_resident(self, train_loader: SequenceLoader) -> bool:
         """resident_data: 'on', or 'auto' when the upload fits
-        cfg.resident_max_bytes (JAX :139-155, one device)."""
+        cfg.resident_max_bytes (JAX :139-155); on a mesh only when the
+        batch divides into the batch shards."""
         cfg = self.cfg
-        if cfg.resident_data == "off" or self.mesh is not None:
+        if cfg.resident_data == "off":
+            return False
+        if self.mesh is not None and cfg.batch_size % self.mesh.n_batch:
             return False
         if cfg.resident_data == "on":
             return True
@@ -212,24 +223,26 @@ class Trainer:
                 <= cfg.resident_max_bytes)
 
     def _build_resident(self, train_loader: SequenceLoader) -> None:
-        """Upload the train set (or its length buckets) and make the
-        steps (JAX :174-225)."""
-        cfg = self.cfg
+        """Upload the train set (or its length buckets; on a mesh this
+        rank's block of each) and make the steps (JAX :174-225)."""
+        cfg, mesh = self.cfg, self.mesh
         view = train_loader.view
         B, K = cfg.batch_size, cfg.train_steps_per_call
         t0 = time.perf_counter()
         pads = resolve_bucket_paddings(cfg, view.lengths)
         if pads:
             parts = build_resident_buckets(view, pads, self.device,
-                                           cfg.resident_round_rows)
+                                           cfg.resident_round_rows, mesh)
             elig = [np.flatnonzero(view.lengths[rows] >= cfg.min_seq_length)
                     for _, rows in parts]
+            n = mesh.n_batch if mesh is not None else 1   # a block a rank
             self.log("length buckets (Lb x rows): " + ", ".join(
-                f"{res.seq_len}x{res.n_rows}" for res, _ in parts))
+                f"{res.seq_len}x{res.n_rows * n}" for res, _ in parts))
             datasets = [res for res, _ in parts]
         else:
-            datasets = [build_resident(
-                pad_view_rows(view, cfg.resident_round_rows), self.device)]
+            padded = pad_view_rows(view, cfg.resident_round_rows)
+            datasets = [build_resident(padded, self.device) if mesh is None
+                        else build_resident_mesh(padded, mesh, self.device)]
             elig = [np.flatnonzero(view.lengths >= cfg.min_seq_length)]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -237,12 +250,12 @@ class Trainer:
             bytes=sum(res.nbytes() for res in datasets),
             s=time.perf_counter() - t0)
         self.feeds = [
-            (EpochFeed(res, perm_length(len(e), B, cfg.drop_remainder_min)),
-             e) for res, e in zip(datasets, elig)]
+            (EpochFeed(res, perm_length(len(e), B, cfg.drop_remainder_min),
+                       mesh), e) for res, e in zip(datasets, elig)]
         self.bucketed = bool(pads)
-        self.resident_step = (make_resident_multi_step(self.model, cfg, K)
-                              if K > 1 else
-                              make_resident_step(self.model, cfg))
+        self.resident_step = (
+            make_resident_multi_step(self.model, cfg, K, mesh) if K > 1
+            else make_resident_step(self.model, cfg, mesh))
 
     def _resident_calls(self, np_rng: np.random.RandomState,
                         saved: Optional[dict] = None):
@@ -284,7 +297,8 @@ class Trainer:
                 and next(self.model.buffers(), None) is not None):
             return 0.0
         if self._bn_refresh is None:
-            self._bn_refresh = make_resident_bn_refresh(self.model, cfg)
+            self._bn_refresh = make_resident_bn_refresh(self.model, cfg,
+                                                        self.mesh)
         t0 = time.perf_counter()
         for r in range(cfg.bn_refresh_batches):
             feed, elig = self.feeds[r % len(self.feeds)]
@@ -312,10 +326,14 @@ class Trainer:
             raise ValueError(
                 "Please specify a positive integer of negative numbers for "
                 "validation.")
-        np_rng = np_rng or np.random.RandomState(cfg.seed)
+        if resume and self.mesh is not None:
+            _refuse("fit(resume=True) (mid-epoch resume)")
+        seed = cfg.seed
+        if seed is None and self.mesh is not None:
+            seed = self._shared_seed()
+        np_rng = np_rng or np.random.RandomState(seed)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(cfg.seed if cfg.seed is not None
-                              else int(time.time()))
+        generator.manual_seed(seed if seed is not None else int(time.time()))
 
         if cfg.write_histograms and not cfg.summaries_dir:
             self.log("WARNING: write_histograms is set but summaries_dir "
@@ -454,6 +472,7 @@ class Trainer:
             self.eval_history.append((epoch, valid_res))
             self.summary.scalars(step, {f"valid/{k}": v
                                         for k, v in valid_res.items()})
+            self._log_overflow()
 
             progress = False
             if valid_res[cfg.eval_metric] > best_metric:
@@ -485,6 +504,36 @@ class Trainer:
             shutil.rmtree(self._autosave_dir(), ignore_errors=True)
         self.log(f"best epoch: {self.best_epoch}")
         return self
+
+    def _shared_seed(self) -> int:
+        """A seed from rank 0's clock, the same on every rank: without
+        cfg.seed the ranks would draw different epoch permutations,
+        negatives and dropout masks, and the global batch would not be
+        one batch (resident, the ranks' gathers would not assemble)."""
+        mine = int(time.time()) if self.mesh.rank == 0 else 0
+        return int(col.all_reduce(torch.tensor(
+            [mine], dtype=torch.int64, device=self.device),
+            self.mesh.world)[0])
+
+    def _log_overflow(self) -> None:
+        """The owner-routed merge's overflow so far, read once an epoch
+        at the eval's sync (JAX :619-640)."""
+        cfg = self.cfg
+        opt = self.state.optimizer
+        if (self.mesh is None or cfg.mesh_update_routing != "owner"
+                or not isinstance(opt, LazyAdamState)):
+            return
+        ovf = int(opt.route_overflow)
+        if ovf and cfg.mesh_owner_overflow == "drop":
+            self.log(f"WARNING: owner-routed update merge dropped {ovf} "
+                     f"gradient bucket entries so far (mesh_owner_capacity "
+                     f"too small for this id distribution — raise it, or "
+                     f"use mesh_owner_overflow='fallback')")
+        elif ovf:
+            self.log(f"NOTE: owner-routed update merge fell back to the "
+                     f"broadcast merge for {ovf} bucket entries so far "
+                     f"(lossless; raise mesh_owner_capacity to keep the "
+                     f"O(M/m) wire bytes on those steps)")
 
     def _resume_info(self, resident: bool) -> Optional[dict]:
         """Load `<model_dir>/autosave` for fit(resume=True): the run

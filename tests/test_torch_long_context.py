@@ -14,7 +14,7 @@ tests/test_long_context.py:80-113): one train step against JAX's (loss
 parts and clipped gradients, K2's plain versions on and off) and the
 eval step; the flax subtree through from_flax / to_flax; the scoring
 service against JAX's; K1 and K3 never run on the path; the sequence-
-parallel branch names item 10b.
+parallel merge refuses JAX's axis name, naming item 10b.
 """
 
 import dataclasses
@@ -170,11 +170,14 @@ def test_blocked_equals_unblocked_on_rows_with_history():
 
 
 def test_sequence_parallel_merge_names_item_10():
+    """The merge is ported (item 10b; tests/test_torch_mesh_resident.py
+    runs it over 4 ranks): its axis is a process group, and JAX's axis
+    name is refused, naming the item."""
     query, keys, mask, _ = _inputs(5)
     mod = LongTargetAttention(DQ, DK, LAYERS, get_initializer("tnormal",
                                                               0.1),
                               torch.Generator(), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 10b\\b"):
+    with pytest.raises(TypeError, match="process group.*item 10b\\b"):
         mod(*(torch.from_numpy(a) for a in (query, keys, mask)),
             axis_name="seq")
 

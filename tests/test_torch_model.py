@@ -101,14 +101,17 @@ def test_train_mode_and_unported_settings_raise():
     assert get_model_class("clsr")(
         cfg.replace(compute_dtype="bfloat16"), N_USERS, N_ITEMS, N_CATES,
         device="cpu").logit_fcn.dtype == torch.bfloat16
-    # CLSR builds for a mesh (its tables are sharded when placed); the
-    # rest of the zoo on a mesh waits for ROADMAP queue 1 item 10b
+    # CLSR and the zoo build for a mesh (their tables are sharded when
+    # placed, item 10b); LGN on a mesh waits for ROADMAP queue 1 item 10c
     assert get_model_class("clsr")(cfg.replace(data_parallel=2), N_USERS,
                                    N_ITEMS, N_CATES, device="cpu")
+    assert get_model_class("din")(cfg.replace(data_parallel=2,
+                                              model_type="din"), N_USERS,
+                                  N_ITEMS, N_CATES, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item "
-                                                  "10b"):
-        get_model_class("din")(cfg.replace(data_parallel=2,
-                                           model_type="din"), N_USERS,
+                                                  "10c"):
+        get_model_class("lgn")(cfg.replace(data_parallel=2,
+                                           model_type="lgn"), N_USERS,
                                N_ITEMS, N_CATES, device="cpu")
     # the unfused encoders are ported: the model builds and scores
     unfused = get_model_class("clsr")(cfg.replace(use_fused_encoders=False),

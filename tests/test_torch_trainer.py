@@ -517,6 +517,14 @@ UNPORTED = {
     "mesh_capacity": (["--mesh_owner_capacity", "2"], "10b"),
     "mesh_resident": (["--data_parallel", "2", "--dist_backend", "gloo",
                        "--resident_data", "on"], "10b"),
+    "mesh_lgn": (["--data_parallel", "2", "--dist_backend", "gloo",
+                  "--model", "LGN"], "10c"),
+    "mesh_resume": (["--model_parallel", "2", "--dist_backend", "gloo",
+                     "--resume"], "10c"),
+    "mesh_histograms": (["--data_parallel", "2", "--dist_backend", "gloo",
+                         "--write_histograms"], "10c"),
+    "mesh_autosave": (["--data_parallel", "2", "--dist_backend", "gloo",
+                       "--autosave_every_calls", "5"], "10c"),
     "resume": (["--resume"], 11),
     "autosave": (["--autosave_every_calls", "5"], 11),
     "resident_on": (["--resident_data", "on"], 5),
@@ -538,11 +546,12 @@ UNPORTED = {
 # parse and reach the Config (--resume and item 11b's ETL and data-format
 # flags reach main: the parsed args), and those settings fit (items 8 and
 # 8b are the two halves of the model zoo; 11 and 11b the host remainder,
-# 11b the ETL and the packed format; 10a the mesh's main path, whose
-# owner-routed merge and mesh-resident data wait for 10b).  Under
+# 11b the ETL and the packed format; 10a the mesh's main path, 10b its
+# owner-routed merge, resident data and zoo; on a mesh LGN, autosave and
+# resume and histograms wait for 10c).  Under
 # --attention_block_size the config refuses clsr.yaml's enable_bn, as
 # the JAX CLI's does (REFUSED_BY_CONFIG).
-PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, "10a", 11, "11b"}
+PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, "10a", "10b", 11, "11b"}
 REFUSED_BY_CONFIG = {"attention_block": "requires enable_bn: False"}
 PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "raw_data": ("raw_data", "x.csv"),
@@ -565,6 +574,9 @@ PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "model_parallel": ("model_parallel", 2),
                  "mesh_layout": ("mesh_row_layout", "contiguous"),
                  "mesh_flat_batch": ("mesh_flat_batch", "off"),
+                 "mesh_routing": ("mesh_update_routing", "owner"),
+                 "mesh_capacity": ("mesh_owner_capacity", 2.0),
+                 "mesh_resident": ("resident_data", "on"),
                  "sequential_model": ("sequential_model", "gru")}
 
 
@@ -599,9 +611,10 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(resident_data="on"), 5),
-    # the mesh is ported (item 10a); mesh-resident data waits for 10b
-    pytest.param(dict(data_parallel=2, resident_data="on"), "10b",
-                 id="kw1-10"),
+    # the mesh is ported (items 10a and 10b, mesh-resident data with
+    # it); histograms on a mesh wait for 10c
+    pytest.param(dict(data_parallel=2, write_histograms=True,
+                      summaries_dir="<tmp>"), "10c", id="kw1-10"),
     (dict(autosave_every_calls=2, model_dir="<tmp>"), 11),
     (dict(write_histograms=True, summaries_dir="<tmp>"), 11)])
 def test_trainer_refuses_unported_settings(data, tmp_path, kw, item):

@@ -1,5 +1,6 @@
 """The rank side of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_mesh_train.py).
+tests/test_torch_mesh_train.py, tests/test_torch_owner_routing.py,
+tests/test_torch_mesh_resident.py).
 
 Each spawned rank of a 4-rank gloo world (parallel/distributed.py
 `run_local_world`) runs one of the `*_world` functions below on the
@@ -22,9 +23,13 @@ from clsr_tpu_torch.config import load_config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.loader import SequenceLoader
 from clsr_tpu_torch.data.parser import parse_file
+from clsr_tpu_torch.data.resident import (build_resident_mesh,
+                                          gather_batch_mesh)
 from clsr_tpu_torch.data.vocab import Vocab, load_vocab
 from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.ops import fused_train_attention as fta
+from clsr_tpu_torch.ops.initializers import get_initializer
+from clsr_tpu_torch.ops.long_context import LongTargetAttention
 from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel import mesh as pm
 from clsr_tpu_torch.parallel.embedding import gather_rows
@@ -50,7 +55,7 @@ def cfg_of(kw) -> object:
 
 
 def model_of(cfg, sizes, state_dict=None):
-    model = get_model_class("clsr")(cfg, *sizes, device="cpu")
+    model = get_model_class(cfg.model_type)(cfg, *sizes, device="cpu")
     if state_dict is not None:
         model.load_state_dict({k: torch.from_numpy(v)
                                for k, v in state_dict.items()})
@@ -307,4 +312,118 @@ def train_world(rank, device, spec):
     for run, kw in zip(("own", "own_again"), spec["own"]["cfgs"]):
         out[run] = _fit(cfg_of(kw), spec["sizes"], loaders,
                         spec["fit"]["state_dict"])
+    return out
+
+
+# -------------------------------------------------- test_torch_owner_routing
+
+
+def _steps_case(case, sizes=None):
+    """len(case['batches']) train steps on this rank's shards from a
+    logical state: each step's global loss parts and the overflow
+    counter after it, the logical state after the last, and the
+    collectives the steps made (as tuples of collectives.Call's
+    fields)."""
+    cfg = cfg_of(case["cfg"])
+    mesh = pm.make_mesh(cfg)
+    model = model_of(cfg, case.get("sizes", sizes), case["state_dict"])
+    pm.place_model(model, mesh)
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg, mesh)
+    parts, overflow = [], []
+    with col.count_collectives() as calls:
+        for b in case["batches"]:
+            state, p = step(state, pm.shard_batch(batch_of(b), mesh),
+                            torch.Generator().manual_seed(0))
+            parts.append(parts_of(p))
+            overflow.append(int(state.optimizer.route_overflow))
+    sd, moments, dense = logical_state(state, mesh)
+    return {"parts": parts, "overflow": overflow, "state_dict": sd,
+            "moments": moments, "flat": mesh.flat,
+            "calls": [(c.kind, c.group, c.shape, str(c.dtype),
+                       c.payload_bytes, c.received_bytes) for c in calls]}
+
+
+def owner_world(rank, device, spec):
+    return {name: _steps_case(case) for name, case in spec["cases"].items()}
+
+
+# ------------------------------------------------- test_torch_mesh_resident
+
+
+def _gather_mesh_case(case, flat):
+    """gather_batch_mesh of the global rows `idx` from this rank's block
+    of the view, the batch shards' blocks gathered back in order."""
+    cfg = cfg_of(dict(case["cfg"], mesh_flat_batch="on" if flat
+                      else "off"))
+    mesh = pm.make_mesh(cfg)
+    res = build_resident_mesh(case["view"], mesh, "cpu")
+    got = gather_batch_mesh(res, torch.from_numpy(case["idx"]),
+                            torch.from_numpy(case["valid"]), mesh)
+    return {f.name: np_of(pm.gather_rows_of(getattr(got, f.name), mesh))
+            for f in dataclasses.fields(got)}
+
+
+def _attention_case(case, group):
+    """The sequence-parallel merge: this rank's shard of the keys' L
+    axis; the output, and the gradients of sum(out * cot) / n_ranks
+    (each rank's loss a share) of the keys' shard and (summed over the
+    group) of the parameters."""
+    n, r = col.group_size(group), torch.distributed.get_rank(group)
+    mod = LongTargetAttention(case["dq"], case["dk"], case["layers"],
+                              get_initializer("tnormal", 0.1),
+                              torch.Generator(), torch.device("cpu"),
+                              block_size=case["block"])
+    mod.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in case["params"].items()})
+    L = case["keys"].shape[1] // n
+    keys = torch.from_numpy(case["keys"][:, r * L:(r + 1) * L].copy())
+    keys.requires_grad_()
+    mask = torch.from_numpy(case["mask"][:, r * L:(r + 1) * L].copy())
+    out = mod(torch.from_numpy(case["query"]), keys, mask, axis_name=group)
+    ((out * torch.from_numpy(case["cot"])).sum() / n).backward()
+    return {"out": np_of(out),
+            "d_keys": np_of(col.all_gather(keys.grad, group)),
+            "d_params": {k: np_of(col.all_reduce(p.grad, group))
+                         for k, p in mod.named_parameters()}}
+
+
+def _fit_case(cfg, sizes, loaders, state_dict):
+    """A mesh fit (negatives injected): _fit's record, whether it took
+    the resident path, and its log lines."""
+    logs = []
+    model = model_of(cfg, sizes, state_dict)
+    t = Trainer(model, cfg, log=lambda *a: logs.append(" ".join(
+        str(x) for x in a)))
+    t.fit(loaders["train"], loaders["valid"])
+    return {"history": t.eval_history, "steps": [s["steps"] for s in
+                                                 t.epoch_stats],
+            "resident": t.feeds is not None, "bucketed": t.bucketed,
+            "state": logical_state(t.state, t.mesh), "logs": logs,
+            "overflow": int(getattr(t.state.optimizer, "route_overflow",
+                                    torch.zeros(()))),
+            "uses_resident_small": Trainer(
+                model_of(cfg.replace(resident_max_bytes=100), sizes),
+                cfg.replace(resident_max_bytes=100),
+                log=lambda *a: None)._use_resident(loaders["train"])}
+
+
+def resident_world(rank, device, spec):
+    out = {}
+    for flat in (True, False):
+        out[("gather", flat)] = _gather_mesh_case(spec["gather"], flat)
+    cfg = cfg_of(spec["gather"]["cfg"])
+    out["attention"] = _attention_case(spec["attention"],
+                                       pm.make_mesh(cfg).world)
+    for name, case in spec["zoo"].items():
+        out[("zoo", name)] = _steps_case(case, spec["zoo_sizes"])
+    loaders = loaders_of(spec)
+    expand = port_steps.expand_with_negatives
+    port_steps.expand_with_negatives = deterministic_negatives
+    try:
+        for name, kw in spec["fits"].items():
+            out[("fit", name)] = _fit_case(cfg_of(kw), spec["sizes"],
+                                           loaders, spec["state_dict"])
+    finally:
+        port_steps.expand_with_negatives = expand
     return out
