@@ -374,7 +374,8 @@ Phases, each fatal on failure:
      same overflow counts a step as (b), and no float all_gather or
      all_to_all carrying the item table's [Mi, D] gradient stream, which
      the broadcast merge all_gathers; (d) on phase 11's synthetic set
-     (its first 16 x 400 train rows, 200 valid groups, 64 test groups):
+     (its first 16 x 400 train rows, 200 valid groups, 64 test groups;
+     the tables at its vocab counts rounded up to even, each sharded):
      a fit of 16 lazyadam steps, 4 a call, every kernel gate, streamed
      and with `resident_data: auto` (resident on the mesh), the eval
      history and every state tensor bit for bit, K1, K2, K2 bwd, K3a,
@@ -387,6 +388,31 @@ Phases, each fatal on failure:
      (1e-5, 1e-4 of max abs); (f) GRU4Rec and DIN (their yaml widths,
      the train kernels on) 4 lazyadam steps each, held to one rank with
      phase 19's gates.
+ 21. the settings the mesh refused until this slice, inside phase 19's
+     world, each against the one-rank port from the same seed: (a) LGN
+     (lgn.yaml's widths) on phase 20 (d)'s rows of phase 11's set, its
+     graph from those train rows (each user's last row) and its tables
+     at phase 20's counts (5,002 x 40, 50,002 x 32, 1,002 x 8, every one
+     row-sharded), 4 dense-Adam steps of B = 400, twice: the losses
+     within 1e-4 relative, phase 19's state gates, the two runs bit for
+     bit, and the tables' all_gathers over the model row exactly one
+     block each a step a rank (`count_collectives`); (b) phase 20 (d)'s
+     streamed and resident fits with an autosave after every call,
+     killed after call 3 and 2, resumed by a fresh Trainer: the state's
+     digest and the eval history equal phase 20 (d)'s uninterrupted
+     fits', K1, K2, K2 bwd, K3a, K3b and K5 launched on every rank; (c)
+     the histogram step of phase 19 (d)'s model at its table counts on a
+     seeded batch of 400: JAX's tags, lo and hi within 1e-5 relative and
+     the counts within 1% of the one-rank step's; (d) the async
+     frontend on the mesh service (phase 19 (d)'s table counts): 64 x
+     100 requests submitted from 16 threads on rank 0, equal to the
+     synchronous mesh service's scores of the same dispatches bit for
+     bit, every rank the same dispatches and eval steps, K1 and K2
+     launched on every rank, submit refused on the others; (e) the mesh
+     service's save and load, f32 and int8: its logical file loaded on
+     one rank and a one-rank file loaded on the mesh, each bit for bit
+     the scores of a service of the same seed on that topology, and the
+     mesh's scores within 1e-5 of one rank's.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -402,8 +428,10 @@ phase 18's `p18_etl_fit` (the epoch and test eval from the pack) and
 `p18_cli` (the CLI run from the raw log and its --only_test), and
 phase 19's `p19_mesh_train` (run (a)'s first 8 steps, summed over the
 4 ranks), and phase 20's `p20_owner_train` ((a)'s first run),
-`p20_mesh_resident` ((d)'s resident fit) and `p20_zoo_mesh` ((f)), each
-summed over the 4 ranks), the
+`p20_mesh_resident` ((d)'s resident fit) and `p20_zoo_mesh` ((f)), and
+phase 21's `p21_mesh_resume` ((b)'s killed and resumed fits) and
+`p21_mesh_async` ((d)'s async dispatches), each summed over the 4
+ranks), the
 card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
@@ -5273,6 +5301,7 @@ def p19_rank(rank, device, spec):
     del state
     torch.cuda.empty_cache()
     out["p20"] = p20_rank(rank, device, spec, sizes, batches, touched)
+    out["p21"] = p21_rank(rank, device, spec)
     return out
 
 
@@ -5369,13 +5398,19 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
     try:
         if p20_sets is None:
             p20_sets = p20_write_sets(root)
+        reqs21 = make_requests(np.random.RandomState(P19_SEED + 21),
+                               *P19_REQ, *P19_CKPT_SIZES)
+        vocabs21 = vocab_for(reqs21)
+        refs21 = p21_refs(p20_sets, reqs21, vocabs21, root)
         t0 = time.perf_counter()
         ranks = run_local_world(
             p19_rank, 4, backend, "cuda",
             (dict(requests=reqs, vocabs=vocabs, backend=backend,
                   ckpt=os.path.join(root, "epoch_1"),
-                  p20_sets=p20_sets),), P19_TIMEOUT_S)
+                  p20_sets=p20_sets, root=root, p21_requests=reqs21,
+                  p21_vocabs=vocabs21),), P19_TIMEOUT_S)
         world_s = time.perf_counter() - t0
+        after21 = p21_after(refs21, vocabs21, reqs21, root)
         # (d) the mesh checkpoint on one device
         dcfg = p19_cfg(optimizer="lazyadam")
         model = p19_model(dcfg, P19_CKPT_SIZES)
@@ -5502,6 +5537,37 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
     out["p20"] = dict(ranks=rows20, ref_s=ref20_s)
     if failed:
         raise AssertionError("phase 20: " + "; ".join(failed))
+    failed, rows21 = p21_check(ranks, refs21, after21,
+                               p21_lgn_cfg(False).learning_rate)
+    for r, row in rows21.items():
+        a, b, c, d, e = (row[k] for k in "abcde")
+        log(f"phase 21 rank {r}: (a) LGN, flat {a['flat']}: loss rel err "
+            f"{a['loss_rel_err']:.3g}, step 1 {a['errs_step1']}, last "
+            f"{a['errs']}, moments step 1 {a['moment_rel_err_step1']}, "
+            f"{a['ms']:.1f} ms a step (one rank {a['one_rank_ms']:.1f}), "
+            f"the tables' gathers {a['gather_bytes']:,.0f} bytes received "
+            f"a step a rank of {a['bytes']['total']:,.0f} in all; (b) "
+            + ", ".join(f"{run} killed at call {b[run]['killed_at']}, "
+                        f"resumed = uninterrupted bit for bit "
+                        f"{b[run]['same_as_uninterrupted']}, "
+                        f"{b[run]['s']:.1f} s"
+                        for run in ("streamed", "resident"))
+            + f", launches {b['launches']}; (c) {c['tags']} tags, lo/hi "
+            f"rel err {c['lo_hi_rel_err']:.3g}, counts moved "
+            f"{c['counts_share']:.3g}; (d) {d['dispatches']} dispatches "
+            f"(steps {len(d['steps'])}) in {d['s']:.2f} s, launches "
+            f"{d['launches']}; (e) mesh scores off one rank's by f32 "
+            f"{e['err_f32']:.3g}, int8 {e['err_int8']:.3g}; the one rank's "
+            f"files loaded on the mesh bit for bit f32 {e['loaded_f32']}, "
+            f"int8 {e['loaded_int8']}, the mesh's on one rank "
+            f"{after21}; s {row['s']}")
+    log(f"phase 21: the ranks' work {max(r['s']['all'] for r in rows21.values()):.1f} s, "
+        f"the one-rank side {refs21['s']:.1f} s; LGN on {refs21['lgn']['edges']:,} "
+        f"edges")
+    out["p21"] = dict(ranks=rows21, ref_s=refs21["s"],
+                      edges=refs21["lgn"]["edges"])
+    if failed:
+        raise AssertionError("phase 21: " + "; ".join(failed))
 
     def summed(pick):
         return {k: sum(pick(res["p20"]).get(k, 0) for res in ranks)
@@ -5518,7 +5584,11 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
         "p20_zoo_mesh": {k: sum(f["launches"].get(k, 0)
                                 for res in ranks
                                 for f in res["p20"]["f"].values())
-                         for k in kernels}}
+                         for k in kernels},
+        "p21_mesh_resume": {k: sum(res["p21"]["b"]["launches"].get(k, 0)
+                                   for res in ranks) for k in kernels},
+        "p21_mesh_async": {k: sum(res["p21"]["d"]["launches"].get(k, 0)
+                                  for res in ranks) for k in kernels}}
     return out
 
 
@@ -5683,7 +5753,8 @@ def p20_fits(spec, device, mesh):
             steps=t.epoch_stats[0]["steps"], resident=t.feeds is not None,
             bucketed=t.bucketed,
             lb=[f.res.seq_len for f, _ in t.feeds] if t.feeds else [],
-            launches={n: k for n, k in launches.snapshot().items() if k})
+            launches={n: k for n, k in launches.snapshot().items() if k},
+            digest=p21_digest(t.state))
         trainers[run] = t
     a, b = (trainers[r].state for r in ("streamed", "resident"))
     sa, sb = a.model.state_dict(), b.model.state_dict()
@@ -5816,10 +5887,15 @@ def p20_refs(sizes, batches):
 
 def p20_sets_of(train, valid, test, sizes):
     """(d)'s rows of phase 11's parsed splits: the first 16 x 400 train
-    rows, 400 valid groups of 5, 64 test groups of 100."""
+    rows, 400 valid groups of 5, 64 test groups of 100; the vocabs'
+    counts (5,001, 50,001, 1,001: each with its default row) rounded up
+    to a multiple of the model ranks, a row left unused, so that every
+    table is row-sharded on the mesh."""
+    m = P19_MESH["model_parallel"]
     return dict(train=head(train, P20_FIT_ROWS),
                 valid=head(valid, P20_VALID_GROUPS * 5),
-                test=head(test, P20_TEST_GROUPS * P20_TEST_G), sizes=sizes)
+                test=head(test, P20_TEST_GROUPS * P20_TEST_G),
+                sizes=tuple(-(-n // m) * m for n in sizes))
 
 
 def p20_check(ranks, ref19, refs, lr):
@@ -5926,6 +6002,424 @@ def p20_check(ranks, ref19, refs, lr):
             e=e, f=zoo, s=p["s"], item_stream=p["item_stream"])
     return failed, rows
 
+
+
+# ------------------------------------------------------------- phase 21
+# the refused mesh settings, run inside phase 19's world: LGN on the
+# mesh, kill and resume, histograms, the async service, a sharded
+# service's save and load
+P21_LGN_STEPS = 4              # (a): dense-Adam steps of B = 400
+P21_KILL = {"streamed": 3, "resident": 2}   # (b): killed after this call
+P21_HIST_REL = 1e-5            # (c): lo, hi relative to the one rank's
+P21_HIST_SHARE = 0.01          # (c): counts' L1 difference / their total
+P21_THREADS = 16               # (d): concurrent submitting threads
+P21_SEEDS = (0, 1)             # (e): the services' weights (cfg.seed)
+P21_KERNELS_B = ("eval_scorer", "clsr_scan", "clsr_scan_backward",
+                 "train_stats0", "train_stats1", "row_scatter")
+P21_KERNELS_D = ("eval_scorer", "clsr_scan")
+
+
+class P21Killed(Exception):
+    pass
+
+
+def p21_digest(state):
+    """sha256 of every tensor of a train state (model, optimizer moments
+    and count), in name order: two states bit for bit or not."""
+    import hashlib
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    h = hashlib.sha256()
+    tensors = sorted(state.model.state_dict().items())
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        tensors += sorted(opt.moments.items()) + [("count", opt.count)]
+    for name, t in tensors:
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def p21_graph(train, sizes):
+    """LGN's graph of phase 20's train rows: each user's last row, its
+    history and target (data/graph.py's rule for a train file)."""
+    from clsr_tpu_torch.data.graph import build_graph_from_sequences
+    last = {}
+    for r, u in enumerate(train.users.tolist()):
+        last[u] = r
+
+    def seqs():
+        for u, r in last.items():
+            a, b = int(train.offsets[r]), int(train.offsets[r + 1])
+            yield (u, train.hist_items[a:b].tolist() + [int(train.items[r])],
+                   train.hist_cates[a:b].tolist() + [int(train.cates[r])])
+    return build_graph_from_sequences(seqs(), sizes[0], sizes[1])
+
+
+def p21_lgn_cfg(mesh):
+    return zoo_cfg("lgn", dict(batch_size=TRAIN_B,
+                               **(P19_MESH if mesh else {})))
+
+
+def p21_lgn(sets, mesh=None):
+    """(a)'s inputs: lgn.yaml's model on phase 20's graph and tables from
+    the seed (spread as phase 19's, placed on the mesh), its start, the
+    first P21_LGN_STEPS batches of phase 20's train rows, their touched
+    ids, the graph's edges."""
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.data.prefetch import to_device
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.parallel.mesh import place_model
+    cfg = p21_lgn_cfg(mesh is not None)
+    graph = p21_graph(sets["train"], sets["sizes"])
+    model = get_model_class("lgn")(cfg, *sets["sizes"], graph=graph)
+    spread(model, P19_SEED)
+    if mesh is not None:
+        place_model(model, mesh)
+    it = SequenceLoader(sets["train"], TRAIN_L).train_batches(
+        TRAIN_B, np.random.RandomState(P19_SEED))
+    batches = [to_device(next(it), "cuda") for _ in range(P21_LGN_STEPS)]
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    return cfg, model, start, batches, p19_touched(batches), len(graph.src)
+
+
+def p21_hists(mesh=None):
+    """(c): the histogram step (on a mesh the mesh's) of phase 19 (d)'s
+    model from the seed on a seeded train batch, as the records
+    `utils/summaries.py` writes: {tag: (counts, lo, hi, nonfinite)}."""
+    from clsr_tpu_torch.training.steps import make_histogram_step
+    cfg = p19_cfg(**(P19_MESH if mesh is not None else {}))
+    model, _ = p19_start(cfg, P19_CKPT_SIZES, mesh)
+    batch = train_batches(1, P19_SEED + 21, *P19_CKPT_SIZES)[0]
+    hists = make_histogram_step(mesh=mesh)(model, batch)
+    return {tag: (c.cpu().numpy().tolist(), float(lo), float(hi), int(nf))
+            for tag, (c, lo, hi, nf) in hists.items()}
+
+
+def p21_service(seed, vocabs, mesh, **kw):
+    from clsr_tpu_torch import serving
+    cfg = p19_cfg(**(P19_MESH if mesh else {})).replace(seed=seed)
+    return serving.ScoringService(cfg, *P19_CKPT_SIZES, *vocabs, **kw)
+
+
+def p21_refs(sets, reqs, vocabs, root):
+    """Phase 21's one-rank side before the world: (a) the LGN steps, (c)
+    the histograms, (e) the one-rank services' files of the second seed
+    and the first seed's scores."""
+    t0 = time.perf_counter()
+    cfg, model, start, batches, touched, edges = p21_lgn(sets)
+    losses, state, _, ms, step1 = p19_train(model, start, cfg, batches,
+                                            touched=touched)
+    out = dict(lgn=dict(losses=losses, ms=ms, step1=step1, edges=edges,
+                        state=p19_snapshot(state, touched)))
+    del model, start, state, batches
+    torch.cuda.empty_cache()
+    out["hists"] = p21_hists()
+    for name, kw in (("f32", {}), ("int8", dict(int8_tables=True))):
+        p21_service(P21_SEEDS[1], vocabs, False, **kw).save(
+            os.path.join(root, f"p21_one_{name}.pt"))
+        out[f"scores_{name}"] = p21_service(P21_SEEDS[0], vocabs, False,
+                                            **kw).score(reqs)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def p21_fits(spec, device):
+    """(b): phase 20 (d)'s streamed and resident fits killed after a few
+    calls of their autosave and resumed by a fresh Trainer; the resumed
+    state's digest, its history, and the launches of the kill and the
+    resume together."""
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.ops import launches
+    from clsr_tpu_torch.training.trainer import Trainer
+    sets = spec["p20_sets"]
+    loaders = {k: SequenceLoader(sets[k], TRAIN_L) for k in ("train", "valid")}
+    out = {}
+    torch.cuda.synchronize()
+    launches.add(launches.snapshot(), -1)           # every count to 0
+    for run, kw in (("streamed", dict(resident_data="off")),
+                    ("resident", dict(resident_data="auto"))):
+        cfg = p20_cfg(**P20_FIT, **kw, autosave_every_calls=1,
+                      model_dir=os.path.join(spec["root"], f"p21_{run}"))
+
+        def trainer(log=lambda *a: None):
+            model = get_model_class("clsr")(cfg, *sets["sizes"])
+            spread(model, P19_SEED)
+            return Trainer(model, cfg, log=log)
+        t0 = time.perf_counter()
+        b = trainer()
+        name = "_autosave" if run == "resident" else "_autosave_stream"
+        save, seen = getattr(b, name), []
+
+        def kill(*args, **kwargs):
+            save(*args, **kwargs)
+            seen.append(args[1])
+            if len(seen) == P21_KILL[run]:
+                raise P21Killed
+        setattr(b, name, kill)
+        try:
+            b.fit(loaders["train"], loaders["valid"])
+        except P21Killed:
+            pass
+        del b
+        logs = []
+        c = trainer(lambda *a: logs.append(" ".join(map(str, a))))
+        c.fit(loaders["train"], loaders["valid"], resume=True)
+        torch.cuda.synchronize()
+        out[run] = dict(killed_at=seen[-1], digest=p21_digest(c.state),
+                        history=c.eval_history, resident=c.feeds is not None,
+                        resumed=any(f"call {seen[-1]}" in line
+                                    for line in logs),
+                        s=time.perf_counter() - t0)
+        del c
+        torch.cuda.empty_cache()
+    out["launches"] = {n: k for n, k in launches.snapshot().items() if k}
+    return out
+
+
+def p21_async(svc, reqs, rank):
+    """(d): the async frontend over the mesh service on every rank, rank
+    0 submitting `reqs` from P21_THREADS threads at once: (rank 0's
+    scores or another rank's refusal of submit, the dispatches, the
+    eval steps' (B, G), the launches, the synchronous service's scores
+    of the same dispatches in request order)."""
+    import concurrent.futures
+    import torch.distributed as dist
+    from clsr_tpu_torch.ops import launches
+    from clsr_tpu_torch.serving import AsyncScoringService
+    steps, step, plan = [], svc.step, svc.plan
+    groups, index = [], {id(r): i for i, r in enumerate(reqs)}
+    svc.step = lambda b: (steps.append(tuple(b.items.shape)), step(b))[1]
+    svc.plan = lambda rs: (
+        groups.append([index[id(r)] for r in rs]), plan(rs))[1]
+    torch.cuda.synchronize()
+    launches.add(launches.snapshot(), -1)           # every count to 0
+    t0 = time.perf_counter()
+    front = AsyncScoringService(svc)
+    scores = None
+    try:
+        if rank == 0:
+            with concurrent.futures.ThreadPoolExecutor(P21_THREADS) as pool:
+                futs = list(pool.map(front.submit, reqs))
+            scores = [f.result() for f in futs]
+        else:
+            try:
+                front.submit(reqs[0])
+            except RuntimeError as e:
+                scores = str(e)
+    finally:
+        front.close()
+        del svc.step, svc.plan
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = {n: k for n, k in launches.snapshot().items() if k}
+    shared = [groups]
+    dist.broadcast_object_list(shared, src=0)
+    sync = [None] * len(reqs)
+    for g in shared[0]:
+        for i, x in zip(g, svc.score([reqs[i] for i in g])):
+            sync[i] = x
+    return dict(scores=scores, dispatches=front.dispatches, steps=steps,
+                launches=counts, s=s,
+                error=None if front.error is None else repr(front.error),
+                same=(rank != 0 or all(np.array_equal(a, b)
+                                       for a, b in zip(scores, sync))))
+
+
+def p21_rank(rank, device, spec):
+    """Phase 21's work on one rank of phase 19's world: (a)-(e)."""
+    from clsr_tpu_torch.parallel import collectives as col
+    from clsr_tpu_torch.parallel.mesh import make_mesh
+    out, s = {}, {}
+    t_all = time.perf_counter()
+    # (a) LGN on the mesh, twice
+    t0 = time.perf_counter()
+    mesh = make_mesh(p21_lgn_cfg(True))
+    cfg, model, start, batches, touched, _ = p21_lgn(spec["p20_sets"], mesh)
+    with col.count_collectives() as calls:
+        losses, state, _, ms, step1 = p19_train(model, start, cfg, batches,
+                                                mesh, touched)
+    snap = p19_snapshot(state, touched, mesh)
+    del state
+    again, state, _, ms2, _ = p19_train(model, start, cfg, batches, mesh)
+    # the tables' gathers: the model row's float all_gathers of a block
+    blocks = [p for p in model.parameters()
+              if getattr(p, "mesh_rows", None) is not None]
+    gathers = [c for c in calls if (c.kind, c.group, c.dtype) == (
+        "all_gather", "model", torch.float32)
+        and c.shape in {tuple(p.shape) for p in blocks}]
+    want = sum(p.numel() * 4 * (mesh.n_model - 1) for p in blocks)
+    out["a"] = dict(
+        losses=losses, ms=ms, ms_again=ms2, step1=step1, state=snap,
+        flat=mesh.flat, bytes=p20_bytes(calls, P21_LGN_STEPS, 1 << 62),
+        gather_bytes=sum(c.received_bytes for c in gathers) / P21_LGN_STEPS,
+        gather_bytes_want=want,
+        bit_identical=bool(np.array_equal(again, losses) and p20_same(
+            snap, p19_snapshot(state, touched, mesh))))
+    del model, start, state, batches
+    torch.cuda.empty_cache()
+    s["a"] = time.perf_counter() - t0
+    # (b) kill and resume
+    t0 = time.perf_counter()
+    out["b"] = p21_fits(spec, device)
+    s["b"] = time.perf_counter() - t0
+    # (c) histograms
+    t0 = time.perf_counter()
+    out["c"] = p21_hists(make_mesh(p19_cfg(**P19_MESH)))
+    torch.cuda.empty_cache()
+    s["c"] = time.perf_counter() - t0
+    # (d) the async service, (e) save and load
+    t0 = time.perf_counter()
+    reqs, vocabs, root = spec["p21_requests"], spec["p21_vocabs"], \
+        spec["root"]
+    svc = p21_service(P21_SEEDS[0], vocabs, True)
+    out["d"] = p21_async(svc, reqs, rank)
+    s["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e = {}
+    for name, kw in (("f32", {}), ("int8", dict(int8_tables=True))):
+        a = svc if name == "f32" else p21_service(P21_SEEDS[0], vocabs,
+                                                  True, **kw)
+        e[f"scores_{name}"] = a.score(reqs)
+        a.save(os.path.join(root, f"p21_mesh_{name}.pt"))
+        a.load(os.path.join(root, f"p21_one_{name}.pt"))
+        loaded = a.score(reqs)
+        built = p21_service(P21_SEEDS[1], vocabs, True, **kw).score(reqs)
+        e[f"loaded_{name}"] = all(np.array_equal(x, y)
+                                  for x, y in zip(loaded, built))
+        e[f"moved_{name}"] = not all(np.array_equal(x, y) for x, y in
+                                     zip(loaded, e[f"scores_{name}"]))
+        del a
+    del svc
+    torch.cuda.empty_cache()
+    out["e"] = e
+    s["e"] = time.perf_counter() - t0
+    s["all"] = time.perf_counter() - t_all
+    out["s"] = s
+    return out
+
+
+def p21_after(refs, vocabs, reqs, root):
+    """(e)'s one-rank side after the world: each mesh file loaded on one
+    rank against a one-rank service built from the same seed."""
+    out = {}
+    for name, kw in (("f32", {}), ("int8", dict(int8_tables=True))):
+        svc = p21_service(P21_SEEDS[1], vocabs, False, **kw)
+        svc.load(os.path.join(root, f"p21_mesh_{name}.pt"))
+        got = svc.score(reqs)
+        out[name] = all(np.array_equal(x, y)
+                        for x, y in zip(got, refs[f"scores_{name}"]))
+        del svc
+    torch.cuda.empty_cache()
+    return out
+
+
+def p21_check(ranks, refs, after, lr):
+    """Phase 21's gates on every rank: (failures, a summary row a
+    rank)."""
+    failed, rows = [], {}
+    lead = ranks[0]["p21"]["d"]
+    for r, res in enumerate(ranks):
+        p, bad = res["p21"], []
+        a, want = p["a"], refs["lgn"]
+        rel = float(np.max(np.abs(a["losses"] - want["losses"]) / np.maximum(
+            np.abs(want["losses"]), 1e-12)))
+        errs1, bad1 = p19_compare(a["step1"], want["step1"], 2.1 * lr)
+        errs, badn = p19_compare(a["state"], want["state"],
+                                 2.1 * lr * P21_LGN_STEPS)
+        mom1 = p19_moments(a["step1"], want["step1"])
+        bad += [f"(a) {k} after step 1" for k in bad1]
+        bad += [f"(a) {k} after the last step" for k in badn]
+        if rel > P19_LOSS_REL or not np.isfinite(a["losses"]).all():
+            bad.append(f"(a) losses rel err {rel:.3g}")
+        if mom1[0] > P19_LOSS_REL:
+            bad.append(f"(a) moment {mom1[1]} after step 1 {mom1[0]:.3g}")
+        if not a["bit_identical"]:
+            bad.append("(a) two runs differ")
+        if a["gather_bytes"] != a["gather_bytes_want"]:
+            bad.append(f"(a) gathered {a['gather_bytes']} bytes a step, "
+                       f"not {a['gather_bytes_want']}")
+        b = p["b"]
+        d20 = res["p20"]["d"]
+        for run in ("streamed", "resident"):
+            x = b[run]
+            # rank 0 alone logs the resume
+            if not (x["killed_at"] == P21_KILL[run]
+                    and (x["resumed"] or r > 0)
+                    and x["resident"] == (run == "resident")):
+                bad.append(f"(b) {run}: killed at {x['killed_at']}, "
+                           f"resumed {x['resumed']}, resident "
+                           f"{x['resident']}")
+            x["same_as_uninterrupted"] = (
+                x["digest"] == d20[run]["digest"]
+                and x["history"] == d20[run]["history"])
+            if not x["same_as_uninterrupted"]:
+                bad.append(f"(b) {run}: the resumed fit differs from "
+                           f"phase 20 (d)'s uninterrupted one")
+        missing = [k for k in P21_KERNELS_B if not b["launches"].get(k)]
+        if missing:
+            bad.append(f"(b) kernels {missing} never launched")
+        hw, hg = refs["hists"], p["c"]
+        if hw.keys() != hg.keys() or not {"alpha", "item_embedding_output"
+                                          } <= set(hg):
+            bad.append(f"(c) tags {sorted(hg)}, one rank {sorted(hw)}")
+        hist_err = [0.0, 0.0]
+        for tag in set(hw) & set(hg):
+            (cw, lw, uw, nw), (cg, lg, ug, ng) = hw[tag], hg[tag]
+            span = max(abs(lw), abs(uw), 1e-30)
+            e_lohi = max(abs(lg - lw), abs(ug - uw)) / span
+            e_counts = np.abs(np.subtract(cg, cw)).sum() / max(sum(cw), 1)
+            hist_err = [max(hist_err[0], e_lohi), max(hist_err[1], e_counts)]
+            if (e_lohi > P21_HIST_REL or e_counts > P21_HIST_SHARE
+                    or sum(cg) != sum(cw) or ng != nw):
+                bad.append(f"(c) {tag}: lo/hi {e_lohi:.3g}, counts "
+                           f"{e_counts:.3g}")
+        d = p["d"]
+        if r == 0 and not d["same"]:
+            bad.append("(d) async scores differ from the synchronous ones")
+        if d["error"] is not None:
+            bad.append(f"(d) the frontend stopped on rank {r}: "
+                       f"{d['error']}")
+        if r and "rank 0 takes the requests" not in str(d["scores"]):
+            bad.append(f"(d) submit on rank {r}: {d['scores']}")
+        if (d["dispatches"], d["steps"]) != (lead["dispatches"],
+                                             lead["steps"]):
+            bad.append(f"(d) {d['dispatches']} dispatches, rank 0 "
+                       f"{lead['dispatches']}")
+        missing = [k for k in P21_KERNELS_D if not d["launches"].get(k)]
+        if missing:
+            bad.append(f"(d) kernels {missing} never launched")
+        e = p["e"]
+        for name in ("f32", "int8"):
+            if not (e[f"loaded_{name}"] and e[f"moved_{name}"]
+                    and after[name]):
+                bad.append(f"(e) {name}: one rank's file on the mesh "
+                           f"{e[f'loaded_{name}']}, the mesh's on one "
+                           f"rank {after[name]}")
+            err = max(float(np.abs(g - w).max()) for g, w in
+                      zip(e[f"scores_{name}"], refs[f"scores_{name}"]))
+            e[f"err_{name}"] = err
+            if err > P19_SCORE_ABS:
+                bad.append(f"(e) {name}: mesh scores {err:.3g} from one "
+                           f"rank's")
+        failed += [f"rank {r}: {x}" for x in bad]
+        rows[r] = dict(
+            a=dict(loss_rel_err=rel, errs_step1=errs1, errs=errs,
+                   moment_rel_err_step1=mom1, ms=a["ms"],
+                   ms_again=a["ms_again"], one_rank_ms=want["ms"],
+                   flat=a["flat"], bytes=a["bytes"],
+                   gather_bytes=a["gather_bytes"]),
+            b={k: (v if k == "launches" else
+                   {kk: vv for kk, vv in v.items() if kk != "history"})
+               for k, v in b.items()},
+            c=dict(lo_hi_rel_err=hist_err[0], counts_share=hist_err[1],
+                   tags=len(hg)),
+            d={k: v for k, v in d.items() if k not in ("scores",)},
+            e={k: v for k, v in e.items() if not k.startswith("scores")},
+            s=p["s"])
+    return failed, rows
 
 
 def main():

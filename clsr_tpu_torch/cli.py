@@ -28,10 +28,9 @@ may put every rank on one card or the CPU, nccl needs a GPU a rank).
 Every rank runs the same fit and eval on its share; rank 0 prints and
 writes.  The owner-routed merge (`--mesh_update_routing owner`,
 `--mesh_owner_capacity`, `--mesh_owner_overflow`), resident data
-(`--resident_data`, 'auto' resident when the set fits) and length
-buckets run on a mesh, and every model but LGN; on a mesh, LGN,
-autosave and resume and histograms raise NotImplementedError naming
-ROADMAP queue 1 item 10c.  Kill and resume
+(`--resident_data`, 'auto' resident when the set fits), length
+buckets, every model (LGN with its graph on every rank), kill and
+resume and histograms run on a mesh as on one device.  Kill and resume
 (`--autosave_every_calls N`, `--resume`), `--write_histograms`,
 `--write_tfevents` and `--attention_block_size` run as in JAX; with
 `--attention_block_size` the config must set `enable_bn: False`, which
@@ -192,33 +191,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _waits(what: str, item, name: str):
-    raise NotImplementedError(
-        f"{what} waits for ROADMAP queue 1 item {item} ({name})")
-
-
 def _mesh_size(args) -> int:
     return args.data_parallel * args.model_parallel
 
 
 def refuse_unported(args) -> None:
-    """Raise for every parsed flag whose path the port does not run yet,
-    naming its ROADMAP queue 1 item."""
+    """Raise before any work for parsed flags the CLI cannot run: a mesh
+    without a backend, an unknown model (no flag waits for a ROADMAP
+    item any more)."""
     from clsr_tpu_torch.models.registry import get_model_class
 
-    if _mesh_size(args) > 1:
-        on_mesh = [flag for flag, set_ in (
-            ("--autosave_every_calls", bool(args.autosave_every_calls)),
-            ("--resume", args.resume),
-            ("--write_histograms", args.write_histograms),
-            (f"--model {args.model}", args.model.lower() == "lgn"))
-            if set_]
-        if on_mesh:
-            _waits(f"on a device mesh, {', '.join(on_mesh)}", "10c",
-                   "parallel")
-        if args.dist_backend is None:
-            raise ValueError("a mesh (data_parallel * model_parallel > 1) "
-                             "needs --dist_backend nccl or gloo")
+    if _mesh_size(args) > 1 and args.dist_backend is None:
+        raise ValueError("a mesh (data_parallel * model_parallel > 1) "
+                         "needs --dist_backend nccl or gloo")
     get_model_class(args.model)
 
 

@@ -43,13 +43,12 @@ tables with `<name>_scales` [N, 1] f32 beside them (serving.py
 `quantize_tables`): `lookup_rows` dequantizes after the gather, and
 training refuses such a model (`check_not_quantized`).
 
-On a (data, model) mesh (parallel/mesh.py; every model but LGN, whose
-propagation reads the whole tables and waits for ROADMAP queue 1 item
-10c) a table row-sharded by
+On a (data, model) mesh (parallel/mesh.py) a table row-sharded by
 `place_model` is looked up through `parallel.embedding.gather_rows`
 (train and eval), and the lazy L2 and discrepancy sums count each
 globally unique row once, on the rank holding its first occurrence
-(`global_first`); the losses add the ranks' shares.
+(`global_first`); the losses add the ranks' shares.  LGN reads its
+whole tables through `parallel.mesh.logical_table` (models/lgn.py).
 """
 
 from __future__ import annotations
@@ -173,17 +172,6 @@ class EmbedContext:
         return torch.cat([self.item_hist_emb, self.cate_hist_emb], -1)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on settings the port does not run yet, naming the ROADMAP
-    item that brings them."""
-    if (cfg.data_parallel * cfg.model_parallel > 1
-            and cfg.model_type.lower() == "lgn"):
-        raise NotImplementedError(
-            f"{cfg.model_type} on a device mesh (its propagation reads the "
-            f"whole tables) waits for ROADMAP queue 1 item 10c (parallel); "
-            f"the mesh runs every other model")
-
-
 class SequentialModelBase(nn.Module):
     """Embeddings + lookups + head.  Subclasses define seq_graph."""
 
@@ -191,7 +179,6 @@ class SequentialModelBase(nn.Module):
                  n_cates: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.n_users, self.n_items, self.n_cates = n_users, n_items, n_cates
         self.device = resolve_device(device)

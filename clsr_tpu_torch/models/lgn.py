@@ -24,6 +24,16 @@ captured.  The whole graph is recomputed every step and every eval call,
 as in JAX.  Requires user_embedding_dim == item_embedding_dim +
 cate_embedding_dim.  Only the dense optimizer rules apply (the config
 refuses lazyadam).
+
+On a (data, model) mesh (parallel/mesh.py; JAX's GSPMD gathers the
+row-sharded tables for its one `segment_sum`) every rank holds the whole
+graph (`GraphEdges`, built on each rank from the same edges) and
+propagates over the whole tables: `gcn` first all_gathers each
+row-sharded table block over the model row, in rank order, into the
+logical table (parallel/mesh.py `logical_table`), and the backward
+hands each rank its block of the table gradient.  So every rank of a
+step runs the one-rank propagation; the batch's rows, the losses and the
+lazy L2's globally unique ids are the mesh's as for every model.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from clsr_tpu_torch.models.base import (SequentialModelBase,
 from clsr_tpu_torch.ops.graph_conv import GraphEdges, propagate
 from clsr_tpu_torch.ops.initializers import normal
 from clsr_tpu_torch.ops.segment_sum import lookup
+from clsr_tpu_torch.parallel.mesh import active_mesh, logical_table
 
 
 class LGNModel(SequentialModelBase):
@@ -72,11 +83,19 @@ class LGNModel(SequentialModelBase):
         self.item2cate = torch.from_numpy(graph.item2cate).to(self.device)
 
     def gcn(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(GCN users [U, D], GCN items [I, D]) over the whole graph."""
-        item_nodes = torch.cat([self.item_embedding,
-                                lookup(self.cate_embedding, self.item2cate)],
-                               dim=1)
-        ego = torch.cat([self.user_embedding, item_nodes], dim=0)
+        """(GCN users [U, D], GCN items [I, D]) over the whole graph; on a
+        mesh from the logical tables."""
+        mesh = active_mesh()
+
+        def whole(table):
+            if mesh is None or getattr(table, "mesh_rows", None) is None:
+                return table
+            return logical_table(table, mesh)
+
+        item_nodes = torch.cat([whole(self.item_embedding),
+                                lookup(whole(self.cate_embedding),
+                                       self.item2cate)], dim=1)
+        ego = torch.cat([whole(self.user_embedding), item_nodes], dim=0)
         layers = [ego]
         for k in range(self.cfg.n_layers):
             side = propagate(ego, self.edges)

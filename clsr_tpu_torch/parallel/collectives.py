@@ -15,7 +15,9 @@ model row, or every rank):
     an all-to-all and the same rank-order sum;
   * `all_to_all(x, group)`: x [n, ...]; rank k gets [x_0[k], x_1[k],
     ...], no sum (the owner-routed merge's buckets,
-    training/lazy_adam.py).
+    training/lazy_adam.py);
+  * `broadcast(x, group, src)`: group rank src's x on every rank (the
+    async mesh service's dispatches, serving.py).
 
 `all_reduce_grad` is all_reduce as a `torch.autograd.Function` whose
 backward is its transpose, an all_reduce (the batch statistics' sums,
@@ -34,7 +36,8 @@ sends) and the bytes each rank receives, by hlo_bytes' ring formulas
 applied to what is sent: an all_gather receives out * (g-1)/g, and so
 does all_reduce, which is an all_gather here (the rank-order sum);
 reduce_scatter and all_to_all, each one all-to-all, receive
-in * (g-1)/g.  Outside the block it costs one list test a call.
+in * (g-1)/g; a broadcast's receivers receive its payload, its source
+nothing.  Outside the block it costs one list test a call.
 
 Under the gloo backend a CUDA tensor goes through host memory (gloo's
 transport), and bool and bf16 tensors travel as uint8 and f32 (exact);
@@ -59,7 +62,7 @@ class Call:
     """One collective as the byte count records it."""
 
     kind: str                   # all_gather, all_reduce, reduce_scatter,
-    #                             all_to_all
+    #                             all_to_all, broadcast
     group: str                  # 'data', 'model', 'world' or 'other'
     shape: Tuple[int, ...]      # the wire tensor a rank sends
     dtype: torch.dtype
@@ -88,12 +91,15 @@ def count_collectives() -> Iterator[List[Call]]:
         _recorders.remove(calls)
 
 
-def _record(kind: str, w: torch.Tensor, group, n: int) -> None:
+def _record(kind: str, w: torch.Tensor, group, n: int,
+            received=None) -> None:
     if not _recorders:
         return
     payload = w.numel() * w.element_size()
-    received = (payload * (n - 1) if kind in ("all_gather", "all_reduce")
-                else payload * (n - 1) // n)
+    if received is None:
+        received = (payload * (n - 1) if kind in ("all_gather",
+                                                  "all_reduce")
+                    else payload * (n - 1) // n)
     call = Call(kind, _group_names.get(id(group), "other"),
                 tuple(w.shape), w.dtype, payload, received)
     for calls in _recorders:
@@ -171,6 +177,21 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """x [n, ...] on each rank; rank k gets [x_0[k], x_1[k], ...] (no
     sum): x_r[k] is what rank r sends rank k."""
     return _exchange(x, group, "all_to_all")
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Group rank `src`'s x on every rank of the group; on the other
+    ranks x gives the shape, dtype and device to receive (no sum, the
+    same bits everywhere)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    w = _to_wire(x, group).clone()
+    me = dist.get_rank(group)
+    _record("broadcast", w, group, n,
+            0 if me == src else w.numel() * w.element_size())
+    dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)
+    return _from_wire(w, x)
 
 
 class _AllReduce(torch.autograd.Function):

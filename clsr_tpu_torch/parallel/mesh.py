@@ -30,7 +30,15 @@ and the mesh makes every global quantity explicit:
     batch; `gather_rows_of` puts the batch shards' outputs back in
     order.
   * `logical_tensor` / `local_tensor` move a row-sharded tensor between
-    its block and the logical [N, ...] table (a checkpoint's layout).
+    its block and the logical [N, ...] table (a checkpoint's layout);
+    `logical_table` is `logical_tensor` with a backward, for a model
+    that reads a whole table (LGN's propagation, models/lgn.py): its
+    backward hands each rank its block of the logical gradient, summed
+    over the model row under a flat batch (the row's ranks hold other
+    rows of the batch) and the rank's own under a replicated one (the
+    row's ranks compute the same gradient), as `gather_rows`' backward
+    does (parallel/embedding.py); the step then sums the block over the
+    data column as every table's (training/steps.py `reduce_grads`).
   * the sharded builders (JAX :170-305): training/steps.py's
     `make_train_step(model, cfg, mesh)` and `make_multi_train_step(...,
     mesh)` take this rank's share of the batch (K steps a call run
@@ -56,6 +64,7 @@ from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel.distributed import host_batch_slice
 from clsr_tpu_torch.parallel.rowmap import (deinterleave_rows,
+                                            interleave_rows,
                                             resolve_interleaved,
                                             shard_block)
 
@@ -297,6 +306,30 @@ def local_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's block of a logical [N, ...] table."""
     return shard_block(x, mesh.n_model, mesh.model_index,
                        mesh.interleaved).clone()
+
+
+class _LogicalTable(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, block, mesh):
+        ctx.mesh = mesh
+        return logical_tensor(block, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if not mesh.flat:
+            return local_tensor(g, mesh), None
+        phys = interleave_rows(g, mesh.n_model) if mesh.interleaved else g
+        return col.reduce_scatter(
+            phys.reshape((mesh.n_model, -1) + tuple(g.shape[1:]))
+            .contiguous(), mesh.model_group), None
+
+
+def logical_table(block: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The logical [N, ...] table of a row-sharded block, differentiable
+    (see the module docstring)."""
+    return _LogicalTable.apply(block, mesh)
 
 
 # --------------------------------------------------------- step builders

@@ -92,9 +92,11 @@ from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
 from clsr_tpu_torch.models.base import check_not_quantized
 from clsr_tpu_torch.ops import launches
 from clsr_tpu_torch.parallel.collectives import all_reduce
-from clsr_tpu_torch.parallel.mesh import (Mesh, is_table, make_mesh,
-                                          mesh_size, sharded_tables,
-                                          use_mesh)
+from clsr_tpu_torch.parallel.embedding import gather_rows
+from clsr_tpu_torch.parallel.mesh import (Mesh, gather_rows_of, is_table,
+                                          make_mesh, mesh_size,
+                                          pad_batch_rows, shard_batch,
+                                          sharded_tables, use_mesh)
 from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
                                                   supported_tables)
@@ -720,19 +722,47 @@ def device_histogram(x: torch.Tensor, nbins: int) -> Tuple[torch.Tensor, ...]:
     return counts, lo, hi, (~finite).sum().to(torch.int32)
 
 
-def make_histogram_step(nbins: int = 64) -> Callable[
-        [torch.nn.Module, Batch], Dict[str, Tuple[torch.Tensor, ...]]]:
+def make_histogram_step(nbins: int = 64, mesh: Optional[Mesh] = None
+                        ) -> Callable[[torch.nn.Module, Batch],
+                                      Dict[str, Tuple[torch.Tensor, ...]]]:
     """The activation-histogram step (JAX :398-442), like the eval step
     a function of (model, batch) -> {tag: (counts, lo, hi,
     n_nonfinite)}, from the eval-mode forward (running BN statistics, no
     dropout) on `batch`: the logits, the aux tensors of
     HISTOGRAM_AUX_TAGS the model returns, and for each table the batch
-    touches (`batch_table_ids`) its gathered rows as `<table>_output`."""
+    touches (`batch_table_ids`) its gathered rows as `<table>_output`.
+
+    On a mesh (`mesh`; JAX's step is one jit over the sharded state)
+    every rank calls it with the global batch: it scores the rank's rows
+    (padded to a multiple of the batch shards, as the sharded eval
+    step), gathers the shards' logits and aux tensors in order and cuts
+    the padding, and reads a row-sharded table's rows at the global ids
+    from their owners (`gather_rows`' replicated-batch lookup: exact);
+    so every rank holds the global histograms, the one-rank step's up
+    to the forward's rounding."""
+
+    def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        if mesh is None or getattr(table, "mesh_rows", None) is None:
+            return table[ids]
+        # every rank holds the global ids: the replicated-batch lookup
+        return gather_rows(table, ids, dataclasses.replace(mesh, flat=False))
+
+    def forward(model: torch.nn.Module, batch: Batch):
+        if mesh is None:
+            return model(batch)
+        rows = batch.users.shape[0]
+        local = shard_batch(pad_batch_rows(batch, mesh.n_batch), mesh)
+        with use_mesh(mesh):
+            logits, aux = model(local)
+        whole = lambda t: gather_rows_of(t, mesh)[:rows]
+        return whole(logits), {key: whole(aux[key])
+                               for key, _ in HISTOGRAM_AUX_TAGS
+                               if key in aux}
 
     def step(model: torch.nn.Module, batch: Batch):
         model.eval()
         with torch.inference_mode():
-            logits, aux = model(batch)
+            logits, aux = forward(model, batch)
             hists = {"logit": device_histogram(logits, nbins)}
             for key, tag in HISTOGRAM_AUX_TAGS:
                 if key in aux:
@@ -740,7 +770,7 @@ def make_histogram_step(nbins: int = 64) -> Callable[
             ids = batch_table_ids(batch)
             for name, table in model.named_parameters():
                 if name in ids and table.dim() == 2:
-                    rows = table[ids[name].reshape(-1).long()]
+                    rows = table_rows(table, ids[name].reshape(-1).long())
                     hists[f"{name}_output"] = device_histogram(rows, nbins)
         return hists
 

@@ -91,13 +91,20 @@ How the port runs what the JAX package runs:
     clock seed, so they draw one permutation and one set of negatives
     and masks.  Under the owner-routed merge the epoch's
     end reads the overflow counter and logs JAX's NOTE (fallback) or
-    WARNING (drop) when it is nonzero (JAX :619-640).  Refused on a
-    mesh, naming ROADMAP queue 1 item 10c: mid-epoch autosave and
-    resume, histograms, and LGN.
+    WARNING (drop) when it is nonzero (JAX :619-640).  A mesh autosave
+    holds the logical state (as the checkpoints) and one run state,
+    written by rank 0 after every rank has checked that its run state
+    is rank 0's (`_check_lockstep`: the generator, the RandomState, the
+    permutation, the global loss sums); a resume loads both on every
+    rank, and the autosave loads on one device too.  A mesh histogram
+    step scores the rank's rows of the probe batch and gathers them
+    (training/steps.py), so every rank holds the global histograms and
+    rank 0 writes them.  LGN gathers its tables (models/lgn.py).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import shutil
 import time
@@ -117,7 +124,7 @@ from clsr_tpu_torch.data.resident import (EpochFeed, build_resident,
                                           resident_nbytes_estimate,
                                           resolve_bucket_paddings)
 from clsr_tpu_torch.parallel import collectives as col
-from clsr_tpu_torch.parallel.mesh import (make_mesh,
+from clsr_tpu_torch.parallel.mesh import (barrier, make_mesh,
                                           make_sharded_eval_step,
                                           mesh_size, place_model,
                                           shard_batch)
@@ -135,38 +142,18 @@ from clsr_tpu_torch.training.steps import (make_eval_step_fn,
 from clsr_tpu_torch.utils.summaries import SummaryWriter
 
 
-def mesh_refusals(cfg: Config) -> List[str]:
-    """The settings of cfg that a mesh does not run yet (ROADMAP queue 1
-    item 10c)."""
-    if mesh_size(cfg) <= 1:
-        return []
-    out = []
-    if cfg.autosave_every_calls:
-        out.append("autosave_every_calls (mid-epoch resume)")
-    if cfg.write_histograms:
-        out.append("write_histograms")
-    if cfg.model_type.lower() == "lgn":
-        out.append(f"model {cfg.model_type}")
-    return out
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"on a device mesh, {what} wait for ROADMAP queue 1 item 10c "
-        f"(parallel)")
-
-
-def check_trainable(cfg: Config) -> None:
-    """Raise on settings whose fit path is not ported, naming the ROADMAP
-    item that brings it."""
-    refused = mesh_refusals(cfg)
-    if refused:
-        _refuse("; ".join(refused))
+def _field_bytes(v) -> bytes:
+    """A run-state field's bytes, for the lockstep digest."""
+    if isinstance(v, torch.Generator):
+        return v.get_state().numpy().tobytes()
+    if isinstance(v, np.random.RandomState):
+        mt = v.get_state()
+        return mt[1].tobytes() + repr(mt[2:]).encode()
+    return np.asarray(v).tobytes()
 
 
 class Trainer:
     def __init__(self, model: torch.nn.Module, cfg: Config, log=print):
-        check_trainable(cfg)
         self.model = model
         self.cfg = cfg
         self.mesh = make_mesh(cfg) if mesh_size(cfg) > 1 else None
@@ -326,8 +313,6 @@ class Trainer:
             raise ValueError(
                 "Please specify a positive integer of negative numbers for "
                 "validation.")
-        if resume and self.mesh is not None:
-            _refuse("fit(resume=True) (mid-epoch resume)")
         seed = cfg.seed
         if seed is None and self.mesh is not None:
             seed = self._shared_seed()
@@ -340,7 +325,7 @@ class Trainer:
                      "is empty — no histograms will be written")
         if (cfg.write_histograms and cfg.summaries_dir
                 and self._hist_step is None):
-            self._hist_step = make_histogram_step()
+            self._hist_step = make_histogram_step(mesh=self.mesh)
             # a fixed probe batch keeps the distributions comparable
             # across steps (JAX :476-484)
             self._hist_probe = to_device(next(train_loader.train_batches(
@@ -501,7 +486,9 @@ class Trainer:
 
         if cfg.autosave_every_calls and cfg.model_dir:
             # a finished fit is not resumed into
-            shutil.rmtree(self._autosave_dir(), ignore_errors=True)
+            if self._writer:
+                shutil.rmtree(self._autosave_dir(), ignore_errors=True)
+            barrier(self.mesh)
         self.log(f"best epoch: {self.best_epoch}")
         return self
 
@@ -577,8 +564,8 @@ class Trainer:
         RandomState after this epoch's draws, and the epoch's layout."""
         perm, n_use, n_calls, n_tail = layout
         self.save(os.path.join(self._autosave_dir(), "state"))
-        checkpoint.save_run_state(
-            self._autosave_dir(), epoch=epoch, calls_done=calls_done,
+        self._save_run_state(
+            epoch=epoch, calls_done=calls_done,
             step=step, generator=generator, np_rng=np_rng,
             perm=np.asarray(perm), n_use=n_use, n_calls=n_calls,
             n_tail=n_tail, total=0.0 if total is None else total.item(),
@@ -592,17 +579,45 @@ class Trainer:
         self.save(os.path.join(self._autosave_dir(), "state"))
         start = np.random.RandomState(0)
         start.set_state(np_mt0)
-        checkpoint.save_run_state(
-            self._autosave_dir(), epoch=epoch, calls_done=calls_done,
+        self._save_run_state(
+            epoch=epoch, calls_done=calls_done,
             step=step, generator=generator, np_rng=start,
             perm=np.zeros(0, np.int32), n_use=0, n_calls=-1, n_tail=0,
             total=0.0 if total is None else total.item(), data_total=0.0,
             best_metric=self._best_metric, best_epoch=self.best_epoch,
             mode="stream")
 
+    def _save_run_state(self, **fields) -> None:
+        """checkpoint.save_run_state into the autosave, by rank 0 on a
+        mesh once every rank's fields are checked to be rank 0's; every
+        rank waits for the write."""
+        if self.mesh is not None:
+            self._check_lockstep(fields)
+        if self._writer:
+            checkpoint.save_run_state(self._autosave_dir(), **fields)
+        barrier(self.mesh)
+
+    def _check_lockstep(self, fields) -> None:
+        """Raise unless every rank's run state is rank 0's, field by field
+        (a digest of each, all_gathered): rank 0 alone writes it, so a
+        field that differed by rank (a generator that drew apart, a
+        rank's own loss sum) would resume the other ranks wrongly."""
+        names = sorted(fields)
+        digests = np.stack([np.frombuffer(hashlib.sha256(_field_bytes(
+            fields[k])).digest(), np.uint8) for k in names])
+        every = col.all_gather(torch.from_numpy(digests.copy()).to(
+            self.device), self.mesh.world).cpu().numpy()
+        differ = sorted({names[i] for r in range(1, every.shape[0])
+                         for i in np.flatnonzero(
+                             (every[r] != every[0]).any(1))})
+        if differ:
+            raise RuntimeError(f"the ranks' run states differ in {differ}: "
+                               f"rank 0 alone writes the autosave")
+
     def _maybe_histograms(self, step: int) -> None:
         """The activation histograms on the probe batch (JAX :405-413):
-        the counts come off the device, the buckets' edges from lo, hi."""
+        the counts come off the device, the buckets' edges from lo, hi;
+        on a mesh every rank runs the step and rank 0 writes."""
         if self._hist_step is None:
             return
         hists = self._hist_step(self.state.model, self._hist_probe)

@@ -22,12 +22,14 @@ column):
 
 import filecmp
 import os
+import time
 
 import numpy as np
 import pandas as pd
 import pytest
 import torch
 
+from clsr_tpu import native as jax_native
 from clsr_tpu.data import etl as jax_etl
 from clsr_tpu_torch.data import etl
 
@@ -273,9 +275,41 @@ PIPELINES = {
 }
 
 
+def load_jax_native(timeout_s=120.0):
+    """Load JAX's native library before a comparison that needs it.
+
+    clsr_tpu/native builds libfastparse.so with g++ into its final path
+    on first use, with no lock across processes, so under xdist another
+    worker may be writing the file when this one loads it; JAX's ETL
+    then turns the failed load into a silent fall back to its Python
+    engine, whose subsample draws differ from the native engine's.  So
+    the load is retried here (a failed build once more: it may have
+    raced another process's) until it succeeds or `timeout_s` passes."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if jax_native.available():
+                return
+            reason = "its g++ build failed"
+        except OSError as e:            # a half-written file
+            reason = str(e)
+        if time.monotonic() > deadline:
+            raise AssertionError(f"JAX's native library did not load in "
+                                 f"{timeout_s} s: {reason}")
+        jax_native._build_failed = False
+        time.sleep(0.5)
+
+
 @pytest.mark.parametrize("name", sorted(PIPELINES))
-def test_data_preprocessing_byte_identical_to_jax(raw, tmp_path, name):
+def test_data_preprocessing_byte_identical_to_jax(raw, tmp_path, name,
+                                                  monkeypatch):
     kw = dict(PIPELINES[name], valid_num_ngs=3, test_num_ngs=5, seed=11)
+    native_runs = []
+    if kw.get("engine") == "native":
+        load_jax_native()
+        expand = jax_etl._try_native_expand
+        monkeypatch.setattr(jax_etl, "_try_native_expand", lambda *a, **k: (
+            native_runs.append(expand(*a, **k)), native_runs[-1])[1])
     out = {}
     for side, fn in (("port", etl.data_preprocessing),
                      ("jax", jax_etl.data_preprocessing)):
@@ -286,6 +320,9 @@ def test_data_preprocessing_byte_identical_to_jax(raw, tmp_path, name):
         fn(raw[kw["dataset"]], f["train_data"], f["valid_data"],
            f["test_data"], f["user_vocab.pkl"], f["item_vocab.pkl"],
            f["category_vocab.pkl"], **kw)
+    if kw.get("engine") == "native":
+        assert native_runs and None not in native_runs, (
+            "JAX's ETL fell back from its native engine to Python")
     for key in out["port"]:
         assert filecmp.cmp(out["port"][key], out["jax"][key],
                            shallow=False), key

@@ -37,7 +37,23 @@ here (JAX on 4 of the 8 CPU devices):
   * a two-epoch bucketed fit on the mesh (`length_buckets: "6"`, the BN
     refresh, flat batch, owner merge) against JAX's mesh `Trainer.fit`
     from the same perturbed state: per show_step the loss and data loss
-    to 1e-4 relative, each valid metric within 2e-4.
+    to 1e-4 relative, each valid metric within 2e-4;
+  * kill and resume on the mesh (tests/test_torch_resume.py's
+    counterpart): the streamed and the resident epoch above again with
+    an autosave after every call, killed after call 4 and 2, and a fresh
+    mesh Trainer resumed on its model_dir: its eval history and every
+    state tensor equal the uninterrupted fit's bit for bit; the
+    autosave (rank 0's logical state and run state) loads into a
+    one-rank Trainer as the killed state, bit for bit; a run-state field
+    that differs by rank is refused before rank 0 writes;
+  * histograms on the mesh: the streamed and resident epochs write them
+    (rank 0, at every show_step); their records carry JAX's tags
+    (`alpha`, `item_embedding_output`, tests/test_summaries.py
+    `test_fit_writes_histograms_on_mesh`) and match the one-rank port's
+    fit from the same state and negatives: each record's count, lo and
+    hi to 1e-4 relative (the two fits' states differ by rounding), and
+    each count vector within 1% of its values of the one-rank vector (a
+    value near a bucket's edge may change bucket).
 """
 
 import concurrent.futures
@@ -76,9 +92,13 @@ from clsr_tpu_torch.data.vocab import load_vocab
 from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.ops.initializers import get_initializer
 from clsr_tpu_torch.ops.long_context import LongTargetAttention
+import clsr_tpu_torch.training.steps as port_steps
 from clsr_tpu_torch.parallel.distributed import run_local_world
+from clsr_tpu_torch.training import checkpoint
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import make_train_step
+from clsr_tpu_torch.training.trainer import Trainer
 
 import torch_mesh_worker
 from test_torch_common import (jax_batch, numpy_batch, padded_view,
@@ -91,8 +111,10 @@ FIT = dict(max_seq_length=L, batch_size=64, epochs=1, show_step=2,
            save_model=False, early_stop=10, contrastive_length_threshold=2,
            embed_l2=1e-4, layer_l2=1e-4, optimizer="lazyadam",
            mesh_update_routing="owner")
-FITS = {"streamed": dict(resident_data="off", mesh_owner_capacity=0.3),
-        "resident": dict(resident_data="auto", mesh_owner_capacity=0.3),
+FITS = {"streamed": dict(resident_data="off", mesh_owner_capacity=0.3,
+                         write_histograms=True),
+        "resident": dict(resident_data="auto", mesh_owner_capacity=0.3,
+                         write_histograms=True),
         "drop": dict(resident_data="auto", mesh_owner_capacity=0.3,
                      mesh_owner_overflow="drop"),
         "no_seed": dict(resident_data="auto", mesh_owner_capacity=0.3,
@@ -100,6 +122,7 @@ FITS = {"streamed": dict(resident_data="off", mesh_owner_capacity=0.3),
         "buckets": dict(resident_data="on", length_buckets="6",
                         bn_refresh_batches=8, epochs=2,
                         train_steps_per_call=1)}
+RESUME = {"streamed": 4, "resident": 2}     # killed after this call
 # the zoo: users, items (row-sharded), cates (replicated), one step
 ZOO = ("a2svd", "din", "dien", "sli_rec", "caser", "ncf", "nextitnet")
 ZOO_SIZES, ZOO_L, ZOO_STEPS = (8, 24, 5), 7, 1
@@ -297,7 +320,13 @@ def world(tmp_path_factory):
         attention=att, zoo=zoo, zoo_sizes=ZOO_SIZES,
         fits={name: dataclasses.asdict(small_jax_cfg(
             **dict(FIT, **kw), **MESH, summaries_dir=str(tmp / name)))
-            for name, kw in FITS.items()})
+            for name, kw in FITS.items()},
+        resume={name: dict(cfg=dataclasses.asdict(small_jax_cfg(
+            **dict(FIT, **FITS[name]), **MESH, autosave_every_calls=1,
+            model_dir=str(tmp / f"resume_{name}"),
+            summaries_dir=str(tmp / f"resume_{name}_summaries"))),
+            kill=kill, copy=str(tmp / f"autosave_{name}"))
+            for name, kill in RESUME.items()})
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run_local_world, torch_mesh_worker.resident_world, 4,
                       "gloo", "cpu", (spec,), 300.0)
@@ -327,10 +356,21 @@ def world(tmp_path_factory):
                 n_cates=sizes[2]), bcfg, sample, log=lambda *a: None)
             jt.fit(jax_l["train"], jax_l["valid"])
         refs["jax_buckets"] = (jt.eval_history, jt._buckets is not None)
+        # the one-rank port's streamed fit, histograms on
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(port_steps, "expand_with_negatives",
+                       torch_mesh_worker.deterministic_negatives)
+            ocfg = port_cfg(small_jax_cfg(**dict(FIT, **FITS["streamed"]),
+                                          summaries_dir=str(tmp / "one")))
+            omodel = get_model_class("clsr")(ocfg, *sizes, device="cpu")
+            omodel.load_state_dict(one.state_dict())
+            loaders = torch_mesh_worker.loaders_of(spec)
+            Trainer(omodel, ocfg, log=lambda *a: None).fit(
+                loaders["train"], loaders["valid"])
         ranks = fut.result()
     finally:
         pool.shutdown(wait=True)
-    return dict(tmp=tmp, ranks=ranks, refs=refs)
+    return dict(tmp=tmp, ranks=ranks, refs=refs, sizes=sizes)
 
 
 def torch_jax_negatives(rng, batch, num_ngs):
@@ -475,3 +515,78 @@ def test_bucketed_mesh_fit_matches_jax(world):
             assert ep == jep and g.keys() == w.keys()
             for k in g:
                 assert abs(g[k] - w[k]) <= 2e-4 + 1e-9, (ep, k, g[k], w[k])
+
+
+# ------------------------------------------------------- kill and resume
+
+
+@pytest.mark.parametrize("name", sorted(RESUME))
+def test_killed_mesh_fit_resumes_bit_for_bit(world, name):
+    for rank, r in enumerate(world["ranks"]):
+        a, c = r[("fit", name)], r[("resume", name)]
+        assert c["killed_at"] == RESUME[name]
+        assert c["resident"] == a["resident"] == (name == "resident")
+        assert c["history"] == a["history"]
+        # 11 steps: three calls of K = 3, then two single tail steps; the
+        # resumed epoch counts the steps run after the resume
+        done = 3 * min(RESUME[name], 3) + max(RESUME[name] - 3, 0)
+        assert a["steps"] == [11] and c["steps"] == [11 - done]
+        for x, y in zip(c["state"], a["state"]):
+            assert x.keys() == y.keys()
+            for k in x:
+                np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+        assert not c["autosave_left"]
+        assert "run states differ in ['total']" in c["lockstep"]
+        if rank == 0:
+            assert any(f"resuming at epoch 1, call {RESUME[name]}" in line
+                       for line in c["logs"])
+
+
+@pytest.mark.parametrize("name", sorted(RESUME))
+def test_mesh_autosave_loads_on_one_rank(world, name):
+    """The killed mesh fit's autosave, written by rank 0 in the logical
+    layout, loads into a one-rank Trainer as the killed state."""
+    killed, kmoments, _ = world["ranks"][0][("resume", name)][
+        "killed_state"]
+    path = world["tmp"] / f"autosave_{name}"
+    cfg = port_cfg(small_jax_cfg(**dict(FIT, **FITS[name])))
+    t = Trainer(get_model_class("clsr")(cfg, *world["sizes"],
+                                        device="cpu"), cfg,
+                log=lambda *a: None)
+    t.load(str(path / "state"))
+    sd = t.state.model.state_dict()
+    assert sd.keys() == killed.keys()
+    for k, v in killed.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    assert isinstance(t.state.optimizer, LazyAdamState)
+    for k, v in kmoments.items():
+        np.testing.assert_array_equal(t.state.optimizer.moments[k].numpy(),
+                                      v, err_msg=k)
+    run = checkpoint.load_run_state(str(path))
+    assert (run["calls_done"], run["mode"]) == (
+        RESUME[name], "resident" if name == "resident" else "stream")
+
+
+# ------------------------------------------------------------ histograms
+
+
+def _hists(path):
+    return {(r["step"], r["hist"]): r for r in _scalars(path)
+            if "hist" in r}
+
+
+def test_mesh_histogram_records_match_one_rank(world):
+    tmp = world["tmp"]
+    want = _hists(tmp / "one")
+    assert {"alpha", "item_embedding_output"} <= {t for _, t in want}
+    for name in ("streamed", "resident"):
+        got = _hists(tmp / name)
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            g = got[key]
+            np.testing.assert_allclose([g["lo"], g["hi"]],
+                                       [w["lo"], w["hi"]], rtol=1e-4,
+                                       atol=1e-6, err_msg=str(key))
+            gc, wc = np.asarray(g["counts"]), np.asarray(w["counts"])
+            assert gc.sum() == wc.sum(), key
+            assert np.abs(gc - wc).sum() <= 0.01 * wc.sum(), key

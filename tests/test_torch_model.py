@@ -15,6 +15,7 @@ import torch
 
 from clsr_tpu.training.steps import make_eval_step_fn as jax_eval_step_fn
 from clsr_tpu_torch import weights
+from clsr_tpu_torch.data.graph import build_graph_from_sequences
 from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import make_eval_step_fn, make_train_step_fn
@@ -102,17 +103,21 @@ def test_train_mode_and_unported_settings_raise():
         cfg.replace(compute_dtype="bfloat16"), N_USERS, N_ITEMS, N_CATES,
         device="cpu").logit_fcn.dtype == torch.bfloat16
     # CLSR and the zoo build for a mesh (their tables are sharded when
-    # placed, item 10b); LGN on a mesh waits for ROADMAP queue 1 item 10c
+    # placed, item 10b), and so does LGN with its graph (item 10c; its
+    # mesh step: tests/test_torch_parallel.py)
     assert get_model_class("clsr")(cfg.replace(data_parallel=2), N_USERS,
                                    N_ITEMS, N_CATES, device="cpu")
     assert get_model_class("din")(cfg.replace(data_parallel=2,
                                               model_type="din"), N_USERS,
                                   N_ITEMS, N_CATES, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item "
-                                                  "10c"):
-        get_model_class("lgn")(cfg.replace(data_parallel=2,
-                                           model_type="lgn"), N_USERS,
-                               N_ITEMS, N_CATES, device="cpu")
+    graph = build_graph_from_sequences(
+        [(u, [1 + u % (N_ITEMS - 1), 2], [1, 2]) for u in range(N_USERS)],
+        N_USERS, N_ITEMS)
+    lgn = get_model_class("lgn")(cfg.replace(data_parallel=2,
+                                             model_type="lgn", n_layers=2),
+                                 N_USERS, N_ITEMS, N_CATES, device="cpu",
+                                 graph=graph)
+    assert lgn.edges.n_nodes == N_USERS + N_ITEMS
     # the unfused encoders are ported: the model builds and scores
     unfused = get_model_class("clsr")(cfg.replace(use_fused_encoders=False),
                                       N_USERS, N_ITEMS, N_CATES,

@@ -33,9 +33,41 @@ said:
     flips of rounding noise, as tests/test_mesh_compact.py `_one_step_close`
     allows JAX's own mesh: those and the BN means they shift are held to
     2.1 lr;
+  * one LGN step with dense Adam (its whole-graph propagation over the
+    tables all_gathered over the model row, parallel/mesh.py
+    `logical_table`), flat and replicated batch, against JAX's
+    `make_sharded_train_step` (GSPMD gathers its tables) and against
+    the one-rank port, from one perturbed state: the loss parts and
+    every parameter to 1e-5, and the forward's gathers of the user and
+    item blocks in the collective-byte count; with interleaved rows
+    against the one-rank port alone (JAX's mesh LGN reads the placed
+    tables' physical rows as logical ones there);
   * the mesh eval step (K1's plain path) against JAX's sharded eval
     step, and the mesh `ScoringService` against JAX's mesh service, to
-    1e-5.
+    1e-5;
+  * the mesh histogram step against the one-rank port's on the same
+    weights and batch: JAX's tags, lo and hi to 1e-5, each tag's counts
+    within 2 of the one-rank counts (a value on a bucket's edge may
+    move by the forward's rounding);
+  * int8 tables on the mesh: the scores against JAX's mesh int8 service
+    (1e-5, as tests/test_serving.py
+    `test_int8_tables_on_mesh_match_single_device_int8` holds JAX's
+    mesh to its one device) and against the one-rank port's int8
+    service bit for bit; the `_scales` blocks are sharded with their
+    tables;
+  * the async frontend on the mesh (rank 0 leads, the other ranks
+    follow): 40 requests submitted from 4 threads on rank 0, at most 8
+    a dispatch, equal the synchronous mesh service's scores of the same
+    dispatches bit for bit (a row's bits may depend on its batch's
+    bucket) and JAX's mesh service's to 1e-5; every rank runs the same
+    dispatches and eval steps, and `submit` on another rank raises; a
+    request that fails while rank 0 assembles its dispatch fails that
+    dispatch alone and sends nothing, and a step that raises stops the
+    frontend on every rank (pending futures fail, `submit` raises);
+  * a sharded service's `save` / `load`: the mesh's logical files load
+    on one rank, and the one-rank service's files load on the mesh,
+    f32 and int8, the scores bit for bit those of a service built from
+    the same weights on the same topology.
 """
 
 import concurrent.futures
@@ -53,6 +85,7 @@ from jax.sharding import PartitionSpec as P
 
 import clsr_tpu.parallel.mesh as jax_mesh
 import clsr_tpu.serving as jax_serving
+from clsr_tpu.data.graph import build_graph_from_sequences as jax_graph
 from clsr_tpu.data.vocab import Vocab as JaxVocab
 from clsr_tpu.models.registry import get_model_class as jax_model_class
 from clsr_tpu.ops.pallas_attention import _xla_train_scorer
@@ -65,10 +98,16 @@ from clsr_tpu.training.lazy_adam import make_lazy_optimizer
 from clsr_tpu.training.optimizer import build_optimizer
 from clsr_tpu.training.state import TrainState as JaxTrainState
 from clsr_tpu_torch import weights
+from clsr_tpu_torch.config import load_config
+from clsr_tpu_torch.data.graph import build_graph_from_sequences
+from clsr_tpu_torch.data.vocab import Vocab
 from clsr_tpu_torch.models.registry import get_model_class
 from clsr_tpu_torch.parallel import rowmap
 from clsr_tpu_torch.parallel.distributed import run_local_world
-from clsr_tpu_torch.serving import ScoreRequest
+from clsr_tpu_torch.serving import ScoreRequest, ScoringService
+from clsr_tpu_torch.training.state import create_train_state
+from clsr_tpu_torch.training.steps import (make_histogram_step,
+                                           make_train_step)
 
 import torch_mesh_worker
 from test_torch_common import (TOL, jax_batch, numpy_batch, perturb,
@@ -83,6 +122,16 @@ STEPS = {"dense": dict(optimizer="adam", mesh_flat_batch="on"),
          "legacy": dict(optimizer="lazyadam", compact_rows="off",
                         mesh_flat_batch="on")}
 PORT_ONLY = {"dense": dict(use_pallas_train_attention="on")}
+# LGN (dense Adam only, no BN): its user and item tables row-sharded
+LGN = dict(model_type="lgn", n_layers=2, optimizer="adam", enable_bn=False)
+LGN_STEPS = {"lgn_flat": dict(mesh_flat_batch="on"),
+             "lgn": dict(mesh_flat_batch="off"),
+             "lgn_interleaved": dict(mesh_flat_batch="on",
+                                     mesh_row_layout="interleaved")}
+# JAX's LGN reads a placed table's physical rows as logical ones, so its
+# mesh step under interleaved rows is not its one-device step: that case
+# is held to the one-rank port alone
+JAX_LGN = ("lgn_flat", "lgn")
 GATHERS = [(2, 2, False, "contiguous"), (2, 2, True, "contiguous"),
            (2, 2, False, "interleaved"), (2, 2, True, "interleaved"),
            (1, 4, False, "contiguous"), (1, 4, True, "contiguous")]
@@ -108,8 +157,28 @@ def _flat(tree):
             tu.flatten_dict(tree).items()}
 
 
+def _sequences(seed=5):
+    """Full-history sequences over SIZES for LGN's graph."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for s in range(SIZES[0] + 3):
+        n = rng.randint(1, 9)
+        out.append((s % SIZES[0],
+                    [int(i) for i in rng.randint(0, SIZES[1], n)],
+                    [int(c) for c in rng.randint(0, SIZES[2], n)]))
+    return out
+
+
+def _graphs():
+    """(JAX's LGN graph, the port's)."""
+    seqs = _sequences()
+    return (jax_graph(seqs, SIZES[0], SIZES[1]),
+            build_graph_from_sequences(seqs, SIZES[0], SIZES[1]))
+
+
 def _jax_model(jcfg):
-    return jax_model_class("clsr")(cfg=jcfg, **_sizes_kw())
+    kw = {"graph": _graphs()[0]} if jcfg.model_type == "lgn" else {}
+    return jax_model_class(jcfg.model_type)(cfg=jcfg, **_sizes_kw(), **kw)
 
 
 def _variables(jcfg, seed=0):
@@ -121,16 +190,24 @@ def _variables(jcfg, seed=0):
          "dropout": jax.random.PRNGKey(seed + 1)}, sample, train=True)
     rng = np.random.RandomState(seed + 7)
     return (model, perturb(variables["params"], rng),
-            perturb(variables["batch_stats"], rng))
+            perturb(variables.get("batch_stats", {}), rng))
 
 
 def _sizes_kw():
     return dict(n_users=SIZES[0], n_items=SIZES[1], n_cates=SIZES[2])
 
 
+def _port_model(jcfg, **kw):
+    """The port's model of a JAX config (one rank), LGN with its graph."""
+    cfg = port_cfg(jcfg, **kw)
+    graph = {"graph": _graphs()[1]} if cfg.model_type == "lgn" else {}
+    return get_model_class(cfg.model_type)(cfg, *SIZES, device="cpu",
+                                           **graph)
+
+
 def _state_dict(jcfg, params, stats):
     """The port's logical state_dict (numpy) of the flax trees."""
-    model = get_model_class("clsr")(port_cfg(jcfg), *SIZES, device="cpu")
+    model = _port_model(jcfg)
     weights.from_flax(model, params, stats)
     return {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
@@ -151,11 +228,11 @@ def _jax_state(model, jcfg, params, stats):
                                 batch_stats=stats, tx=build_optimizer(jcfg))
 
 
-def _requests(cls, seed, n):
+def _requests(cls, seed, n, min_hist=0):
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        hist = rng.randint(1, SIZES[1], rng.randint(0, L + 3))
+        hist = rng.randint(1, SIZES[1], rng.randint(min_hist, L + 3))
         cands = rng.randint(1, SIZES[1], rng.randint(1, 12))
         out.append(cls(
             user=f"u{rng.randint(0, SIZES[0])}",
@@ -200,6 +277,17 @@ def _spec():
         steps[name] = dict(cfg=cfg, batch=batch,
                            state_dict=_state_dict(jcfg, params, stats))
         jax_side[name] = (model, jcfg, params, stats, batch)
+    _, lparams, lstats = _variables(small_jax_cfg(**dict(STEP_CFG, **LGN)))
+    for i, (name, kw) in enumerate(LGN_STEPS.items()):
+        jcfg = small_jax_cfg(**dict(STEP_CFG, **LGN), **kw,
+                             data_parallel=2, model_parallel=2)
+        batch = _train_batch(30 + i)
+        steps[name] = dict(cfg=dataclasses.asdict(jcfg), batch=batch,
+                           state_dict=_state_dict(jcfg, lparams, lstats),
+                           graph=_graphs()[1])
+        if name in JAX_LGN:
+            jax_side[name] = (_jax_model(jcfg), jcfg, lparams, lstats,
+                              batch)
     ecfg = small_jax_cfg(**STEP_CFG, data_parallel=2, model_parallel=2)
     emodel, eparams, estats = _jax_model(ecfg), params, stats
     eval_batch = numpy_batch(np.random.RandomState(3), 10, 9, L,
@@ -214,14 +302,37 @@ def _spec():
                                     use_pallas_eval_attention="on"),
                            maps=_MAPS,
                            requests=_requests(ScoreRequest, 4, 11),
-                           state_dict=_state_dict(ecfg, eparams, estats)))
+                           async_requests=_requests(ScoreRequest, 6, 40,
+                                                    min_hist=1),
+                           w=_state_dict(ecfg, eparams, estats),
+                           w2=_state_dict(ecfg, *_variables(base, 1)[1:])))
     return spec, jax_side, (emodel, ecfg, eparams, estats, eval_batch)
+
+
+def _service(case, path=None, **kw):
+    """A one-rank ScoringService of the serve case's config."""
+    return ScoringService(load_config(None, **dict(
+        case["cfg"], data_parallel=1, model_parallel=1)), *SIZES,
+        *(Vocab(m) for m in case["maps"]), checkpoint=path,
+        batch_buckets=(8, 64), cand_buckets=(16, 128), device="cpu", **kw)
+
+
+def _weights_file(sd, path):
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(path))
+    return str(path)
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The world's results (run in a thread) and the JAX references."""
     spec, jax_side, jeval = _spec()
+    tmp = tmp_path_factory.mktemp("parallel")
+    serve = spec["serve"]
+    serve["dir"] = str(tmp)
+    # the one-rank services' files of w2, for the mesh to load
+    w2 = _weights_file(serve["w2"], tmp / "w2.pt")
+    _service(serve, w2).save(str(tmp / "one.pt"))
+    _service(serve, w2, int8_tables=True).save(str(tmp / "one_int8.pt"))
     pool = concurrent.futures.ThreadPoolExecutor(1)
     fut = pool.submit(run_local_world, torch_mesh_worker.parallel_world, 4,
                       "gloo", "cpu", (spec,), 300.0)
@@ -321,9 +432,16 @@ def _jax_references(spec, jax_side, jeval):
         mp.setattr(jax_serving, "create_train_state",
                    lambda model, cfg, sample: _jax_state(model, cfg, params,
                                                          stats))
-        jsvc = JaxService(ecfg, *SIZES, *(JaxVocab(m) for m in _MAPS),
-                          batch_buckets=(8, 64), cand_buckets=(16, 128))
-        refs["serve"] = jsvc.score(_requests(JaxRequest, 4, 11))
+        for key, kw in (("serve", {}), ("serve_int8",
+                                         dict(int8_tables=True))):
+            jsvc = JaxService(ecfg, *SIZES, *(JaxVocab(m) for m in _MAPS),
+                              batch_buckets=(8, 64), cand_buckets=(16, 128),
+                              **kw)
+            refs[key] = jsvc.score(_requests(JaxRequest, 4, 11))
+        refs["serve_async"] = jsvc.__class__(
+            ecfg, *SIZES, *(JaxVocab(m) for m in _MAPS),
+            batch_buckets=(8, 64), cand_buckets=(16, 128)).score(
+                _requests(JaxRequest, 6, 40, min_hist=1))
     return refs
 
 
@@ -545,3 +663,161 @@ def test_mesh_eval_and_service_match_jax_mesh(world):
         assert len(r["serve"]["scores"]) == len(refs["serve"])
         for g, w in zip(r["serve"]["scores"], refs["serve"]):
             np.testing.assert_allclose(g, w, **TOL)
+
+
+# ------------------------------------------------------------------ LGN
+
+
+def _one_rank_step(case):
+    """One train step of the port on one rank from the case's state."""
+    cfg = load_config(None, **dict(case["cfg"], data_parallel=1,
+                                   model_parallel=1))
+    model = get_model_class("lgn")(cfg, *SIZES, device="cpu",
+                                   graph=case["graph"])
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["state_dict"].items()})
+    state = create_train_state(model, cfg)
+    state, parts = make_train_step(model, cfg)(
+        state, torch_mesh_worker.batch_of(case["batch"]),
+        torch.Generator().manual_seed(0))
+    return (torch_mesh_worker.parts_of(parts),
+            {k: v.numpy() for k, v in model.state_dict().items()})
+
+
+@pytest.mark.parametrize("name", sorted(LGN_STEPS))
+def test_lgn_step_matches_jax_mesh_and_one_rank(world, name):
+    spec, ranks, refs = world
+    case = spec["steps"][name]
+    one_parts, one_sd = _one_rank_step(case)
+    jcfg = small_jax_cfg(**dict(STEP_CFG, **LGN), **LGN_STEPS[name])
+    for r in ranks:
+        got = r[("step", name)]
+        for field, value in got["parts"].items():
+            np.testing.assert_allclose(value, one_parts[field], **TOL,
+                                       err_msg=field)
+        for k, v in got["state_dict"].items():
+            np.testing.assert_allclose(v, one_sd[k], **TOL, err_msg=k)
+        if name in JAX_LGN:
+            new, parts = refs[("step", name)]
+            for field, value in got["parts"].items():
+                np.testing.assert_allclose(
+                    value, float(getattr(parts, field)), **TOL,
+                    err_msg=field)
+            model = _port_model(jcfg)
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in got["state_dict"].items()})
+            gp, want = _flat(weights.to_flax(model)[0]), _flat(new.params)
+            assert gp.keys() == want.keys()
+            for k, v in gp.items():
+                np.testing.assert_allclose(v, want[k], **TOL, err_msg=k)
+        # the forward gathers each sharded block once over the model row
+        # (user [8/2, 12], item [24/2, 8]); cates (5 rows) stay replicated
+        gathers = [c for c in got["calls"]
+                   if c[:2] == ("all_gather", "model")
+                   and c[2] in ((4, 12), (12, 8))]
+        assert sorted(c[2] for c in gathers) == [(4, 12), (12, 8)]
+        assert all(c[5] == c[4] for c in gathers)   # (m - 1) x the block
+    for r in ranks[1:]:
+        for k, v in r[("step", name)]["state_dict"].items():
+            np.testing.assert_array_equal(
+                v, ranks[0][("step", name)]["state_dict"][k])
+
+
+# ----------------------------------------------------------- histograms
+
+
+def test_mesh_histograms_match_one_rank(world):
+    spec, ranks, _ = world
+    case = spec["eval"]
+    model = get_model_class("clsr")(load_config(None, **dict(
+        case["cfg"], data_parallel=1, model_parallel=1)), *SIZES,
+        device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["state_dict"].items()})
+    want = make_histogram_step()(model, torch_mesh_worker.batch_of(
+        case["batch"]))
+    assert {"alpha", "item_embedding_output"} <= set(want)
+    for r in ranks:
+        assert r["hist"].keys() == want.keys()
+        for tag, (counts, lo, hi, nonfinite) in want.items():
+            g = r["hist"][tag]
+            assert np.abs(g[0] - counts.numpy()).sum() <= 2, tag
+            assert g[0].sum() == counts.numpy().sum() and g[3] == nonfinite
+            np.testing.assert_allclose([g[1], g[2]], [float(lo), float(hi)],
+                                       **TOL, err_msg=tag)
+
+
+# ------------------------------------------------- int8, async, save/load
+
+
+def _equal(a, b):
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def test_int8_tables_on_mesh_match_jax_mesh_and_one_rank(world):
+    spec, ranks, refs = world
+    serve = spec["serve"]
+    path = _weights_file(serve["w"], serve["dir"] + "/w_one.pt")
+    one = _service(serve, path, int8_tables=True).score(serve["requests"])
+    for r in ranks:
+        got = r["serve"]["scores_int8"]
+        assert r["serve"]["sharded_int8"] == sorted(
+            SHARDED + [f"{n}_scales" for n in SHARDED])
+        assert _equal(got, one)
+        assert len(got) == len(refs["serve_int8"])
+        for g, w in zip(got, refs["serve_int8"]):
+            np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_async_mesh_service_follows_rank_zero(world):
+    _, ranks, refs = world
+    scores, dispatches, steps, sync = ranks[0]["serve"]["async"]
+    assert dispatches >= 5 and len(steps) >= dispatches
+    assert _equal(scores, sync)
+    assert len(scores) == len(refs["serve_async"])
+    for g, w in zip(scores, refs["serve_async"]):
+        np.testing.assert_allclose(g, w, **TOL)
+    for r in ranks[1:]:
+        msg, n, got_steps, got_sync = r["serve"]["async"]
+        assert "rank 0 takes the requests" in msg
+        assert (n, got_steps) == (dispatches, steps)
+        assert _equal(got_sync, sync)
+
+
+def test_async_mesh_service_fails_a_bad_dispatch_and_stops_on_a_step(world):
+    _, ranks, _ = world
+    zero = ranks[0]["serve"]["async_faults"]
+    assert zero["plan_errors"] == ["RuntimeError", "RuntimeError"]
+    assert np.array_equal(zero["good"], zero["want"])
+    assert zero["step_error"] == "injected step failure"
+    assert "the mesh service stopped" in zero["refused"]
+    assert "injected step failure" in zero["refused"]
+    for r in ranks:
+        got = r["serve"]["async_faults"]
+        # the failed plan sent nothing: one dispatch, one good step and
+        # the failing one on every rank
+        assert (got["dispatches"], got["steps"]) == (1, 2)
+        assert got["error"] == "injected step failure"
+
+
+def test_sharded_service_save_and_load_move_both_ways(world):
+    spec, ranks, _ = world
+    serve, reqs = spec["serve"], spec["serve"]["requests"]
+    d = serve["dir"]
+    w = _weights_file(serve["w"], d + "/w_one.pt")
+    for mesh_file, kw in (("mesh.pt", {}),
+                          ("mesh_int8.pt", dict(int8_tables=True))):
+        want = _service(serve, w, **kw)
+        svc = _service(serve, **kw)
+        svc.load(f"{d}/{mesh_file}")
+        got_sd, want_sd = svc.model.state_dict(), want.model.state_dict()
+        assert got_sd.keys() == want_sd.keys()
+        for k in want_sd:
+            assert torch.equal(got_sd[k], want_sd[k]), k
+        assert _equal(svc.score(reqs), want.score(reqs))
+    for r in ranks:
+        res = r["serve"]
+        assert _equal(res["scores_loaded"], res["scores_w2"])
+        assert _equal(res["scores_loaded_int8"], res["scores_w2_int8"])
+        assert not _equal(res["scores_w2"], res["scores"])

@@ -41,6 +41,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -485,6 +486,46 @@ def test_cli_end_to_end_then_only_test(tmp_path, capsys):
     assert set(again) - set(res) == {"mean_alpha"}
 
 
+def _cli_epoch_steps(tmp_path, capsys, *flags):
+    """The steps of the CLI's one epoch, from its log line."""
+    assert cli.main(_cli_args(tmp_path, "--device", "cpu", "--epochs", "1",
+                              "--batch_size", "60", *flags)) == 0
+    return int(re.search(r"epoch 1 train time [0-9.]+s \((\d+) steps",
+                         capsys.readouterr().out).group(1))
+
+
+def test_cli_streamed_loader_takes_drop_remainder_min(tmp_path, capsys,
+                                                      monkeypatch):
+    """A deliberate deviation: the port's CLI hands cfg.drop_remainder_min
+    to its loaders, where JAX's CLI keeps the loader's default of 5 (its
+    resident path reads the Config).  At 5 the port's streamed epoch
+    runs JAX's loader's batches; at another value (the batch size, 60:
+    every partial last batch dropped) the streamed epoch equals the
+    resident one, the invariant the port keeps, where JAX's CLI would
+    stream one batch more than it keeps resident."""
+    streamed = _cli_epoch_steps(tmp_path, capsys, "--resident_data", "off")
+    cfg = cli.make_config(cli.build_arg_parser().parse_args(
+        _cli_args(tmp_path, "--batch_size", "60")))
+    jv = [jax_load_vocab(getattr(cfg, f"{n}_vocab"))
+          for n in ("user", "item", "cate")]
+    jl = JaxLoader(jax_parse_file(str(tmp_path / "synthetic" /
+                                      "train_data"), *jv), L)
+    jax_batches = list(jl.train_batches(cfg.batch_size,
+                                        np.random.RandomState(7),
+                                        min_seq_length=cfg.min_seq_length))
+    assert cfg.drop_remainder_min == 5
+    assert streamed == len(jax_batches)
+    tail = int(jax_batches[-1].valid.sum())
+    assert 5 <= tail < cfg.batch_size       # a tail that 5 keeps, 60 drops
+    make_config = cli.make_config
+    monkeypatch.setattr(cli, "make_config", lambda args: make_config(
+        args).replace(drop_remainder_min=cfg.batch_size))
+    got = {mode: _cli_epoch_steps(tmp_path / mode, capsys,
+                                  "--resident_data", mode)
+           for mode in ("off", "on")}
+    assert got["off"] == got["on"] == streamed - 1
+
+
 def test_cli_without_device_raises_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -547,11 +588,11 @@ UNPORTED = {
 # flags reach main: the parsed args), and those settings fit (items 8 and
 # 8b are the two halves of the model zoo; 11 and 11b the host remainder,
 # 11b the ETL and the packed format; 10a the mesh's main path, 10b its
-# owner-routed merge, resident data and zoo; on a mesh LGN, autosave and
-# resume and histograms wait for 10c).  Under
+# owner-routed merge, resident data and zoo; 10c LGN, autosave and
+# resume and histograms on a mesh).  Under
 # --attention_block_size the config refuses clsr.yaml's enable_bn, as
 # the JAX CLI's does (REFUSED_BY_CONFIG).
-PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, "10a", "10b", 11, "11b"}
+PORTED_ITEMS = {3, 5, 6, 8, "8b", 9, "10a", "10b", "10c", 11, "11b"}
 REFUSED_BY_CONFIG = {"attention_block": "requires enable_bn: False"}
 PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "raw_data": ("raw_data", "x.csv"),
@@ -577,6 +618,10 @@ PORTED_FIELDS = {"model": ("model_type", "caser"),
                  "mesh_routing": ("mesh_update_routing", "owner"),
                  "mesh_capacity": ("mesh_owner_capacity", 2.0),
                  "mesh_resident": ("resident_data", "on"),
+                 "mesh_lgn": ("model_type", "lgn"),
+                 "mesh_resume": ("resume", True),
+                 "mesh_histograms": ("write_histograms", True),
+                 "mesh_autosave": ("autosave_every_calls", 5),
                  "sequential_model": ("sequential_model", "gru")}
 
 
@@ -612,7 +657,9 @@ def test_cli_unported_flags_raise_naming_their_item(tmp_path, name):
 @pytest.mark.parametrize("kw, item", [
     (dict(resident_data="on"), 5),
     # the mesh is ported (items 10a and 10b, mesh-resident data with
-    # it); histograms on a mesh wait for 10c
+    # it; histograms on a mesh with 10c): nothing refuses the setting,
+    # and its Trainer asks for the ranks' process group
+    # (tests/test_torch_mesh_resident.py fits it in a 4-rank world)
     pytest.param(dict(data_parallel=2, write_histograms=True,
                       summaries_dir="<tmp>"), "10c", id="kw1-10"),
     (dict(autosave_every_calls=2, model_dir="<tmp>"), 11),
@@ -621,6 +668,15 @@ def test_trainer_refuses_unported_settings(data, tmp_path, kw, item):
     _, pv, port, _ = data
     model = _port_trainer(pv).model
     kw = {k: str(tmp_path) if v == "<tmp>" else v for k, v in kw.items()}
+    if item in PORTED_ITEMS and kw.get("data_parallel", 1) > 1:
+        with pytest.raises(RuntimeError) as e:
+            Trainer(model, model.cfg.replace(**kw))
+        # make_mesh's own message, word for word: no refusal of the item
+        assert str(e.value) == (
+            f"a mesh of {kw['data_parallel']} x 1 ranks needs a "
+            f"torch.distributed process group: run under torchrun or spawn "
+            f"the ranks with parallel.distributed.run_local_world")
+        return
     if item in PORTED_ITEMS:        # it fits, on the resident path
         t = Trainer(model, model.cfg.replace(**{"epochs": 1,
                                                 "resident_data": "on", **kw}),

@@ -11,9 +11,10 @@ spawned rank imports it to find its function, and JAX stays out of the
 ranks.
 """
 
+import concurrent.futures
 import dataclasses
 import os
-import tempfile
+import shutil
 
 import numpy as np
 import torch
@@ -33,7 +34,7 @@ from clsr_tpu_torch.ops.long_context import LongTargetAttention
 from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel import mesh as pm
 from clsr_tpu_torch.parallel.embedding import gather_rows
-from clsr_tpu_torch.serving import ScoringService
+from clsr_tpu_torch.serving import AsyncScoringService, ScoringService
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.lazy_adam import LazyAdamState
 from clsr_tpu_torch.training.state import create_train_state
@@ -54,8 +55,9 @@ def cfg_of(kw) -> object:
     return load_config(None, **kw)
 
 
-def model_of(cfg, sizes, state_dict=None):
-    model = get_model_class(cfg.model_type)(cfg, *sizes, device="cpu")
+def model_of(cfg, sizes, state_dict=None, graph=None):
+    kw = {} if graph is None else {"graph": graph}
+    model = get_model_class(cfg.model_type)(cfg, *sizes, device="cpu", **kw)
     if state_dict is not None:
         model.load_state_dict({k: torch.from_numpy(v)
                                for k, v in state_dict.items()})
@@ -98,6 +100,12 @@ def recording_clip(model, record):
         return clip(grads, max_norm, sumsq)
 
     return clip, wrapped
+
+
+def calls_of(calls):
+    """collectives.Call's fields as tuples."""
+    return [(c.kind, c.group, c.shape, str(c.dtype), c.payload_bytes,
+             c.received_bytes) for c in calls]
 
 
 def parts_of(parts):
@@ -176,7 +184,7 @@ def _step_case(case, sizes):
     the dense clip)."""
     cfg = cfg_of(case["cfg"])
     mesh = pm.make_mesh(cfg)
-    model = model_of(cfg, sizes, case["state_dict"])
+    model = model_of(cfg, sizes, case["state_dict"], case.get("graph"))
     pm.place_model(model, mesh)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg, mesh)
@@ -184,13 +192,16 @@ def _step_case(case, sizes):
     norms = {}
     clip, port_steps.clip_by_norm_each = recording_clip(model, norms)
     try:
-        state, parts = step(state, batch, torch.Generator().manual_seed(0))
+        with col.count_collectives() as calls:
+            state, parts = step(state, batch,
+                                torch.Generator().manual_seed(0))
     finally:
         port_steps.clip_by_norm_each = clip
     sd, moments, dense = logical_state(state, mesh)
     return {"parts": parts_of(parts), "state_dict": sd, "moments": moments,
             "dense_moments": dense, "clip_norms": norms,
-            "count": int(getattr(state.optimizer, "count", state.step))}
+            "count": int(getattr(state.optimizer, "count", state.step)),
+            "calls": calls_of(calls)}
 
 
 def _eval_case(case, sizes):
@@ -205,19 +216,145 @@ def _eval_case(case, sizes):
     return {"preds": np_of(preds), "alpha": np_of(alpha)}
 
 
-def _serve_case(case, sizes, tmp):
-    """The mesh ScoringService, its weights loaded (logical) before it
-    shards them."""
+def _hist_case(case, sizes):
+    """The mesh histogram step on a global batch (steps.py
+    `make_histogram_step` with the mesh): {tag: (counts, lo, hi,
+    n_nonfinite)}."""
     cfg = cfg_of(case["cfg"])
-    path = os.path.join(tmp, "weights.pt")
-    torch.save({k: torch.from_numpy(v) for k, v in
-                case["state_dict"].items()}, path)
-    svc = ScoringService(cfg, *sizes, *(Vocab(m) for m in case["maps"]),
-                         checkpoint=path, batch_buckets=(8, 64),
-                         cand_buckets=(16, 128), device="cpu")
-    return {"scores": [np.asarray(s) for s in svc.score(case["requests"])],
-            "sharded": sorted(pm.sharded_tables(svc.model)),
-            "n_batch": svc.mesh.n_batch}
+    mesh = pm.make_mesh(cfg)
+    model = model_of(cfg, sizes, case["state_dict"])
+    pm.place_model(model, mesh)
+    hists = port_steps.make_histogram_step(mesh=mesh)(
+        model, batch_of(case["batch"]))
+    return {tag: tuple(np_of(t) for t in parts)
+            for tag, parts in hists.items()}
+
+
+def _service(case, sizes, path, **kw):
+    return ScoringService(cfg_of(case["cfg"]), *sizes,
+                          *(Vocab(m) for m in case["maps"]), checkpoint=path,
+                          batch_buckets=(8, 64), cand_buckets=(16, 128),
+                          device="cpu", **kw)
+
+
+def _async_scores(svc, requests, threads):
+    """The async frontend over `svc` on every rank: rank 0 submits the
+    requests from `threads` threads at once, at most 8 a dispatch.
+    (rank 0's scores in request order, or another rank's refusal of
+    `submit`; the dispatches; the eval steps' (B, G) this rank ran; the
+    synchronous service's scores of the same dispatches, in request
+    order)."""
+    steps, step, plan = [], svc.step, svc.plan
+    groups, index = [], {id(r): i for i, r in enumerate(requests)}
+    svc.step = lambda b: (steps.append(tuple(b.items.shape)), step(b))[1]
+    svc.plan = lambda reqs: (
+        groups.append([index[id(r)] for r in reqs]), plan(reqs))[1]
+    front = AsyncScoringService(svc, max_wait_ms=20.0, max_batch=8)
+    scores = None
+    try:
+        if dist_rank() == 0:
+            with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+                futs = list(pool.map(front.submit, requests))
+            scores = [f.result() for f in futs]
+        else:
+            try:
+                front.submit(requests[0])
+            except RuntimeError as e:
+                scores = str(e)
+    finally:
+        front.close()
+        del svc.step, svc.plan
+    shared = [groups]
+    torch.distributed.broadcast_object_list(shared, src=0)
+    sync = [None] * len(requests)
+    for g in shared[0]:
+        for i, s in zip(g, svc.score([requests[i] for i in g])):
+            sync[i] = s
+    return scores, front.dispatches, steps, sync
+
+
+def _async_faults(svc, requests):
+    """The async mesh frontend's failures.  Rank 0 submits a good request
+    and a bad one (its candidates' cates one short, in the dispatch's
+    second batch) at once: `plan` fails that dispatch and nothing is
+    sent.  A good request then runs.  Then every rank's next step
+    raises: that stops the frontend.  (rank 0's: the failed dispatch's
+    errors, the good request's scores and the synchronous service's,
+    the stopping error, the refusal of a later submit; every rank's:
+    the dispatches, the step calls, the error kept)."""
+    good = min(requests, key=lambda r: len(r.cand_items))
+    n = len(good.cand_items) * (16 // len(good.cand_items) + 1)
+    bad = dataclasses.replace(
+        good, cand_items=list(good.cand_items) * (n // len(good.cand_items)),
+        cand_cates=(list(good.cand_cates)
+                    * (n // len(good.cand_items)))[:-1])
+    calls, step = [0], svc.step
+
+    def failing_step(b):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("injected step failure")
+        return step(b)
+
+    svc.step = failing_step
+    front = AsyncScoringService(svc, max_wait_ms=200.0)
+    out = {}
+    try:
+        if dist_rank() == 0:
+            futs = [front.submit(good), front.submit(bad)]
+            out["plan_errors"] = [type(f.exception()).__name__
+                                  for f in futs]
+            out["good"] = front.submit(good).result()
+            out["step_error"] = str(front.submit(good).exception())
+            try:
+                front.submit(good)
+            except RuntimeError as e:
+                out["refused"] = str(e)
+    finally:
+        front.close()
+        del svc.step
+    out["want"] = svc.score([good])[0]
+    out.update(dispatches=front.dispatches, steps=calls[0],
+               error=str(front.error))
+    return out
+
+
+def _serve_case(case, sizes):
+    """The mesh ScoringService, its weights loaded (logical) before it
+    shards them: f32 and int8 scores, the async frontend, and save /
+    load of the sharded service (the logical files in case['dir'])."""
+    d = case["dir"]
+    paths = {}
+    for name in ("w", "w2"):
+        paths[name] = os.path.join(d, f"{name}_rank{dist_rank()}.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    case[name].items()}, paths[name])
+    reqs = case["requests"]
+    svc = _service(case, sizes, paths["w"])
+    out = {"scores": svc.score(reqs),
+           "sharded": sorted(pm.sharded_tables(svc.model)),
+           "n_batch": svc.mesh.n_batch}
+    out["async"] = _async_scores(svc, case["async_requests"], 4)
+    out["async_faults"] = _async_faults(svc, case["async_requests"])
+    svc.save(os.path.join(d, "mesh.pt"))
+    svc8 = _service(case, sizes, paths["w"], int8_tables=True)
+    out["scores_int8"] = svc8.score(reqs)
+    out["sharded_int8"] = sorted(pm.sharded_tables(svc8.model))
+    svc8.save(os.path.join(d, "mesh_int8.pt"))
+    # the one-rank services' files of w2, loaded on the mesh, against
+    # mesh services built from w2
+    out["scores_w2"] = _service(case, sizes, paths["w2"]).score(reqs)
+    svc.load(os.path.join(d, "one.pt"))
+    out["scores_loaded"] = svc.score(reqs)
+    out["scores_w2_int8"] = _service(case, sizes, paths["w2"],
+                                     int8_tables=True).score(reqs)
+    svc8.load(os.path.join(d, "one_int8.pt"))
+    out["scores_loaded_int8"] = svc8.score(reqs)
+    return out
+
+
+def dist_rank():
+    return torch.distributed.get_rank()
 
 
 def parallel_world(rank, device, spec):
@@ -236,8 +373,8 @@ def parallel_world(rank, device, spec):
     for name, case in spec["steps"].items():
         out[("step", name)] = _step_case(case, spec["sizes"])
     out["eval"] = _eval_case(spec["eval"], spec["sizes"])
-    with tempfile.TemporaryDirectory() as tmp:
-        out["serve"] = _serve_case(spec["serve"], spec["sizes"], tmp)
+    out["hist"] = _hist_case(spec["eval"], spec["sizes"])
+    out["serve"] = _serve_case(spec["serve"], spec["sizes"])
     return out
 
 
@@ -339,9 +476,7 @@ def _steps_case(case, sizes=None):
             overflow.append(int(state.optimizer.route_overflow))
     sd, moments, dense = logical_state(state, mesh)
     return {"parts": parts, "overflow": overflow, "state_dict": sd,
-            "moments": moments, "flat": mesh.flat,
-            "calls": [(c.kind, c.group, c.shape, str(c.dtype),
-                       c.payload_bytes, c.received_bytes) for c in calls]}
+            "moments": moments, "flat": mesh.flat, "calls": calls_of(calls)}
 
 
 def owner_world(rank, device, spec):
@@ -408,6 +543,55 @@ def _fit_case(cfg, sizes, loaders, state_dict):
                 log=lambda *a: None)._use_resident(loaders["train"])}
 
 
+class Killed(Exception):
+    pass
+
+
+def _kill_resume_case(case, sizes, loaders, state_dict):
+    """Fit B with an autosave after every call, killed right after its
+    case['kill']-th autosave; the autosave copied to case['copy'] (fit C
+    removes it when it ends); fit C, a fresh mesh Trainer on B's
+    model_dir, resumed.  C's record as _fit_case's, B's logical state at
+    the kill, and the lockstep check's refusal of a field that differs
+    by rank."""
+    cfg = cfg_of(case["cfg"])
+    b = Trainer(model_of(cfg, sizes, state_dict), cfg, log=lambda *a: None)
+    name = ("_autosave" if b._use_resident(loaders["train"])
+            else "_autosave_stream")
+    save, seen = getattr(b, name), []
+
+    def kill(*args, **kwargs):
+        save(*args, **kwargs)
+        seen.append(args[1])
+        if len(seen) == case["kill"]:
+            raise Killed
+    setattr(b, name, kill)
+    try:
+        b.fit(loaders["train"], loaders["valid"])
+    except Killed:
+        pass
+    out = {"killed_at": seen[-1], "killed_state": logical_state(b.state,
+                                                                b.mesh)}
+    try:
+        b._check_lockstep({"total": float(dist_rank())})
+    except RuntimeError as e:
+        out["lockstep"] = str(e)
+    auto = os.path.join(cfg.model_dir, "autosave")
+    if dist_rank() == 0:
+        shutil.copytree(auto, case["copy"])
+    pm.barrier(b.mesh)
+    logs = []
+    c = Trainer(model_of(cfg, sizes, state_dict), cfg,
+                log=lambda *a: logs.append(" ".join(str(x) for x in a)))
+    c.fit(loaders["train"], loaders["valid"], resume=True)
+    out.update(history=c.eval_history,
+               steps=[st["steps"] for st in c.epoch_stats],
+               resident=c.feeds is not None,
+               state=logical_state(c.state, c.mesh), logs=logs,
+               autosave_left=os.path.exists(auto))
+    return out
+
+
 def resident_world(rank, device, spec):
     out = {}
     for flat in (True, False):
@@ -424,6 +608,9 @@ def resident_world(rank, device, spec):
         for name, kw in spec["fits"].items():
             out[("fit", name)] = _fit_case(cfg_of(kw), spec["sizes"],
                                            loaders, spec["state_dict"])
+        for name, case in spec["resume"].items():
+            out[("resume", name)] = _kill_resume_case(
+                case, spec["sizes"], loaders, spec["state_dict"])
     finally:
         port_steps.expand_with_negatives = expand
     return out
