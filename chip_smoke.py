@@ -75,16 +75,16 @@ Phases, each fatal on failure:
      within 1e-4 relative, every gradient within 1e-4 of its max abs
      (1e-6 abs more where the gradient is zero up to rounding: a dense
      bias under train-mode BN, an output bias under a softmax), BN
-     running statistics within 1e-5.  Then 10 steps with the kernels in
-     turns with 10 plain steps on the same batches, the counts read
+     running statistics within 1e-5.  Then 6 steps with the kernels in
+     turns with 6 plain steps on the same batches, the counts read
      around each: K3a 2, K3b 2, K1 2, K2 1 and K2's backward 1 per
      kernel step, none per plain step; finite losses; per path the
      median step ms (CUDA events), examples/s and peak device memory.  Last, torch.profiler
-     over three steps of each path: host ms and device span per
+     over two steps of each path: host ms and device span per
      `train_step.<phase>` range, the device's busy share of the window,
      kernel launches per step and the kernels with the most device time.
-     Then the cost of the reproducible gradient: 10 steps of each path
-     with the sorted segment sums (`ops.segment_sum`) in turns with 10
+     Then the cost of the reproducible gradient: 6 steps of each path
+     with the sorted segment sums (`ops.segment_sum`) in turns with 6
      steps with the sums they replaced (`F.embedding`'s backward), the
      median step ms of each;
   9. K5 (row scatter) and K4 (row sweep) against their plain version at
@@ -112,13 +112,13 @@ Phases, each fatal on failure:
      1e-5 abs (the two paths sum a repeated row's gradient in different
      orders), rows no batch id touches
      bit-identical to before, the table Parameters equal to pmn[:, :D]
-     after the step (the update writes them; no sync).  Then 10 compact
-     steps in turns with 10 legacy steps and 10 dense-Adam steps from
+     after the step (the update writes them; no sync).  Then 6 compact
+     steps in turns with 6 legacy steps and 6 dense-Adam steps from
      the same weights, the counts read around each: K5 1 per lazy step,
      compact and legacy, and none per dense step, K3a 2, K3b 2, K1 2,
      K2 1 and its backward 1; finite losses; per path
      the median step ms, examples/s, device memory kept between steps
-     and its peak, and torch.profiler over three steps (host ms of
+     and its peak, and torch.profiler over two steps (host ms of
      `train_step.row_update`); the reproducible sums' cost as in phase 8
      (compact: `segment_sum` against `index_add_`; legacy: the lookups).  In phase 9, K4/K5 and index_copy_ are
      also timed on the device alone (one call per fresh set captured in
@@ -132,7 +132,7 @@ Phases, each fatal on failure:
      `table_grad`;
  11. train and evaluate end to end: the port's `write_synthetic_dataset`
      (5,000 users, 50,000 items, 1,000 categories, seed 0; valid 1 + 4,
-     test 1 + 99, cut to its first 1,000 groups but in phase 13) in a
+     test 1 + 99, cut to its first 400 groups, 3,500 in phase 13) in a
      temporary directory; each split parsed by the C++
      parser and by the Python loop, both timed, ids, offsets and labels
      equal and the time features within 1e-6 abs.  Run A drives
@@ -149,7 +149,7 @@ Phases, each fatal on failure:
      K = 1 (eager single steps) for one epoch of the train set's first
      20 batches in the same run, and
      torch.profiler over 1 streamed eager step and one streamed graphed
-     call of 8 steps (a K = 8 `make_multi_train_step`: the device's idle
+     call of 4 steps (a K = 4 `make_multi_train_step`: the device's idle
      share, kernels on the device and host launch calls a step).  Run B: the same config
      with use_pallas_scan, use_pallas_train_attention 'on', lazyadam and
      resident_data 'off' (streamed, as phase 13 compares),
@@ -164,9 +164,9 @@ Phases, each fatal on failure:
      (`training.kernel_check`: scores 1e-4 abs, loss parts 1e-4 rel,
      gradients 1e-4 of their max abs, BN statistics 1e-5, K5's group bit
      for bit against its plain version); torch.profiler over 4 eager
-     and 8 graphed streamed steps (one call of 8); run B's config with
-     K = 1 for
-     one epoch; fits of 20 batches with prefetch_batches 2 and 0 (dense
+     and 4 graphed streamed steps (one call of 4); run B's config with
+     K = 1 for the train set's first 20 batches (a depth cut of its
+     epoch); fits of 20 batches with prefetch_batches 2 and 0 (dense
      Adam, kernels on) and two lazyadam fits, each pair bit-identical
      (every model and optimizer tensor, the valid metrics) with
      deterministic algorithms off;
@@ -233,8 +233,8 @@ Phases, each fatal on failure:
      that K2 gives way) and 32 graphed steps + a tail against 33 eager
      ones bit for bit; (d) each other optimizer (adadelta, adagrad,
      sgd, pgd, rmsprop, ftrl, padagrad, and "momentum", which runs sgd)
-     with dense tables: 8 graphed steps + a tail against 9 eager ones
-     bit for bit, finite loss, examples/s of a call of 8 replays.
+     with dense tables: 4 graphed steps + a tail against 5 eager ones
+     bit for bit, finite loss, examples/s of a call of 4 replays.
  15. the model zoo (GRU4Rec, A2SVD, DIN, DIEN, SLI-Rec at their yaml
      widths, and CLSR with use_fused_encoders false and sequential_model
      time4lstm and gru) with phase 5's Taobao-sized tables, seeded
@@ -251,12 +251,12 @@ Phases, each fatal on failure:
      SLI-Rec the kernel steps against the plain ones on the first batch
      (`kernel_check.compare_steps`, lazyadam compact, phase 8's gates;
      past them the per-tensor numbers are printed and the phase stops);
-     then dense Adam and lazyadam compact, each as one call of 8
+     then dense Adam and lazyadam compact, each as one call of 4
      graphed steps (the first the eager warm-up) and a replayed tail
-     against 9 eager steps, every state tensor and loss part bit for
+     against 5 eager steps, every state tensor and loss part bit for
      bit, the launches a step K3a = K3b = K1 = 1 (DIN, SLI-Rec), 2
      (CLSR), 0 (the rest), K2 0, K5 1 a lazyadam step; one more call of
-     8 replays timed by CUDA events (ms a step, examples/s, peak
+     4 replays timed by CUDA events (ms a step, examples/s, peak
      memory), beside CLSR's fused lazyadam step (phase 10's
      configuration) in the same run; torch.profiler over one eager
      lazyadam step of each (kernels a step, device busy ms, the kernels
@@ -272,15 +272,15 @@ Phases, each fatal on failure:
      median 64 x 100 dispatch ms and candidates/s; (b) each trained at
      B = 400, L = 50, lengths 1..50, G = 5 with dense Adam and with
      lazyadam (Caser compact; NCF and per-position NextItNet on the
-     legacy path): one call of 16 graphed steps and a replayed tail
-     against 17 eager steps, every state tensor and loss part bit for
+     legacy path): one call of 8 graphed steps and a replayed tail
+     against 9 eager steps, every state tensor and loss part bit for
      bit, K5 once a lazyadam step and no other kernel; one more call of
      16 replays timed (ms a step, examples/s, peak memory) beside phase
      15's CLSR fused lazyadam step; torch.profiler over one eager step;
      then LGN with dense Adam on the interaction graph of a seeded
      history of 1..50 items and a target for each of the 987,995 users
      (E, the host build s), the same graphed gate, its step ms and peak
-     memory against the card's 80 GB (its timed call 8 replays).
+     memory against the card's 80 GB (its timed call 4 replays).
      Inside phase 11, after phase 15 (c): (c) the CLI with --model
      NEXTITNET for three epochs (its first two score at chance on this
      set, as JAX's do) and --model LGN for one (the CLI builds LGN's
@@ -316,8 +316,8 @@ Phases, each fatal on failure:
      event files read back by `utils/summaries.py` `read_events`.
  18. the ETL and the packed format, from a raw log to a fit.  After
      phase 17: (a) a seeded raw log in the public UserBehavior.csv
-     schema (uid,iid,category,behavior,ts), 5,000,000 rows (a depth cut
-     of the public file's 100,150,807) of ~50,000 users at its ~101 rows
+     schema (uid,iid,category,behavior,ts), 2,000,000 rows (a depth cut
+     of the public file's 100,150,807) of ~20,000 users at its ~101 rows
      a user, Zipf-like item popularity over 4,162,024 item ids of 9,439
      categories (0.5% of items show a second category), each user's 1-5
      favoured categories taking 80% of their rows, pv 89.5% and cart /
@@ -332,7 +332,7 @@ Phases, each fatal on failure:
      packed.npz's, the TSV parse s against the pack's load + views s,
      the process's peak RSS; (c) run B's configuration (K2 and its
      backward, K3a/K3b, K1, lazyadam with K5, K = 32 graphed) at B =
-     400: 3 graphed calls fed from the packed loader and from the TSV
+     400: 1 graphed call fed from the packed loader and from the TSV
      loader, every state tensor bit for bit; then one epoch and the
      1 + 99 test eval from the pack, the counts read around each (as run
      B's), the valid and test metrics (test auc above 0.5) and
@@ -413,6 +413,37 @@ Phases, each fatal on failure:
      one rank and a one-rank file loaded on the mesh, each bit for bit
      the scores of a service of the same seed on that topology, and the
      mesh's scores within 1e-5 of one rank's.
+ 22. graphed mesh steps over NCCL and the port's scaling model.  After
+     phase 21: (a) on any card count, the one-rank graphed lazyadam
+     compact step (clsr.yaml's widths and kernel gates) at the scaling
+     model's two configurations (clsr_tpu_torch/scaling_model.py):
+     Taobao at b = 512, L = 50, tables of 8,000 / 100,000 / 5,000 rows,
+     and Kuaishou at b = 256, L = 250, 100,000 / 500,000 / 2,000: a call
+     of 8 steps, then 8 replays each between CUDA events, the median;
+     and the scaling model's table from those times (its bytes counted
+     meanwhile in gloo worlds of 2, 4 and 8 ranks on the host's CPU).
+     (b) When the host has 4 cards or more: `mesh_phase(smi, "nccl")`,
+     phases 19-21 over NCCL a card a rank (phase 20 (d)'s fits then
+     replay graphs), and in that world each check's steps eagerly (K =
+     1) against one graphed call of the same steps: phase 19 (a) (the
+     broadcast merge, flat) and (b) (dense Adam, replicated: the static
+     `reduce_grads`), 20 (a) (the owner merge, capacity 4), 20 (b) (one
+     slot, every step the broadcast tail), the owner merge at capacity
+     1.1 (the user tables' branch differs from the item table's on some
+     steps), 21 (a) (LGN): the loss parts and a digest of every state
+     tensor bit for bit, the collectives (kind, group, shape, dtype,
+     bytes) call for call, the branch patterns read; K1, K2, K2 bwd, K3a,
+     K3b and K5 launched in the graphed calls; phase 20 (d)'s streamed,
+     resident and bucketed fits with every call's steps forced eager
+     against the graphed ones (phase 21 (b)'s resumed fits equal those);
+     the CLI at (2, 2) over NCCL on phase 11's synthetic set, one epoch,
+     the default K = 32 and K = 1: the same test dict.  Prints the step
+     ms a rank graphed and eager beside one rank's graphed step at 100
+     and 400 rows, capture s and pool MB a rank, `nvidia-smi topo -m`,
+     and the scaling model's predicted step at (2, 2) and (4, 1) (one
+     rank's step at 100 rows plus the counted bytes over NVLink) beside
+     the graphed NCCL steps measured there.  On fewer cards one line
+     says that (b) was not run and how to run it.
 Then one JSON line of the kernels (`launches_by_path` with the phase-11
 paths `fit_cli`, run A and its --only_test, and `fit_kernels`, run B's
 graphed epoch and test eval, the phase-13 paths `fit_resident`, the
@@ -431,7 +462,8 @@ phase 19's `p19_mesh_train` (run (a)'s first 8 steps, summed over the
 `p20_mesh_resident` ((d)'s resident fit) and `p20_zoo_mesh` ((f)), and
 phase 21's `p21_mesh_resume` ((b)'s killed and resumed fits) and
 `p21_mesh_async` ((d)'s async dispatches), each summed over the 4
-ranks), the
+ranks, and on a host of 4 cards phase 22's `p22_mesh_graphed` ((b)'s
+graphed calls, summed over the ranks)), the
 card's name and power limit, and the final status line.
 A copy of all numbers goes to
 chiprun_out/chip_smoke.json.
@@ -947,6 +979,7 @@ def serve(smi):
                       for k, v in runs.items()})
 
 
+P8_STEPS = 6        # phases 8 and 10: timed steps a path, in turns
 TRAIN_SHAPES = (("short", 5, 80), ("long", 1, 40))   # (name, G, D)
 TRAIN_B, TRAIN_L, H0, H1, DK = 400, 50, 80, 40, 40
 # K3a/K3b's shapes: the two train scorers, and the short-term one at the
@@ -1329,12 +1362,12 @@ def k2_backward_case(shape, args, cots, carries, smi, graph_calls=20):
                 whole_bound_ms=whole_bound, n_valid=n_valid, B=B, L=L)
 
 
-def train_batches(n, seed, n_users, n_items, n_cates, L=TRAIN_L):
-    """Seeded numpy positives-only batches (G = 1) on the card, history
-    lengths 1..L."""
+def train_batches(n, seed, n_users, n_items, n_cates, L=TRAIN_L,
+                  B=TRAIN_B):
+    """Seeded numpy positives-only batches (G = 1) of B rows on the card,
+    history lengths 1..L."""
     from clsr_tpu_torch.data.batch import Batch
     rng = np.random.RandomState(seed)
-    B = TRAIN_B
     out = []
     for _ in range(n):
         lengths = rng.randint(1, L + 1, B)
@@ -1410,7 +1443,7 @@ def train(smi):
             models[run].load_state_dict(models["kernel"].state_dict())
         states[run] = create_train_state(models[run], cfg)
         steps[run] = make_train_step(models[run], cfg)
-    batches = train_batches(11, 7, *sizes)
+    batches = train_batches(1 + P8_STEPS, 7, *sizes)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in models["kernel"].parameters())
     log(f"train: two models at clsr.yaml widths, {n_params:,} parameters "
@@ -1457,7 +1490,7 @@ def train(smi):
         raise AssertionError(f"train kernel path disagrees with the plain "
                              f"path: {grad_bad[:5]}")
 
-    # ---- the main train path: 10 kernel steps, in turns with plain ones --
+    # ---- the main train path: P8_STEPS kernel steps, in turns with plain --
     del first, gk, gp, bk, bp
     torch.cuda.synchronize()
     resident_mb = torch.cuda.memory_allocated() / 1e6
@@ -1515,7 +1548,7 @@ def train(smi):
                                            batches[1:], smi)
                           for run in cfgs}
     out["profile"] = {run: profile_steps(steps[run], states[run],
-                                         batches[1:4], run, smi)
+                                         batches[1:3], run, smi)
                       for run in cfgs}
     return out
 
@@ -1937,7 +1970,7 @@ def train_lazy(smi):
             models[run].load_state_dict(models["compact"].state_dict())
         states[run] = create_train_state(models[run], cfg)
         steps[run] = make_train_step(models[run], cfg)
-    batches = train_batches(11, 8, *sizes)
+    batches = train_batches(1 + P8_STEPS, 8, *sizes)
     torch.cuda.synchronize()
     log(f"train lazy: three models at clsr.yaml widths (lazyadam compact, "
         f"lazyadam legacy, dense adam), built in "
@@ -2000,8 +2033,8 @@ def train_lazy(smi):
         raise AssertionError("lazyadam: the compact path disagrees with the "
                              "legacy path")
 
-    # ---- the main path: 10 compact steps in turns with 10 legacy ones ----
-    # (and 10 dense-Adam steps, after its own first step on batch 0)
+    # ---- the main path: 6 compact steps in turns with 6 legacy ones ----
+    # (and 6 dense-Adam steps, after its own first step on batch 0)
     steps["dense"](states["dense"], batches[0],
                    torch.Generator(device="cuda").manual_seed(11))
     torch.cuda.synchronize()
@@ -2062,7 +2095,7 @@ def train_lazy(smi):
                          states[run], batches[1:], smi)
         for run in ("compact", "legacy")}
     out["profile"] = {run: profile_steps(steps[run], states[run],
-                                         batches[1:4], f"lazy {run}", smi)
+                                         batches[1:3], f"lazy {run}", smi)
                       for run in cfgs}
     return out
 
@@ -2141,16 +2174,16 @@ def check_segment_sum(smi):
 # Taobao-shaped deployment, the CLI's defaults (batch 500, L = 50, valid
 # 1 + 4, test 1 + 99), the clsr.yaml widths
 P11_DATA = dict(n_users=5_000, n_items=50_000, n_cates=1_000, seed=0)
-# the test split cut to its first 1,000 groups of 1 + 99 (of 5,000) for
-# every test eval but phase 13's: its bucketed eval keeps all 5,000, the
-# count at which 'auto' picks three eval buckets (each but the top needs
-# 1,024 groups)
-P11_TEST_GROUPS = 1_000
+# the test split cut to its first 400 groups of 1 + 99 (of 5,000) for
+# every test eval but phase 13's: its bucketed eval keeps 3,500
+# (P13_TEST_GROUPS), a count at which 'auto' still picks three eval
+# buckets (each but the top needs 1,024 groups)
+P11_TEST_GROUPS = 400
 # run A's eager epoch (K = 1) over the train set's first 20 batches
 P11_EAGER_ROWS = 10_000
 P11_ARGV = ["--dataset", "synthetic", "--model", "CLSR", "--epochs", "2",
             "--seed", "7"]
-P11_PROFILE_K = 8              # steps a graphed call while profiling
+P11_PROFILE_K = 4              # steps a graphed call while profiling
 P11_PREFETCH_ROWS = 10_000     # the prefetch on/off fits: 20 batches
 P11_SERVE_GROUPS = 64
 K1_ONOFF_TOL, SERVE_CKPT_TOL = 1e-4, 1e-6
@@ -2588,6 +2621,9 @@ def check_counts(what, got, want):
 # ------------------------------------------------------------- phase 13
 # device-resident data and length buckets, on phase 11's data
 P13_EDGES = "16,32"            # the edges when 'auto' picks no buckets
+P13_TEST_GROUPS = 3_500        # the bucketed test eval's groups, of 5,000:
+#                                a depth cut at which 'auto' still picks
+#                                the three eval buckets 16, 24, 32
 P13_PROFILE_K = 8              # steps a resident call while profiling
 P13_TOL = 1e-4                 # bucketed / unbucketed predictions, and
                                # K1 and K2 against their plain versions
@@ -3025,7 +3061,7 @@ P14_BF16 = dict(embedding_dtype="bfloat16", compute_dtype="bfloat16")
 # the seven other rules, and a name the JAX package runs as sgd
 P14_RULES = ("adadelta", "adagrad", "sgd", "pgd", "rmsprop", "ftrl",
              "padagrad", "momentum")
-P14_OPT_K = 8                  # graphed steps a rule (then a tail)
+P14_OPT_K = 4                  # graphed steps a rule (then a tail)
 P14_TRAIN_K = 8                # graphed steps a timed call at Taobao size
 P14_SCORE_TOL, P14_LOSS_REL = 2e-2, 1e-2   # bf16 compute: kernel / plain
 INT8_F32_TOL = 0.03            # int8 / f32 scores (JAX's own test)
@@ -3461,9 +3497,9 @@ ZOO = (("gru4rec", "gru4rec", {}), ("a2svd", "asvd", {}),
        ("clsr_gru", "clsr", dict(sequential_model="gru")))
 ZOO_REFERENCE = ("clsr_fused", "clsr", dict(use_pallas_scan=True))
 ZOO_K = 32                     # graphed steps a call, as phase 12
-P15_K = 8                      # phase 15's: its depth cut to keep the
+P15_K = 4                      # phase 15's: its depth cut to keep the
                                # script in its time limit
-P16_K = 16                     # phase 16's, likewise
+P16_K = 8                      # phase 16's, likewise
 ZOO_TOL = 1e-4                 # K1 on / off and card / CPU scores
 # K1 launches a serving dispatch and, per train step with
 # use_pallas_train_attention 'on', K3a = K3b = K1: the scorers of each
@@ -3718,7 +3754,7 @@ ZOO_REST = (("caser", "caser", {}), ("ncf", "ncf", {}),
 # §6), so it runs three
 ZOO_REST_FITS = (("NEXTITNET", 3), ("LGN", 1))
 CARD_MB = 80e3                         # the H100's device memory, MB
-LGN_TIMED_STEPS = 8                    # LGN's timed replays (~0.3 s each)
+LGN_TIMED_STEPS = 4                    # LGN's timed replays (~0.3 s each)
 
 
 def lgn_graph(seed):
@@ -4418,7 +4454,8 @@ def train_and_evaluate(smi):
         profile_a = {"eager": profile_fit(trainer_a, loaders["train"], smi,
                                           graphed=False, n=1),
                      "graphed": profile_fit(trainer_a, loaders["train"],
-                                            smi, graphed=True, n=8)}
+                                            smi, graphed=True,
+                                            n=P11_PROFILE_K)}
         del trainer_a
         mark("run A profiles")
         graph_a = graph_against_eager("run A", cfg_a, sizes,
@@ -4564,10 +4601,14 @@ def train_and_evaluate(smi):
         profile = {"eager": profile_fit(trainer, loaders["train"], smi,
                                         graphed=False, n=4),
                    "graphed": profile_fit(trainer, loaders["train"], smi,
-                                          graphed=True, n=8)}
+                                          graphed=True,
+                                          n=P11_PROFILE_K)}
         del trainer
         mark("run B profiles")
-        eager_b = eager_epoch("run B", cfg_b, sizes, loaders, smi)
+        eager_b = eager_epoch("run B", cfg_b, sizes, dict(
+            loaders, train=SequenceLoader(head(parsed["train"],
+                                               P11_EAGER_ROWS),
+                                          cfg_b.max_seq_length)), smi)
         del eager_b["trainer"]
         mark("run B eager epoch")
         graph_b = graph_against_eager("run B", cfg_b, sizes,
@@ -4609,7 +4650,8 @@ def train_and_evaluate(smi):
         mark("fits from one seed")
         del fits
         p13 = resident_and_buckets(cfg_b, sizes, dict(
-            loaders, test=SequenceLoader(full_test, cfg_a.max_seq_length)),
+            loaders, test=SequenceLoader(head(full_test, P13_TEST_GROUPS
+                                              * 100), cfg_a.max_seq_length)),
             smi)
         del full_test
         mark("phase 13")
@@ -4664,8 +4706,10 @@ def train_and_evaluate(smi):
 # a tenth of UserBehavior.csv's 100,150,807 rows took phase 18 164 s on
 # the card, over its 120 s: depth cut to 6,000,000 (~60,000 users), then
 # to 5,000,000 (~50,000 users; (c)'s 3 graphed calls of 32 x 400 need
-# ~38,400 train lines, 4,000,000 keep ~35,000) to make room for phase 19
-P18_ROWS = 5_000_000
+# ~38,400 train lines, 4,000,000 keep ~35,000) to make room for phase 19,
+# then to 2,000,000 (~19,000 train lines) and (c)'s one call of 32 x 400
+# (12,800 lines) to make room for phase 22
+P18_ROWS = 2_000_000
 P18_EVENTS_A_USER = 101        # the public file's rows a user
 P18_ITEMS, P18_CATES = 4_162_024, 9_439   # the public file's counts
 P18_ID_RANGES = (1_018_011, 5_163_070, 5_162_429)   # uid, iid, category
@@ -4677,7 +4721,7 @@ P18_SECOND_CATE = 0.005        # items that also show a second category
 P18_OUTSIDE = 0.001            # rows outside 2017-11-25 .. 12-03
 P18_SEED = 18
 P18_B = 400                    # (c): clsr.yaml's train batch
-P18_CALLS = 3                  # (c): graphed calls from each loader
+P18_CALLS = 1                  # (c): graphed calls from each loader
 P18_ETL_RUNS = (("packed", dict(output_format="packed")),
                 ("python", {}), ("native", dict(engine="native")),
                 ("processes", dict(processes=4)))
@@ -5302,6 +5346,8 @@ def p19_rank(rank, device, spec):
     torch.cuda.empty_cache()
     out["p20"] = p20_rank(rank, device, spec, sizes, batches, touched)
     out["p21"] = p21_rank(rank, device, spec)
+    if spec["backend"] == "nccl":
+        out["p22"] = p22_rank(rank, device, spec, sizes, batches, touched)
     return out
 
 
@@ -5394,6 +5440,10 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
     refs20 = p20_refs(sizes, batches)
     del batches
     ref20_s = time.perf_counter() - t0
+    one22 = None
+    if backend == "nccl":       # phase 22 (b): one rank's graphed steps
+        one22 = {b: p22_graphed_ms(p22_cfg(b, TRAIN_L), sizes, P19_SEED)
+                 for b in (TRAIN_B // 4, TRAIN_B)}
     root = tempfile.mkdtemp(prefix="clsr_phase19_")
     try:
         if p20_sets is None:
@@ -5569,6 +5619,9 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
     if failed:
         raise AssertionError("phase 21: " + "; ".join(failed))
 
+    if backend == "nccl":
+        out["p22"] = p22_report(ranks, one22, smi)
+
     def summed(pick):
         return {k: sum(pick(res["p20"]).get(k, 0) for res in ranks)
                 for k in kernels}
@@ -5589,6 +5642,8 @@ def mesh_phase(smi, backend="gloo", p20_sets=None):
                                    for res in ranks) for k in kernels},
         "p21_mesh_async": {k: sum(res["p21"]["d"]["launches"].get(k, 0)
                                   for res in ranks) for k in kernels}}
+    if backend == "nccl":
+        out["launches"]["p22_mesh_graphed"] = out["p22"]["graphed_launches"]
     return out
 
 
@@ -6422,8 +6477,430 @@ def p21_check(ranks, refs, after, lr):
     return failed, rows
 
 
+# ------------------------------------------------------------- phase 22
+# graphed mesh steps over NCCL, and the port's scaling model
+P22_CONFIGS = ("taobao", "kuaishou")    # scaling_model.CONFIGS
+P22_K = 8                   # (a): a graphed call's steps
+P22_MIXED_CAPACITY = 1.1    # (b): the user tables (a rank's 100 users, C =
+#                             55 an owner) overflow on some steps, the
+#                             item table (C = 3,025) on none
+P22_KERNELS = P20_KERNELS
+
+
+def p22_cfg(B, L, **kw):
+    from clsr_tpu_torch.config import CONFIG_DIR, load_config
+    return load_config(os.path.join(CONFIG_DIR, "clsr.yaml"),
+                       user_vocab="u", item_vocab="i", cate_vocab="c",
+                       seed=0, batch_size=B, max_seq_length=L,
+                       use_pallas_train_attention="on", use_pallas_scan=True,
+                       optimizer="lazyadam", **kw)
+
+
+def p22_graphed_ms(cfg, sizes, seed, K=P22_K):
+    """One rank's graphed lazyadam compact step of cfg at table counts
+    `sizes`: a call of K steps (the warm-up, the capture, the replays),
+    then K more replays each between CUDA events: (the median ms, every
+    replay's ms, the capture stats)."""
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import (make_multi_train_step,
+                                               stack_batches)
+    model = get_model_class("clsr")(cfg, *sizes)
+    spread(model, seed)
+    state = create_train_state(model, cfg)
+    multi = make_multi_train_step(model, cfg, K)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = train_batches(K, seed, *sizes, L=cfg.max_seq_length,
+                            B=cfg.batch_size)
+    multi(state, stack_batches(batches), gen)
+    times = []
+    for b in batches:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        multi.step(state, b, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    stats = dict(multi.capture_stats)
+    del model, state, multi, batches
+    torch.cuda.empty_cache()
+    return statistics.median(times), times, stats
+
+
+P22_COUNT = ("import json, sys; from clsr_tpu_torch import scaling_model "
+             "as m; json.dump([[list(k), list(v.items())] for k, v in "
+             "m.count_configs(sys.argv[1:]).items()], sys.stdout)")
+
+
+def p22_start_count():
+    """The scaling model's byte count (gloo worlds of 2, 4 and 8 ranks on
+    the host's CPU) in a subprocess at the lowest priority, started at
+    the script's start: it takes the cores the card's phases leave idle,
+    and p22_scaling collects it."""
+    return subprocess.Popen([sys.executable, "-c", P22_COUNT, *P22_CONFIGS],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            preexec_fn=lambda: os.nice(19))
+
+
+def p22_scaling(smi, counting):
+    """(a): the one-rank graphed step at each scaling config's per-rank
+    batch and L, tables at its counts, and the scaling model's table from
+    those times and the bytes `counting` (p22_start_count) counted."""
+    from clsr_tpu_torch import scaling_model
+    out = {}
+    for name in P22_CONFIGS:
+        sc = scaling_model.CONFIGS[name]
+        sizes = (sc["n_users"], sc["n_items"], sc["n_cates"])
+        t0 = time.perf_counter()
+        ms, times, stats = p22_graphed_ms(
+            p22_cfg(sc["B_dev"], sc["L"]), sizes, 22)
+        out[name] = dict(ms=ms, times=times, B=sc["B_dev"], L=sc["L"],
+                         sizes=sizes, capture_s=stats["capture_s"],
+                         pool_mb=stats["pool_bytes"] / 1e6,
+                         s=time.perf_counter() - t0)
+        log(f"phase 22 (a) {name}: graphed one-rank lazyadam step at B = "
+            f"{sc['B_dev']}, L = {sc['L']}, tables {sizes}: median "
+            f"{ms:.3f} ms of {len(times)} replays ({min(times):.3f}-"
+            f"{max(times):.3f}), capture {stats['capture_s']:.2f} s, pool "
+            f"{stats['pool_bytes'] / 1e6:.1f} MB | {smi}")
+    t0 = time.perf_counter()
+    text, _ = counting.communicate()
+    if counting.returncode != 0:
+        raise AssertionError(f"phase 22 (a): the byte count exited "
+                             f"{counting.returncode}")
+    counted = {tuple(k): {int(b): by for b, by in v}
+               for k, v in json.loads(text)}
+    out["count_wait_s"] = time.perf_counter() - t0
+    lines = scaling_model.report(list(P22_CONFIGS),
+                                 {n: out[n]["ms"] for n in P22_CONFIGS},
+                                 card=smi, counted=counted)
+    out["table"] = lines
+    for line in lines:
+        log(f"phase 22 (a) | {line}")
+    return out
+
+
+def p22_digest(state):
+    """p21_digest with dense Adam's state too."""
+    import hashlib
+    from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+    h = hashlib.sha256(p21_digest(state).encode())
+    opt = state.optimizer
+    opt = opt.dense_opt if isinstance(opt, LazyAdamState) else opt
+    for i, st in enumerate(opt.state_dict()["state"].values()):
+        for k, v in sorted(st.items()):
+            h.update(f"{i}/{k}".encode())
+            h.update(torch.as_tensor(v).detach().cpu().contiguous()
+                     .reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def p22_run(model, start, cfg, batches, mesh, K):
+    """len(batches) steps of cfg from `start` on the mesh: K = 1 eager
+    single steps, else one call of K = len(batches) graphed steps, then
+    a barrier, a call, and a call timed.  The loss rows, the state's
+    digest, the launches, the collectives (as tuples), the branch
+    patterns read, the capture stats and ms a step."""
+    from clsr_tpu_torch.ops import launches
+    from clsr_tpu_torch.parallel import collectives as col
+    from clsr_tpu_torch.parallel.mesh import shard_batch
+    from clsr_tpu_torch.training import lazy_adam
+    from clsr_tpu_torch.training.state import create_train_state
+    from clsr_tpu_torch.training.steps import (LOSS_FIELDS,
+                                               make_multi_train_step,
+                                               make_train_step,
+                                               stack_batches)
+    model.load_state_dict(start)
+    state = create_train_state(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(P19_SEED)
+    local = [shard_batch(b, mesh) for b in batches]
+    patterns, pattern = [], lazy_adam.MeshMerge.pattern
+
+    def recorded(merge):
+        patterns.append(pattern(merge))
+        return patterns[-1]
+    lazy_adam.MeshMerge.pattern = recorded
+    torch.cuda.synchronize()
+    launches.add(launches.snapshot(), -1)           # every count to 0
+    stats, ms = None, None
+    try:
+        with col.count_collectives() as calls:
+            if K == 1:
+                step = make_train_step(model, cfg, mesh)
+                rows = [[float(getattr(p, f)) for f in LOSS_FIELDS]
+                        for p in (step(state, b, gen)[1] for b in local)]
+            else:
+                multi = make_multi_train_step(model, cfg, len(local), mesh)
+                _, p = multi(state, stack_batches(local), gen)
+                rows = np.stack([getattr(p, f).cpu().numpy()
+                                 for f in LOSS_FIELDS], 1).tolist()
+            torch.cuda.synchronize()
+        counts = {n: k for n, k in launches.snapshot().items() if k}
+    finally:
+        lazy_adam.MeshMerge.pattern = pattern
+    digest = p22_digest(state)
+    if K > 1:
+        # the ranks leave the digest apart: a barrier, a call, then the
+        # timed call, so no rank's time holds another's host work
+        stats = dict(multi.capture_stats)
+        torch.distributed.barrier()
+        multi(state, stack_batches(local), gen)
+        start_ev, end_ev = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+        start_ev.record()
+        multi(state, stack_batches(local), gen)
+        end_ev.record()
+        end_ev.synchronize()
+        ms = start_ev.elapsed_time(end_ev) / len(local)
+    out = dict(rows=rows, digest=digest, launches=counts,
+               calls=[(c.kind, c.group, c.shape, str(c.dtype),
+                       c.received_bytes) for c in calls],
+               patterns=patterns, stats=stats, ms=ms)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def p22_fits_eager(spec):
+    """Phase 20 (d)'s three fits with every call's steps run eagerly
+    (steps.graph_refusal forced), the same calls of 4 steps: each one's
+    digest and eval history."""
+    from clsr_tpu_torch.data.loader import SequenceLoader
+    from clsr_tpu_torch.models.registry import get_model_class
+    from clsr_tpu_torch.training import steps
+    from clsr_tpu_torch.training.trainer import Trainer
+    sets = spec["p20_sets"]
+    loaders = {k: SequenceLoader(sets[k], TRAIN_L) for k in ("train", "valid")}
+    out = {}
+    refusal = steps.graph_refusal
+    steps.graph_refusal = lambda mesh, device: "forced eager (phase 22)"
+    try:
+        for run, kw in (("streamed", dict(resident_data="off")),
+                        ("resident", dict(resident_data="auto")),
+                        ("buckets", dict(resident_data="auto",
+                                         length_buckets="auto",
+                                         bn_refresh_batches=P20_REFRESH))):
+            cfg = p20_cfg(**P20_FIT, **kw)
+            model = get_model_class("clsr")(cfg, *sets["sizes"])
+            spread(model, P19_SEED)
+            t = Trainer(model, cfg, log=lambda *a: None)
+            t0 = time.perf_counter()
+            t.fit(loaders["train"], loaders["valid"])
+            torch.cuda.synchronize()
+            out[run] = dict(digest=p21_digest(t.state),
+                            history=t.eval_history,
+                            s=time.perf_counter() - t0)
+            del t, model
+            torch.cuda.empty_cache()
+    finally:
+        steps.graph_refusal = refusal
+    return out
+
+
+def p22_rank(rank, device, spec, sizes, batches, touched):
+    """Phase 22 (b) on one rank of the NCCL world: each check's steps
+    eager (K = 1) and as one graphed call; phase 20 (d)'s fits eager
+    against its graphed ones; a (4, 1) graphed call timed."""
+    from clsr_tpu_torch.parallel.mesh import make_mesh
+    t_all = time.perf_counter()
+    out = {}
+    cases = {
+        "19a": (p20_cfg(optimizer="lazyadam"), P19_STEPS_A),
+        "19b": (p20_cfg(optimizer="adam", mesh_flat_batch="off"),
+                P19_STEPS_B),
+        "20a": (p20_cfg(**P20_OWNER), P19_STEPS_A),
+        "20b": (p20_cfg(**dict(P20_OWNER, mesh_owner_capacity=P20_ONE_SLOT)),
+                P20_STEPS_BC),
+        "mixed": (p20_cfg(**dict(P20_OWNER,
+                                 mesh_owner_capacity=P22_MIXED_CAPACITY)),
+                  P19_STEPS_A),
+    }
+    models = {}
+    for name, (cfg, n) in cases.items():
+        mesh = make_mesh(cfg)
+        if mesh.interleaved not in models:
+            models[mesh.interleaved] = p20_start(cfg, sizes, mesh)
+        model, start = models[mesh.interleaved]
+        out[name] = [p22_run(model, start, cfg, batches[:n], mesh, K)
+                     for K in (1, n)]
+    del models, model, start
+    torch.cuda.empty_cache()
+    # LGN
+    mesh = make_mesh(p21_lgn_cfg(True))
+    cfg, model, start, lgn_batches, _, _ = p21_lgn(spec["p20_sets"], mesh)
+    out["21a"] = [p22_run(model, start, cfg, lgn_batches, mesh, K)
+                  for K in (1, len(lgn_batches))]
+    del model, start
+    torch.cuda.empty_cache()
+    # the fits, eager
+    t0 = time.perf_counter()
+    out["fits_eager"] = p22_fits_eager(spec)
+    out["fits_s"] = time.perf_counter() - t0
+    # (4, 1): the broadcast merge, every table whole on each rank
+    cfg = p19_cfg(optimizer="lazyadam", data_parallel=4, model_parallel=1)
+    mesh = make_mesh(cfg)
+    model, start = p20_start(cfg, sizes, mesh)
+    out["4x1"] = p22_run(model, start, cfg, batches, mesh, len(batches))
+    out["4x1_eager"] = p22_run(model, start, cfg, batches[:1], mesh, 1)
+    del model, start
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_all
+    return out
+
+
+def p22_cli(root, smi):
+    """(b): the CLI at (2, 2) over NCCL on phase 11's synthetic set, one
+    epoch, with the default K = 32 and with K = 1 (each as a user runs
+    it, the ranks spawned): (the two test dicts, each run's s)."""
+    out = {}
+    data = os.path.join(root, "p22_cli")
+    for run, extra in (("graphed", []), ("eager", ["--train_steps_per_call",
+                                                   "1"])):
+        argv = [sys.executable, "-m", "clsr_tpu_torch.cli", "--dataset",
+                "synthetic", "--model", "CLSR", "--epochs", "1", "--seed",
+                "7", "--data_path", data, "--data_parallel", "2",
+                "--model_parallel", "2", "--dist_backend", "nccl"] + extra
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22 (b) CLI {run}: rc "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        out[run] = dict(test=ast.literal_eval(
+            proc.stdout.strip().splitlines()[-1]),
+            s=time.perf_counter() - t0)
+    return out
+
+
+def p22_check(ranks, cli):
+    """Phase 22 (b)'s gates on every rank: (failures, a summary)."""
+    failed, rows = [], {}
+    for r, res in enumerate(ranks):
+        p, bad, row = res["p22"], [], {}
+        for name in ("19a", "19b", "20a", "20b", "mixed", "21a"):
+            eager, graphed = p[name]
+            same = (eager["rows"] == graphed["rows"]
+                    and eager["digest"] == graphed["digest"])
+            if not same:
+                bad.append(f"{name}: graphed differs from eager")
+            if eager["calls"] != graphed["calls"]:
+                bad.append(f"{name}: collectives differ")
+            if eager["patterns"] != graphed["patterns"]:
+                bad.append(f"{name}: patterns {graphed['patterns']} "
+                           f"against {eager['patterns']}")
+            if name != "21a":
+                want = P22_KERNELS if name != "19b" else P22_KERNELS[:-1]
+                missing = [k for k in want if not graphed["launches"].get(k)]
+                if missing:
+                    bad.append(f"{name}: kernels {missing} never launched "
+                               f"graphed")
+            by_group = {}
+            for c in graphed["calls"]:
+                by_group[c[1]] = by_group.get(c[1], 0) + c[4]
+            row[name] = dict(
+                same=same, ms=graphed["ms"],
+                capture_s=graphed["stats"]["capture_s"],
+                pool_mb=graphed["stats"]["pool_bytes"] / 1e6,
+                tails=graphed["stats"].get("tails", 0),
+                patterns=sorted(set(map(tuple, graphed["patterns"]))),
+                bytes_a_step={g: v / len(graphed["rows"])
+                              for g, v in by_group.items()},
+                launches=graphed["launches"])
+        if not any(set(q) == {False, True} for q in p["mixed"][0]["patterns"]):
+            bad.append(f"mixed: patterns {p['mixed'][0]['patterns']} never "
+                       f"mixed")
+        if not (p["20b"][0]["patterns"]
+                and all(all(q) for q in p["20b"][0]["patterns"])):
+            bad.append(f"20b: patterns {p['20b'][0]['patterns']}")
+        d20 = res["p20"]["d"]
+        for run, x in p["fits_eager"].items():
+            if (x["digest"], x["history"]) != (d20[run]["digest"],
+                                               d20[run]["history"]):
+                bad.append(f"fit {run}: graphed differs from eager")
+        failed += [f"rank {r}: {b}" for b in bad]
+        rows[r] = row
+    if cli["graphed"]["test"] != cli["eager"]["test"]:
+        failed.append(f"CLI: K = 32 {cli['graphed']['test']} against K = 1 "
+                      f"{cli['eager']['test']}")
+    return failed, rows
+
+
+P22_CASES = ("19a", "19b", "20a", "20b", "mixed", "21a")
+
+
+def p22_report(ranks, one22, smi):
+    """Phase 22 (b) after the world: the CLI pair, the gates, and the
+    step ms a rank graphed and eager beside one rank's and the scaling
+    model's prediction."""
+    from clsr_tpu_torch import scaling_model
+    root = tempfile.mkdtemp(prefix="clsr_phase22_")
+    try:
+        cli = p22_cli(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failed, rows = p22_check(ranks, cli)
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True).stdout
+    log("phase 22 (b): nvidia-smi topo -m\n" + topo.rstrip())
+    t1 = {b: v[0] for b, v in one22.items()}
+    predicted = {}
+    for r, row in rows.items():
+        p = ranks[r]["p22"]
+        bytes41 = {}
+        for c in p["4x1_eager"]["calls"]:
+            bytes41[c[1]] = bytes41.get(c[1], 0) + c[4]
+        pred22 = scaling_model.predict_step_ms(t1[TRAIN_B // 4],
+                                               row["19a"]["bytes_a_step"])
+        pred41 = scaling_model.predict_step_ms(t1[TRAIN_B // 4], bytes41)
+        predicted[r] = {"2x2": pred22, "4x1": pred41,
+                        "4x1_ms": p["4x1"]["ms"]}
+        eager_ms = ranks[r]["a"]["ms"]
+        log(f"phase 22 (b) rank {r}: graphed = eager bit for bit in "
+            + ", ".join(f"{k} {v['same']}" for k, v in row.items())
+            + f"; (2, 2) lazyadam step {row['19a']['ms']:.2f} ms graphed, "
+            f"{eager_ms:.2f} ms eager (phase 19 (a)), one rank's graphed "
+            f"{t1[TRAIN_B // 4]:.2f} ms at {TRAIN_B // 4} rows and "
+            f"{t1[TRAIN_B]:.2f} ms at {TRAIN_B}; predicted {pred22:.2f} ms "
+            f"(2, 2) and {pred41:.2f} ms (4, 1) against {p['4x1']['ms']:.2f}"
+            f" ms graphed at (4, 1); capture s / pool MB / tails by check "
+            + ", ".join(f"{k} {v['capture_s']:.2f} / {v['pool_mb']:.0f} / "
+                        f"{v['tails']}" for k, v in row.items())
+            + f"; ms a step graphed "
+            + ", ".join(f"{k} {v['ms']:.2f}" for k, v in row.items())
+            + f"; bytes a step (2, 2) {row['19a']['bytes_a_step']}; the "
+            f"mixed check's patterns {row['mixed']['patterns']}; eager fits "
+            f"{ranks[r]['p22']['fits_s']:.1f} s; rank s "
+            f"{ranks[r]['p22']['s']:.1f} | {smi}")
+    graphed = {k: sum(res["p22"][name][1]["launches"].get(k, 0)
+                      for res in ranks for name in P22_CASES)
+               for k in P22_KERNELS}
+    log(f"phase 22 (b): launches of the graphed calls, summed over the "
+        f"ranks: {graphed}")
+    log(f"phase 22 (b): the CLI at (2, 2) over nccl, K = 32 "
+        f"{cli['graphed']['s']:.1f} s, K = 1 {cli['eager']['s']:.1f} s, the "
+        f"same test dict {cli['graphed']['test'] == cli['eager']['test']}: "
+        f"{cli['graphed']['test']}")
+    if failed:
+        raise AssertionError("phase 22 (b): " + "; ".join(failed))
+    return dict(ranks=rows, one_rank={b: dict(ms=v[0], times=v[1])
+                                      for b, v in one22.items()},
+                predicted=predicted, cli=cli, topo=topo,
+                graphed_launches=graphed)
+
+
 def main():
     smi = card_check()
+    counting = p22_start_count()
+    try:
+        run_phases(smi, counting)
+    finally:
+        if counting.poll() is None:     # a phase failed before (a):
+            os.killpg(counting.pid, 9)  # the count and its ranks
+            counting.wait()
+
+
+def run_phases(smi, counting):
     sys.path.insert(0, ROOT)
     phase_s = {}
 
@@ -6453,6 +6930,15 @@ def main():
     long = timed("long context", long_context, smi)
     etl18 = timed("etl", etl_phase, smi)
     mesh19 = timed("mesh", mesh_phase, smi, "gloo", p20_sets)
+    scaling = timed("scaling", p22_scaling, smi, counting)
+    if torch.cuda.device_count() >= 4:
+        mesh22 = timed("mesh nccl", mesh_phase, smi, "nccl", p20_sets)
+    else:
+        mesh22 = None
+        log(f"phase 22 (b): needs 4 cards, this host has "
+            f"{torch.cuda.device_count()}: not run (on a host of 4: "
+            f"python3 -c \"import chip_smoke as c; s = c.card_check(); "
+            f"c.build_kernels(); c.mesh_phase(s, 'nccl')\")")
     launches = {
         "serve": {"eval_scorer": served["runs"]["k1"]["launches"]
                   ["eval_scorer"],
@@ -6466,6 +6952,8 @@ def main():
         **zoo["launches"], **rest["launches"],
         **fit["launches"], **long["launches"], **etl18["launches"],
         **mesh19["launches"]}
+    if mesh22 is not None:
+        launches["p22_mesh_graphed"] = mesh22["launches"]["p22_mesh_graphed"]
     meta = {
         "eval_scorer": ("clsr_tpu_torch/csrc/eval_scorer.cu",
                         "clsr_tpu/ops/pallas_attention.py:147"),
@@ -6525,7 +7013,11 @@ def main():
                    "etl": {k: v for k, v in etl18.items()
                            if k != "launches"},
                    "mesh": {k: v for k, v in mesh19.items()
-                            if k != "launches"}}, f,
+                            if k != "launches"},
+                   "scaling": scaling,
+                   "mesh_nccl": (None if mesh22 is None else
+                                 {k: v for k, v in mesh22.items()
+                                  if k != "launches"})}, f,
                   indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -175,6 +175,12 @@ class EmbedContext:
 class SequentialModelBase(nn.Module):
     """Embeddings + lookups + head.  Subclasses define seq_graph."""
 
+    # True for a model whose forward reads every row of its tables, so
+    # that a table's gradient may touch any row (LGN); else a table's
+    # gradient touches only the rows at the batch's ids
+    # (training/lazy_adam.py `batch_table_ids`)
+    reads_whole_tables = False
+
     def __init__(self, cfg: Config, n_users: int, n_items: int,
                  n_cates: int, device=None,
                  generator: Optional[torch.Generator] = None):

@@ -56,6 +56,8 @@ from clsr_tpu_torch.parallel.mesh import active_mesh, logical_table
 
 class LGNModel(SequentialModelBase):
 
+    reads_whole_tables = True     # the propagation reaches every row
+
     def __init__(self, cfg, n_users: int, n_items: int, n_cates: int,
                  device=None, generator=None,
                  graph: Optional[InteractionGraph] = None):

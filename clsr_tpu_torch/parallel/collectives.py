@@ -39,9 +39,19 @@ reduce_scatter and all_to_all, each one all-to-all, receive
 in * (g-1)/g; a broadcast's receivers receive its payload, its source
 nothing.  Outside the block it costs one list test a call.
 
+A CUDA graph replays its collectives without Python, so the count
+records them at capture: inside `with capturing() as calls:` (the
+captured step, training/steps.py) the calls go to `calls` alone (the
+capture runs nothing), and `replayed(calls)` after each replay appends
+them to every open recorder, as `ops.launches.add` does for the
+kernels' counters.  A graphed call of K steps so counts what K eager
+steps do.
+
 Under the gloo backend a CUDA tensor goes through host memory (gloo's
 transport), and bool and bf16 tensors travel as uint8 and f32 (exact);
-under nccl tensors stay on their card.  A group of one rank returns its
+under nccl a tensor stays on its card (the casts run there, and the
+all_gather writes one [n, ...] tensor), so a CUDA graph can capture
+every collective.  A group of one rank returns its
 input without a call.
 """
 
@@ -91,6 +101,27 @@ def count_collectives() -> Iterator[List[Call]]:
         _recorders.remove(calls)
 
 
+@contextlib.contextmanager
+def capturing() -> Iterator[List[Call]]:
+    """Inside a CUDA graph's capture: record the collectives in the
+    yielded list alone, none in the open recorders (the capture runs
+    nothing); `replayed` adds them after each replay."""
+    global _recorders
+    outer, calls = _recorders, []
+    _recorders = [calls]
+    try:
+        yield calls
+    finally:
+        _recorders = outer
+
+
+def replayed(calls: List[Call]) -> None:
+    """A captured graph was replayed: append its capture's calls to
+    every open recorder."""
+    for rec in _recorders:
+        rec.extend(calls)
+
+
 def _record(kind: str, w: torch.Tensor, group, n: int,
             received=None) -> None:
     if not _recorders:
@@ -135,9 +166,13 @@ def _gather(x: torch.Tensor, group, kind: str) -> torch.Tensor:
         return x[None]
     w = _to_wire(x, group)
     _record(kind, w, group, n)
-    out = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(out, w, group=group)
-    return _from_wire(torch.stack(out), x)
+    if dist.get_backend(group) == "gloo":
+        out = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(out, w, group=group)
+        return _from_wire(torch.stack(out), x)
+    out = w.new_empty((n,) + tuple(w.shape))
+    dist.all_gather_into_tensor(out, w, group=group)
+    return _from_wire(out, x)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -41,9 +41,10 @@ and the mesh makes every global quantity explicit:
     data column as every table's (training/steps.py `reduce_grads`).
   * the sharded builders (JAX :170-305): training/steps.py's
     `make_train_step(model, cfg, mesh)` and `make_multi_train_step(...,
-    mesh)` take this rank's share of the batch (K steps a call run
-    eagerly on a mesh: a CUDA graph cannot capture gloo's host-staged
-    collectives, so graphed mesh steps wait for an NCCL run);
+    mesh)` take this rank's share of the batch (K steps a call: CUDA
+    graph replays on every rank when the backend is nccl, whose
+    collectives run on the card's stream; eager steps under gloo, whose
+    host-staged collectives a graph cannot capture);
     `make_sharded_eval_step` takes the global batch (padded to a
     multiple of n_batch, JAX trainer.py:69-82) and returns the global
     predictions.

@@ -64,12 +64,17 @@ JAX package's mesh updates:
     them over the data column, and merges them (sentinels sort last);
     the clip norm is the model row's sum of the owners' disjoint
     partial sums of squares.  A (source, owner) entry past C is an
-    overflow: the count is summed over the world, so every rank holds
-    the same integer.  Under `mesh_owner_overflow: fallback` a table
-    whose count is nonzero takes the broadcast merge that step (every
-    rank reads the same count, so every rank takes the same branch);
-    under `drop` the entries are dropped.  The counts add up in the
-    state's `route_overflow`, a device int32 counter.
+    overflow.  Every owner-routed table's buckets come first
+    (`owner_buckets`: they read only the plans and the w-space
+    gradients), then one world all_reduce of the tables' counts, so
+    every rank holds the same integers.  Under `mesh_owner_overflow:
+    fallback` a table whose count is nonzero takes the broadcast merge
+    that step (JAX's `lax.cond`): the step reads the counts once, as
+    one small tensor (`MeshMerge.pattern`), and every rank takes the
+    same branches; under `drop` the entries are dropped and nothing is
+    read.  A captured step (training/steps.py) is a graph up to the
+    counts and a graph of the rest for each pattern.  The counts add up
+    in the state's `route_overflow`, a device int32 counter.
 
 All write through K5, the rows the rank does not own filtered out
 first: the owned rows' local targets come first, ascending, and the
@@ -80,7 +85,7 @@ holds the rows rounded to the table's type, as on one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -136,6 +141,29 @@ class LazyAdamState:
     count: torch.Tensor
     dense_opt: torch.optim.Optimizer
     route_overflow: torch.Tensor
+
+
+@dataclasses.dataclass
+class MeshMerge:
+    """A mesh compact step's table updates after the owner-routed merge's
+    buckets (`LazyAdam.compact_mesh_update`).  `counts` [T] int32 holds
+    the owner-routed tables' overflow counts, summed over the world, when
+    a nonzero count changes a table's merge (`mesh_owner_overflow:
+    fallback`), else None.  `finish(pattern)` runs the rest of the
+    update, the row merges, K5, the clip and dense Adam: pattern[i] True
+    takes the broadcast merge for owner-routed table i (JAX's
+    `lax.cond`, :532, :581), () the owner merge for every one.  Every
+    rank reads the same world sums, so every rank takes the same
+    branches and issues the same collectives."""
+
+    counts: Optional[torch.Tensor]
+    finish: Callable[[Tuple[bool, ...]], None]
+
+    def pattern(self) -> Tuple[bool, ...]:
+        """The branches of this step: one host read of `counts`."""
+        if self.counts is None:
+            return ()
+        return tuple(bool(c) for c in self.counts.tolist())
 
 
 def is_pmn(param: torch.Tensor, mn: torch.Tensor) -> bool:
@@ -366,21 +394,19 @@ class LazyAdam:
         return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)]
 
     @torch.no_grad()
-    def compact_table_update_mesh_owner(self, param: torch.Tensor,
-                                        gw: torch.Tensor, mn: torch.Tensor,
-                                        plan, t, mesh, n_rows: int
-                                        ) -> Tuple[List[Entry],
-                                                   torch.Tensor]:
-        """The owner-routed merge (JAX :420-606) for this rank's block of
-        a row-sharded pmn table of n_rows logical rows: (entries, the
-        step's overflow count summed over the world, int32).  Under
-        `mesh_owner_overflow: fallback` a nonzero count makes it the
-        broadcast merge's entries (`compact_table_update_mesh`)."""
+    def owner_buckets(self, param: torch.Tensor, gw: torch.Tensor,
+                      mn: torch.Tensor, plan, mesh, n_rows: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The owner-routed merge's first half (JAX :420-531) for this
+        rank's block of a row-sharded pmn table of n_rows logical rows:
+        (the wire tensor [m * C, D + 1] of the rank's unique rows' (id,
+        gradient) bucketed by owner, the rank's overflowed entries, int32
+        [1]).  No collective: it reads the plan and the w-space gradient,
+        which no table's update changes."""
         D = param.shape[1]
         if not is_pmn(param, mn):
             raise ValueError("the owner-routed merge needs the pmn layout")
         N, m, rows = n_rows, mesh.n_model, param.shape[0]
-        j = mesh.model_index
         dev = gw.device
         ids = plan.sorted_ids
         Mi = ids.shape[0]
@@ -415,12 +441,21 @@ class LazyAdam:
                           send_ids[:m * C].view(torch.float32)[:, None]], 1)
         lost = run_ok & ~in_cap
         if not mesh.flat:   # the model row holds one stream: count once
-            lost = lost & (owner == j)
-        ovf = col.all_reduce(lost.sum().to(torch.int32)[None],
-                             mesh.world)[0]
-        if self.cfg.mesh_owner_overflow == "fallback" and int(ovf):
-            return self.compact_table_update_mesh(
-                param, gw, mn, plan, t, mesh, n_rows, True), ovf
+            lost = lost & (owner == mesh.model_index)
+        return send, lost.sum().to(torch.int32)[None]
+
+    @torch.no_grad()
+    def owner_merge(self, param: torch.Tensor, mn: torch.Tensor,
+                    send: torch.Tensor, t, mesh, n_rows: int
+                    ) -> List[Entry]:
+        """The owner-routed merge's second half (JAX :533-606): route
+        each bucket of `send` (`owner_buckets`) to its owner, collect the
+        column's, merge them and update the rank's owned rows."""
+        D = param.shape[1]
+        N, m, rows = n_rows, mesh.n_model, param.shape[0]
+        j = mesh.model_index
+        dev = send.device
+        C = send.shape[0] // m
         # 3. route each bucket to its owner; 4. collect the column's
         if mesh.flat:
             got = col.all_to_all(send.reshape(m, C, D + 1),
@@ -457,34 +492,55 @@ class LazyAdam:
         tgt, new_rows, mn_rows = _owned_first(
             loc, ok, rows, new_rows,
             torch.cat([new_rows.float(), m_new, v_new], -1))
-        return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)], ovf
+        return [(param.data, tgt, new_rows), (mn, tgt, mn_rows)]
 
     def compact_mesh_update(self, model: nn.Module, state: LazyAdamState,
                             gws: Dict[str, torch.Tensor],
                             plans: Dict[str, Plan],
-                            table_names: Dict[str, str], mesh) -> None:
+                            table_names: Dict[str, str], mesh
+                            ) -> "MeshMerge":
         """Mesh compact table updates and dense Adam (JAX :633-666): the
         owner-routed merge for every row-sharded table under
         `mesh_update_routing: owner`, else (and for a replicated table)
         the broadcast merge; the dense gradients arrive summed over the
-        batch shards."""
+        batch shards.  It runs every owner-routed table's buckets and
+        one world all_reduce of their overflow counts, adds them to
+        `route_overflow`, and returns the rest as a `MeshMerge` to
+        finish: under `mesh_owner_overflow: fallback` each table's branch
+        waits for the counts' one host read."""
         owner = self.cfg.mesh_update_routing == "owner"
-        overflows = []
-
-        def per_table(path, param, mn, t):
-            name = table_names[path]
+        routed = {}                 # table path -> the owner merge's wire
+        losts = []
+        tables, _ = _split(model)
+        for path, param in tables.items():
             n_rows = getattr(param, "mesh_rows", None)
             if owner and n_rows is not None:
-                entries, ovf = self.compact_table_update_mesh_owner(
-                    param, gws[name], mn, plans[name], t, mesh, n_rows)
-                overflows.append(ovf)
-                return entries
-            return self.compact_table_update_mesh(
-                param, gws[name], mn, plans[name], t, mesh,
-                n_rows or param.shape[0], n_rows is not None)
-        self._finish(model, state, per_table)
-        for ovf in overflows:
-            state.route_overflow.add_(ovf)
+                name = table_names[path]
+                routed[path], lost = self.owner_buckets(
+                    param, gws[name], state.moments[path], plans[name],
+                    mesh, n_rows)
+                losts.append(lost)
+        counts = None
+        if losts:
+            counts = col.all_reduce(torch.cat(losts), mesh.world)
+            state.route_overflow.add_(counts.sum(dtype=torch.int32))
+
+        def finish(pattern: Tuple[bool, ...] = ()) -> None:
+            fallback = {p for p, f in zip(routed, pattern) if f}
+
+            def per_table(path, param, mn, t):
+                name = table_names[path]
+                n_rows = getattr(param, "mesh_rows", None)
+                if path in routed and path not in fallback:
+                    return self.owner_merge(param, mn, routed[path], t,
+                                            mesh, n_rows)
+                return self.compact_table_update_mesh(
+                    param, gws[name], mn, plans[name], t, mesh,
+                    n_rows or param.shape[0], n_rows is not None)
+            self._finish(model, state, per_table)
+
+        fallback_mode = self.cfg.mesh_owner_overflow == "fallback"
+        return MeshMerge(counts if fallback_mode else None, finish)
 
     def _finish(self, model: nn.Module, state: LazyAdamState,
                 per_table: Callable[[str, torch.Tensor, torch.Tensor,

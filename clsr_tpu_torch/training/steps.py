@@ -55,7 +55,12 @@ param column the tables do not hold yet.
 K train steps a host call (`make_multi_train_step`, :267-290, and
 `stack_batches`, :293): JAX scans K steps in one dispatch; here one
 train step is captured in a CUDA graph and replayed K times a call
-(`MultiTrainStep`), which the fit runs when train_steps_per_call > 1.
+(`MultiTrainStep`), which the fit runs when train_steps_per_call > 1;
+on a mesh too when its backend is nccl (JAX's
+`make_sharded_multi_train_step`, parallel/mesh.py:220-271).  A mesh
+step whose owner-routed merge may fall back reads its overflow counts
+once (`Staged`): it is a head graph, the read, and a tail graph a
+branch pattern.
 
 Resident steps (clsr_tpu/data/resident.py:530-639): `make_resident_step`
 and `make_resident_multi_step` gather each step's batch on the device
@@ -79,10 +84,12 @@ range cross to the host.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from clsr_tpu_torch.config import Config
@@ -91,6 +98,7 @@ from clsr_tpu_torch.data.resident import (EpochFeed, ResidentDataset,
                                           gather_batch, gather_batch_mesh)
 from clsr_tpu_torch.models.base import check_not_quantized
 from clsr_tpu_torch.ops import launches
+from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel.collectives import all_reduce
 from clsr_tpu_torch.parallel.embedding import gather_rows
 from clsr_tpu_torch.parallel.mesh import (Mesh, gather_rows_of, is_table,
@@ -101,7 +109,7 @@ from clsr_tpu_torch.training.compact_rows import (build_plans, gather_ws,
                                                   make_context,
                                                   supported_tables)
 from clsr_tpu_torch.training.lazy_adam import (LazyAdam, LazyAdamState,
-                                               batch_table_ids,
+                                               MeshMerge, batch_table_ids,
                                                fused_tables_enabled, is_pmn,
                                                per_position)
 from clsr_tpu_torch.training.losses import LossParts, total_loss
@@ -125,14 +133,18 @@ def _mesh_of(cfg: Config, mesh: Optional[Mesh]) -> Optional[Mesh]:
 
 
 @torch.no_grad()
-def reduce_grads(model: torch.nn.Module, mesh: Mesh) -> None:
+def reduce_grads(model: torch.nn.Module, mesh: Mesh, batch: Batch) -> None:
     """Sum the batch shards' gradients, in place: the replicated
     parameters' over the batch group in one all_reduce of their
     concatenation, each row-sharded table block's over the data column
     (its model row holds the other blocks).  A block's rows that no rank
-    of the column touched are zero on every rank, so only the rows some
-    rank's gradient has nonzero travel: the same sums, a batch's rows in
-    place of the block's (one host sync a table)."""
+    of the column touched are zero on every rank, so only a fixed set of
+    rows travels: the touched rows in ascending order, padded to the
+    most rows the column's batch can touch (`_touched_bound`) with row
+    0, whose padded sums are row 0's own sum.  The same sums in the same
+    rank order, a batch's rows in place of the block's, and no host
+    sync, so a CUDA graph can capture it.  `batch` is this rank's shard,
+    negatives drawn."""
     dense = [p for n, p in model.named_parameters()
              if p.grad is not None and getattr(p, "mesh_rows", None) is None]
     if dense:
@@ -140,13 +152,34 @@ def reduce_grads(model: torch.nn.Module, mesh: Mesh) -> None:
                           mesh.batch_group)
         for p, g in zip(dense, flat.split([p.numel() for p in dense])):
             p.grad.copy_(g.view_as(p.grad))
-    for p in sharded_tables(model).values():
+    ids = batch_table_ids(batch)
+    for name, p in sharded_tables(model).items():
         if p.grad is None:
             continue
+        n = _touched_bound(model, name, ids, mesh, p.shape[0])
         touched = all_reduce((p.grad != 0).any(1).to(torch.uint8),
                              mesh.data_group)
-        rows = touched.nonzero()[:, 0]
+        # the k-th touched row: the first whose running count reaches k
+        rows = torch.searchsorted(torch.cumsum(touched > 0, 0),
+                                  torch.arange(1, n + 1,
+                                               device=touched.device))
+        rows = torch.where(rows < p.shape[0], rows, torch.zeros_like(rows))
         p.grad[rows] = all_reduce(p.grad[rows], mesh.data_group)
+
+
+def _touched_bound(model: torch.nn.Module, name: str,
+                   ids: Dict[str, torch.Tensor], mesh: Mesh,
+                   rows: int) -> int:
+    """The most rows of a table block the data column's gradients can
+    touch: each of the n_batch batch shards looks up its ids (a flat
+    batch's model row hands a block its shards' rows, a replicated
+    batch's the one shard's), capped at the block's rows; every row for
+    a model that reads whole tables (LGN) or a table without known
+    ids."""
+    table_ids = ids.get(name.rpartition(".")[2])
+    if table_ids is None or getattr(model, "reads_whole_tables", False):
+        return rows
+    return min(rows, mesh.n_batch * table_ids.numel())
 
 
 def _clip_dense(model: torch.nn.Module, cfg: Config,
@@ -205,7 +238,7 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
             parts.loss.backward()
         if mesh is not None:
             with record_function("train_step.reduce_grads"):
-                reduce_grads(model, mesh)
+                reduce_grads(model, mesh, batch)
         return parts
 
     def compact_step(state: TrainState, batch: Batch,
@@ -231,15 +264,16 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
         parts = forward_backward(batch, generator, make_context(plans, ws))
         lazy.compact_update(model, opt, {k: w.grad for k, w in ws.items()},
                             plans, ws_full if fused else ws, table_names)
-        return parts
+        return parts, None
 
     def mesh_compact_step(state: TrainState, batch: Batch,
                           generator: torch.Generator, tables
-                          ) -> LossParts:
+                          ) -> Tuple[LossParts, MeshMerge]:
         """The compact row engine on the mesh (JAX :131-163,
         training/mesh_compact.py): this rank's plans with the global
         merge order, one collective row gather per table, the w-space
-        backward on the rank's rows, the broadcast merge."""
+        backward on the rank's rows, and the merges, to finish
+        (`MeshMerge`)."""
         opt = state.optimizer
         plans = build_mesh_plans(table_names, batch, mesh)
         ws_full = gather_mesh_ws(
@@ -250,10 +284,9 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
               .to(p.dtype).contiguous().requires_grad_()
               for n, p in tables.items()}
         parts = forward_backward(batch, generator, make_context(plans, ws))
-        lazy.compact_mesh_update(model, opt,
-                                 {k: w.grad for k, w in ws.items()}, plans,
-                                 table_names, mesh)
-        return parts
+        return parts, lazy.compact_mesh_update(
+            model, opt, {k: w.grad for k, w in ws.items()}, plans,
+            table_names, mesh)
 
     def compact_applies(state: TrainState) -> bool:
         """The compact engine runs; on a mesh only on the pmn layout (JAX
@@ -267,37 +300,54 @@ def _make_step_body(model: torch.nn.Module, cfg: Config,
                    for n in table_names)
 
     def run(state: TrainState, batch: Batch, generator: torch.Generator
-            ) -> LossParts:
+            ) -> Tuple[LossParts, Optional[MeshMerge]]:
+        """The step; on a mesh under the compact engine its merges are
+        left to finish."""
         if cfg.need_sample and num_ngs > 0:
             with record_function("train_step.negatives"):
                 batch = on_global_batch(expand, generator, batch, num_ngs,
                                         per_position(cfg))
         model.train()
         if compact_applies(state):
-            parts = compact_step(state, batch, generator)
+            return compact_step(state, batch, generator)
+        parts = forward_backward(batch, generator)
+        if lazy is not None:
+            lazy.update(model, state.optimizer, batch_table_ids(batch),
+                        mesh)
         else:
-            parts = forward_backward(batch, generator)
-            if lazy is not None:
-                lazy.update(model, state.optimizer, batch_table_ids(batch),
-                            mesh)
-            else:
-                if cfg.is_clip_norm:
-                    with record_function("train_step.clip"):
-                        _clip_dense(model, cfg, mesh)
-                with record_function("train_step.adam"):
-                    state.optimizer.step()
-        return parts
+            if cfg.is_clip_norm:
+                with record_function("train_step.clip"):
+                    _clip_dense(model, cfg, mesh)
+            with record_function("train_step.adam"):
+                state.optimizer.step()
+        return parts, None
 
-    if mesh is None:
-        run.mesh = None
-        return run
+    def stage(state: TrainState, batch: Batch, generator: torch.Generator
+              ) -> Staged:
+        """The step up to its one host read, if it has one."""
+        if mesh is None:
+            return Staged(_row(run(state, batch, generator)[0]), None)
+        with use_mesh(mesh):
+            parts, merge = run(state, batch, generator)
+            row = _row(_global_parts(parts, mesh))
+            if merge is not None and merge.counts is None:
+                merge.finish()
+                merge = None
+        if merge is not None:
+            finish = merge.finish
+
+            def finish_on_mesh(pattern=()):
+                with use_mesh(mesh):
+                    finish(pattern)
+            merge = MeshMerge(merge.counts, finish_on_mesh)
+        return Staged(row, merge)
 
     def body(state: TrainState, batch: Batch, generator: torch.Generator
              ) -> LossParts:
-        with use_mesh(mesh):
-            return _global_parts(run(state, batch, generator), mesh)
+        return _parts(_run_eager(stage(state, batch, generator)))
 
     body.mesh = mesh
+    body.stage = stage
     return body
 
 
@@ -378,6 +428,47 @@ def _parts(rows: torch.Tensor) -> LossParts:
     return LossParts(**{f: rows[..., i] for i, f in enumerate(LOSS_FIELDS)})
 
 
+@dataclasses.dataclass
+class Staged:
+    """A train step run up to its one host read: the global loss parts
+    [len(LOSS_FIELDS)], and `merge`, the update left to finish after the
+    read (training/lazy_adam.py `MeshMerge`: on a mesh, the owner-routed
+    merge under `mesh_owner_overflow: fallback`), or None when the step
+    is whole."""
+
+    row: torch.Tensor
+    merge: Optional[MeshMerge]
+
+
+def _run_eager(staged: Staged, warmed: Optional[set] = None
+               ) -> torch.Tensor:
+    """Finish a staged step eagerly (its one host read, then the branches
+    it picks); its loss row.  The pattern joins `warmed`, the patterns
+    whose finish has run eagerly and may now be captured."""
+    if staged.merge is not None:
+        pattern = staged.merge.pattern()
+        staged.merge.finish(pattern)
+        if warmed is not None:
+            warmed.add(pattern)
+    return staged.row
+
+
+def graph_refusal(mesh: Optional[Mesh], device: torch.device
+                  ) -> Optional[str]:
+    """Why steps on `device` (and `mesh`) run eagerly, or None when a
+    CUDA graph captures them: a CUDA device, and on a mesh the nccl
+    backend."""
+    if torch.device(device).type != "cuda":
+        return "the tensors are on the CPU"
+    if mesh is not None:
+        backend = dist.get_backend(mesh.world)
+        if backend != "nccl":
+            return (f"the mesh's backend is {backend}: a CUDA graph "
+                    f"cannot capture its host-staged collectives (nccl's "
+                    f"run on the card's stream)")
+    return None
+
+
 class MultiTrainStep:
     """K train steps a host call (JAX's `make_multi_train_step`,
     :267-290): `multi(state, stacked, generator)` runs the steps of a
@@ -395,42 +486,51 @@ class MultiTrainStep:
 
       * a warm-up: the first step after a (re)bind runs eagerly, a real
         step of the fit, which builds the kernels, Adam's state, the K1
-        and K3 workspaces and cuBLAS's; the next step is captured, and
+        and K3 workspaces and cuBLAS's (on a mesh also the process
+        groups' NCCL communicators); the next step is captured, and
         every later one replays;
       * the fit's generator registered with the graph, so that replay i
         draws the negatives and dropout masks eager step i would;
       * capturable Adam (training/optimizer.py) and lazyadam's device
         step count (training/lazy_adam.py), so that the step reads
         nothing from the host;
-      * the launch counters: a wrapper ticks once at capture and never
-        at replay, so the capture's counts are taken back and added
-        after every replay (`ops.launches`).
+      * the launch counters and the collective-byte count: a wrapper
+        ticks and a collective records once at capture and never at
+        replay, so the capture's counts and calls are taken back and
+        added after every replay (`ops.launches`,
+        `parallel.collectives.replayed`).
 
-    `.grad` and the captured outputs live in the graph's pool and hold
-    the last replay's values until the next replay.  The graph keeps
-    the state's tensors: `reset()` drops it (Trainer.load does, since
+    On a (data, model) mesh the same holds when the mesh's backend is
+    nccl (a card a rank; `graph_refusal`): the graph captures the step's
+    collectives, and every rank captures and replays in lockstep.  A
+    step with a host read (`Staged`: the owner merge's overflow counts
+    under `fallback`) is captured as a head graph up to the counts, then
+    the one read, then one tail graph for each branch pattern seen, each
+    captured at its pattern's second use, after an eager warm-up of the
+    pattern's tail, in a pool of its own.  The counts are world sums, so
+    every rank picks the same pattern.  Under gloo the steps run
+    eagerly (a graph cannot capture gloo's host-staged collectives).
+
+    `.grad` and the captured outputs live in the graphs' pools and hold
+    the last replay's values until the next replay.  The graphs keep
+    the state's tensors: `reset()` drops them (Trainer.load does, since
     loading replaces the optimizers' tensors), and a call with another
     state or generator warms up and captures again.  A capture that
-    fails raises; no CUDA step falls back to the eager step.
-
-    On a mesh every step runs eagerly (parallel/mesh.py: a graph cannot
-    capture gloo's host-staged collectives)."""
+    fails raises; no CUDA step falls back to the eager step."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
                  steps_per_call: int, mesh: Optional[Mesh] = None):
         self.steps_per_call = steps_per_call
         self._body = _make_step_body(model, cfg, None, mesh)
-        self._graphed = self._body.mesh is None
         self.capture_stats: Optional[dict] = None
         self.reset()
 
     def reset(self) -> None:
-        """Drop the graph; the next CUDA step warms up and captures."""
+        """Drop the graphs; the next CUDA step warms up and captures."""
         self._bound = None          # (state, generator) of the warm-up
-        self._graph = None
+        self._captured: Optional[_CapturedStep] = None
         self._static: List[torch.Tensor] = []
-        self._out: Optional[torch.Tensor] = None
-        self._counts: Dict[str, int] = {}
+        self._warmed: set = set()   # patterns whose tail ran eagerly
 
     def __call__(self, state: TrainState, stacked: Batch,
                  generator: torch.Generator
@@ -449,62 +549,131 @@ class MultiTrainStep:
 
     def _step(self, state, batch, generator) -> torch.Tensor:
         """One step; its loss parts as a [len(LOSS_FIELDS)] tensor."""
-        on_card = batch.users.device.type == "cuda" and self._graphed
+        on_card = graph_refusal(self._body.mesh, batch.users.device) is None
         bound = (self._bound is not None and self._bound[0] is state
                  and self._bound[1] is generator)
         if on_card and bound:
-            if self._graph is None:
-                self._capture(state, batch, generator)
+            if self._captured is None:
+                # the callable keeps no reference to self: a cycle would
+                # leave the graphs to the garbage collector
+                body = self._body
+                static = self._static = [t.clone() for t in _fields(batch)]
+                self._captured = _CapturedStep(
+                    lambda: body.stage(state, Batch(*static), generator),
+                    generator, batch.users.device, self._warmed)
             torch._foreach_copy_(self._static, _fields(batch))
-            self._graph.replay()
-            launches.add(self._counts)
-            row = self._out.clone()
+            row = self._captured.run()
+            self.capture_stats = self._captured.stats
         else:
             if on_card:             # the warm-up of a new binding
                 self.reset()
                 self._bound = (state, generator)
-            row = _row(self._body(state, batch, generator))
+            row = _run_eager(self._body.stage(state, batch, generator),
+                             self._warmed)
         state.step += 1
         return row
 
-    def _capture(self, state, batch, generator) -> None:
-        self._static = [t.clone() for t in _fields(batch)]
-        self._graph, self._out, self._counts, self.capture_stats = \
-            _capture_step(lambda: _row(self._body(
-                state, Batch(*self._static), generator)),
-                generator, batch.users.device)
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    out: object                 # what the captured callable returned
+    counts: Dict[str, int]      # the launches a replay adds
+    calls: list                 # the collectives a replay adds
+    stats: dict
+
+    def replay(self):
+        self.graph.replay()
+        launches.add(self.counts)
+        col.replayed(self.calls)
+        return self.out
 
 
-def _capture_step(run: Callable[[], torch.Tensor],
-                  generator: torch.Generator, device: torch.device):
-    """Capture `run` (one train step, returning its loss row) in a CUDA
-    graph of its own memory pool, with `generator` registered:
-    (graph, the captured row, the launch counts a replay adds, stats).
-    Capturing runs nothing, so the counters' ticks are taken back."""
+class _CapturedStep:
+    """A step captured as CUDA graphs (see `MultiTrainStep`): the head,
+    `stage()` (the whole step, or up to its host read), and a tail a
+    branch pattern; `run()` replays them, tails captured or warmed up as
+    they come, and returns a clone of the step's loss row."""
+
+    def __init__(self, stage: Callable[[], Staged],
+                 generator: torch.Generator, device: torch.device,
+                 warmed: set):
+        self._stage, self._generator, self._device = stage, generator, \
+            device
+        self._warmed = warmed
+        self._head: Optional[_Graph] = None
+        self._tails: Dict[Tuple[bool, ...], _Graph] = {}
+        self.stats: Optional[dict] = None
+
+    def run(self) -> torch.Tensor:
+        if self._head is None:
+            self._head = _capture_step(self._stage, self._generator,
+                                       self._device)
+            self.stats = dict(self._head.stats, tails=0)
+        staged = self._head.replay()
+        if staged.merge is not None:
+            pattern = staged.merge.pattern()
+            tail = self._tails.get(pattern)
+            if tail is None and pattern in self._warmed:
+                tail = self._tails[pattern] = _capture_step(
+                    lambda: staged.merge.finish(pattern), None,
+                    self._device)
+                st = self.stats
+                self.stats = dict(
+                    st, capture_s=st["capture_s"] + tail.stats["capture_s"],
+                    pool_bytes=st["pool_bytes"] + tail.stats["pool_bytes"],
+                    tails=st["tails"] + 1)
+            if tail is None:        # the pattern's eager warm-up
+                staged.merge.finish(pattern)
+                self._warmed.add(pattern)
+            else:
+                tail.replay()
+        return staged.row.clone()
+
+
+def _capture_step(run: Callable[[], object],
+                  generator: Optional[torch.Generator],
+                  device: torch.device) -> _Graph:
+    """Capture `run` (a train step or a part of one) in a CUDA graph of
+    its own memory pool, with `generator` registered (if any): the
+    graph, what `run` returned, the launch counts and collective calls a
+    replay adds, and stats.  Capturing runs nothing, so the counters'
+    ticks are taken back and the calls recorded apart."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
+    if generator is not None:
+        graph.register_generator_state(generator)
     before = launches.snapshot()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
+    # no garbage collection inside the capture: collecting a dead object
+    # that holds another CUDA graph would destroy that graph mid-capture,
+    # which invalidates the capture
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         # thread_local: the prefetch thread may pin host memory and copy
-        # on its own stream while the step is captured
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        # on its own stream, and NCCL's watchdog thread queries events,
+        # while the step is captured
+        with col.capturing() as calls, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = run()
     except RuntimeError as e:
         raise RuntimeError(
             f"capturing the train step in a CUDA graph failed: {e}"
             + (f" (while: {e.__context__})" if e.__context__ else "")
         ) from e
+    finally:
+        if collecting:
+            gc.enable()
     counts = {n: k - before[n] for n, k in launches.snapshot().items()}
     launches.add(counts, -1)     # the capture launched nothing
     counts = {n: k for n, k in counts.items() if k}
     stats = dict(capture_s=time.perf_counter() - t0,
                  pool_bytes=torch.cuda.memory_reserved(device) - reserved,
                  launches=counts)
-    return graph, out, counts, stats
+    return _Graph(graph, out, counts, calls, stats)
 
 
 def make_multi_train_step(model: torch.nn.Module, cfg: Config,
@@ -553,13 +722,16 @@ class ResidentMultiStep:
     feed after a (re)bind to a state and generator runs eagerly (its
     warm-up, a real step), the next is captured, the fit's generator is
     registered with every graph, and each replay adds its capture's
-    launch counts.  A feed must keep its tensors for the graph's life
-    (`EpochFeed.set_epoch` writes in place); `reset()` drops every graph.
-    `.grad` holds whichever graph's last values; nothing reads it
-    between steps.  A capture that fails raises.
+    launch counts and collective calls.  A feed must keep its tensors
+    for the graph's life (`EpochFeed.set_epoch` writes in place);
+    `reset()` drops every graph.  `.grad` holds whichever graph's last
+    values; nothing reads it between steps.  A capture that fails
+    raises.
 
-    On a mesh (JAX :488-527) the feeds are the rank's blocks and every
-    step runs eagerly, as `MultiTrainStep`'s do."""
+    On a mesh (JAX :488-527) the feeds are the rank's blocks; the steps
+    are graphed under nccl as `MultiTrainStep`'s (one head graph a feed
+    a rank, and its tails a branch pattern), and run eagerly under
+    gloo."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
                  steps_per_call: int, mesh: Optional[Mesh] = None):
@@ -572,7 +744,8 @@ class ResidentMultiStep:
         """Drop every graph; each feed's next CUDA step warms up again."""
         self._bound = None          # (state, generator)
         self._feeds: Dict[int, EpochFeed] = {}   # warmed up, by id
-        self._graphs: Dict[int, tuple] = {}      # (graph, row, counts)
+        self._warmed: Dict[int, set] = {}        # a feed's warm patterns
+        self._graphs: Dict[int, _CapturedStep] = {}
         self.capture_stats: Dict[int, dict] = {}  # by the feed's Lb
 
     def __call__(self, state: TrainState, feed: EpochFeed, offset: int,
@@ -584,9 +757,12 @@ class ResidentMultiStep:
         return state, _parts(torch.stack(rows))
 
     def _step(self, state, feed, generator) -> torch.Tensor:
-        B = self.batch_size
-        if not feed.perm.is_cuda or self._body.mesh is not None:
-            row = _row(self._body(state, feed.batch(B), generator))
+        body, B = self._body, self.batch_size
+
+        def stage():            # no reference to self, as MultiTrainStep's
+            return body.stage(state, feed.batch(B), generator)
+        if graph_refusal(self._body.mesh, feed.perm.device) is not None:
+            row = _run_eager(stage())
         else:
             if not (self._bound is not None and self._bound[0] is state
                     and self._bound[1] is generator):
@@ -595,20 +771,17 @@ class ResidentMultiStep:
             key = id(feed)
             if self._feeds.get(key) is not feed:     # its warm-up
                 self._feeds[key] = feed
+                self._warmed[key] = set()
                 self._graphs.pop(key, None)
-                row = _row(self._body(state, feed.batch(B), generator))
+                row = _run_eager(stage(), self._warmed[key])
             else:
                 if key not in self._graphs:
-                    graph, out, counts, stats = _capture_step(
-                        lambda: _row(self._body(state, feed.batch(B),
-                                                generator)),
-                        generator, feed.perm.device)
-                    self._graphs[key] = (graph, out, counts)
-                    self.capture_stats[feed.res.seq_len] = stats
-                graph, out, counts = self._graphs[key]
-                graph.replay()
-                launches.add(counts)
-                row = out.clone()
+                    self._graphs[key] = _CapturedStep(
+                        stage, generator, feed.perm.device,
+                        self._warmed[key])
+                graph = self._graphs[key]
+                row = graph.run()
+                self.capture_stats[feed.res.seq_len] = graph.stats
         state.step += 1
         return row
 

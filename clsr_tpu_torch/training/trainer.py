@@ -82,7 +82,10 @@ How the port runs what the JAX package runs:
     block of the rows (data/resident.py `build_resident_mesh`, each
     length bucket's too), draws the same epoch permutation and gathers
     its share of each batch on its device.  The steps are the mesh's
-    (training/steps.py; K steps a call run eagerly), and the eval step
+    (training/steps.py): with K > 1 over nccl a call replays CUDA graphs
+    of the step on every rank, as on one device; over gloo, or on the
+    CPU, its steps run eagerly, which the Trainer logs once, naming the
+    reason (`steps.graph_refusal`).  The eval step
     pads each global batch to a multiple of the batch shards, scores the
     rank's rows and gathers the predictions, so every rank computes the
     same metrics.  Rank 0 alone logs and writes summaries; checkpoints
@@ -132,7 +135,8 @@ from clsr_tpu_torch.training import checkpoint
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
 from clsr_tpu_torch.training.lazy_adam import LazyAdamState
 from clsr_tpu_torch.training.state import create_train_state
-from clsr_tpu_torch.training.steps import (make_eval_step_fn,
+from clsr_tpu_torch.training.steps import (graph_refusal,
+                                           make_eval_step_fn,
                                            make_histogram_step,
                                            make_multi_train_step,
                                            make_resident_bn_refresh,
@@ -174,6 +178,12 @@ class Trainer:
         self.multi_step = (make_multi_train_step(
             model, cfg, cfg.train_steps_per_call, self.mesh)
             if cfg.train_steps_per_call > 1 else None)
+        if self.mesh is not None and cfg.train_steps_per_call > 1:
+            why = graph_refusal(self.mesh, self.device)
+            if why:
+                self.log(f"train_steps_per_call {cfg.train_steps_per_call}"
+                         f" on the mesh: each call's steps run eagerly, not"
+                         f" as CUDA graph replays ({why})")
         self.best_epoch = 0
         self.eval_history: List[Tuple[int, Dict[str, float]]] = []
         # per epoch: steps, examples, train and eval seconds, mean loss

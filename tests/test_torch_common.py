@@ -176,6 +176,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
             "import clsr_tpu_torch.parallel.distributed\n"
             "import clsr_tpu_torch.parallel.embedding\n"
             "import clsr_tpu_torch.training.mesh_compact\n"
+            "import clsr_tpu_torch.scaling_model\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))\n")

@@ -339,3 +339,19 @@ def test_checkpoints_move_between_mesh_and_one_device(world):
         _assert_metrics_close(refs["mesh_ckpt_test"], r["own"]["ckpt_test"],
                               1e-5)
     assert os.path.isdir(world["tmp"] / "own_model")
+
+
+def test_mesh_multi_steps_stay_eager_off_nccl(world):
+    """K steps a call graph only on CUDA over nccl (training/steps.py
+    `graph_refusal`): on this gloo mesh on the CPU they run eagerly, and
+    the Trainer logs so once, on rank 0, naming the reason."""
+    for rank, r in enumerate(world["ranks"]):
+        refusals = r["eager"]["refusals"]
+        assert refusals["cpu"] == "the tensors are on the CPU"
+        assert refusals["cuda"].startswith("the mesh's backend is gloo")
+        eager = [line for line in r["eager"]["logs"]
+                 if "run eagerly" in line]
+        assert eager == ([] if rank else [
+            "train_steps_per_call 4 on the mesh: each call's steps run "
+            "eagerly, not as CUDA graph replays (the tensors are on the "
+            "CPU)"]), r["eager"]["logs"]

@@ -102,6 +102,7 @@ from clsr_tpu_torch.config import load_config
 from clsr_tpu_torch.data.graph import build_graph_from_sequences
 from clsr_tpu_torch.data.vocab import Vocab
 from clsr_tpu_torch.models.registry import get_model_class
+from clsr_tpu_torch.parallel import collectives as col
 from clsr_tpu_torch.parallel import rowmap
 from clsr_tpu_torch.parallel.distributed import run_local_world
 from clsr_tpu_torch.serving import ScoreRequest, ScoringService
@@ -132,6 +133,10 @@ LGN_STEPS = {"lgn_flat": dict(mesh_flat_batch="on"),
 # mesh step under interleaved rows is not its one-device step: that case
 # is held to the one-rank port alone
 JAX_LGN = ("lgn_flat", "lgn")
+# the static reduce_grads' cases: tables larger than a batch's ids, so
+# that the padded row set is shorter than the block and longer than the
+# touched rows
+STATIC_ROWS_SIZES = (64, 400, 5)
 GATHERS = [(2, 2, False, "contiguous"), (2, 2, True, "contiguous"),
            (2, 2, False, "interleaved"), (2, 2, True, "interleaved"),
            (1, 4, False, "contiguous"), (1, 4, True, "contiguous")]
@@ -292,8 +297,16 @@ def _spec():
     emodel, eparams, estats = _jax_model(ecfg), params, stats
     eval_batch = numpy_batch(np.random.RandomState(3), 10, 9, L,
                              **_sizes_kw())
+    static_rows = {
+        name: dict(cfg=dataclasses.asdict(small_jax_cfg(
+            **STEP_CFG, optimizer="adam", mesh_flat_batch=flat,
+            data_parallel=2, model_parallel=2)), batch=_train_batch(50 + i),
+            state_dict=None, sizes=STATIC_ROWS_SIZES)
+        for i, (name, flat) in enumerate((("dense_replicated", "off"),
+                                          ("dense_flat", "on")))}
+    static_rows.update({name: steps[name] for name in ("lgn", "lgn_flat")})
     spec = dict(base_cfg=dataclasses.asdict(base), sizes=SIZES, gather=gather,
-                k3=k3, steps=steps,
+                k3=k3, steps=steps, static_rows=static_rows,
                 eval=dict(cfg=dict(dataclasses.asdict(ecfg),
                                    use_pallas_eval_attention="on"),
                           batch=eval_batch,
@@ -507,6 +520,51 @@ def test_collectives_sum_in_rank_order(world):
             np.testing.assert_allclose(
                 got[f"{name}/all_reduce_grad/grad"],
                 sum(w((n, 3), q) for q in ms), rtol=0)
+
+
+def test_collective_count_replays_a_capture():
+    """A CUDA graph replays its collectives without Python: the calls of
+    a capture (`capturing`) go to its list alone, none to the open
+    recorders, and each `replayed` appends them to every open recorder,
+    as ops.launches.add does for the kernels' counters."""
+    w = torch.zeros(5, 3)
+    with col.count_collectives() as outer:
+        col._record("all_gather", w, None, 4)
+        with col.capturing() as captured:
+            col._record("all_to_all", w, None, 4)
+        assert [c.kind for c in captured] == ["all_to_all"]
+        assert len(outer) == 1
+        with col.count_collectives() as later:
+            col.replayed(captured)
+            col.replayed(captured)
+    assert [c.kind for c in outer] == ["all_gather", "all_to_all",
+                                       "all_to_all"]
+    assert later == captured * 2
+    assert outer[1].received_bytes == 5 * 3 * 4 * 3 // 4
+    col.replayed(captured)          # no recorder open: nothing to add
+
+
+@pytest.mark.parametrize("name", ["dense_replicated", "dense_flat", "lgn",
+                                  "lgn_flat"])
+def test_reduce_grads_static_rows_equal_nonzero_bit_for_bit(world, name):
+    """reduce_grads' static row set (the touched rows, padded with row 0
+    to the most the column's batch can touch, no host sync) gives the
+    bits of its host-synced nonzero() form: loss parts, every parameter,
+    BN statistic and dense Adam moment, under dense Adam with a
+    replicated and a flat batch (tables past the batch's ids, so the set
+    is padded) and for LGN (every row)."""
+    _, ranks, _ = world
+    for r in ranks:
+        static, nonzero = r[("static_rows", name)]
+        assert static["parts"] == nonzero["parts"]
+        for part in ("state_dict", "dense_moments"):
+            assert static[part].keys() == nonzero[part].keys()
+            for k, v in nonzero[part].items():
+                np.testing.assert_array_equal(static[part][k], v, err_msg=k)
+        sharded = [c for c in static["calls"] if c[0] == "all_reduce"
+                   and c[1] == "data" and c[3] == "torch.float32"
+                   and len(c[2]) == 2]
+        assert sharded, static["calls"]
 
 
 # ----------------------------------------------------------- lookups

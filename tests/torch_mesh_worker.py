@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 import clsr_tpu_torch.training.steps as port_steps
+from clsr_tpu_torch import scaling_model
 from clsr_tpu_torch.config import load_config
 from clsr_tpu_torch.data.batch import Batch
 from clsr_tpu_torch.data.loader import SequenceLoader
@@ -36,7 +37,7 @@ from clsr_tpu_torch.parallel import mesh as pm
 from clsr_tpu_torch.parallel.embedding import gather_rows
 from clsr_tpu_torch.serving import AsyncScoringService, ScoringService
 from clsr_tpu_torch.training.evaluator import run_weighted_eval
-from clsr_tpu_torch.training.lazy_adam import LazyAdamState
+from clsr_tpu_torch.training.lazy_adam import LazyAdamState, MeshMerge
 from clsr_tpu_torch.training.state import create_train_state
 from clsr_tpu_torch.training.steps import make_train_step
 from clsr_tpu_torch.training.trainer import Trainer
@@ -375,6 +376,43 @@ def parallel_world(rank, device, spec):
     out["eval"] = _eval_case(spec["eval"], spec["sizes"])
     out["hist"] = _hist_case(spec["eval"], spec["sizes"])
     out["serve"] = _serve_case(spec["serve"], spec["sizes"])
+    for name, case in spec["static_rows"].items():
+        out[("static_rows", name)] = _static_rows_case(
+            case, case.get("sizes", spec["sizes"]))
+    return out
+
+
+@torch.no_grad()
+def nonzero_reduce_grads(model, mesh, batch=None):
+    """training/steps.py's reduce_grads as it was before its row set was
+    static: each table block's touched rows found by a host sync
+    (`nonzero`), and only those summed."""
+    dense = [p for n, p in model.named_parameters()
+             if p.grad is not None and getattr(p, "mesh_rows", None) is None]
+    if dense:
+        flat = col.all_reduce(torch.cat([p.grad.reshape(-1) for p in dense]),
+                              mesh.batch_group)
+        for p, g in zip(dense, flat.split([p.numel() for p in dense])):
+            p.grad.copy_(g.view_as(p.grad))
+    for p in pm.sharded_tables(model).values():
+        if p.grad is None:
+            continue
+        touched = col.all_reduce((p.grad != 0).any(1).to(torch.uint8),
+                                 mesh.data_group)
+        rows = touched.nonzero()[:, 0]
+        p.grad[rows] = col.all_reduce(p.grad[rows], mesh.data_group)
+
+
+def _static_rows_case(case, sizes):
+    """One step with the static reduce_grads and one with the nonzero
+    one, from the same state: (static, nonzero) `_step_case` results."""
+    out = [_step_case(case, sizes)]
+    static = port_steps.reduce_grads
+    port_steps.reduce_grads = nonzero_reduce_grads
+    try:
+        out.append(_step_case(case, sizes))
+    finally:
+        port_steps.reduce_grads = static
     return out
 
 
@@ -444,6 +482,16 @@ def train_world(rank, device, spec):
                           loaders, spec["fit"]["state_dict"])
     finally:
         port_steps.expand_with_negatives = expand
+    # K = 4 steps a call on a gloo mesh on the CPU: eager, and the
+    # Trainer says why
+    cfg = cfg_of(spec["own"]["cfgs"][1])
+    logs = []
+    Trainer(model_of(cfg, spec["sizes"]), cfg,
+            log=lambda *a: logs.append(" ".join(map(str, a))))
+    mesh = pm.make_mesh(cfg)
+    out["eager"] = dict(logs=logs, refusals={
+        dev: port_steps.graph_refusal(mesh, torch.device(dev))
+        for dev in ("cpu", "cuda")})
     # its own in-batch sampling, against the one-rank port; twice, bit
     # for bit
     for run, kw in zip(("own", "own_again"), spec["own"]["cfgs"]):
@@ -467,20 +515,46 @@ def _steps_case(case, sizes=None):
     pm.place_model(model, mesh)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg, mesh)
-    parts, overflow = [], []
-    with col.count_collectives() as calls:
-        for b in case["batches"]:
-            state, p = step(state, pm.shard_batch(batch_of(b), mesh),
-                            torch.Generator().manual_seed(0))
-            parts.append(parts_of(p))
-            overflow.append(int(state.optimizer.route_overflow))
+    parts, overflow, patterns = [], [], []
+    pattern = MeshMerge.pattern
+
+    def recorded(merge):    # the owner merge's branches, when read
+        patterns.append(pattern(merge))
+        return patterns[-1]
+    MeshMerge.pattern = recorded
+    try:
+        with col.count_collectives() as calls:
+            for b in case["batches"]:
+                state, p = step(state, pm.shard_batch(batch_of(b), mesh),
+                                torch.Generator().manual_seed(0))
+                parts.append(parts_of(p))
+                overflow.append(int(state.optimizer.route_overflow))
+    finally:
+        MeshMerge.pattern = pattern
     sd, moments, dense = logical_state(state, mesh)
     return {"parts": parts, "overflow": overflow, "state_dict": sd,
-            "moments": moments, "flat": mesh.flat, "calls": calls_of(calls)}
+            "moments": moments, "flat": mesh.flat, "calls": calls_of(calls),
+            "patterns": patterns}
+
+
+def _group_case(kw):
+    """Each of the mesh's groups of cfg `kw`: its label and global ranks."""
+    mesh = pm.make_mesh(cfg_of(kw))
+    return {name: (col._group_names.get(id(g)),
+                   torch.distributed.get_process_group_ranks(g))
+            for name, g in (("data", mesh.data_group),
+                            ("model", mesh.model_group),
+                            ("world", mesh.world))}
 
 
 def owner_world(rank, device, spec):
-    return {name: _steps_case(case) for name, case in spec["cases"].items()}
+    out = {name: _steps_case(case) for name, case in spec["cases"].items()}
+    for key, kw in spec["groups"].items():
+        out[("groups", key)] = _group_case(kw)
+    for key, (kw, sizes) in spec["scaling"].items():
+        out[("scaling", key)] = calls_of(scaling_model.count_step_calls(
+            cfg_of(kw), sizes))
+    return out
 
 
 # ------------------------------------------------- test_torch_mesh_resident
@@ -613,4 +687,100 @@ def resident_world(rank, device, spec):
                 case, spec["sizes"], loaders, spec["state_dict"])
     finally:
         port_steps.expand_with_negatives = expand
+    return out
+
+
+# --------------------------------------------------- test_torch_mesh_gpu
+
+
+def _card_state(state):
+    """Every tensor of a train state on the rank (its blocks), as numpy."""
+    out = {f"model/{k}": np_of(v) for k, v in
+           state.model.state_dict().items()}
+    opt = state.optimizer
+    if isinstance(opt, LazyAdamState):
+        out.update({f"moments/{k}": np_of(v)
+                    for k, v in opt.moments.items()})
+        out["count"] = np_of(opt.count)
+        out["overflow"] = np_of(opt.route_overflow)
+        opt = opt.dense_opt
+    for i, st in enumerate(opt.state_dict()["state"].values()):
+        out.update({f"opt/{i}/{k}": np_of(v) for k, v in st.items()})
+    return out
+
+
+def _card_run(cfg, sizes, state_dict, batches, device, K):
+    """len(batches) steps from a logical state on this rank's card: K = 1
+    eager single steps, else calls of K steps (`MultiTrainStep`, CUDA
+    graphs over nccl).  (loss rows, state, launches, collectives, the
+    branch patterns read, capture stats)."""
+    from clsr_tpu_torch.ops import launches
+    mesh = pm.make_mesh(cfg)
+    model = get_model_class(cfg.model_type)(cfg, *sizes, device=device)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()})
+    pm.place_model(model, mesh)
+    state = create_train_state(model, cfg)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    local = [pm.shard_batch(batch_of(b), mesh).to(device) for b in batches]
+    patterns, pattern = [], MeshMerge.pattern
+
+    def recorded(merge):
+        patterns.append(pattern(merge))
+        return patterns[-1]
+    MeshMerge.pattern = recorded
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == \
+        "cuda" else (lambda: None)
+    sync()
+    launches.add(launches.snapshot(), -1)
+    rows, stats = [], None
+    try:
+        with col.count_collectives() as calls:
+            if K == 1:
+                step = make_train_step(model, cfg, mesh)
+                for b in local:
+                    state, p = step(state, b, gen)
+                    rows.append([float(x) for x in port_steps._row(p)])
+            else:
+                multi = port_steps.make_multi_train_step(model, cfg, K, mesh)
+                for i in range(0, len(local), K):
+                    state, p = multi(state, port_steps.stack_batches(
+                        local[i:i + K]), gen)
+                    rows += np_of(port_steps._row(p).T).tolist()
+                stats = multi.capture_stats
+            sync()
+    finally:
+        MeshMerge.pattern = pattern
+    return dict(rows=rows, state=_card_state(state), patterns=patterns,
+                launches={n: k for n, k in launches.snapshot().items() if k},
+                calls=calls_of(calls), stats=stats)
+
+
+def graphed_world(rank, device, spec):
+    """tests/test_torch_mesh_gpu.py's rank: each case's steps eager (K =
+    1) and graphed (calls of K) over nccl from one state; then a capture
+    that must fail (a host sync inside the step)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, kw in spec["cases"].items():
+        cfg = cfg_of(dict(spec["cfg"], **kw))
+        out[name] = [_card_run(cfg, spec["sizes"], spec["state_dict"],
+                               spec["batches"], device, K)
+                     for K in (1, spec["K"])]
+    cfg = cfg_of(spec["cfg"])
+    synced = port_steps.on_global_batch
+
+    def host_sync(*args, **kwargs):
+        int(args[2].users.sum())            # a sync inside the capture
+        return synced(*args, **kwargs)
+    port_steps.on_global_batch = host_sync
+    try:
+        _card_run(cfg, spec["sizes"], spec["state_dict"], spec["batches"],
+                  device, spec["K"])
+        out["failed_capture"] = None
+    except RuntimeError as e:
+        out["failed_capture"] = str(e)
+    finally:
+        port_steps.on_global_batch = synced
     return out
